@@ -1,0 +1,36 @@
+"""Turn a reference parameter pytree (as numpy arrays) into the port's.
+
+The port keeps the reference's keys and layouts (``embed.table`` (V, d),
+``groups.u0.attn.qkv`` (n_groups, d, (H+2K)*hd), ``qkv_bias``, ``o``,
+``ffn.ffn_in`` (n_groups, d, 2f), ``ffn.ffn_out``, ``norm1/2.scale``,
+``final_norm``), so conversion is a walk over nested dicts.  bf16 arrays
+(numpy has no bf16; they arrive as ml_dtypes' or as uint16 views) are
+carried by bit pattern.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+
+def _leaf(a, device, dtype: Optional[torch.dtype]) -> torch.Tensor:
+    arr = np.asarray(a)
+    if arr.dtype.name == "bfloat16":
+        t = torch.from_numpy(arr.view(np.int16).copy()).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.ascontiguousarray(arr).copy())
+    if dtype is not None and t.is_floating_point():
+        t = t.to(dtype)
+    return t.to(device)
+
+
+def params_from_numpy(tree, device="cpu",
+                      dtype: Optional[torch.dtype] = None):
+    """Nested dict of numpy arrays -> the same dict of torch tensors on
+    `device`; floating leaves cast to `dtype` when given."""
+    if isinstance(tree, dict):
+        return {k: params_from_numpy(v, device, dtype)
+                for k, v in tree.items()}
+    return _leaf(tree, device, dtype)

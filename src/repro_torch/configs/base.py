@@ -1,0 +1,105 @@
+"""Config system: model / shape dataclasses + registry.
+
+The port's own copy of the reference's config types, holding only what
+the serving slice needs: dense decoder-only models with GQA attention.
+``get_reduced`` gives the CPU-test variant of the same family (small
+widths, two layers, vocab 256) exactly as the reference derives it, so a
+test can build the same reduced model on both sides.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, replace
+from typing import Callable, Optional
+
+
+@dataclass(frozen=True)
+class AttentionConfig:
+    n_heads: int
+    n_kv_heads: int
+    head_dim: int
+    qkv_bias: bool = False
+    rope_theta: float = 10000.0
+    # sliding window (ring-buffer KV cache); None = full causal attention
+    window: Optional[int] = None
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str                        # this port serves 'dense' only
+    n_layers: int
+    d_model: int
+    d_ff: int
+    vocab_size: int
+    attention: Optional[AttentionConfig] = None
+    norm: str = "rmsnorm"              # rmsnorm|layernorm|nonparametric_ln
+    act: str = "swiglu"                # swiglu|gelu|relu_sq|geglu
+    tie_embeddings: bool = False
+    max_seq_len: int = 1 << 20
+    notes: str = ""
+
+    def param_count(self) -> int:
+        """Analytic parameter count of a dense decoder-only model (the
+        reference's count: embeddings and layers, final norm not counted)."""
+        d, f, v, L = self.d_model, self.d_ff, self.vocab_size, self.n_layers
+        a = self.attention
+        n = v * d if self.tie_embeddings else 2 * v * d
+        n_norm = d if self.norm != "nonparametric_ln" else 0
+        attn = (d * a.n_heads * a.head_dim + 2 * d * a.n_kv_heads * a.head_dim
+                + a.n_heads * a.head_dim * d)
+        if a.qkv_bias:
+            attn += (a.n_heads + 2 * a.n_kv_heads) * a.head_dim
+        ffn = (3 if self.act in ("swiglu", "geglu") else 2) * d * f
+        n += L * (attn + ffn + 2 * n_norm)
+        return n
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                          # 'train' | 'prefill' | 'decode'
+
+
+_REGISTRY: dict[str, ModelConfig] = {}
+_REDUCED: dict[str, Callable[[ModelConfig], ModelConfig]] = {}
+
+
+def register(cfg: ModelConfig,
+             reduced: Optional[Callable[[ModelConfig], ModelConfig]] = None
+             ) -> ModelConfig:
+    if cfg.name in _REGISTRY:
+        raise ValueError(f"duplicate config {cfg.name}")
+    _REGISTRY[cfg.name] = cfg
+    if reduced is not None:
+        _REDUCED[cfg.name] = reduced
+    return cfg
+
+
+def get_config(name: str) -> ModelConfig:
+    if name not in _REGISTRY:
+        raise KeyError(f"unknown arch {name!r}; known: {sorted(_REGISTRY)}")
+    return _REGISTRY[name]
+
+
+def list_configs() -> list:
+    return sorted(_REGISTRY)
+
+
+def _default_reduced(cfg: ModelConfig) -> ModelConfig:
+    """Family-preserving tiny variant for CPU tests (the reference's rule)."""
+    kw: dict = dict(n_layers=min(cfg.n_layers, 2), d_model=64, d_ff=128,
+                    vocab_size=256, max_seq_len=1024)
+    if cfg.attention is not None:
+        a = cfg.attention
+        kw["attention"] = replace(
+            a, n_heads=4,
+            n_kv_heads=min(a.n_kv_heads, 2) if a.n_kv_heads < a.n_heads else 4,
+            head_dim=16)
+    return replace(cfg, **kw)
+
+
+def get_reduced(name: str) -> ModelConfig:
+    cfg = get_config(name)
+    return _REDUCED.get(name, _default_reduced)(cfg)

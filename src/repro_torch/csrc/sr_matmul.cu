@@ -1,0 +1,93 @@
+// sr_matmul: bf16 GEMM with f32 accumulation and an optional fused
+// stochastic-rounding (SR) bf16 writeback — the PE's MAC array (§3.3).
+//
+// Replaces the TPU kernel repro/kernels/sr_matmul.py::sr_matmul
+// (pl.pallas_call at sr_matmul.py:96, body _mm_kernel), whose (i, j, l)
+// grid kept an f32 tile resident in VMEM across the reduction l.  Here
+// the grid is (j, i) over 32 x 32 output tiles and the l counter is the
+// loop inside each block; the accumulator stays in registers across it.
+//
+// What bounds it on the H100: at the serving shapes (a 32-token PREFILL
+// chunk, M = 32) every weight byte is used by only 32 rows, so the
+// product is bound by reading B (about 2 * K * N bytes) from device
+// memory, not by the tensor cores.  The design reads each B element once
+// per 32-row block (once in total at M <= 32) and keeps A, 32 x K, small
+// enough to come from L2.  It is a simple first kernel: no TMA, no
+// wgmma, no multi-stage pipeline, and at N = 896 it launches only 28
+// blocks, so it stays well short of the memory bound (PERF.md).
+//
+// trans_b computes A . B^T for B(N, K) by staging B tiles [n][k] and
+// reading them column-major — the counter-swept transpose, no transposed
+// copy in memory.  A ragged K tail is zero-filled on both operands, and a
+// ragged M / N edge is masked on store.
+#include "common.cuh"
+
+namespace rt {
+
+template <bool TRANS_B>
+__global__ void __launch_bounds__(THREADS)
+    sr_matmul_kernel(const bf16* __restrict__ A, const bf16* __restrict__ B,
+                     const uint32_t* __restrict__ rbits, void* __restrict__ out,
+                     int M, int N, int K, int sr, int vec_a, int vec_b) {
+  __shared__ __align__(128) bf16 As[TM * LDA];
+  __shared__ __align__(128) bf16 Bs[TRANS_B ? TN * LDB_COL : TK * LDB_ROW];
+  __shared__ __align__(128) float Cs[TM * LDC];
+
+  const int m0 = blockIdx.y * TM, n0 = blockIdx.x * TN;
+  const int warp = threadIdx.x / 32;
+  const int ar = (warp / 2) * 16, bc = (warp % 2) * 16;
+
+  AccFrag acc;
+  wmma::fill_fragment(acc, 0.f);
+  for (int k0 = 0; k0 < K; k0 += TK) {
+    load_tile<TM, TK, LDA>(As, A, K, m0, k0, M, K, vec_a);
+    if constexpr (TRANS_B)
+      load_tile<TN, TK, LDB_COL>(Bs, B, K, n0, k0, N, K, vec_b);
+    else
+      load_tile<TK, TN, LDB_ROW>(Bs, B, N, k0, n0, K, N, vec_b);
+    __syncthreads();
+    mma_step<TRANS_B>(acc, As, Bs, ar, bc);
+    __syncthreads();
+  }
+  wmma::store_matrix_sync(Cs + ar * LDC + bc, acc, LDC, wmma::mem_row_major);
+  __syncthreads();
+
+  for (int e = threadIdx.x; e < TM * TN; e += blockDim.x) {
+    const int r = e / TN, c = e % TN;
+    const int gm = m0 + r, gn = n0 + c;
+    if (gm >= M || gn >= N) continue;
+    const float v = Cs[r * LDC + c];
+    const size_t o = (size_t)gm * N + gn;
+    if (sr)
+      reinterpret_cast<uint16_t*>(out)[o] = sr_bf16_bits(v, rbits[o]);
+    else
+      reinterpret_cast<float*>(out)[o] = v;
+  }
+}
+
+}  // namespace rt
+
+// out(M, N) = A(M, K) . B(K, N), or A . B^T for B(N, K) with trans_b.
+// out is f32 without SR, bf16 (SR from rbits, uint32 M x N) with it.
+// The grid (ceil(N/TN), ceil(M/TM)) comes from the caller's loop nest
+// (core/pmag.matmul_nest).  One launch on `stream`; returns
+// cudaGetLastError().
+extern "C" int sr_matmul_bf16(const void* a, const void* b, const void* rbits,
+                              void* out, int M, int N, int K, int trans_b,
+                              int sr, int grid_x, int grid_y, void* stream) {
+  using namespace rt;
+  const dim3 grid(grid_x, grid_y);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int vec_a = aligned16(a) && K % 8 == 0;
+  const int vec_b = aligned16(b) && (trans_b ? K : N) % 8 == 0;
+  const bf16* A = static_cast<const bf16*>(a);
+  const bf16* B = static_cast<const bf16*>(b);
+  const uint32_t* R = static_cast<const uint32_t*>(rbits);
+  if (trans_b)
+    sr_matmul_kernel<true><<<grid, THREADS, 0, st>>>(A, B, R, out, M, N, K,
+                                                     sr, vec_a, vec_b);
+  else
+    sr_matmul_kernel<false><<<grid, THREADS, 0, st>>>(A, B, R, out, M, N, K,
+                                                      sr, vec_a, vec_b);
+  return static_cast<int>(cudaGetLastError());
+}

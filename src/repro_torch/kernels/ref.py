@@ -1,0 +1,23 @@
+"""Plain torch oracles for the kernels (the reference's ``kernels/ref.py``).
+
+The plain version of each ported kernel lives beside its wrapper
+(``sr_matmul.sr_matmul_plain``, ``decode_fused.fused_attn_unit_plain``);
+this module re-exports them with the SR cast under the reference's names.
+"""
+from __future__ import annotations
+
+from repro_torch.core.rounding import sr_cast_bf16
+from repro_torch.kernels.decode_fused import fused_attn_unit_plain
+from repro_torch.kernels.sr_matmul import sr_matmul_plain
+
+
+def sr_round_ref(x, rbits):
+    return sr_cast_bf16(x, rbits)
+
+
+def sr_matmul_ref(a, b, rbits=None, *, trans_b: bool = False):
+    return sr_matmul_plain(a, b, rbits, trans_b=trans_b)
+
+
+__all__ = ["sr_cast_bf16", "sr_round_ref", "sr_matmul_ref",
+           "fused_attn_unit_plain"]

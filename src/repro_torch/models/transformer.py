@@ -1,0 +1,245 @@
+"""Decoder-only LM, the serving subset for dense attention units.
+
+Parameters keep the reference's pytree layout: per-unit leaves stacked
+over ``n_groups`` scan groups (``params["groups"]["u0"]["attn"]["qkv"]``
+is (n_groups, d, (H+2K)*hd)).  Where the reference scans the groups with
+``lax.scan``, the port loops over them in Python, taking each group's
+slice as a view — so the in-place cache updates land in the stacked
+arena.
+
+Entry points:
+  init(generator, cfg) / init_cache(cfg, batch, max_len)
+  chunk_step(...)  — T prompt tokens against the caches (PREFILL word)
+  decode_step(...) — one token per arena row (DECODE word), per-op or
+                     fused (one ``decode_fused`` word per layer)
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.engine.context import PEContext
+from repro_torch.engine.dispatch import pe_fused_attn_unit
+from repro_torch.models.attention import (attn_params, chunk_attend,
+                                          decode_attend, init_kv_cache,
+                                          split_qkv, update_cache,
+                                          update_cache_chunk)
+from repro_torch.models.layers import (apply_norm, apply_rope, embed,
+                                       lm_logits, mlp, norm_params)
+
+
+@dataclass(frozen=True)
+class UnitDesc:
+    mixer: str            # 'attn' (the only mixer this slice serves)
+    ffn: str              # 'dense'
+
+
+def layer_pattern(cfg: ModelConfig) -> list:
+    if cfg.family != "dense" or cfg.attention is None:
+        raise NotImplementedError(
+            f"{cfg.name}: the port serves dense attention models only")
+    return [UnitDesc("attn", "dense")]
+
+
+def n_groups(cfg: ModelConfig) -> int:
+    return cfg.n_layers // len(layer_pattern(cfg))
+
+
+def _tree_index(tree, g: int):
+    """Group g's slice of a stacked tree (views, not copies)."""
+    if isinstance(tree, dict):
+        return {k: _tree_index(v, g) for k, v in tree.items()}
+    return tree[g]
+
+
+# ---------------------------------------------------------------------------
+# Init
+# ---------------------------------------------------------------------------
+
+
+def init(generator: torch.Generator, cfg: ModelConfig) -> dict:
+    """f32 parameters drawn on the generator's device, in the reference's
+    layout and scales (normal * d^-0.5 projections, embed * 0.02, ones /
+    zeros for norm scales and the qkv bias)."""
+    ng = n_groups(cfg)
+    dev = generator.device
+    d, f = cfg.d_model, cfg.d_ff
+    fin = 2 * f if cfg.act in ("swiglu", "geglu") else f
+
+    def normal(*shape):
+        return torch.randn(shape, generator=generator, dtype=torch.float32,
+                           device=dev)
+
+    params: dict = {"embed": {"table": normal(cfg.vocab_size, d) * 0.02}}
+    if not cfg.tie_embeddings:
+        params["lm_head"] = normal(d, cfg.vocab_size) * 0.02
+    fn = norm_params(cfg, device=dev)
+    if fn is not None:
+        params["final_norm"] = fn
+    unit: dict = {}
+    for key in ("norm1", "norm2"):
+        p = norm_params(cfg, device=dev, lead=(ng,))
+        if p is not None:
+            unit[key] = p
+    unit["attn"] = attn_params(cfg, generator, lead=(ng,))
+    unit["ffn"] = {"ffn_in": normal(ng, d, fin) * d ** -0.5,
+                   "ffn_out": normal(ng, f, d) * f ** -0.5}
+    params["groups"] = {"u0": unit}
+    return params
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               device=None) -> dict:
+    """Per-group stacked caches: {"u0": {"attn": {k, v, pos}}}, leaves
+    shaped (n_groups, batch, ...)."""
+    return {"u0": {"attn": init_kv_cache(cfg.attention, batch, max_len,
+                                         device=device,
+                                         lead=(n_groups(cfg),))}}
+
+
+# ---------------------------------------------------------------------------
+# Units
+# ---------------------------------------------------------------------------
+
+
+def _unit_decode(cfg: ModelConfig, x, up: dict, sh: PEContext, cache: dict,
+                 pos: torch.Tensor, active: Optional[torch.Tensor]):
+    """x: (B, 1, d); pos: (B,).  Per-op words; returns x."""
+    a = cfg.attention
+    h = apply_norm(cfg, x, up.get("norm1"))
+    qkv = sh.dot("attn_qkv", h, up["attn"]["qkv"])
+    q, k, v = split_qkv(a, qkv, up["attn"].get("qkv_bias"))
+    B = h.shape[0]
+    K_, G, hd = q.shape[2:]
+    posb = pos[:, None]
+    q = apply_rope(q.reshape(B, 1, K_ * G, hd), posb,
+                   a.rope_theta).reshape(B, 1, K_, G, hd)
+    k = apply_rope(k, posb, a.rope_theta)
+    c = cache["attn"]
+    if active is None:
+        update_cache(c, k[:, 0], v[:, 0], pos)
+        kc, vc, kp = c["k"], c["v"], c["pos"]
+    else:
+        # inactive rows keep their cache; their (discarded) output still
+        # attends over the row with the new entry, as the reference's
+        # compute-then-restore does
+        kc, vc, kp = c["k"].clone(), c["v"].clone(), c["pos"].clone()
+        update_cache({"k": kc, "v": vc, "pos": kp}, k[:, 0], v[:, 0], pos)
+        update_cache(c, k[:, 0], v[:, 0], pos, active)
+    out = decode_attend(q[:, 0], kc, vc, kp, pos, window=a.window)
+    x = x + sh.dot("attn_o", out.reshape(B, 1, -1), up["attn"]["o"])
+    h2 = apply_norm(cfg, x, up.get("norm2"))
+    return x + mlp(cfg, h2, up["ffn"]["ffn_in"], up["ffn"]["ffn_out"], sh)
+
+
+def _fused_norm_args(cfg: ModelConfig, up: dict, key: str):
+    """(norm params, kernel norm kind): nonparametric_ln is a layernorm
+    with no affine operands."""
+    if cfg.norm == "nonparametric_ln":
+        return None, "layernorm"
+    return up.get(key), cfg.norm
+
+
+def _unit_decode_fused(cfg: ModelConfig, x, up: dict, sh: PEContext,
+                       cache: dict, pos: torch.Tensor,
+                       active: Optional[torch.Tensor]):
+    """The unit as ONE fused-decode word.
+
+    On the cuda backend the whole unit runs as one ``fused_attn_unit``
+    call (kernels/decode_fused.py).  On the reference backend the fused
+    composition is the per-op primitive sequence itself, so fused decode
+    is bit-identical per request to the per-op loop.
+    """
+    if sh.backend == "reference":
+        return _unit_decode(cfg, x, up, sh, cache, pos, active)
+    a = cfg.attention
+    n1, nk = _fused_norm_args(cfg, up, "norm1")
+    n2, _ = _fused_norm_args(cfg, up, "norm2")
+    y = pe_fused_attn_unit(
+        x[:, 0].contiguous(), cache["attn"], pos, norm1=n1,
+        qkv_w=up["attn"]["qkv"], qkv_bias=up["attn"].get("qkv_bias"),
+        o_w=up["attn"]["o"], norm2=n2, w_in=up["ffn"]["ffn_in"],
+        w_out=up["ffn"]["ffn_out"], heads=a.n_heads, kv_heads=a.n_kv_heads,
+        head_dim=a.head_dim, rope_theta=a.rope_theta, window=a.window,
+        norm_kind=nk, act=cfg.act, with_ffn=True,
+        word=sh.word("attn_qkv"), active=active)
+    return y[:, None]
+
+
+def _unit_chunk(cfg: ModelConfig, x, up: dict, sh: PEContext, cache: dict,
+                pos: torch.Tensor):
+    """Chunked-prefill unit step.  x: (B, T, d); pos: (B, T)."""
+    a = cfg.attention
+    h = apply_norm(cfg, x, up.get("norm1"))
+    qkv = sh.dot("attn_qkv", h, up["attn"]["qkv"])
+    q, k, v = split_qkv(a, qkv, up["attn"].get("qkv_bias"))
+    B, T = h.shape[:2]
+    K_, G, hd = q.shape[2:]
+    q = apply_rope(q.reshape(B, T, K_ * G, hd), pos,
+                   a.rope_theta).reshape(B, T, K_, G, hd)
+    k = apply_rope(k, pos, a.rope_theta)
+    c = cache["attn"]
+    if a.window is not None:
+        # windowed ring: a later in-chunk token may overwrite a slot an
+        # earlier query still needs — insert + attend token by token
+        outs = []
+        for t in range(T):
+            update_cache(c, k[:, t], v[:, t], pos[:, t])
+            outs.append(decode_attend(q[:, t], c["k"], c["v"], c["pos"],
+                                      pos[:, t], window=a.window))
+        out = torch.stack(outs, dim=1)
+    else:
+        update_cache_chunk(c, k, v, pos)
+        out = chunk_attend(q, c["k"], c["v"], c["pos"], pos)
+    x = x + sh.dot("attn_o", out.reshape(B, T, -1), up["attn"]["o"])
+    h2 = apply_norm(cfg, x, up.get("norm2"))
+    return x + mlp(cfg, h2, up["ffn"]["ffn_in"], up["ffn"]["ffn_out"], sh)
+
+
+# ---------------------------------------------------------------------------
+# Steps
+# ---------------------------------------------------------------------------
+
+
+def chunk_step(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
+               cache: dict, pos0: torch.Tensor, sh: PEContext, *,
+               compute_dtype=torch.bfloat16):
+    """T prompt tokens against the caches.  tokens: (B, T); pos0: (B,).
+
+    Returns (logits (B, T, V) f32, cache) — the cache updated in place.
+    """
+    pattern = layer_pattern(cfg)
+    T = tokens.shape[1]
+    pos = pos0.to(torch.int32)[:, None] + torch.arange(
+        T, dtype=torch.int32, device=tokens.device)[None]
+    x = embed(tokens, params["embed"]["table"]).to(compute_dtype)
+    for g in range(n_groups(cfg)):
+        gp = _tree_index(params["groups"], g)
+        gc = _tree_index(cache, g)
+        for i in range(len(pattern)):
+            x = _unit_chunk(cfg, x, gp[f"u{i}"], sh, gc[f"u{i}"], pos)
+    x = apply_norm(cfg, x, params.get("final_norm"))
+    return lm_logits(x, cfg, params, sh), cache
+
+
+def decode_step(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
+                cache: dict, pos: torch.Tensor, sh: PEContext, *,
+                compute_dtype=torch.bfloat16, fused: bool = False,
+                active: Optional[torch.Tensor] = None):
+    """One serve step.  tokens: (B, 1); pos: (B,).  Returns (logits
+    (B, 1, V) f32, cache); the cache is updated in place on the rows
+    `active` selects (None = all rows)."""
+    pattern = layer_pattern(cfg)
+    unit_fn = _unit_decode_fused if fused else _unit_decode
+    pos = pos.to(torch.int32)
+    x = embed(tokens, params["embed"]["table"]).to(compute_dtype)
+    for g in range(n_groups(cfg)):
+        gp = _tree_index(params["groups"], g)
+        gc = _tree_index(cache, g)
+        for i in range(len(pattern)):
+            x = unit_fn(cfg, x, gp[f"u{i}"], sh, gc[f"u{i}"], pos, active)
+    x = apply_norm(cfg, x, params.get("final_norm"))
+    return lm_logits(x, cfg, params, sh), cache

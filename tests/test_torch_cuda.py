@@ -1,0 +1,108 @@
+"""The port's CUDA kernels against their plain versions, on the card.
+
+Every test here needs a CUDA device and skips without one (decided in a
+fixture, never at import).  The file imports neither JAX nor the JAX
+package, so it runs on a machine that has only torch:
+
+    PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
+
+(``--noconftest``: tests/conftest.py configures JAX.)  Tolerances are
+those of the CPU parity tests: sr_matmul's f32 path rtol 5e-4 / atol
+1e-4 (another accumulation order), fused_attn_unit y 2e-2 and caches
+6e-2 (bf16 results of f32 sums in another order).
+"""
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.core.rounding import sr_cast_bf16  # noqa: E402
+from repro_torch.kernels import decode_fused as kdf  # noqa: E402
+from repro_torch.kernels import sr_matmul as kmm  # noqa: E402
+
+MM_RTOL, MM_ATOL = 5e-4, 1e-4
+Y_TOL, CACHE_TOL = 2e-2, 6e-2
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels run only on the card)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("trans_b", [False, True])
+@pytest.mark.parametrize("mnk", [(37, 333, 1000), (32, 896, 4864), (1, 8, 8)])
+def test_sr_matmul_kernel_matches_plain(dev, mnk, trans_b):
+    m, n, k = mnk
+    g = torch.Generator(device=dev).manual_seed(0)
+    a = torch.randn((m, k), generator=g, device=dev).bfloat16()
+    # weights scaled by k^-0.5 as the model's are, so outputs are O(1):
+    # the order-of-summation error grows with sum |terms|, which the
+    # relative tolerance measures against |result|
+    b = (torch.randn((n, k) if trans_b else (k, n), generator=g,
+                     device=dev) * k ** -0.5).bfloat16()
+    kmm.COUNTER.reset()
+    got = kmm.sr_matmul(a, b, trans_b=trans_b)
+    assert kmm.COUNTER.n == 1
+    want = kmm.sr_matmul_plain(a, b, trans_b=trans_b)
+    torch.testing.assert_close(got, want, rtol=MM_RTOL, atol=MM_ATOL)
+    rb = torch.randint(-2**31, 2**31, (m, n), generator=g, device=dev,
+                       dtype=torch.int64).to(torch.int32)
+    got_sr = kmm.sr_matmul(a, b, rb, trans_b=trans_b)
+    assert torch.equal(got_sr.view(torch.int16),
+                       sr_cast_bf16(got, rb).view(torch.int16))
+
+
+CASES = [dict(act="swiglu", norm="rmsnorm", window=None, with_ffn=True),
+         dict(act="swiglu", norm="rmsnorm", window=5, with_ffn=True),
+         dict(act="swiglu", norm="rmsnorm", window=None, with_ffn=False),
+         dict(act="geglu", norm="layernorm", window=None, with_ffn=True),
+         dict(act="gelu", norm="rmsnorm", window=None, with_ffn=True),
+         dict(act="relu_sq", norm="layernorm", window=None, with_ffn=True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", CASES, ids=lambda c: "-".join(
+    str(v) for v in c.values()))
+def test_fused_attn_unit_kernel_matches_plain(dev, case):
+    B, S, d, H, K, hd, f = 5, 16, 64, 4, 2, 16, 128
+    g = torch.Generator(device=dev).manual_seed(1)
+    rnd = lambda *s: torch.randn(s, generator=g, device=dev)
+    gated = case["act"] in ("swiglu", "geglu")
+    qn = (H + 2 * K) * hd
+    w = dict(qkv_w=(rnd(d, qn) * d ** -0.5).bfloat16(),
+             o_w=(rnd(H * hd, d) * (H * hd) ** -0.5).bfloat16(),
+             qkv_bias=0.3 * rnd(qn), norm1_scale=1 + 0.3 * rnd(d),
+             norm2_scale=1 + 0.3 * rnd(d))
+    if case["norm"] == "layernorm":
+        w.update(norm1_bias=0.2 * rnd(d), norm2_bias=0.2 * rnd(d))
+    if case["with_ffn"]:
+        w.update(w_in=(rnd(d, 2 * f if gated else f) * d ** -0.5).bfloat16(),
+                 w_out=(rnd(f, d) * f ** -0.5).bfloat16())
+    fill = torch.tensor([3, 9, 0, 15, 7], device=dev)
+    sidx = torch.arange(S, device=dev)[None]
+    cache = [rnd(B, S, K, hd).bfloat16(), rnd(B, S, K, hd).bfloat16(),
+             torch.where(sidx < fill[:, None], sidx, -1).to(torch.int32)]
+    kern = [c.clone() for c in cache]
+    plain = [c.cpu() for c in cache]
+    active = torch.tensor([True, True, False, True, True], device=dev)
+    kw = dict(heads=H, kv_heads=K, head_dim=hd, rope_theta=1e4,
+              window=case["window"], norm_kind=case["norm"], act=case["act"],
+              with_ffn=case["with_ffn"])
+    for t in range(3):
+        x = rnd(B, d).bfloat16()
+        pos = (fill + t).to(torch.int32)
+        y = kdf.fused_attn_unit(x, *kern, pos, active=active, **w, **kw)
+        yp = kdf.fused_attn_unit(x.cpu(), *plain, pos.cpu(),
+                                 active=active.cpu(),
+                                 **{k: v.cpu() for k, v in w.items()}, **kw)
+        torch.testing.assert_close(y.cpu().float(), yp.float(), atol=Y_TOL,
+                                   rtol=Y_TOL)
+    for a, b in zip(kern[:2], plain[:2]):
+        torch.testing.assert_close(a.cpu().float(), b.float(),
+                                   atol=CACHE_TOL, rtol=CACHE_TOL)
+    assert torch.equal(kern[2].cpu(), plain[2])
+    for a, b in zip(kern, cache):                 # row 2 inactive
+        assert torch.equal(a[2], b[2])

@@ -1,0 +1,329 @@
+"""The port's kernels against the JAX package's Pallas kernels.
+
+Same inputs, made with numpy from a seed, go through the JAX kernel (in
+interpret mode, as tests/test_kernels.py runs it) and through the port's
+wrapper on CPU tensors, which runs the kernel's plain torch version.
+Tolerances are those of the JAX package's own kernel tests, each with
+its reason.  The CUDA kernels themselves are held against these plain
+versions on the card by tests/test_torch_cuda.py and chip_smoke.py.
+"""
+import re
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+from hypothesis import given, settings, strategies as st  # noqa: E402
+
+from repro.kernels import decode_fused as jdf  # noqa: E402
+from repro.kernels import ref as jref  # noqa: E402
+from repro.kernels.sr_matmul import sr_matmul as jmm  # noqa: E402
+from repro_torch.core.pmag import matmul_nest  # noqa: E402
+from repro_torch.core.rounding import make_rbits, sr_cast_bf16  # noqa: E402
+from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels import decode_fused as kdf  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import ref as kref  # noqa: E402
+from repro_torch.kernels import sr_matmul as kmm  # noqa: E402
+
+ROOT = Path(__file__).resolve().parents[1]
+
+# f32 path (tests/test_kernels.py): another accumulation order, ~K ulp
+MM_RTOL, MM_ATOL = 5e-4, 1e-4
+# y of the fused unit / cache entries (tests/test_decode_fused.py)
+Y_TOL, CACHE_TOL = 2e-2, 6e-2
+
+
+def bf16_pair(x: np.ndarray):
+    """The same bf16 values as a JAX array and a torch tensor."""
+    j = jnp.asarray(x, jnp.float32).astype(jnp.bfloat16)
+    bits = np.asarray(jax.lax.bitcast_convert_type(j, jnp.uint16))
+    t = torch.from_numpy(bits.view(np.int16).copy()).view(torch.bfloat16)
+    return j, t
+
+
+def to_np(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        return x.to(torch.float32).numpy()
+    return np.asarray(jnp.asarray(x).astype(jnp.float32))
+
+
+def bits16(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        return x.view(torch.int16).numpy().view(np.uint16)
+    return np.asarray(jax.lax.bitcast_convert_type(x, jnp.uint16))
+
+
+# ---------------------------------------------------------------------------
+# sr_matmul
+# ---------------------------------------------------------------------------
+
+# (m, n, k): k=200 leaves a ragged tail of 8 under tk=64; m, n ragged too
+MM_SHAPES = [(32, 96, 200), (37, 64, 128), (8, 130, 72)]
+
+
+@pytest.mark.parametrize("trans_b", [False, True])
+@pytest.mark.parametrize("mnk", MM_SHAPES)
+def test_sr_matmul_f32_path_matches_pallas(mnk, trans_b):
+    m, n, k = mnk
+    rng = np.random.default_rng(0)
+    aj, at = bf16_pair(rng.standard_normal((m, k)))
+    bj, bt = bf16_pair(rng.standard_normal((n, k) if trans_b else (k, n)))
+    want = jmm(aj, bj, None, block=(64, 64, 64), interpret=True,
+               trans_b=trans_b)
+    got = kmm.sr_matmul(at, bt, trans_b=trans_b)
+    assert got.dtype == torch.float32 and tuple(got.shape) == (m, n)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               rtol=MM_RTOL, atol=MM_ATOL)
+
+
+@pytest.mark.parametrize("trans_b", [False, True])
+@pytest.mark.parametrize("mnk", MM_SHAPES)
+def test_sr_matmul_sr_path_bit_exact_with_injected_rbits(mnk, trans_b):
+    """The same rbits into both: bit-equal SR-bf16 outputs.  B has one
+    nonzero per output column, so every f32 accumulator is one exact
+    product (16 significant bits — the SR carries really happen) and the
+    accumulation order cannot matter."""
+    m, n, k = mnk
+    rng = np.random.default_rng(1)
+    b = np.zeros((k, n))
+    b[rng.integers(0, k, size=n), np.arange(n)] = rng.standard_normal(n)
+    aj, at = bf16_pair(rng.standard_normal((m, k)))
+    bj, bt = bf16_pair(b.T.copy() if trans_b else b)
+    rb = rng.integers(0, 2**32, size=(m, n), dtype=np.uint64).astype(np.uint32)
+    want = jmm(aj, bj, jnp.asarray(rb), block=(64, 64, 64), interpret=True,
+               trans_b=trans_b)
+    got = kmm.sr_matmul(at, bt, torch.from_numpy(rb.view(np.int32)),
+                        trans_b=trans_b)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_array_equal(bits16(got), bits16(want))
+
+
+def test_sr_matmul_sr_path_dense_within_one_step():
+    """Dense operands: the f32 order may differ by an ulp, which SR turns
+    into one bf16 step on a few elements (tests/test_kernels.py)."""
+    rng = np.random.default_rng(2)
+    aj, at = bf16_pair(rng.standard_normal((64, 192)))
+    bj, bt = bf16_pair(rng.standard_normal((192, 96)))
+    rb = rng.integers(0, 2**32, size=(64, 96), dtype=np.uint64).astype(np.uint32)
+    want = jref.sr_matmul_ref(aj, bj, jnp.asarray(rb))
+    got = ops.sr_matmul(at, bt, sr=True,
+                        rbits=torch.from_numpy(rb.view(np.int32)))
+    np.testing.assert_allclose(to_np(got), to_np(want), rtol=1.2e-2)
+
+
+EDGE = np.array([np.inf, -np.inf, np.nan, -np.nan, 0.0, -0.0, 1.0, -1.0,
+                 np.float32(1.0) - np.float32(2**-24) * 2,   # carries up
+                 3.4028235e38, -3.4028235e38, 1e-40, -1e-40, 65504.0,
+                 np.float32(np.nextafter(np.float32(2.0), np.float32(0)))],
+                np.float32)
+
+
+@pytest.mark.parametrize("r", [0, 0xFFFF, 0x8000, 0xFFFFFFFF, 0x12345678])
+def test_sr_epilogue_bit_exact_on_edge_values(r):
+    rb = np.full(EDGE.shape, r, np.uint32)
+    want = jref.sr_cast_bf16(jnp.asarray(EDGE), jnp.asarray(rb))
+    got = sr_cast_bf16(torch.from_numpy(EDGE), torch.from_numpy(rb.view(np.int32)))
+    np.testing.assert_array_equal(bits16(got), bits16(want))
+
+
+@settings(deadline=None, max_examples=25)
+@given(st.integers(0, 2**31 - 1))
+def test_sr_epilogue_bit_exact_on_random_bit_patterns(seed):
+    """Any f32 bit pattern (subnormals, NaN payloads, exponent carries)
+    and any 32 random bits: the int32 epilogue equals the reference."""
+    rng = np.random.default_rng(seed)
+    xb = rng.integers(0, 2**32, size=256, dtype=np.uint64).astype(np.uint32)
+    rb = rng.integers(0, 2**32, size=256, dtype=np.uint64).astype(np.uint32)
+    x = xb.view(np.float32)
+    want = jref.sr_cast_bf16(jnp.asarray(x), jnp.asarray(rb))
+    got = sr_cast_bf16(torch.from_numpy(x.copy()),
+                       torch.from_numpy(rb.view(np.int32)))
+    np.testing.assert_array_equal(bits16(got), bits16(want))
+
+
+def test_ops_sr_matmul_draws_rbits_from_the_generator():
+    """sr=True without rbits draws them from the torch.Generator: the
+    same as passing make_rbits of an identically seeded generator."""
+    rng = np.random.default_rng(5)
+    _, at = bf16_pair(rng.standard_normal((8, 40)))
+    _, bt = bf16_pair(rng.standard_normal((40, 24)))
+    got = ops.sr_matmul(at, bt, torch.Generator().manual_seed(9), sr=True)
+    rb = make_rbits((8, 24), torch.Generator().manual_seed(9))
+    assert torch.equal(got.view(torch.int16),
+                       kref.sr_matmul_ref(at, bt, rb).view(torch.int16))
+
+
+def test_make_rbits_lo_layout_matches_reference_rotation():
+    """lo=True: one word per 256 elements, rotated by idx % 32 — the
+    reference's layout, checked on the port's own words."""
+    g = torch.Generator().manual_seed(3)
+    r = make_rbits((3, 300), g, lo=True).reshape(-1).numpy().view(np.uint32)
+    g = torch.Generator().manual_seed(3)
+    words = torch.randint(0, 1 << 32, (4,), generator=g,
+                          dtype=torch.int64).numpy().astype(np.uint32)
+    idx = np.arange(900, dtype=np.uint32)
+    w, rot = words[idx // 256], idx % 32
+    want = (w >> rot) | (w << ((32 - rot) % 32))
+    np.testing.assert_array_equal(r, want)
+
+
+@pytest.mark.parametrize("mnk", [(32, 896, 4864), (37, 333, 1000), (1, 1, 1)])
+def test_matmul_nest_matches_reference(mnk):
+    from repro.core.pmag import matmul_nest as jnest
+    m, n, k = mnk
+    ours = matmul_nest(m, n, k, tm=32, tn=32, tk=64)
+    theirs = jnest(m, n, k, tm=32, tn=32, tk=64)
+    assert ours.grid == theirs.grid
+    assert ours.launch_grid("j", "i") == (theirs.grid[1], theirs.grid[0])
+
+
+# ---------------------------------------------------------------------------
+# fused_attn_unit
+# ---------------------------------------------------------------------------
+
+FUSED_CASES = [
+    dict(act="swiglu", norm="rmsnorm", window=None, with_ffn=True),
+    dict(act="swiglu", norm="rmsnorm", window=5, with_ffn=True),
+    dict(act="swiglu", norm="rmsnorm", window=None, with_ffn=False),
+    dict(act="geglu", norm="layernorm", window=None, with_ffn=True),
+    dict(act="gelu", norm="rmsnorm", window=None, with_ffn=True),
+    dict(act="relu_sq", norm="layernorm", window=None, with_ffn=True),
+]
+
+
+def _fused_inputs(case, seed=0, B=2, S=16, d=64, H=4, K=2, hd=16, f=128):
+    rng = np.random.default_rng(seed)
+    qn = (H + 2 * K) * hd
+    fin = 2 * f if case["act"] in ("swiglu", "geglu") else f
+    w = {"qkv_w": rng.standard_normal((d, qn)) * d ** -0.5,
+         "o_w": rng.standard_normal((H * hd, d)) * (H * hd) ** -0.5,
+         "w_in": rng.standard_normal((d, fin)) * d ** -0.5,
+         "w_out": rng.standard_normal((f, d)) * f ** -0.5}
+    vec = {"norm1_scale": 1 + 0.3 * rng.standard_normal(d),
+           "norm2_scale": 1 + 0.3 * rng.standard_normal(d),
+           "qkv_bias": 0.3 * rng.standard_normal(qn)}
+    if case["norm"] == "layernorm":
+        vec["norm1_bias"] = 0.2 * rng.standard_normal(d)
+        vec["norm2_bias"] = 0.2 * rng.standard_normal(d)
+    fill = np.array([3, 9])
+    ck = rng.standard_normal((B, S, K, hd))
+    cv = rng.standard_normal((B, S, K, hd))
+    cpos = np.where(np.arange(S)[None] < fill[:, None], np.arange(S)[None], -1)
+    xs = [rng.standard_normal((B, d)) for _ in range(3)]
+    return dict(w=w, vec=vec, fill=fill, ck=ck, cv=cv, cpos=cpos, xs=xs,
+                dims=dict(heads=H, kv_heads=K, head_dim=hd))
+
+
+@pytest.mark.parametrize("case", FUSED_CASES,
+                         ids=lambda c: f"{c['act']}-{c['norm']}-w{c['window']}"
+                                       f"-ffn{int(c['with_ffn'])}")
+def test_fused_attn_unit_matches_pallas_over_three_steps(case):
+    inp = _fused_inputs(case)
+    kw = dict(**inp["dims"], rope_theta=1e4, window=case["window"],
+              norm_kind=case["norm"], act=case["act"], block_n=32,
+              with_ffn=case["with_ffn"])
+    jw = {k: bf16_pair(v)[0] for k, v in inp["w"].items()}
+    tw = {k: bf16_pair(v)[1] for k, v in inp["w"].items()}
+    jv = {k: jnp.asarray(v, jnp.float32) for k, v in inp["vec"].items()}
+    jv.setdefault("norm1_bias", None)
+    tv = {k: torch.from_numpy(v.astype(np.float32)) for k, v in inp["vec"].items()}
+    if not case["with_ffn"]:
+        for d_ in (jw, tw):
+            d_.pop("w_in")
+            d_.pop("w_out")
+    jc = [bf16_pair(inp["ck"])[0], bf16_pair(inp["cv"])[0],
+          jnp.asarray(inp["cpos"], jnp.int32)]
+    tc = [bf16_pair(inp["ck"])[1], bf16_pair(inp["cv"])[1],
+          torch.from_numpy(inp["cpos"].astype(np.int32))]
+    # one trace for the three steps (statics bound, arrays traced)
+    jfn = jax.jit(lambda *a, **arrs: jdf.fused_attn_unit(
+        *a, **arrs, **kw, interpret=True))
+    for t, x in enumerate(inp["xs"]):
+        pos = (inp["fill"] + t).astype(np.int32)
+        xj, xt = bf16_pair(x)
+        yj, *jc = jfn(xj, *jc, jnp.asarray(pos), **jw, **jv)
+        yt = kdf.fused_attn_unit(xt, *tc, torch.from_numpy(pos), **tw, **tv,
+                                 **kw)
+        np.testing.assert_allclose(to_np(yt), to_np(yj), atol=Y_TOL,
+                                   rtol=Y_TOL)
+    for a, b in zip(tc[:2], jc[:2]):
+        np.testing.assert_allclose(to_np(a), to_np(b), atol=CACHE_TOL,
+                                   rtol=CACHE_TOL)
+    np.testing.assert_array_equal(tc[2].numpy(), np.asarray(jc[2]))
+
+
+def test_fused_attn_unit_leaves_inactive_rows_untouched():
+    case = FUSED_CASES[0]
+    inp = _fused_inputs(case, seed=4)
+    tw = {k: bf16_pair(v)[1] for k, v in inp["w"].items()}
+    tv = {k: torch.from_numpy(v.astype(np.float32)) for k, v in inp["vec"].items()}
+    tc = [bf16_pair(inp["ck"])[1], bf16_pair(inp["cv"])[1],
+          torch.from_numpy(inp["cpos"].astype(np.int32))]
+    before = [c.clone() for c in tc]
+    active = torch.tensor([False, True])
+    kdf.fused_attn_unit(bf16_pair(inp["xs"][0])[1], *tc,
+                        torch.from_numpy(inp["fill"].astype(np.int32)),
+                        **tw, **tv, **inp["dims"], rope_theta=1e4,
+                        active=active)
+    for a, b in zip(tc, before):
+        assert torch.equal(a[0], b[0])          # inactive row: bit-identical
+        assert not torch.equal(a[1], b[1])      # active row: appended
+
+
+# ---------------------------------------------------------------------------
+# No fallback, and the package boundary
+# ---------------------------------------------------------------------------
+
+
+def test_wrappers_refuse_non_cpu_tensors_without_a_kernel():
+    """A tensor that is not on the CPU never takes the plain version:
+    the wrapper launches its kernel or raises."""
+    a = torch.empty((4, 8), dtype=torch.bfloat16, device="meta")
+    b = torch.empty((8, 4), dtype=torch.bfloat16, device="meta")
+    with pytest.raises(ValueError, match="operands on"):
+        kmm.sr_matmul(a, b)
+    inp = _fused_inputs(FUSED_CASES[0])
+    tw = {k: bf16_pair(v)[1].to("meta") for k, v in inp["w"].items()}
+    meta = lambda *s: torch.empty(s, dtype=torch.bfloat16, device="meta")
+    with pytest.raises(ValueError, match="tensors on meta"):
+        kdf.fused_attn_unit(meta(2, 64), meta(2, 16, 2, 16), meta(2, 16, 2, 16),
+                            torch.empty((2, 16), dtype=torch.int32,
+                                        device="meta"),
+                            torch.zeros(2, dtype=torch.int32, device="meta"),
+                            **tw, qkv_bias=None, heads=4, kv_heads=2,
+                            head_dim=16, rope_theta=1e4)
+
+
+def test_build_raises_without_nvcc(monkeypatch, tmp_path):
+    monkeypatch.setattr(build.shutil, "which", lambda _: None)
+    monkeypatch.setattr(build, "NVCC_DEFAULT", str(tmp_path / "no-nvcc"))
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "build")
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        build.build(("sr_matmul",))
+
+
+_IMPORT = re.compile(r"^\s*(?:from|import)\s+(jax|repro)(?:[.\s]|$)")
+
+
+def test_port_imports_neither_jax_nor_the_jax_package():
+    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+    files.append(ROOT / "chip_smoke.py")
+    assert len(files) > 20
+    bad = [f"{f.relative_to(ROOT)}:{i}: {line.strip()}"
+           for f in files
+           for i, line in enumerate(f.read_text().splitlines(), 1)
+           if _IMPORT.match(line)]
+    assert bad == []
+
+
+def test_launch_counters_count_only_kernel_launches():
+    kmm.COUNTER.reset()
+    kdf.COUNTER.reset()
+    kmm.sr_matmul(torch.ones(2, 3, dtype=torch.bfloat16),
+                  torch.ones(3, 2, dtype=torch.bfloat16))
+    assert kmm.COUNTER.n == 0 and kdf.COUNTER.n == 0   # plain versions ran
