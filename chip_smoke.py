@@ -9,14 +9,24 @@ port (``src/repro_torch``), never JAX or the JAX package, and:
 1. builds the hand-written CUDA kernels from ``src/repro_torch/csrc``
    (one nvcc per source, concurrently) and prints the build seconds;
 2. holds each kernel against its plain PyTorch version on the card, at
-   the shapes qwen2-0.5b's serving path gives it, and times kernel,
-   plain version and (for sr_matmul) the one torch call computing the
-   same product;
+   the shapes qwen2-0.5b's serving and training paths give it, and times
+   kernel, plain version and, where one exists, the one torch call
+   computing the same function: sr_matmul at the PREFILL shapes, and
+   at the FF and BP shapes of a training step (K up to 151936) with
+   bf16 and with f32 operands; fused_attn_unit; outer_accum at the five
+   UP shapes of a step, both operand types; sr_round on the largest
+   optimizer leaf;
 3. serves a seeded Poisson trace through qwen2-0.5b at full width
    (random weights from a seed) with the continuous-batching engine on
    the cuda backend — PREFILL through sr_matmul, fused DECODE through
    fused_attn_unit — counting each kernel's launches in that run, and
-   serves the same trace again with the per-op decode words.
+   serves the same trace again with the per-op decode words;
+4. trains: four full-width layers under ``fp32`` for two steps on the
+   cuda backend against the reference backend (TF32 off), then all 24
+   layers under ``paper_sr_bf16`` (adamw, remat block, B=4, S=256) for 8
+   steps through ``launch.train`` — FF / BP through sr_matmul, UP
+   through outer_accum, the optimizer's SR writeback through sr_round —
+   counting each kernel's launches per step.
 
 It prints a ``{"kernels": [...]}`` line, the card's name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``.  Any
@@ -26,6 +36,7 @@ checkout, it exits nonzero and prints no result.
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -44,6 +55,19 @@ SR_RTOL = 1.2e-2
 # of f32-accumulated products in another order (2e-2), and cache entries
 # that are single bf16 dot products of near-cancelling terms (6e-2).
 Y_TOL, CACHE_TOL = 2e-2, 6e-2
+# outer_accum's f32 result takes sr_matmul's bound (another order of the
+# same f32 sums, operands scaled so results are O(1)); its SR result and
+# sr_round are held bit for bit.
+# The fp32 training comparison, cuda against reference backend: one step
+# of f32 arithmetic in another order (1e-4), then the second step's loss
+# after an adamw update that amplifies it (1e-3).  The step-0 gradients,
+# which the loss barely sees, are held leaf by leaf: the largest
+# difference within 1e-4 of the leaf's largest value (the fp32 bound of
+# tests/test_torch_training.py), and the gradient norm within 1e-5.
+TRAIN_RTOL = (1e-4, 1e-3)
+GRAD_REL, GNORM_RTOL = 1e-4, 1e-5
+# training runs: batch 4 x 256 tokens (T = 1024 rows per weight op)
+TRAIN_B, TRAIN_S = 4, 256
 
 
 class SmokeFailure(RuntimeError):
@@ -56,20 +80,25 @@ def check(cond: bool, msg: str) -> None:
 
 
 # H100 variants by marketing name: (bytes/s of device memory, dense bf16
-# tensor-core flop/s) from NVIDIA's data sheets.
-_PEAKS = (("NVL", 3.9e12, 835e12), ("PCIe", 2.0e12, 756e12),
-          ("H100", 3.35e12, 989e12))
+# tensor-core flop/s, f32 flop/s outside the tensor cores) from NVIDIA's
+# data sheets.
+_PEAKS = (("NVL", 3.9e12, 835e12, 60e12), ("PCIe", 2.0e12, 756e12, 51e12),
+          ("H100", 3.35e12, 989e12, 67e12))
 
 
 def card_peaks(name: str) -> tuple:
-    for key, bw, flops in _PEAKS:
+    for key, bw, flops, f32 in _PEAKS:
         if key in name:
-            return bw, flops
-    return 3.35e12, 989e12
+            return bw, flops, f32
+    return 3.35e12, 989e12, 67e12
 
 
-def bound(nbytes: float, flops: float, peaks: tuple) -> tuple:
-    tb, tf = nbytes / peaks[0] * 1e3, flops / peaks[1] * 1e3
+def bound(nbytes: float, flops: float, peaks: tuple,
+          f32: bool = False) -> tuple:
+    """(least ms, what bounds it): bytes over the memory rate against
+    flops over the bf16 tensor-core peak (or the f32 peak)."""
+    tb = nbytes / peaks[0] * 1e3
+    tf = flops / (peaks[2] if f32 else peaks[1]) * 1e3
     return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
@@ -122,6 +151,7 @@ def phase_sr_matmul(cfg, params, peaks) -> dict:
     M = 32
     worst_abs = worst_rel = 0.0
     tot = {"ms": 0.0, "plain": 0.0, "lib": 0.0, "bound": 0.0}
+    by_ms = {"bytes": 0.0, "operations": 0.0}
     for name, w, tb in shapes:
         K = w.shape[1] if tb else w.shape[0]
         N = w.shape[0] if tb else w.shape[1]
@@ -149,7 +179,9 @@ def phase_sr_matmul(cfg, params, peaks) -> dict:
         plain = time_ms(lambda: kmm.sr_matmul_plain(a, w, trans_b=tb))
         wt = w.t() if tb else w
         lib = time_ms(lambda: torch.matmul(a, wt))
-        b_ms, _ = bound(2 * (M * K + K * N) + 4 * M * N, 2 * M * N * K, peaks)
+        b_ms, by = bound(2 * (M * K + K * N) + 4 * M * N, 2 * M * N * K,
+                         peaks)
+        by_ms[by] += b_ms
         print(f"[sr_matmul] {name:<8} M={M} K={K} N={N} trans_b={int(tb)}: "
               f"kernel {ms:.4f}ms plain {plain:.4f}ms torch.matmul "
               f"{lib:.4f}ms bound {b_ms:.4f}ms  max_abs_err {ea:.3g}")
@@ -177,7 +209,7 @@ def phase_sr_matmul(cfg, params, peaks) -> dict:
             "max_abs_err": worst_abs, "max_rel_err": worst_rel,
             "ms": tot["ms"], "kernel_ms": tot["ms"], "plain_ms": tot["plain"],
             "library_ms": tot["lib"], "bound_ms": tot["bound"],
-            "bound_by": "bytes",
+            "bound_by": max(by_ms, key=by_ms.get),
             "shapes": "one 32-token PREFILL chunk: qkv, o, ffn_in, ffn_out "
                       "of one layer + the tied LM head (trans_b)"}
 
@@ -264,6 +296,252 @@ def phase_fused(cfg, params, peaks) -> dict:
             "shapes": f"one layer, B={B} rows, S={S}"}
 
 
+def _rbits(gen, shape):
+    import torch
+    return torch.randint(-2**31, 2**31, shape, generator=gen, device="cuda",
+                         dtype=torch.int32)
+
+
+def _train_ops(cfg) -> list:
+    """(name, rows, P, Q, transposed) of the weight ops of one training
+    step: W (P, Q) in y = x . W, or y = x . W^T for the tied head.  The
+    layers run at T = B*S rows; the head runs per loss chunk (T/4 rows,
+    lm_loss_chunked's four chunks at B=4, S=256)."""
+    a, d, f = cfg.attention, cfg.d_model, cfg.d_ff
+    T = TRAIN_B * TRAIN_S
+    qkv = (a.n_heads + 2 * a.n_kv_heads) * a.head_dim
+    return [("attn_qkv", T, d, qkv, False),
+            ("attn_o", T, a.n_heads * a.head_dim, d, False),
+            ("ffn_in", T, d, 2 * f, False), ("ffn_out", T, f, d, False),
+            ("embed(head)", T // 4, cfg.vocab_size, d, True)]
+
+
+def phase_sr_matmul_train(cfg, peaks) -> dict:
+    """sr_matmul in its two training roles at a step's shapes, with bf16
+    and with f32 operands: FF (y = x . W; the tied head's logits x .
+    table^T through trans_b) and BP (dX = dY . W^T through trans_b; the
+    head's dX = g . table with K = vocab)."""
+    import torch
+    from repro_torch.kernels import sr_matmul as kmm
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    worst_abs = 0.0
+    tot = {role: {"ms": 0.0, "plain": 0.0, "lib": 0.0, "bound": 0.0}
+           for role in ("ff", "bp", "f32")}
+    by_ms = {"bytes": 0.0, "operations": 0.0}
+    for name, M, P, Q, tw in _train_ops(cfg):
+        # (role, K, N, trans_b): the product (M, K) . B -> (M, N)
+        roles = (("ff", Q if tw else P, P if tw else Q, tw),
+                 ("bp", P if tw else Q, Q if tw else P, not tw))
+        for role, K, N, tb in roles:
+            for dt in (torch.bfloat16, torch.float32):
+                a = torch.randn((M, K), generator=gen, device="cuda").to(dt)
+                b = (torch.randn((N, K) if tb else (K, N), generator=gen,
+                                 device="cuda") * K ** -0.5).to(dt)
+                got = kmm.sr_matmul(a, b, trans_b=tb)
+                want = kmm.sr_matmul_plain(a, b, trans_b=tb)
+                torch.cuda.synchronize()
+                ea, _ = errs(got, want)
+                worst_abs = max(worst_abs, ea)
+                check(torch.allclose(got, want, rtol=MM_RTOL, atol=MM_ATOL),
+                      f"sr_matmul {role} {name} ({M}x{K}x{N}, trans_b={tb}, "
+                      f"{dt}): max abs err {ea:.3g}")
+                ms = time_ms(lambda: kmm.sr_matmul(a, b, trans_b=tb),
+                             iters=10)
+                plain = time_ms(lambda: kmm.sr_matmul_plain(a, b,
+                                                            trans_b=tb),
+                                iters=10)
+                f32 = dt == torch.float32
+                b_ms, by = bound(a.element_size() * (M * K + K * N)
+                                 + 4 * M * N, 2 * M * N * K, peaks, f32=f32)
+                t = tot["f32" if f32 else role]
+                t["ms"] += ms
+                t["plain"] += plain
+                t["bound"] += b_ms
+                label = f"f32:{role}" if f32 else role
+                lib_txt = ""
+                if not f32:
+                    by_ms[by] += b_ms
+                    wt = b.t() if tb else b
+                    lib = time_ms(lambda: torch.matmul(a, wt), iters=10)
+                    t["lib"] += lib
+                    lib_txt = f" torch.matmul {lib:.4f}ms"
+                print(f"[sr_matmul:{label}] {name:<11} M={M} K={K} N={N} "
+                      f"trans_b={int(tb)}: kernel {ms:.4f}ms plain "
+                      f"{plain:.4f}ms{lib_txt} bound {b_ms:.4f}ms ({by})  "
+                      f"max_abs_err {ea:.3g}")
+                del a, b, got, want
+    for role in ("ff", "bp"):
+        t = tot[role]
+        print(f"[sr_matmul:{role}] a step's five {role.upper()} shapes (head: "
+              f"one of 4 chunks): kernel {t['ms']:.4f}ms plain "
+              f"{t['plain']:.4f}ms torch.matmul {t['lib']:.4f}ms bound "
+              f"{t['bound']:.4f}ms")
+    t = tot["f32"]
+    print(f"[sr_matmul:f32] the same FF and BP shapes, f32 operands: kernel "
+          f"{t['ms']:.4f}ms plain {t['plain']:.4f}ms bound {t['bound']:.4f}ms "
+          f"(f32 peak)")
+    ff, bp = tot["ff"], tot["bp"]
+    return {"name": "sr_matmul:train", "route": "cuda",
+            "source": "src/repro_torch/csrc/sr_matmul.cu",
+            "replaces": "src/repro/kernels/sr_matmul.py:96",
+            "tpu_kernel": "repro/kernels/sr_matmul.py::sr_matmul",
+            "max_abs_err": worst_abs, "ms": ff["ms"] + bp["ms"],
+            "kernel_ms": ff["ms"] + bp["ms"],
+            "plain_ms": ff["plain"] + bp["plain"],
+            "library_ms": ff["lib"] + bp["lib"],
+            "bound_ms": ff["bound"] + bp["bound"],
+            "bound_by": max(by_ms, key=by_ms.get),
+            "ff_ms": ff["ms"], "bp_ms": bp["ms"], "f32_ms": tot["f32"]["ms"],
+            "f32_plain_ms": tot["f32"]["plain"],
+            "f32_bound_ms": tot["f32"]["bound"],
+            "shapes": "FF and BP of one layer's four weight ops at "
+                      f"T={TRAIN_B * TRAIN_S} + one tied-head loss chunk "
+                      f"(T/4; BP with K=vocab), bf16 operands"}
+
+
+def phase_outer_accum(cfg, peaks) -> dict:
+    """outer_accum at the five UP shapes of a full-width step: one
+    layer's four at T = 1024 rows and one tied-head loss chunk (T/4),
+    with bf16 operands (SR epilogue and f32 output) and f32 operands."""
+    import torch
+    from repro_torch.core.rounding import sr_cast_bf16
+    from repro_torch.kernels import outer_accum as koa
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    worst_abs = 0.0
+    tot = {"ms": 0.0, "plain": 0.0, "lib": 0.0, "bound": 0.0,
+           "f32_ms": 0.0, "f32_plain": 0.0, "f32_bound": 0.0}
+    by_ms = {"bytes": 0.0, "operations": 0.0}
+    for name, T, D, F, _ in _train_ops(cfg):
+        # dW (D, F) = X (T, D)^T . dY (T, F); for the head X is g (T, V)
+        x = torch.randn((T, D), generator=gen, device="cuda").bfloat16()
+        dy = (torch.randn((T, F), generator=gen, device="cuda")
+              * T ** -0.5).bfloat16()
+        got = koa.outer_accum(x, dy)
+        want = koa.outer_accum_plain(x, dy)
+        torch.cuda.synchronize()
+        ea, _ = errs(got, want)
+        worst_abs = max(worst_abs, ea)
+        check(torch.allclose(got, want, rtol=MM_RTOL, atol=MM_ATOL),
+              f"outer_accum {name} (T={T}, D={D}, F={F}) f32 path: max abs "
+              f"err {ea:.3g}")
+        rb = _rbits(gen, (D, F))
+        got_sr = koa.outer_accum(x, dy, rbits=rb)
+        check(torch.equal(got_sr.view(torch.int16),
+                          sr_cast_bf16(got, rb).view(torch.int16)),
+              f"outer_accum {name}: SR epilogue is not bit-equal to the "
+              f"plain SR cast of the kernel's own f32 product")
+        del got, want
+        ms = time_ms(lambda: koa.outer_accum(x, dy, rbits=rb), iters=10)
+        plain = time_ms(lambda: koa.outer_accum_plain(x, dy, rbits=rb),
+                        iters=10)
+        xt = x.t()
+        lib = time_ms(lambda: torch.matmul(xt, dy), iters=10)
+        b_ms, by = bound(2 * T * (D + F) + (4 + 2) * D * F, 2 * T * D * F,
+                         peaks)
+        by_ms[by] += b_ms
+        print(f"[outer_accum] {name:<11} T={T} D={D} F={F} (SR): kernel "
+              f"{ms:.4f}ms plain {plain:.4f}ms torch.matmul {lib:.4f}ms "
+              f"bound {b_ms:.4f}ms ({by})  max_abs_err {ea:.3g}")
+        tot["ms"] += ms
+        tot["plain"] += plain
+        tot["lib"] += lib
+        tot["bound"] += b_ms
+        del rb, got_sr
+        # the fp32 preset's f32-operand path at the same shape
+        x, dy = x.float(), dy.float()
+        got = koa.outer_accum(x, dy)
+        want = koa.outer_accum_plain(x, dy)
+        torch.cuda.synchronize()
+        ea, _ = errs(got, want)
+        worst_abs = max(worst_abs, ea)
+        check(torch.allclose(got, want, rtol=MM_RTOL, atol=MM_ATOL),
+              f"outer_accum {name} (T={T}, D={D}, F={F}) f32 operands: max "
+              f"abs err {ea:.3g}")
+        del got, want
+        ms = time_ms(lambda: koa.outer_accum(x, dy), iters=10)
+        plain = time_ms(lambda: koa.outer_accum_plain(x, dy), iters=10)
+        b_ms, by = bound(4 * T * (D + F) + 4 * D * F, 2 * T * D * F, peaks,
+                         f32=True)
+        print(f"[outer_accum:f32] {name:<11} T={T} D={D} F={F}: kernel "
+              f"{ms:.4f}ms plain {plain:.4f}ms bound {b_ms:.4f}ms ({by})  "
+              f"max_abs_err {ea:.3g}")
+        tot["f32_ms"] += ms
+        tot["f32_plain"] += plain
+        tot["f32_bound"] += b_ms
+        del x, dy
+    # ragged T, D and F on both operand types
+    for dt in (torch.bfloat16, torch.float32):
+        x = torch.randn((1000, 333), generator=gen, device="cuda").to(dt)
+        dy = (torch.randn((1000, 77), generator=gen, device="cuda")
+              * 1000 ** -0.5).to(dt)
+        got = koa.outer_accum(x, dy, scale=0.5)
+        want = koa.outer_accum_plain(x, dy, scale=0.5)
+        check(torch.allclose(got, want, rtol=MM_RTOL, atol=MM_ATOL),
+              f"outer_accum ragged 1000x333x77 {dt}: max abs err "
+              f"{errs(got, want)[0]:.3g}")
+    print(f"[outer_accum] a step's five UP shapes (head: one of 4 chunks), "
+          f"SR: kernel {tot['ms']:.4f}ms plain {tot['plain']:.4f}ms "
+          f"torch.matmul {tot['lib']:.4f}ms bound {tot['bound']:.4f}ms")
+    print(f"[outer_accum:f32] the same shapes, f32 operands: kernel "
+          f"{tot['f32_ms']:.4f}ms plain {tot['f32_plain']:.4f}ms bound "
+          f"{tot['f32_bound']:.4f}ms (f32 peak)")
+    return {"name": "outer_accum", "route": "cuda",
+            "source": "src/repro_torch/csrc/outer_accum.cu",
+            "replaces": "src/repro/kernels/outer_accum.py:80",
+            "tpu_kernel": "repro/kernels/outer_accum.py::outer_accum",
+            "max_abs_err": worst_abs, "ms": tot["ms"], "kernel_ms": tot["ms"],
+            "plain_ms": tot["plain"], "library_ms": tot["lib"],
+            "bound_ms": tot["bound"], "bound_by": max(by_ms, key=by_ms.get),
+            "f32_ms": tot["f32_ms"], "f32_plain_ms": tot["f32_plain"],
+            "f32_bound_ms": tot["f32_bound"],
+            "shapes": f"the five UP products of a step, SR epilogue: one "
+                      f"layer's four at T={TRAIN_B * TRAIN_S} + one tied-head "
+                      f"loss chunk (T/4)"}
+
+
+def phase_sr_round(cfg, peaks) -> dict:
+    """sr_round: bit-exact on random and edge bit patterns, timed on the
+    largest optimizer leaf (the stacked ffn_in, 24 x 896 x 9728)."""
+    import torch
+    from repro_torch.kernels import sr_round as ksr
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    edge = torch.tensor([float("inf"), -float("inf"), float("nan"), 0.0,
+                         -0.0, 1e-45, 1e-40, -1e-40, 3.4028235e38,
+                         -3.4028235e38, 1.0, -1.0], device="cuda")
+    for n, off in ((1 << 20, 0), (1001, 0), (4096, 1)):
+        raw = torch.randint(-2**31, 2**31, (n + off,), generator=gen,
+                            device="cuda", dtype=torch.int32)
+        raw[off:off + edge.numel()] = edge.view(torch.int32)
+        x = raw.view(torch.float32)[off:]
+        rb = _rbits(gen, (n + off,))[off:]
+        got = ksr.sr_round(x, rb)
+        check(torch.equal(got.view(torch.int16),
+                          ksr.sr_round_plain(x, rb).view(torch.int16)),
+              f"sr_round: not bit-exact on {n} random/edge patterns "
+              f"(offset {off})")
+    shape = (cfg.n_layers, cfg.d_model, 2 * cfg.d_ff)
+    x = torch.randn(shape, generator=gen, device="cuda") * 0.03
+    rb = _rbits(gen, shape)
+    got = ksr.sr_round(x, rb)
+    check(torch.equal(got.view(torch.int16),
+                      ksr.sr_round_plain(x, rb).view(torch.int16)),
+          f"sr_round: not bit-exact on the {shape} leaf")
+    del got
+    ms = time_ms(lambda: ksr.sr_round(x, rb), iters=10)
+    plain = time_ms(lambda: ksr.sr_round_plain(x, rb), iters=3, warmup=1)
+    n = x.numel()
+    b_ms, by = bound(n * (4 + 4 + 2), 2 * n, peaks)
+    print(f"[sr_round] leaf {shape} ({n} elements): kernel {ms:.4f}ms plain "
+          f"{plain:.4f}ms bound {b_ms:.4f}ms ({by})  bit-exact")
+    return {"name": "sr_round", "route": "cuda",
+            "source": "src/repro_torch/csrc/sr_round.cu",
+            "replaces": "src/repro/kernels/sr_round.py:36",
+            "tpu_kernel": "repro/kernels/sr_round.py::sr_round",
+            "max_abs_err": 0.0, "ms": ms, "kernel_ms": ms, "plain_ms": plain,
+            "library_ms": None, "bound_ms": b_ms, "bound_by": by,
+            "shapes": f"the largest optimizer leaf {shape}, f32 -> bf16"}
+
+
 def phase_serve(cfg, params) -> tuple:
     """The main path: the engine serves a trace on the cuda backend."""
     import torch
@@ -302,6 +580,173 @@ def phase_serve(cfg, params) -> tuple:
     print(f"[serve] fused vs per-op decode: {same}/{16 * 16} generated tokens "
           f"agree ({same / 256:.3f})")
     return main_counts
+
+
+def _counters() -> dict:
+    from repro_torch.kernels import decode_fused as kdf
+    from repro_torch.kernels import outer_accum as koa
+    from repro_torch.kernels import sr_matmul as kmm
+    from repro_torch.kernels import sr_round as ksr
+    return {"sr_matmul": kmm.COUNTER, "outer_accum": koa.COUNTER,
+            "sr_round": ksr.COUNTER, "fused_attn_unit": kdf.COUNTER}
+
+
+def _step0_grads(cfg, program, backend, params, batch, dtype) -> dict:
+    """{leaf path: f32 gradient} of one forward and backward of the
+    training loss (remat block) on `backend`, as the training step takes
+    them."""
+    import torch
+    from repro_torch.core.phases import Phase
+    from repro_torch.core.rounding import fold_key
+    from repro_torch.core.tree import tree_leaves, tree_map
+    from repro_torch.engine.context import PEContext
+    from repro_torch.models import transformer as tfm
+    sh = PEContext(program, backend=backend, phase=Phase.FF)
+    if backend == "cuda":
+        sh = sh.with_key(fold_key(0, 1))
+    req = tree_map(lambda p: p.detach().requires_grad_(), params)
+    leaves = tree_leaves(req)
+    with torch.enable_grad():
+        loss = tfm.loss_fn(cfg, req, batch, sh, compute_dtype=dtype,
+                           remat="block")
+        grads = torch.autograd.grad(loss, [p for _, p in leaves])
+    return {path: g.float() for (path, _), g in zip(leaves, grads)}
+
+
+def _grad_rel(got: dict, want: dict) -> tuple:
+    """(worst leaf, its max |got - want| / max |want|)."""
+    rel = {k: float((got[k] - want[k]).abs().max()
+                    / want[k].abs().max().clamp_min(1e-30)) for k in want}
+    worst = max(rel, key=rel.get)
+    return worst, rel[worst]
+
+
+def phase_train_fp32(cfg) -> None:
+    """Four full-width layers, fp32, adamw, remat block: the cuda backend
+    (f32 sr_matmul / outer_accum) against the reference backend
+    (f64-accumulated plain torch), TF32 off, one initial state.  Per-leaf
+    gradients of step 0, then two steps' losses and the gradient norm.
+    A control with bf16 operands on the cuda backend must fail the
+    gradient gate, so the gate is known to see a wrong BP or UP path."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import TrainConfig
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core.program import compile_program
+    from repro_torch.data import SyntheticLM
+    from repro_torch.runtime import train_loop as tl
+    cfg4 = dataclasses.replace(cfg, n_layers=4)
+    shape = ShapeConfig("smoke", TRAIN_S, TRAIN_B, "train")
+    program = compile_program(cfg4, shape, precision="fp32")
+    pipe = SyntheticLM(cfg4, shape)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    batch0 = {k: torch.as_tensor(v, device="cuda")
+              for k, v in pipe.batch_at(0).items()}
+    losses, gnorms, grads = {}, {}, {}
+    state0 = None
+    for backend in ("reference", "cuda"):
+        train = TrainConfig(precision="fp32", kernel_backend=backend,
+                            remat="block")
+        step_fn, opt = tl.make_train_step(cfg4, program, train)
+        if state0 is None:
+            state0 = tl.init_state(cfg4, program, train, gen, opt)
+        t0 = time.monotonic()
+        grads[backend] = _step0_grads(cfg4, program, backend,
+                                      state0["params"], batch0,
+                                      torch.float32)
+        state, out = state0, []
+        for s in range(2):
+            state, met = step_fn(state, pipe.batch_at(s), s)
+            out.append(float(met["loss"]))
+            if s == 0:
+                gnorms[backend] = float(met["grad_norm"])
+        losses[backend] = out
+        print(f"[train:fp32] {backend:<9} 4 layers B={TRAIN_B} S={TRAIN_S}: "
+              f"losses {out} step-0 grad norm {gnorms[backend]!r} "
+              f"({time.monotonic() - t0:.1f}s)")
+        del state
+    ref = grads["reference"]
+    leaf, rel = _grad_rel(grads["cuda"], ref)
+    # the control: the same state and batch through bf16 operands
+    ctrl_prog = compile_program(cfg4, shape, precision="bf16_nearest")
+    ctrl = _step0_grads(cfg4, ctrl_prog, "cuda", state0["params"], batch0,
+                        torch.bfloat16)
+    c_leaf, c_rel = _grad_rel(ctrl, ref)
+    g_rel = abs(gnorms["cuda"] / gnorms["reference"] - 1)
+    print(f"[train:fp32] cuda vs reference: step 1 rel "
+          f"{abs(losses['cuda'][0] / losses['reference'][0] - 1):.3g}, "
+          f"step 2 rel {abs(losses['cuda'][1] / losses['reference'][1] - 1):.3g}"
+          f", grad norm rel {g_rel:.3g}, worst leaf gradient rel {rel:.3g} "
+          f"({leaf}); control with bf16 operands: worst leaf rel "
+          f"{c_rel:.3g} ({c_leaf})")
+    for s, tol in enumerate(TRAIN_RTOL):
+        r, c = losses["reference"][s], losses["cuda"][s]
+        check(abs(c - r) <= tol * abs(r),
+              f"fp32 training step {s + 1}: cuda loss {c} vs reference {r} "
+              f"(rtol {tol})")
+    check(g_rel <= GNORM_RTOL,
+          f"fp32 step-0 gradient norm: cuda {gnorms['cuda']} vs reference "
+          f"{gnorms['reference']} (rtol {GNORM_RTOL})")
+    check(rel < GRAD_REL, f"fp32 step-0 gradient of {leaf}: rel {rel:.3g} "
+          f"(gate {GRAD_REL})")
+    check(c_rel >= GRAD_REL, f"the gradient gate ({GRAD_REL}) passes the "
+          f"bf16-operand control (worst rel {c_rel:.3g}): it cannot see a "
+          f"lower-precision gradient")
+
+
+def phase_train() -> dict:
+    """The training main path: launch.train at full width, paper_sr_bf16,
+    counting each kernel's launches per step."""
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.launch import train as launch_train
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    args = launch_train.parser().parse_args([
+        "--arch", "qwen2-0.5b", "--kernel-backend", "cuda", "--device",
+        "cuda", "--precision", "paper_sr_bf16", "--optimizer", "adamw",
+        "--remat", "block", "--batch", str(TRAIN_B), "--seq", str(TRAIN_S),
+        "--steps", "8", "--log-every", "1", "--ckpt-every", "1000",
+        "--ckpt-dir", ckpt_dir])
+    counters = _counters()
+    per_step = []
+    last = {}
+
+    def on_step(step, metrics, dt):
+        now = {k: c.n for k, c in counters.items()}
+        per_step.append({k: now[k] - last.get(k, 0) for k in now})
+        last.update(now)
+
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters.values():
+        c.reset()
+    t0 = time.monotonic()
+    try:
+        res = launch_train.run(args, on_step=on_step)
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    wall = time.monotonic() - t0
+    totals = {k: c.n for k, c in counters.items()}
+    losses, secs = res["losses"], res["seconds"]
+    steady = sorted(secs[1:])
+    med = steady[len(steady) // 2]
+    tok = TRAIN_B * TRAIN_S
+    print(f"[train] qwen2-0.5b 24 layers paper_sr_bf16 adamw remat=block "
+          f"B={TRAIN_B} S={TRAIN_S}: losses {[round(x, 4) for x in losses]}")
+    print(f"[train] ms/step {[round(x * 1e3, 1) for x in secs]} median "
+          f"(steps 1-7) {med * 1e3:.1f}ms, {tok / med:.1f} tokens/s; "
+          f"wall {wall:.1f}s incl. init and final checkpoint; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    print(f"[train] launches per step {per_step[-1]}; in the run {totals}")
+    check(all(math.isfinite(x) for x in losses), f"non-finite loss {losses}")
+    check(len(losses) == 8, f"{len(losses)} training steps, want 8")
+    check(losses[-1] < losses[0],
+          f"loss did not fall: {losses[0]} -> {losses[-1]}")
+    for k in ("sr_matmul", "outer_accum", "sr_round"):
+        check(all(p[k] > 0 for p in per_step),
+              f"a training step launched {k} no time: {per_step}")
+    return {"counts": totals, "per_step": per_step[-1],
+            "ms_per_step": med * 1e3, "tokens_per_s": tok / med}
 
 
 def main() -> int:
@@ -351,12 +796,26 @@ def main() -> int:
               f"{time.monotonic() - t0:.1f}s on {name}")
         rows = [phase_sr_matmul(cfg, params, peaks),
                 phase_fused(cfg, params, peaks)]
-        counts = phase_serve(cfg, params)
+        serve_counts = phase_serve(cfg, params)
+        del params, u
+        rows += [phase_sr_matmul_train(cfg, peaks),
+                 phase_outer_accum(cfg, peaks),
+                 phase_sr_round(cfg, peaks)]
+        torch.cuda.empty_cache()
+        phase_train_fp32(cfg)
+        torch.cuda.empty_cache()
+        train = phase_train()
     except SmokeFailure as e:
         print(f"[chip_smoke] FAIL: {e}", file=sys.stderr)
         return 1
+    # launches: each kernel's count in the main path that runs it — the
+    # serve run for PREFILL sr_matmul and fused_attn_unit, the training
+    # run for the rest (sr_matmul:train is sr_matmul's FF + BP count there)
     for r in rows:
-        r["launches"] = counts[r["name"]]
+        if r["name"] in serve_counts:
+            r["launches"] = serve_counts[r["name"]]
+        else:
+            r["launches"] = train["counts"][r["name"].split(":")[0]]
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

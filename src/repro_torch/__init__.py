@@ -3,15 +3,17 @@
 The JAX package ``repro`` is the reference; this package imports nothing
 of it (and never ``jax``).  Its layout mirrors ``repro/``:
 
-  configs/    model configs (qwen2-0.5b and its reduced form)
+  configs/    model, shape and train configs (qwen2-0.5b and its reduced form)
   core/       phases, precision policies, SR rounding, the PE program words
+  data/       the deterministic synthetic LM pipeline
   kernels/    hand-written CUDA kernels (``csrc/``) + their plain versions
-  engine/     the PE dispatch seam (``pe_dot``, the fused decode word)
-  models/     layers, attention, the decoder-only transformer (serving subset)
-  runtime/    serve-step builders
+  engine/     the PE dispatch seam (``pe_dot``: FF/BP/UP and serving words)
+  models/     layers, attention, the dense decoder-only transformer
+  optim/      sgdm / adamw / adagrad with the SR writeback
+  runtime/    train- and serve-step builders, single-process fault tolerance
   serving/    slot arena, scheduler, traces, the continuous-batching engine
-  launch/     the serving CLI
-  checkpoint/ carrying JAX parameter pytrees across as numpy arrays
+  launch/     the training and serving CLIs and their profilers
+  checkpoint/ training-state checkpoints; carrying JAX trees across
 
 Backends: ``reference`` (plain torch, the CPU oracle) and ``cuda`` (the
 hand-written kernels; on a CPU tensor each kernel wrapper runs its plain

@@ -1,4 +1,5 @@
-"""Turn a reference parameter pytree (as numpy arrays) into the port's.
+"""Turn a reference parameter pytree or TrainState (as numpy arrays) into
+the port's.
 
 The port keeps the reference's keys and layouts (``embed.table`` (V, d),
 ``groups.u0.attn.qkv`` (n_groups, d, (H+2K)*hd), ``qkv_bias``, ``o``,
@@ -34,3 +35,12 @@ def params_from_numpy(tree, device="cpu",
         return {k: params_from_numpy(v, device, dtype)
                 for k, v in tree.items()}
     return _leaf(tree, device, dtype)
+
+
+def state_from_numpy(state: dict, device="cpu") -> dict:
+    """A reference TrainState {"params", "opt": {"m", "v", ...}, "step"}
+    (as numpy arrays) -> the port's training state, leaves carried by bit
+    pattern, the step as an int."""
+    return {"params": params_from_numpy(state["params"], device),
+            "opt": params_from_numpy(state["opt"], device),
+            "step": int(np.asarray(state["step"]))}

@@ -1,8 +1,8 @@
 """Config registry: importing this package registers qwen2-0.5b."""
 from repro_torch.configs.base import (AttentionConfig, ModelConfig,
-                                      ShapeConfig, get_config, get_reduced,
-                                      list_configs, register)
+                                      ShapeConfig, TrainConfig, get_config,
+                                      get_reduced, list_configs, register)
 from repro_torch.configs import qwen2_0p5b  # noqa: F401  (registers)
 
-__all__ = ["AttentionConfig", "ModelConfig", "ShapeConfig", "get_config",
-           "get_reduced", "list_configs", "register"]
+__all__ = ["AttentionConfig", "ModelConfig", "ShapeConfig", "TrainConfig",
+           "get_config", "get_reduced", "list_configs", "register"]

@@ -1,7 +1,8 @@
-"""Config system: model / shape dataclasses + registry.
+"""Config system: model / shape / train dataclasses + registry.
 
 The port's own copy of the reference's config types, holding only what
-the serving slice needs: dense decoder-only models with GQA attention.
+the serving and training slices need: dense decoder-only models with
+GQA attention.
 ``get_reduced`` gives the CPU-test variant of the same family (small
 widths, two layers, vocab 256) exactly as the reference derives it, so a
 test can build the same reduced model on both sides.
@@ -60,6 +61,22 @@ class ShapeConfig:
     seq_len: int
     global_batch: int
     kind: str                          # 'train' | 'prefill' | 'decode'
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """The reference's training knobs that the port's train step reads,
+    with the reference's defaults.  The run's own settings (seed, steps,
+    logging, checkpoints) are the launcher's arguments; the multi-device
+    knobs (gradient compression, ZeRO-1) come with that slice."""
+    optimizer: str = "adamw"           # sgdm|adamw|adagrad
+    lr: float = 3e-4
+    weight_decay: float = 0.1
+    momentum: float = 0.9
+    precision: str = "paper_sr_bf16"   # see core/precision.py presets
+    kernel_backend: str = "reference"  # engine matmul path: reference|cuda
+    microbatch: int = 0                # 0 = no microbatching
+    remat: str = "block"               # none|block|full
 
 
 _REGISTRY: dict[str, ModelConfig] = {}

@@ -4,6 +4,20 @@ SR adds 16 random bits below the bf16 mantissa and truncates: the carry
 is the round-up, so E[SR(x)] == x.  Non-finite inputs pass through a plain
 cast (adding bits would corrupt inf/NaN).
 
+Two entropy regimes, as in the reference:
+
+  * :func:`stochastic_round_bf16`    — fresh random bits per element
+    (the paper's ``SR``);
+  * :func:`stochastic_round_bf16_lo` — a shared stream of ``ceil(n/32)+1``
+    random words; element i reads the 16-bit window at bit offset i (the
+    paper's ``SR LO`` shift register: one fresh bit per element).
+
+The LO stream is NOT :func:`make_rbits`'s ``lo=True`` layout (one word
+per 256 elements, rotated), which is the entropy layout of the kernels'
+fused SR epilogues; both exist in the reference and both are kept.
+Every function takes a ``torch.Generator`` or the bits themselves, so
+tests can inject the reference's threefry bits.
+
 The bit math runs in int64: torch on the CPU has no uint32 ``add``, and a
 wide add cannot overflow.  The f32 bit pattern is zero-extended, the low
 16 random bits added, the sum shifted right by 16 and its low 16 bits are
@@ -12,9 +26,24 @@ add gives.
 """
 from __future__ import annotations
 
+from typing import Callable, Optional
+
 import torch
 
 _LOW_MASK = 0xFFFF
+
+
+_MASK64 = (1 << 64) - 1
+
+
+def fold_key(key: int, data: int) -> int:
+    """Fold 32 bits of data into a key (splitmix64 finaliser): a
+    deterministic 63-bit generator seed."""
+    z = ((key & _MASK64) * 0x9E3779B97F4A7C15 + (data & 0xFFFFFFFF)) \
+        & _MASK64
+    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
+    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _MASK64
+    return (z ^ (z >> 31)) >> 1
 
 
 def _bits_u32(t: torch.Tensor) -> torch.Tensor:
@@ -55,15 +84,91 @@ def make_rbits(shape, generator: torch.Generator, *, device="cpu",
     for s in shape:
         n *= int(s)
     if not lo:
-        w = torch.randint(0, 1 << 32, (n,), generator=generator,
+        return _words(n, generator).reshape(tuple(shape)).to(device)
+    n_words = -(-n // lo_block)
+    words = torch.randint(0, 1 << 32, (n_words,), generator=generator,
                           dtype=torch.int64, device=generator.device)
+    idx = torch.arange(n, dtype=torch.int64, device=generator.device)
+    wd = words[idx // lo_block]
+    rot = idx % 32
+    w = ((wd >> rot) | (wd << ((32 - rot) % 32))) & 0xFFFFFFFF
+    return _to_int32(w).reshape(tuple(shape)).to(device)
+
+
+def _words(n: int, generator: torch.Generator) -> torch.Tensor:
+    """n uniform 32-bit words as int32, on the generator's device."""
+    return torch.randint(-(1 << 31), 1 << 31, (n,), generator=generator,
+                         dtype=torch.int32, device=generator.device)
+
+
+def _to_int32(u: torch.Tensor) -> torch.Tensor:
+    """Non-negative int64 values below 2^32 -> the same bits as int32."""
+    return torch.where(u >= 1 << 31, u - (1 << 32), u).to(torch.int32)
+
+
+def sliding_window_bits(stream: torch.Tensor, n: int) -> torch.Tensor:
+    """The SR-LO entropy: element i reads the 16 bits at bit offset i of
+    the word stream (``ceil(n/32)+1`` 32-bit words), int32 (n,)."""
+    u = _bits_u32(stream.reshape(-1))
+    idx = torch.arange(n, dtype=torch.int64, device=stream.device)
+    w, b = idx >> 5, idx & 31
+    lo = u[w] >> b
+    hi = torch.where(b > 0, (u[w + 1] << (32 - b)) & 0xFFFFFFFF, 0)
+    return ((lo | hi) & _LOW_MASK).to(torch.int32)
+
+
+def sr_bits(mode: str, shape, generator: torch.Generator,
+            device=None) -> torch.Tensor:
+    """The per-element SR entropy of rounding mode 'sr' or 'sr_lo' for a
+    tensor of `shape`, drawn from `generator` (int32, on `device`)."""
+    n = 1
+    for s in shape:
+        n *= int(s)
+    if mode == "sr":
+        bits = _words(n, generator)
+    elif mode == "sr_lo":
+        bits = sliding_window_bits(_words((n + 31) // 32 + 1, generator), n)
     else:
-        n_words = -(-n // lo_block)
-        words = torch.randint(0, 1 << 32, (n_words,), generator=generator,
-                              dtype=torch.int64, device=generator.device)
-        idx = torch.arange(n, dtype=torch.int64, device=generator.device)
-        wd = words[idx // lo_block]
-        rot = idx % 32
-        w = ((wd >> rot) | (wd << ((32 - rot) % 32))) & 0xFFFFFFFF
-    w = torch.where(w >= 1 << 31, w - (1 << 32), w).to(torch.int32)
-    return w.reshape(tuple(shape)).to(device)
+        raise ValueError(f"no SR entropy for rounding mode {mode!r}")
+    return bits.reshape(tuple(shape)).to(device or generator.device)
+
+
+def stochastic_round_bf16(x: torch.Tensor,
+                          generator: Optional[torch.Generator] = None, *,
+                          rbits: Optional[torch.Tensor] = None
+                          ) -> torch.Tensor:
+    """Unbiased f32 -> bf16 with fresh bits per element (paper's ``SR``):
+    `rbits` (x's shape) when given, else drawn from `generator`."""
+    if rbits is None:
+        rbits = sr_bits("sr", x.shape, generator, x.device)
+    return sr_cast_bf16(x, rbits)
+
+
+def stochastic_round_bf16_lo(x: torch.Tensor,
+                             generator: Optional[torch.Generator] = None, *,
+                             stream: Optional[torch.Tensor] = None
+                             ) -> torch.Tensor:
+    """Low-overhead SR (paper's ``SR LO``): the sliding 16-bit window of a
+    shared word stream — `stream` (``ceil(n/32)+1`` words) when given,
+    else drawn from `generator`."""
+    n = x.numel()
+    if stream is None:
+        stream = _words((n + 31) // 32 + 1, generator)
+    rbits = sliding_window_bits(stream.to(x.device), n)
+    return sr_cast_bf16(x, rbits.reshape(x.shape))
+
+
+def round_nearest_bf16(x: torch.Tensor) -> torch.Tensor:
+    """Deterministic round-to-nearest-even baseline."""
+    return x.to(torch.bfloat16)
+
+
+def sr_by_name(name: str) -> Callable:
+    """The writeback of rounding mode 'sr' | 'sr_lo' | 'nearest'."""
+    if name == "sr":
+        return stochastic_round_bf16
+    if name == "sr_lo":
+        return stochastic_round_bf16_lo
+    if name == "nearest":
+        return lambda x, generator=None: round_nearest_bf16(x)
+    raise ValueError(f"unknown rounding mode {name!r}")

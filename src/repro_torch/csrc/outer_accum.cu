@@ -1,0 +1,134 @@
+// outer_accum: the FC weight update dW(D, F) = scale * X(T, D)^T . dY(T, F)
+// with an optional fused stochastic-rounding (SR) bf16 writeback — the
+// UP phase of every weight op (paper §3.2, Fig 8).
+//
+// Replaces the TPU kernel repro/kernels/outer_accum.py::outer_accum
+// (pl.pallas_call at outer_accum.py:80, body _outer_kernel), whose
+// (i, j, l) grid kept an f32 (bd, bf) tile in VMEM across the token
+// reduction l, read X transposed through its BlockSpec wiring and
+// masked the ragged token tail of both operands (t_rem).  Here:
+//
+// - one 128-thread block owns a 32 x 32 tile of dW and walks all T
+//   tokens in 64-deep steps inside the block, the f32 accumulator in
+//   WMMA registers (Hopper has no sequential grid axis), each step's
+//   partial product added to it in f32 (promote, common.cuh);
+// - X is read transposed by wiring: its (T, D) row-major tile is staged
+//   as [t][d] and loaded as a col_major matrix_a fragment, so A = X^T
+//   never exists in memory;
+// - the tile loader zero-fills every element past T, D or F, which
+//   replaces the t_rem masking (a ragged tail never reads past X or dY);
+// - the scale and the SR writeback (sr_bf16_bits, common.cuh) run once,
+//   in the epilogue: dW makes one pass to device memory.
+//
+// f32 operands (the fp32 preset) take outer_accum_f32_kernel, the same
+// tiles on the CUDA cores with fmaf (common.cuh's SIMT path).
+//
+// What bounds it on the H100: at a training step's shapes (T = 1024
+// tokens, D, F in the hundreds to 151936) the product is compute-bound
+// (2 T D F flops against 2 (T D + T F) + 2-4 D F bytes).  This first
+// kernel does not reach that bound: WMMA 16x16x16 fragments from
+// unpipelined shared-memory tiles, and each X / dY element is read once
+// per 32-wide output tile (PERF.md has its time beside the bound).
+#include "common.cuh"
+
+namespace rt {
+
+constexpr int LDX = TM + 8;   // X tile stored [TK][TM] (bf16; +8 skews banks)
+
+__global__ void __launch_bounds__(THREADS)
+    outer_accum_kernel(const bf16* __restrict__ X, const bf16* __restrict__ Y,
+                       const uint32_t* __restrict__ rbits,
+                       void* __restrict__ out, int T, int D, int F,
+                       float scale, int sr, int vec_x, int vec_y) {
+  __shared__ __align__(128) bf16 Xs[TK * LDX];       // [t][d]
+  __shared__ __align__(128) bf16 Ys[TK * LDB_ROW];   // [t][f]
+  __shared__ __align__(128) float Cs[TM * LDC];
+
+  const int d0 = blockIdx.y * TM, f0 = blockIdx.x * TN;
+  const int warp = threadIdx.x / 32;
+  const int ar = (warp / 2) * 16, bc = (warp % 2) * 16;
+
+  AccFrag acc, part;
+  wmma::fill_fragment(acc, 0.f);
+  for (int t0 = 0; t0 < T; t0 += TK) {
+    load_tile<TK, TM, LDX>(Xs, X, D, t0, d0, T, D, vec_x);
+    load_tile<TK, TN, LDB_ROW>(Ys, Y, F, t0, f0, T, F, vec_y);
+    __syncthreads();
+    wmma::fill_fragment(part, 0.f);
+#pragma unroll
+    for (int kk = 0; kk < TK; kk += 16) {
+      // A = X^T: element (d, t) sits at Xs[t][d] — column-major A
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> fa;
+      wmma::load_matrix_sync(fa, Xs + kk * LDX + ar, LDX);
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
+      wmma::load_matrix_sync(fb, Ys + kk * LDB_ROW + bc, LDB_ROW);
+      wmma::mma_sync(part, fa, fb, part);
+    }
+    promote(acc, part);
+    __syncthreads();
+  }
+  wmma::store_matrix_sync(Cs + ar * LDC + bc, acc, LDC, wmma::mem_row_major);
+  __syncthreads();
+
+  for (int e = threadIdx.x; e < TM * TN; e += blockDim.x) {
+    const int r = e / TN, c = e % TN;
+    const int gd = d0 + r, gf = f0 + c;
+    if (gd < D && gf < F)
+      store_out(out, rbits, (size_t)gd * F + gf, Cs[r * LDC + c] * scale, sr);
+  }
+}
+
+__global__ void __launch_bounds__(THREADS)
+    outer_accum_f32_kernel(const float* __restrict__ X,
+                           const float* __restrict__ Y,
+                           const uint32_t* __restrict__ rbits,
+                           void* __restrict__ out, int T, int D, int F,
+                           float scale, int sr) {
+  __shared__ float Xs[TK * LDF];   // [t][d]
+  __shared__ float Ys[TK * LDF];   // [t][f]
+  const int d0 = blockIdx.y * TM, f0 = blockIdx.x * TN;
+  float acc[F_ROWS] = {};
+  for (int t0 = 0; t0 < T; t0 += TK) {
+    load_tile_f32<TK, TM, false>(Xs, X, D, t0, d0, T, D);
+    load_tile_f32<TK, TN, false>(Ys, Y, F, t0, f0, T, F);
+    __syncthreads();
+    fma_step(acc, Xs, Ys);
+    __syncthreads();
+  }
+  const int gf = f0 + threadIdx.x % TN;
+#pragma unroll
+  for (int i = 0; i < F_ROWS; ++i) {
+    const int gd = d0 + threadIdx.x / TN + F_STRIDE * i;
+    if (gd < D && gf < F)
+      store_out(out, rbits, (size_t)gd * F + gf, acc[i] * scale, sr);
+  }
+}
+
+}  // namespace rt
+
+// out(D, F) = scale * x(T, D)^T . dy(T, F): f32 without SR, bf16 (SR
+// from rbits, uint32 D x F) with it.  f32 selects the f32 operand path
+// (x and dy both f32), else both are bf16.  The grid (ceil(F/TN),
+// ceil(D/TM)) comes from the caller's loop nest.  One launch on
+// `stream`; returns cudaGetLastError().
+extern "C" int outer_accum(const void* x, const void* dy, const void* rbits,
+                           void* out, int T, int D, int F, float scale,
+                           int sr, int f32, int grid_x, int grid_y,
+                           void* stream) {
+  using namespace rt;
+  const dim3 grid(grid_x, grid_y);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const uint32_t* R = static_cast<const uint32_t*>(rbits);
+  if (f32) {
+    outer_accum_f32_kernel<<<grid, THREADS, 0, st>>>(
+        static_cast<const float*>(x), static_cast<const float*>(dy), R, out,
+        T, D, F, scale, sr);
+  } else {
+    const int vec_x = aligned16(x) && D % 8 == 0;
+    const int vec_y = aligned16(dy) && F % 8 == 0;
+    outer_accum_kernel<<<grid, THREADS, 0, st>>>(
+        static_cast<const bf16*>(x), static_cast<const bf16*>(dy), R, out, T,
+        D, F, scale, sr, vec_x, vec_y);
+  }
+  return static_cast<int>(cudaGetLastError());
+}

@@ -5,7 +5,9 @@
 // (pl.pallas_call at sr_matmul.py:96, body _mm_kernel), whose (i, j, l)
 // grid kept an f32 tile resident in VMEM across the reduction l.  Here
 // the grid is (j, i) over 32 x 32 output tiles and the l counter is the
-// loop inside each block; the accumulator stays in registers across it.
+// loop inside each block; the accumulator stays in registers across it,
+// each 64-deep step's partial product added to it in f32 (promote,
+// common.cuh).
 //
 // What bounds it on the H100: at the serving shapes (a 32-token PREFILL
 // chunk, M = 32) every weight byte is used by only 32 rows, so the
@@ -20,6 +22,14 @@
 // reading them column-major — the counter-swept transpose, no transposed
 // copy in memory.  A ragged K tail is zero-filled on both operands, and a
 // ragged M / N edge is masked on store.
+//
+// Training runs it in two roles: FF (A = activations, B = W) and BP
+// (dX = dY . W^T, B = W read through trans_b; for the tied LM head
+// dX = g . table with K = vocab = 151936, the longest reduction of the
+// step).  The fp32 precision preset gives it f32 operands, which take
+// sr_matmul_f32_kernel: the same tiles, f32 in shared memory, fmaf on
+// the CUDA cores (common.cuh), no TF32 — the TPU kernel accepts f32
+// operands too.
 #include "common.cuh"
 
 namespace rt {
@@ -37,7 +47,7 @@ __global__ void __launch_bounds__(THREADS)
   const int warp = threadIdx.x / 32;
   const int ar = (warp / 2) * 16, bc = (warp % 2) * 16;
 
-  AccFrag acc;
+  AccFrag acc, part;
   wmma::fill_fragment(acc, 0.f);
   for (int k0 = 0; k0 < K; k0 += TK) {
     load_tile<TM, TK, LDA>(As, A, K, m0, k0, M, K, vec_a);
@@ -46,7 +56,9 @@ __global__ void __launch_bounds__(THREADS)
     else
       load_tile<TK, TN, LDB_ROW>(Bs, B, N, k0, n0, K, N, vec_b);
     __syncthreads();
-    mma_step<TRANS_B>(acc, As, Bs, ar, bc);
+    wmma::fill_fragment(part, 0.f);
+    mma_step<TRANS_B>(part, As, Bs, ar, bc);
+    promote(acc, part);
     __syncthreads();
   }
   wmma::store_matrix_sync(Cs + ar * LDC + bc, acc, LDC, wmma::mem_row_major);
@@ -62,6 +74,34 @@ __global__ void __launch_bounds__(THREADS)
       reinterpret_cast<uint16_t*>(out)[o] = sr_bf16_bits(v, rbits[o]);
     else
       reinterpret_cast<float*>(out)[o] = v;
+  }
+}
+
+template <bool TRANS_B>
+__global__ void __launch_bounds__(THREADS)
+    sr_matmul_f32_kernel(const float* __restrict__ A,
+                         const float* __restrict__ B,
+                         const uint32_t* __restrict__ rbits,
+                         void* __restrict__ out, int M, int N, int K, int sr) {
+  __shared__ float As[TK * LDF];   // [k][m]
+  __shared__ float Bs[TK * LDF];   // [k][n]
+  const int m0 = blockIdx.y * TM, n0 = blockIdx.x * TN;
+  float acc[F_ROWS] = {};
+  for (int k0 = 0; k0 < K; k0 += TK) {
+    load_tile_f32<TM, TK, true>(As, A, K, m0, k0, M, K);
+    if constexpr (TRANS_B)
+      load_tile_f32<TN, TK, true>(Bs, B, K, n0, k0, N, K);
+    else
+      load_tile_f32<TK, TN, false>(Bs, B, N, k0, n0, K, N);
+    __syncthreads();
+    fma_step(acc, As, Bs);
+    __syncthreads();
+  }
+  const int gn = n0 + threadIdx.x % TN;
+#pragma unroll
+  for (int i = 0; i < F_ROWS; ++i) {
+    const int gm = m0 + threadIdx.x / TN + F_STRIDE * i;
+    if (gm < M && gn < N) store_out(out, rbits, (size_t)gm * N + gn, acc[i], sr);
   }
 }
 
@@ -89,5 +129,24 @@ extern "C" int sr_matmul_bf16(const void* a, const void* b, const void* rbits,
   else
     sr_matmul_kernel<false><<<grid, THREADS, 0, st>>>(A, B, R, out, M, N, K,
                                                       sr, vec_a, vec_b);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The same product for f32 A and B (the fp32 preset): SIMT f32 FMA.
+extern "C" int sr_matmul_f32(const void* a, const void* b, const void* rbits,
+                             void* out, int M, int N, int K, int trans_b,
+                             int sr, int grid_x, int grid_y, void* stream) {
+  using namespace rt;
+  const dim3 grid(grid_x, grid_y);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* A = static_cast<const float*>(a);
+  const float* B = static_cast<const float*>(b);
+  const uint32_t* R = static_cast<const uint32_t*>(rbits);
+  if (trans_b)
+    sr_matmul_f32_kernel<true><<<grid, THREADS, 0, st>>>(A, B, R, out, M, N,
+                                                         K, sr);
+  else
+    sr_matmul_f32_kernel<false><<<grid, THREADS, 0, st>>>(A, B, R, out, M, N,
+                                                          K, sr);
   return static_cast<int>(cudaGetLastError());
 }

@@ -2,7 +2,21 @@
 
 ``pe_dot(x, w, word=...)`` issues one PE program word (§4, Fig 12): the
 compiled :class:`~repro_torch.core.program.PEWord` says which kernel each
-phase uses.  This slice ports the forward-only serving words:
+phase uses.  Training runs the three-phase word as one
+``torch.autograd.Function`` (the reference's ``_pe_matmul`` custom_vjp):
+
+  FF — the ``sr_matmul`` MAC-array kernel at the word's FF dtype (f32
+       accumulation),
+  BP — dX = dY . W^T through ``sr_matmul`` with ``trans_b``: W is read
+       transposed by the kernel, never materialised transposed,
+  UP — dW = X^T dY through the ``outer_accum`` kernel, with the SR-bf16
+       writeback fused when the word's rounding is sr / sr_lo and W is
+       stored bf16.  Its entropy is drawn in backward only (a remat
+       recompute of FF draws nothing), from a generator seeded by
+       :func:`up_key` of the op's :func:`op_key` — or from an injected
+       ``entropy(op, dY)`` hook, so tests can feed the reference's bits.
+
+Serving phases dispatch forward-only words:
 
   PREFILL — the ``sr_matmul`` MAC-array kernel on a prompt chunk
             (f32 accumulation, no SR entropy),
@@ -20,28 +34,99 @@ Backends:
               float64, where a sum of bf16 products is exact, so a row's
               result does not depend on how many rows share the call —
               chunked prefill and token-by-token decode then agree bit
-              for bit, the engine's invariant.
+              for bit, the engine's invariant.  Training differentiates
+              it with autograd.
   cuda      — the hand-written kernels (their plain versions when the
               tensors lie on the CPU).
-
-The training words (FF / BP / UP with the custom backward) come with the
-training slice.
 """
 from __future__ import annotations
 
-from typing import Optional
+import struct
+import zlib
+from typing import Callable, Optional
 
 import torch
 
 from repro_torch.core.phases import Phase
 from repro_torch.core.precision import dtype_from_name
 from repro_torch.core.program import PEWord
+from repro_torch.core.rounding import fold_key, make_rbits
 from repro_torch.kernels import decode_fused as kdf
+from repro_torch.kernels import outer_accum as koa
 from repro_torch.kernels import sr_matmul as kmm
 
 BACKENDS = ("reference", "cuda")
 SERVING_PHASES = (Phase.PREFILL, Phase.DECODE, Phase.DRAFT)
 DEFAULT_WORD = PEWord(op="dot")
+
+
+def op_key(key: Optional[int], op_name: str) -> int:
+    """Per-op entropy stream: the op name's crc32 folded into the step
+    key (crc32, not hash(): reproducible across processes)."""
+    return fold_key(0 if key is None else key,
+                    zlib.crc32(op_name.encode()) & 0x7FFFFFFF)
+
+
+def up_key(key: int, dy: torch.Tensor) -> int:
+    """The UP draw's seed: the op key folded with the f32 bit pattern of
+    sum(dY).  The (step, op) pair alone recurs for every layer of the
+    stack, every microbatch and every same-shaped slice of a fused
+    weight; folding the gradient's content decorrelates those draws.
+    (One host read of the sum per UP op.)"""
+    s = float(dy.to(torch.float32).sum())
+    return fold_key(key, struct.unpack("<I", struct.pack("<f", s))[0])
+
+
+def _up_rbits(word: PEWord, dyt: torch.Tensor, shape: tuple,
+              key: Optional[int], entropy: Optional[Callable]
+              ) -> torch.Tensor:
+    if entropy is not None:
+        return entropy(word.op, dyt).to(dyt.device)
+    gen = torch.Generator(device=dyt.device)
+    gen.manual_seed(up_key(0 if key is None else key, dyt))
+    return make_rbits(shape, gen, device=dyt.device,
+                      lo=word.update_rounding == "sr_lo")
+
+
+def _ff(x2: torch.Tensor, w: torch.Tensor, word: PEWord,
+        transpose_w: bool) -> torch.Tensor:
+    dt = dtype_from_name(word.ff_dtype)
+    y = kmm.sr_matmul(x2.to(dt).contiguous(), w.to(dt).contiguous(), None,
+                      trans_b=transpose_w)
+    return y.to(x2.dtype)
+
+
+class _PEMatmul(torch.autograd.Function):
+    """The FF / BP / UP program word of one 2-D weight matmul."""
+
+    @staticmethod
+    def forward(ctx, x2, w, word: PEWord, transpose_w: bool,
+                key: Optional[int], entropy: Optional[Callable]):
+        ctx.save_for_backward(x2, w)
+        ctx.cfg = (word, transpose_w, key, entropy)
+        return _ff(x2, w, word, transpose_w)
+
+    @staticmethod
+    def backward(ctx, g):
+        x2, w = ctx.saved_tensors
+        word, transpose_w, key, entropy = ctx.cfg
+        bp = dtype_from_name(word.bp_dtype)
+        gb = g.to(bp).contiguous()
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            # BP: f32 accumulation, no SR (the gradient signal is
+            # transient, not persistent state)
+            dx = kmm.sr_matmul(gb, w.to(bp).contiguous(), None,
+                               trans_b=not transpose_w).to(x2.dtype)
+        if ctx.needs_input_grad[1]:
+            xb = x2.to(bp).contiguous()
+            xt, dyt = (gb, xb) if transpose_w else (xb, gb)
+            sr = (word.update_rounding in ("sr", "sr_lo")
+                  and w.dtype == torch.bfloat16)
+            rbits = (_up_rbits(word, dyt, (xt.shape[1], dyt.shape[1]), key,
+                               entropy) if sr else None)
+            dw = koa.outer_accum(xt, dyt, rbits=rbits).to(w.dtype)
+        return dx, dw, None, None, None, None
 
 
 def _reference_dot(x: torch.Tensor, w: torch.Tensor,
@@ -65,22 +150,22 @@ def _matvec(x: torch.Tensor, w: torch.Tensor, word: PEWord,
 def _prefill(x: torch.Tensor, w: torch.Tensor, word: PEWord,
              transpose_w: bool) -> torch.Tensor:
     """The PREFILL word: the sr_matmul kernel over the chunk's rows."""
-    dt = dtype_from_name(word.ff_dtype)
-    lead = x.shape[:-1]
-    x2 = x.reshape(-1, x.shape[-1]).to(dt).contiguous()
-    y = kmm.sr_matmul(x2, w.to(dt).contiguous(), None, trans_b=transpose_w)
-    n = w.shape[0] if transpose_w else w.shape[-1]
-    return y.to(x.dtype).reshape(*lead, n)
+    y = _ff(x.reshape(-1, x.shape[-1]), w, word, transpose_w)
+    return y.reshape(*x.shape[:-1], y.shape[-1])
 
 
 def pe_dot(x: torch.Tensor, w: torch.Tensor, *,
            word: Optional[PEWord] = None, backend: str = "reference",
-           transpose_w: bool = False,
-           phase: Phase = Phase.PREFILL) -> torch.Tensor:
+           transpose_w: bool = False, phase: Phase = Phase.PREFILL,
+           key: Optional[int] = None,
+           entropy: Optional[Callable] = None) -> torch.Tensor:
     """Dispatch one weight-bearing matmul through its PE program word.
 
     x: (..., K); w: (K, N), or (N, K) with transpose_w.  Returns
-    (..., N) in x.dtype.
+    (..., N) in x.dtype.  `phase` selects the word's column: FF (or BP /
+    UP) runs the differentiable three-phase word, the serving phases the
+    forward-only words.  `key` seeds the UP phase's SR entropy (the op's
+    :func:`op_key`); `entropy(op, dY) -> rbits` replaces that draw.
     """
     word = word or DEFAULT_WORD
     if backend not in BACKENDS:
@@ -90,8 +175,10 @@ def pe_dot(x: torch.Tensor, w: torch.Tensor, *,
     if backend == "reference" or kern == "vpu":
         return _reference_dot(x, w, transpose_w)
     if phase not in SERVING_PHASES:
-        raise NotImplementedError(
-            f"{phase} words come with the training slice of the port")
+        lead = x.shape[:-1]
+        y2 = _PEMatmul.apply(x.reshape(-1, x.shape[-1]), w, word,
+                             transpose_w, key, entropy)
+        return y2.reshape(*lead, y2.shape[-1])
     if kern in ("matvec", "decode_fused"):
         return _matvec(x, w, word, transpose_w)
     return _prefill(x, w, word, transpose_w)

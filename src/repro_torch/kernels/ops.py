@@ -13,9 +13,27 @@ import torch
 
 from repro_torch.core.rounding import make_rbits
 from repro_torch.kernels import decode_fused as _df
+from repro_torch.kernels import outer_accum as _oa
 from repro_torch.kernels import sr_matmul as _mm
+from repro_torch.kernels import sr_round as _rr
 
 fused_attn_unit = _df.fused_attn_unit
+
+
+def _entropy(shape, generator, lo: bool, device) -> torch.Tensor:
+    if generator is None:
+        raise ValueError("SR needs rbits or a generator")
+    return make_rbits(shape, generator, device=device, lo=lo)
+
+
+def sr_round(x: torch.Tensor, generator: Optional[torch.Generator] = None,
+             *, lo: bool = False,
+             rbits: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Stochastically round f32 to bf16 with `rbits` when given, else with
+    bits drawn from `generator` (lo=True: the shared-entropy layout)."""
+    if rbits is None:
+        rbits = _entropy(x.shape, generator, lo, x.device)
+    return _rr.sr_round(x, rbits)
 
 
 def sr_matmul(a: torch.Tensor, b: torch.Tensor,
@@ -29,12 +47,24 @@ def sr_matmul(a: torch.Tensor, b: torch.Tensor,
     `generator` (lo=True: the shared-entropy layout).
     """
     if sr and rbits is None:
-        if generator is None:
-            raise ValueError("sr=True needs rbits or a generator")
         n = b.shape[0] if trans_b else b.shape[1]
-        rbits = make_rbits((a.shape[0], n), generator, device=a.device,
-                           lo=lo)
+        rbits = _entropy((a.shape[0], n), generator, lo, a.device)
     return _mm.sr_matmul(a, b, rbits if sr else None, trans_b=trans_b)
 
 
-__all__ = ["make_rbits", "sr_matmul", "fused_attn_unit"]
+def outer_accum(x: torch.Tensor, dy: torch.Tensor,
+                generator: Optional[torch.Generator] = None, *,
+                scale: float = 1.0, sr: bool = False, lo: bool = False,
+                rbits: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """FC-UP: dW = scale * X^T dY (fused minibatch average + SR).
+
+    sr=True rounds with `rbits` when given, else with bits drawn from
+    `generator` (lo=True: the shared-entropy layout).
+    """
+    if sr and rbits is None:
+        rbits = _entropy((x.shape[1], dy.shape[1]), generator, lo, x.device)
+    return _oa.outer_accum(x, dy, scale=scale, rbits=rbits if sr else None)
+
+
+__all__ = ["make_rbits", "sr_matmul", "outer_accum", "sr_round",
+           "fused_attn_unit"]

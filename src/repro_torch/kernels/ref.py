@@ -1,13 +1,15 @@
 """Plain torch oracles for the kernels (the reference's ``kernels/ref.py``).
 
 The plain version of each ported kernel lives beside its wrapper
-(``sr_matmul.sr_matmul_plain``, ``decode_fused.fused_attn_unit_plain``);
+(``sr_matmul.sr_matmul_plain``, ``outer_accum.outer_accum_plain``,
+``sr_round.sr_round_plain``, ``decode_fused.fused_attn_unit_plain``);
 this module re-exports them with the SR cast under the reference's names.
 """
 from __future__ import annotations
 
 from repro_torch.core.rounding import sr_cast_bf16
 from repro_torch.kernels.decode_fused import fused_attn_unit_plain
+from repro_torch.kernels.outer_accum import outer_accum_plain
 from repro_torch.kernels.sr_matmul import sr_matmul_plain
 
 
@@ -19,5 +21,10 @@ def sr_matmul_ref(a, b, rbits=None, *, trans_b: bool = False):
     return sr_matmul_plain(a, b, rbits, trans_b=trans_b)
 
 
+def outer_accum_ref(x, dy, *, scale: float = 1.0, rbits=None):
+    """FC weight update (paper Fig 8): dW = scale * X^T dY, f32 or SR-bf16."""
+    return outer_accum_plain(x, dy, scale=scale, rbits=rbits)
+
+
 __all__ = ["sr_cast_bf16", "sr_round_ref", "sr_matmul_ref",
-           "fused_attn_unit_plain"]
+           "outer_accum_ref", "fused_attn_unit_plain"]

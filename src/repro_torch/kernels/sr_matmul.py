@@ -1,11 +1,12 @@
-"""sr_matmul: bf16 matmul, f32 accumulation, optional fused SR-bf16 cast.
+"""sr_matmul: matmul with f32 accumulation, optional fused SR-bf16 cast.
 
 Port of the TPU kernel ``repro/kernels/sr_matmul.py::sr_matmul``.  The
 CUDA kernel is ``csrc/sr_matmul.cu`` (its header says what bounds it on
 the H100 and how it is tiled); :func:`sr_matmul_plain` is its plain torch
 version.  :func:`sr_matmul` runs the plain version for tensors on the
 CPU and the kernel for tensors on a CUDA device — never one in place of
-the other.
+the other.  Operands are both bf16 (tensor cores) or both f32 (the fp32
+preset: f32 FMA on the CUDA cores, no TF32).
 """
 from __future__ import annotations
 
@@ -23,8 +24,8 @@ COUNTER = build.LaunchCounter("sr_matmul")
 TILE = (32, 32, 64)
 
 
-def _bind(lib: ctypes.CDLL):
-    fn = lib.sr_matmul_bf16
+def _bind(lib: ctypes.CDLL, f32: bool):
+    fn = lib.sr_matmul_f32 if f32 else lib.sr_matmul_bf16
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 \
         + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -58,19 +59,20 @@ def sr_matmul(a: torch.Tensor, b: torch.Tensor,
               trans_b: bool = False) -> torch.Tensor:
     """a (M, K) @ b (K, N) — or a @ b.T for b (N, K) with trans_b.
 
-    Returns f32 without rbits, SR-bf16 with rbits (int32 bit patterns,
-    (M, N)).  CPU tensors take the plain version; CUDA tensors launch the
-    hand-written kernel on the current stream (no synchronisation), and
-    anything the kernel does not take raises.
+    Operands both bf16 or both f32.  Returns f32 without rbits, SR-bf16
+    with rbits (int32 bit patterns, (M, N)).  CPU tensors take the plain
+    version; CUDA tensors launch the hand-written kernel on the current
+    stream (no synchronisation), and anything the kernel does not take
+    raises.
     """
     m, n, k = _shapes(a, b, trans_b)
     if a.device.type == "cpu" and b.device.type == "cpu":
         return sr_matmul_plain(a, b, rbits, trans_b=trans_b)
     if a.device.type != "cuda" or b.device != a.device:
         raise ValueError(f"sr_matmul: operands on {a.device} and {b.device}")
-    if a.dtype != torch.bfloat16 or b.dtype != torch.bfloat16:
-        raise TypeError(f"sr_matmul kernel takes bf16, got {a.dtype}, "
-                        f"{b.dtype}")
+    if a.dtype != b.dtype or a.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"sr_matmul kernel takes two bf16 or two f32 "
+                        f"operands, got {a.dtype}, {b.dtype}")
     if not (a.is_contiguous() and b.is_contiguous()):
         raise ValueError("sr_matmul kernel takes contiguous operands")
     sr = rbits is not None
@@ -86,7 +88,7 @@ def sr_matmul(a: torch.Tensor, b: torch.Tensor,
     # the (i, j, l) counter bank: i, j become the grid, l the block's loop
     nest = matmul_nest(m, n, k, tm=TILE[0], tn=TILE[1], tk=TILE[2])
     grid_x, grid_y = nest.launch_grid("j", "i")
-    fn = _bind(build.load("sr_matmul"))
+    fn = _bind(build.load("sr_matmul"), a.dtype == torch.float32)
     err = fn(build.ptr(a), build.ptr(b),
              build.ptr(rbits) if sr else None, build.ptr(out),
              m, n, k, int(trans_b), int(sr), grid_x, grid_y,

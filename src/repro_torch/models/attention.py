@@ -1,4 +1,11 @@
-"""GQA attention against a KV cache: the serving subset.
+"""GQA attention: flash-style training attention and KV-cache serving.
+
+``flash_attention`` / ``attention_block`` are the training path: an
+online softmax over KV chunks in f32 (running max and denominator), one
+``torch.utils.checkpoint`` per q chunk so backward re-runs the KV loop
+instead of keeping every probability tile.  They are plain torch, as the
+reference computes them in jnp (no TPU kernel), and they are not
+``scaled_dot_product_attention``, whose numerics differ.
 
 ``chunk_attend`` is multi-token attention against the cache (chunked
 prefill); ``decode_attend`` is the same function at one token, so each
@@ -12,8 +19,11 @@ import math
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import AttentionConfig, ModelConfig
+from repro_torch.engine.context import PEContext
+from repro_torch.models.layers import apply_rope
 
 NEG_INF = -1e30
 _F32, _F64 = torch.float32, torch.float64
@@ -29,6 +39,82 @@ def split_qkv(cfg: AttentionConfig, qkv: torch.Tensor,
     B, S = q.shape[:2]
     return (q.reshape(B, S, K, H // K, hd), k.reshape(B, S, K, hd),
             v.reshape(B, S, K, hd))
+
+
+def _pick_chunk(s: int, target: int = 1024) -> int:
+    if s <= target:
+        return s
+    c = target
+    while s % c:
+        c //= 2
+    return max(c, 1)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: Optional[int] = None,
+                    q_offset: int = 0) -> torch.Tensor:
+    """Online-softmax attention (the reference's arithmetic).
+
+    q: (B, Sq, K, G, hd); k, v: (B, Skv, K, hd).  Returns
+    (B, Sq, K, G, hd) in q's dtype.  Scores and PV accumulate in f32;
+    the unnormalised probabilities are cast to v's dtype before PV.
+    """
+    B, Sq, K, G, hd = q.shape
+    Skv = k.shape[1]
+    scale = 1.0 / math.sqrt(hd)
+    cq, ck = _pick_chunk(Sq), _pick_chunk(Skv)
+    dev = q.device
+    qpos_all = q_offset + torch.arange(Sq, dtype=torch.int32, device=dev)
+    kpos_all = torch.arange(Skv, dtype=torch.int32, device=dev)
+
+    def one_q_chunk(qb, qpos):
+        m = torch.full((B, K, G, cq), NEG_INF, dtype=_F32, device=dev)
+        l = torch.zeros((B, K, G, cq), dtype=_F32, device=dev)
+        acc = torch.zeros((B, K, G, cq, hd), dtype=_F32, device=dev)
+        for k0 in range(0, Skv, ck):
+            kb, vb = k[:, k0:k0 + ck], v[:, k0:k0 + ck]
+            kpos = kpos_all[k0:k0 + ck]
+            s = torch.einsum("bqkgh,bskh->bkgqs", qb.to(_F32),
+                             kb.to(_F32)) * scale
+            mask = torch.ones((cq, ck), dtype=torch.bool, device=dev)
+            if causal:
+                mask &= qpos[:, None] >= kpos[None, :]
+            if window is not None:
+                mask &= (qpos[:, None] - kpos[None, :]) < window
+            s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+            m_new = torch.maximum(m, torch.amax(s, dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + torch.sum(p, dim=-1)
+            pv = torch.einsum("bkgqs,bskh->bkgqh", p.to(vb.dtype).to(_F32),
+                              vb.to(_F32))
+            acc = acc * corr[..., None] + pv
+            m = m_new
+        out = acc / torch.clamp_min(l, 1e-30)[..., None]    # (B,K,G,cq,hd)
+        return out.permute(0, 3, 1, 2, 4)                   # (B,cq,K,G,hd)
+
+    outs = [checkpoint(one_q_chunk, q[:, q0:q0 + cq], qpos_all[q0:q0 + cq],
+                       use_reentrant=False) for q0 in range(0, Sq, cq)]
+    return torch.cat(outs, dim=1).to(q.dtype)
+
+
+def attention_block(cfg: ModelConfig, x: torch.Tensor, params: dict,
+                    sh: PEContext, *, positions: torch.Tensor,
+                    causal: bool = True, rope: bool = True,
+                    op_prefix: str = "attn") -> torch.Tensor:
+    """Training attention over the full sequence.  x: (B, S, d)."""
+    a = cfg.attention
+    qkv = sh.dot(f"{op_prefix}_qkv", x, params["qkv"])
+    q, k, v = split_qkv(a, qkv, params.get("qkv_bias"))
+    B, S = x.shape[:2]
+    if rope:
+        K_, G, hd = q.shape[2:]
+        q = apply_rope(q.reshape(B, S, K_ * G, hd), positions,
+                       a.rope_theta).reshape(B, S, K_, G, hd)
+        k = apply_rope(k, positions, a.rope_theta)
+    out = flash_attention(q, k, v, causal=causal,
+                          window=a.window if causal else None)
+    return sh.dot(f"{op_prefix}_o", out.reshape(B, S, -1), params["o"])
 
 
 def chunk_attend(q: torch.Tensor, k_cache: torch.Tensor,
@@ -116,16 +202,19 @@ def update_cache_chunk(cache: dict, k: torch.Tensor, v: torch.Tensor,
     return cache
 
 
-def attn_params(cfg: ModelConfig, generator: torch.Generator,
+def attn_params(cfg: ModelConfig, generator: Optional[torch.Generator],
                 lead: tuple = ()) -> dict:
-    """Attention weights drawn on the generator's device (f32)."""
+    """Attention weights drawn on the generator's device (f32); without a
+    generator, the same tree on the meta device (shapes only)."""
     a = cfg.attention
     d = cfg.d_model
     q_out = a.n_heads * a.head_dim
     kv_out = 2 * a.n_kv_heads * a.head_dim
-    dev = generator.device
+    dev = generator.device if generator is not None else torch.device("meta")
 
     def normal(*shape):
+        if generator is None:
+            return torch.empty(lead + shape, dtype=_F32, device=dev)
         return torch.randn(lead + shape, generator=generator, dtype=_F32,
                            device=dev)
 

@@ -15,6 +15,7 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.engine.context import PEContext
@@ -138,3 +139,51 @@ def lm_logits(x: torch.Tensor, cfg: ModelConfig, params: dict,
         y = sh.dot("embed", x, params["embed"]["table"], transpose_w=True)
         return y.to(_F32)
     return sh.dot("lm_head", x, params["lm_head"]).to(_F32)
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor
+                  ) -> torch.Tensor:
+    """Mean token NLL; logits f32 (B, S, V), labels (B, S)."""
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.to(torch.int64)[..., None])[..., 0]
+    return torch.mean(lse - gold)
+
+
+def loss_chunks(B: int, S: int, V: int) -> int:
+    """The reference's chunk count: about 128 MB of f32 logits per
+    chunk, a divisor of B."""
+    n = max(1, min(B, round(B * S * V * 4.0 / 128e6)))
+    while B % n:
+        n -= 1
+    return n
+
+
+def lm_loss_chunked(cfg: ModelConfig, x: torch.Tensor, params: dict,
+                    labels: torch.Tensor, sh: PEContext,
+                    n_chunks: int = 0) -> torch.Tensor:
+    """Cross-entropy without materialising the full (B, S, V) logits.
+
+    The LM head and the softmax run per batch chunk under
+    ``torch.utils.checkpoint``, so forward and backward each hold one
+    chunk of logits at a time.  Chunks are strided (row r -> chunk
+    r % n), and n is the reference's: about 128 MB of f32 logits per
+    chunk, a divisor of B (4 chunks at B=4, S=256 for qwen2-0.5b).
+    """
+    B, S, _ = x.shape
+    n_chunks = n_chunks or loss_chunks(B, S, cfg.vocab_size)
+    tied = cfg.tie_embeddings
+    head_op = "embed" if tied else "lm_head"
+    w = params["embed"]["table"] if tied else params["lm_head"]
+
+    def piece(xc, lc):
+        # logits stay in the activation dtype; only the reductions run f32
+        logits = sh.dot(head_op, xc, w, transpose_w=tied)
+        lse = torch.logsumexp(logits.to(_F32), dim=-1)
+        gold = torch.gather(logits, -1, lc.to(torch.int64)[..., None])
+        return torch.sum(lse - gold[..., 0].to(_F32))
+
+    total = torch.zeros((), dtype=_F32, device=x.device)
+    for c in range(n_chunks):
+        total = total + checkpoint(piece, x[c::n_chunks], labels[c::n_chunks],
+                                   use_reentrant=False)
+    return total / (B * S)

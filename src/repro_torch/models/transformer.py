@@ -1,14 +1,19 @@
-"""Decoder-only LM, the serving subset for dense attention units.
+"""Decoder-only LM for dense attention units: training and serving.
 
 Parameters keep the reference's pytree layout: per-unit leaves stacked
 over ``n_groups`` scan groups (``params["groups"]["u0"]["attn"]["qkv"]``
 is (n_groups, d, (H+2K)*hd)).  Where the reference scans the groups with
-``lax.scan``, the port loops over them in Python, taking each group's
-slice as a view — so the in-place cache updates land in the stacked
-arena.
+``lax.scan``, the port loops over them in Python.  Serving takes each
+group's slice as a view, so the in-place cache updates land in the
+stacked arena; training takes all of them with one ``torch.unbind`` per
+leaf, whose backward stacks the group gradients once (indexing each
+group instead would build a zero-filled gradient of the whole stacked
+leaf per group).
 
 Entry points:
   init(generator, cfg) / init_cache(cfg, batch, max_len)
+  forward(...) / loss_fn(...) — training (full sequence, FF word;
+                     autograd runs BP and UP), remat per scan group
   chunk_step(...)  — T prompt tokens against the caches (PREFILL word)
   decode_step(...) — one token per arena row (DECODE word), per-op or
                      fused (one ``decode_fused`` word per layer)
@@ -19,16 +24,18 @@ from dataclasses import dataclass
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.engine.context import PEContext
 from repro_torch.engine.dispatch import pe_fused_attn_unit
-from repro_torch.models.attention import (attn_params, chunk_attend,
-                                          decode_attend, init_kv_cache,
-                                          split_qkv, update_cache,
-                                          update_cache_chunk)
+from repro_torch.models.attention import (attention_block, attn_params,
+                                          chunk_attend, decode_attend,
+                                          init_kv_cache, split_qkv,
+                                          update_cache, update_cache_chunk)
 from repro_torch.models.layers import (apply_norm, apply_rope, embed,
-                                       lm_logits, mlp, norm_params)
+                                       lm_logits, lm_loss_chunked, mlp,
+                                       norm_params)
 
 
 @dataclass(frozen=True)
@@ -55,21 +62,33 @@ def _tree_index(tree, g: int):
     return tree[g]
 
 
+def _group_slices(tree, ng: int) -> list:
+    """Every group's slice of a stacked tree: one unbind per leaf."""
+    if isinstance(tree, dict):
+        parts = {k: _group_slices(v, ng) for k, v in tree.items()}
+        return [{k: p[g] for k, p in parts.items()} for g in range(ng)]
+    return torch.unbind(tree, 0)
+
+
 # ---------------------------------------------------------------------------
 # Init
 # ---------------------------------------------------------------------------
 
 
-def init(generator: torch.Generator, cfg: ModelConfig) -> dict:
+def init(generator: Optional[torch.Generator], cfg: ModelConfig) -> dict:
     """f32 parameters drawn on the generator's device, in the reference's
     layout and scales (normal * d^-0.5 projections, embed * 0.02, ones /
-    zeros for norm scales and the qkv bias)."""
+    zeros for norm scales and the qkv bias).  generator=None gives the
+    same tree on the meta device: shapes and dtypes, nothing allocated
+    (the reference's ``param_shapes``)."""
     ng = n_groups(cfg)
-    dev = generator.device
+    dev = generator.device if generator is not None else torch.device("meta")
     d, f = cfg.d_model, cfg.d_ff
     fin = 2 * f if cfg.act in ("swiglu", "geglu") else f
 
     def normal(*shape):
+        if generator is None:
+            return torch.empty(shape, dtype=torch.float32, device=dev)
         return torch.randn(shape, generator=generator, dtype=torch.float32,
                            device=dev)
 
@@ -101,7 +120,92 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
 
 
 # ---------------------------------------------------------------------------
-# Units
+# Forward (training)
+# ---------------------------------------------------------------------------
+
+
+def _unit_forward(cfg: ModelConfig, x, up: dict, sh: PEContext, positions):
+    """One dense attention unit over the full sequence.  x: (B, S, d)."""
+    h = apply_norm(cfg, x, up.get("norm1"))
+    x = x + attention_block(cfg, h, up["attn"], sh, positions=positions)
+    h2 = apply_norm(cfg, x, up.get("norm2"))
+    return x + mlp(cfg, h2, up["ffn"]["ffn_in"], up["ffn"]["ffn_out"], sh)
+
+
+def prologue(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
+             compute_dtype=torch.bfloat16) -> tuple:
+    """Embedding: everything before the first layer group.  Returns
+    (x (B, S, d), positions (S,))."""
+    x = embed(tokens, params["embed"]["table"]).to(compute_dtype)
+    positions = torch.arange(x.shape[1], dtype=torch.int32,
+                             device=x.device)
+    return x, positions
+
+
+def group_scan(cfg: ModelConfig, x: torch.Tensor, groups: dict,
+               sh: PEContext, positions: torch.Tensor, *, remat="none"
+               ) -> torch.Tensor:
+    """Run the scan groups in order: the body of :func:`forward`.
+
+    remat: 'none' | 'block' | 'full', or one mode per group.  'block'
+    and 'full' run the group under ``torch.utils.checkpoint`` (the
+    reference's ``jax.checkpoint`` of the scan body): its FF words run
+    again in backward, its activations are not kept.  Values are
+    identical across modes; only what autograd saves differs.
+    """
+    pattern = layer_pattern(cfg)
+    ng = n_groups(cfg)
+    modes = [remat] * ng if isinstance(remat, str) else list(remat)
+    if len(modes) != ng:
+        raise ValueError(f"per-group remat has {len(modes)} entries for "
+                         f"{ng} scan groups")
+
+    def group_step(x, gp):
+        for i in range(len(pattern)):
+            x = _unit_forward(cfg, x, gp[f"u{i}"], sh, positions)
+        return x
+
+    for gp, mode in zip(_group_slices(groups, ng), modes):
+        if mode in ("block", "full"):
+            x = checkpoint(group_step, x, gp, use_reentrant=False)
+        elif mode == "none":
+            x = group_step(x, gp)
+        else:
+            raise ValueError(f"unknown remat mode {mode!r}")
+    return x
+
+
+def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
+            sh: PEContext, *, compute_dtype=torch.bfloat16, remat="none",
+            return_hidden: bool = False) -> torch.Tensor:
+    """tokens: (B, S).  Returns logits f32 (B, S, V), or the final-normed
+    hidden states with return_hidden."""
+    x, positions = prologue(cfg, params, tokens,
+                            compute_dtype=compute_dtype)
+    x = group_scan(cfg, x, params["groups"], sh, positions, remat=remat)
+    x = apply_norm(cfg, x, params.get("final_norm"))
+    if return_hidden:
+        return x
+    return lm_logits(x, cfg, params, sh)
+
+
+def head_loss(cfg: ModelConfig, params: dict, hidden: torch.Tensor,
+              labels: torch.Tensor, sh: PEContext) -> torch.Tensor:
+    """The loss head on the final-normed hidden states (dense units add
+    no auxiliary loss)."""
+    return lm_loss_chunked(cfg, hidden, params, labels, sh)
+
+
+def loss_fn(cfg: ModelConfig, params: dict, batch: dict, sh: PEContext, *,
+            compute_dtype=torch.bfloat16, remat="none") -> torch.Tensor:
+    hidden = forward(cfg, params, batch["tokens"], sh,
+                     compute_dtype=compute_dtype, remat=remat,
+                     return_hidden=True)
+    return head_loss(cfg, params, hidden, batch["labels"], sh)
+
+
+# ---------------------------------------------------------------------------
+# Units (serving)
 # ---------------------------------------------------------------------------
 
 

@@ -1,0 +1,4 @@
+"""Optimizers with phase-UP precision semantics."""
+from repro_torch.optim.optimizers import Optimizer, make_optimizer
+
+__all__ = ["Optimizer", "make_optimizer"]

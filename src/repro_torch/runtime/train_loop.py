@@ -1,26 +1,134 @@
-"""Serve-step builders: where the program words meet the model code.
+"""Train / serve step builders: where the program words meet the model.
 
-The training step builders come with the training slice.  Each builder
+``make_train_step`` assembles the paper's three phases into one step:
+FF + BP — autograd of the model loss under a ``PEContext`` at
+``Phase.FF`` (the cuda backend's FF / BP / UP words run the
+hand-written kernels), then UP — the optimizer with the SR writeback of
+persistent state.  Microbatch gradients accumulate in f32.  Each builder
 returns a plain function (torch runs eagerly; there is no jit to wrap).
 """
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, TrainConfig
 from repro_torch.core.phases import Phase
 from repro_torch.core.program import Program
+from repro_torch.core.rounding import fold_key
 from repro_torch.engine.context import PEContext
 from repro_torch.models import transformer as tfm
+from repro_torch.core.tree import tree_leaves, tree_map, tree_set
+from repro_torch.optim.optimizers import make_optimizer
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: CUDA unless the caller asks for
+    the CPU.  With no GPU and no explicit request it raises — the port
+    never falls back to the CPU on its own."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device: pass device='cpu' to run on the CPU")
+        return torch.device("cuda")
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {device!r} requested but CUDA is not "
+                           f"available")
+    return dev
 
 
 def cast_params(params, dtype: torch.dtype):
     """Persistent storage cast: every f32 leaf to `dtype`."""
-    if isinstance(params, dict):
-        return {k: cast_params(v, dtype) for k, v in params.items()}
-    return params.to(dtype) if params.dtype == torch.float32 else params
+    return tree_map(lambda p: p.to(dtype) if p.dtype == torch.float32
+                    else p, params)
+
+
+def split_microbatches(batch: dict, nm: int) -> dict:
+    """Strided microbatch split: microbatch m takes rows r with
+    r % nm == m.  Leaves (numpy arrays or tensors) become
+    (nm, B/nm, ...)."""
+    return {k: v.reshape(v.shape[0] // nm, nm, *v.shape[1:]).swapaxes(0, 1)
+            for k, v in batch.items()}
+
+
+def make_train_step(cfg: ModelConfig, program: Program,
+                    train_cfg: TrainConfig):
+    """(train_step, optimizer).  ``train_step(state, batch, key)`` takes
+    the state {"params", "opt", "step"}, a batch of numpy arrays or
+    tensors {"tokens", "labels"} and the step's integer key, and returns
+    (new state, {"loss", "grad_norm"}) — the tensors of the new state are
+    new; the old state is not modified."""
+    policy = program.policy
+    backend = train_cfg.kernel_backend
+    opt = make_optimizer(train_cfg, policy, backend)
+    sh = PEContext(program, backend=backend, phase=Phase.FF)
+
+    def train_step(state: dict, batch: dict, key: int):
+        # the step's UP entropy: only the cuda backend draws any
+        sh_step = sh.with_key(fold_key(key, 1)) if backend == "cuda" else sh
+        params = state["params"]
+        paths = [p for p, _ in tree_leaves(params)]
+        dev = tree_leaves(params)[0][1].device
+        batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+
+        def loss_and_grads(b):
+            req = tree_map(lambda p: p.detach().requires_grad_(), params)
+            with torch.enable_grad():
+                loss = tfm.loss_fn(cfg, req, b, sh_step,
+                                   compute_dtype=policy.ff_dtype,
+                                   remat=train_cfg.remat)
+                grads = torch.autograd.grad(
+                    loss, [p for _, p in tree_leaves(req)])
+            return loss.detach(), grads
+
+        nm = train_cfg.microbatch
+        if nm and nm > 1:
+            micro = split_microbatches(batch, nm)
+            loss = torch.zeros((), dtype=torch.float32, device=dev)
+            grads = [torch.zeros(p.shape, dtype=torch.float32, device=dev)
+                     for _, p in tree_leaves(params)]
+            for i in range(nm):
+                li, gi = loss_and_grads({k: v[i] for k, v in micro.items()})
+                loss = loss + li
+                grads = [a + b.to(torch.float32) for a, b in zip(grads, gi)]
+            loss = loss / nm
+            grads = [g / nm for g in grads]
+        else:
+            loss, gi = loss_and_grads(batch)
+            grads = [g.to(torch.float32) for g in gi]
+        gtree: dict = {}
+        for path, g in zip(paths, grads):
+            tree_set(gtree, path, g)
+        upd_key = key if policy.update_rounding != "nearest" else None
+        new_params, new_opt = opt.update(gtree, state["opt"], params,
+                                         state["step"], upd_key)
+        gnorm = torch.sqrt(sum(torch.sum(torch.square(g)) for g in grads))
+        return ({"params": new_params, "opt": new_opt,
+                 "step": state["step"] + 1},
+                {"loss": loss, "grad_norm": gnorm})
+
+    return train_step, opt
+
+
+def init_state(cfg: ModelConfig, program: Program, train_cfg: TrainConfig,
+               generator: Optional[torch.Generator], opt=None) -> dict:
+    """{"params", "opt", "step"}: parameters from ``tfm.init`` cast to the
+    policy's storage dtype, zero moments, step 0.  Without a generator
+    the tensors lie on the meta device (shapes and dtypes only)."""
+    policy = program.policy
+    if opt is None:
+        opt = make_optimizer(train_cfg, policy, train_cfg.kernel_backend)
+    params = cast_params(tfm.init(generator, cfg), policy.param_dtype)
+    return {"params": params, "opt": opt.init(params), "step": 0}
+
+
+def state_shapes(cfg: ModelConfig, program: Program,
+                 train_cfg: TrainConfig) -> dict:
+    """The whole training state as meta tensors: no allocation."""
+    return init_state(cfg, program, train_cfg, None)
 
 
 def cache_shapes(cfg: ModelConfig, batch: int, max_len: int) -> dict:

@@ -44,22 +44,6 @@ class TokenEvent:
     t: float
 
 
-def resolve_device(device=None) -> torch.device:
-    """The device an entry point runs on: CUDA unless the caller asks for
-    the CPU.  With no GPU and no explicit request it raises — the port
-    never falls back to the CPU on its own."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "no CUDA device: pass device='cpu' to run on the CPU")
-        return torch.device("cuda")
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"device {device!r} requested but CUDA is not "
-                           f"available")
-    return dev
-
-
 def _rows(cache, slot: int):
     """Views of one slot's arena row (leaves (n_groups, 1, ...))."""
     if isinstance(cache, dict):
@@ -215,7 +199,7 @@ def build_engine(cfg: ModelConfig, *, n_slots: int, max_len: int,
     device=None runs on CUDA and raises when there is none; pass
     device="cpu" to run on the CPU.
     """
-    dev = resolve_device(device)
+    dev = tl.resolve_device(device)
     shape = ShapeConfig("serve", seq_len=max_len, global_batch=n_slots,
                         kind="decode")
     program = compile_program(cfg, shape, fused_decode=fused_decode)

@@ -7,9 +7,12 @@ package, so it runs on a machine that has only torch:
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
 
 (``--noconftest``: tests/conftest.py configures JAX.)  Tolerances are
-those of the CPU parity tests: sr_matmul's f32 path rtol 5e-4 / atol
-1e-4 (another accumulation order), fused_attn_unit y 2e-2 and caches
-6e-2 (bf16 results of f32 sums in another order).
+those of the CPU parity tests: sr_matmul's and outer_accum's f32 results
+rtol 5e-4 / atol 1e-4 (another accumulation order over K or T up to
+151936 terms, operands scaled so results are O(1)), fused_attn_unit y
+2e-2 and caches 6e-2 (bf16 results of f32 sums in another order); every
+SR result bit-equal to the plain SR cast of the kernel's own f32 result,
+and sr_round bit-exact.
 """
 import pytest
 
@@ -17,7 +20,9 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.core.rounding import sr_cast_bf16  # noqa: E402
 from repro_torch.kernels import decode_fused as kdf  # noqa: E402
+from repro_torch.kernels import outer_accum as koa  # noqa: E402
 from repro_torch.kernels import sr_matmul as kmm  # noqa: E402
+from repro_torch.kernels import sr_round as ksr  # noqa: E402
 
 MM_RTOL, MM_ATOL = 5e-4, 1e-4
 Y_TOL, CACHE_TOL = 2e-2, 6e-2
@@ -106,3 +111,99 @@ def test_fused_attn_unit_kernel_matches_plain(dev, case):
     assert torch.equal(kern[2].cpu(), plain[2])
     for a, b in zip(kern, cache):                 # row 2 inactive
         assert torch.equal(a[2], b[2])
+
+
+def _rbits(g, shape, dev):
+    return torch.randint(-2**31, 2**31, shape, generator=g, device=dev,
+                         dtype=torch.int32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("trans_b", [False, True])
+@pytest.mark.parametrize("mnk", [(37, 333, 1000), (256, 896, 4864), (1, 8, 8)])
+def test_sr_matmul_f32_operands_match_plain(dev, mnk, trans_b):
+    """The fp32 preset's path: f32 A and B on the CUDA cores."""
+    m, n, k = mnk
+    g = torch.Generator(device=dev).manual_seed(2)
+    a = torch.randn((m, k), generator=g, device=dev)
+    b = torch.randn((n, k) if trans_b else (k, n), generator=g,
+                    device=dev) * k ** -0.5
+    kmm.COUNTER.reset()
+    got = kmm.sr_matmul(a, b, trans_b=trans_b)
+    assert kmm.COUNTER.n == 1 and got.dtype == torch.float32
+    want = kmm.sr_matmul_plain(a, b, trans_b=trans_b)
+    torch.testing.assert_close(got, want, rtol=MM_RTOL, atol=MM_ATOL)
+    rb = _rbits(g, (m, n), dev)
+    assert torch.equal(kmm.sr_matmul(a, b, rb, trans_b=trans_b)
+                       .view(torch.int16), sr_cast_bf16(got, rb)
+                       .view(torch.int16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mnk,trans_b", [
+    ((256, 896, 9728), True),      # BP of ffn_in: dY (T, 2f) . W(d, 2f)^T
+    ((256, 4864, 896), True),      # BP of ffn_out
+    ((256, 896, 151936), False),   # BP of the tied head: g . table
+    ((1024, 9728, 896), False),    # FF of ffn_in: x (T, d) . W(d, 2f)
+    ((1024, 896, 4864), False),    # FF of ffn_out
+    ((256, 151936, 896), True)])   # FF of the tied head: x . table^T
+def test_sr_matmul_bp_shapes_match_plain(dev, mnk, trans_b):
+    """The training step's BP and FF products (layers at T = 1024, the
+    head per loss chunk of 256 rows)."""
+    m, n, k = mnk
+    g = torch.Generator(device=dev).manual_seed(3)
+    a = torch.randn((m, k), generator=g, device=dev).bfloat16()
+    b = (torch.randn((n, k) if trans_b else (k, n), generator=g, device=dev)
+         * k ** -0.5).bfloat16()
+    got = kmm.sr_matmul(a, b, trans_b=trans_b)
+    want = kmm.sr_matmul_plain(a, b, trans_b=trans_b)
+    torch.testing.assert_close(got, want, rtol=MM_RTOL, atol=MM_ATOL)
+
+
+# (T, D, F): the UP shapes of a full-width layer at T = 1024 tokens,
+# then ragged T, D and F, then the tied head's UP per loss chunk
+UP_SHAPES = [(1024, 896, 1152), (1024, 896, 896), (1024, 896, 9728),
+             (1024, 4864, 896), (100, 48, 40), (37, 130, 72),
+             (256, 151936, 896)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("tdf", UP_SHAPES)
+def test_outer_accum_kernel_matches_plain(dev, tdf, dtype):
+    t, d, f = tdf
+    g = torch.Generator(device=dev).manual_seed(4)
+    x = torch.randn((t, d), generator=g, device=dev).to(dtype)
+    dy = (torch.randn((t, f), generator=g, device=dev) * t ** -0.5).to(dtype)
+    koa.COUNTER.reset()
+    got = koa.outer_accum(x, dy, scale=0.5)
+    assert koa.COUNTER.n == 1 and got.dtype == torch.float32
+    want = koa.outer_accum_plain(x, dy, scale=0.5)
+    torch.testing.assert_close(got, want, rtol=MM_RTOL, atol=MM_ATOL)
+    rb = _rbits(g, (d, f), dev)
+    got_sr = koa.outer_accum(x, dy, scale=0.5, rbits=rb)
+    assert got_sr.dtype == torch.bfloat16
+    assert torch.equal(got_sr.view(torch.int16),
+                       sr_cast_bf16(got, rb).view(torch.int16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,offset", [(4096 * 37, 0), (1001, 0), (4096, 1)])
+def test_sr_round_kernel_bit_exact(dev, n, offset):
+    """Random f32 bit patterns (NaN payloads, infinities, subnormals) and
+    edge values; the vectorised path (n % 4 == 0, aligned) and the scalar
+    one (odd n, or a view starting one element in)."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    raw = torch.randint(-2**31, 2**31, (n + offset,), generator=g,
+                        device=dev, dtype=torch.int32)
+    edge = torch.tensor([float("inf"), -float("inf"), float("nan"), 0.0,
+                         -0.0, 1e-40, -1e-40, 3.4028235e38, -3.4028235e38],
+                        device=dev)
+    raw[offset:offset + edge.numel()] = edge.view(torch.int32)
+    x = raw.view(torch.float32)[offset:]
+    rb = _rbits(g, (n + offset,), dev)[offset:]
+    ksr.COUNTER.reset()
+    got = ksr.sr_round(x, rb)
+    assert ksr.COUNTER.n == 1
+    want = ksr.sr_round_plain(x.cpu(), rb.cpu())
+    assert torch.equal(got.cpu().view(torch.int16), want.view(torch.int16))

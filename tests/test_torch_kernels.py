@@ -21,19 +21,25 @@ from hypothesis import given, settings, strategies as st  # noqa: E402
 
 from repro.kernels import decode_fused as jdf  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
+from repro.kernels.outer_accum import outer_accum as joa  # noqa: E402
 from repro.kernels.sr_matmul import sr_matmul as jmm  # noqa: E402
+from repro.kernels.sr_round import sr_round as jround  # noqa: E402
 from repro_torch.core.pmag import matmul_nest  # noqa: E402
 from repro_torch.core.rounding import make_rbits, sr_cast_bf16  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import decode_fused as kdf  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import outer_accum as koa  # noqa: E402
 from repro_torch.kernels import ref as kref  # noqa: E402
 from repro_torch.kernels import sr_matmul as kmm  # noqa: E402
+from repro_torch.kernels import sr_round as ksr  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 
 # f32 path (tests/test_kernels.py): another accumulation order, ~K ulp
 MM_RTOL, MM_ATOL = 5e-4, 1e-4
+# outer_accum f32 output (tests/test_kernels.py:75)
+OA_RTOL, OA_ATOL = 1e-4, 1e-5
 # y of the fused unit / cache entries (tests/test_decode_fused.py)
 Y_TOL, CACHE_TOL = 2e-2, 6e-2
 
@@ -182,6 +188,136 @@ def test_matmul_nest_matches_reference(mnk):
     assert ours.launch_grid("j", "i") == (theirs.grid[1], theirs.grid[0])
 
 
+@pytest.mark.parametrize("trans_b", [False, True])
+@pytest.mark.parametrize("mnk", MM_SHAPES)
+def test_sr_matmul_f32_operands_match_pallas(mnk, trans_b):
+    """The fp32 preset's operands: both packages take f32 A and B."""
+    m, n, k = mnk
+    rng = np.random.default_rng(6)
+    a = rng.standard_normal((m, k)).astype(np.float32)
+    b = rng.standard_normal((n, k) if trans_b else (k, n)).astype(np.float32)
+    want = jmm(jnp.asarray(a), jnp.asarray(b), None, block=(64, 64, 64),
+               interpret=True, trans_b=trans_b)
+    got = kmm.sr_matmul(torch.from_numpy(a), torch.from_numpy(b),
+                        trans_b=trans_b)
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=MM_RTOL,
+                               atol=MM_ATOL)
+
+
+# ---------------------------------------------------------------------------
+# outer_accum
+# ---------------------------------------------------------------------------
+
+# (t, d, f): divisible by the (32, 32, 64) tile, then ragged in T (the
+# TPU kernel's t_rem tail), D and F
+OA_SHAPES = [(128, 64, 96), (100, 48, 40), (37, 130, 72)]
+
+
+@pytest.mark.parametrize("scale", [1.0, "1/T"])
+@pytest.mark.parametrize("tdf", OA_SHAPES)
+def test_outer_accum_f32_matches_ref_and_pallas(tdf, scale):
+    t, d, f = tdf
+    scale = 1.0 / t if scale == "1/T" else scale
+    rng = np.random.default_rng(7)
+    xj, xt = bf16_pair(rng.standard_normal((t, d)))
+    yj, yt = bf16_pair(rng.standard_normal((t, f)))
+    got = koa.outer_accum(xt, yt, scale=scale)
+    assert got.dtype == torch.float32 and tuple(got.shape) == (d, f)
+    for want in (jref.outer_accum_ref(xj, yj, scale=scale),
+                 joa(xj, yj, scale=scale, block=(32, 32, 64),
+                     interpret=True)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   rtol=OA_RTOL, atol=OA_ATOL)
+
+
+@pytest.mark.parametrize("tdf", OA_SHAPES)
+def test_outer_accum_f32_operands_match_ref(tdf):
+    t, d, f = tdf
+    rng = np.random.default_rng(8)
+    x = rng.standard_normal((t, d)).astype(np.float32)
+    dy = rng.standard_normal((t, f)).astype(np.float32)
+    got = kref.outer_accum_ref(torch.from_numpy(x), torch.from_numpy(dy),
+                               scale=0.5)
+    want = jref.outer_accum_ref(jnp.asarray(x), jnp.asarray(dy), scale=0.5)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=OA_RTOL,
+                               atol=OA_ATOL)
+
+
+@pytest.mark.parametrize("scale", [1.0, "1/T"])
+@pytest.mark.parametrize("tdf", OA_SHAPES)
+def test_outer_accum_sr_bit_exact_with_injected_rbits(tdf, scale):
+    """Injected rbits: bit-equal to outer_accum_ref and to the Pallas
+    kernel.  dY has one nonzero per column, so every f32 accumulator is
+    one exact product (the SR carries really happen) and the order of
+    summation cannot matter."""
+    t, d, f = tdf
+    scale = 1.0 / t if scale == "1/T" else scale
+    rng = np.random.default_rng(9)
+    dy = np.zeros((t, f))
+    dy[rng.integers(0, t, size=f), np.arange(f)] = rng.standard_normal(f)
+    xj, xt = bf16_pair(rng.standard_normal((t, d)))
+    yj, yt = bf16_pair(dy)
+    rb = rng.integers(0, 2**32, size=(d, f), dtype=np.uint64).astype(np.uint32)
+    got = ops.outer_accum(xt, yt, scale=scale, sr=True,
+                          rbits=torch.from_numpy(rb.view(np.int32)))
+    assert got.dtype == torch.bfloat16
+    for want in (jref.outer_accum_ref(xj, yj, scale=scale,
+                                      rbits=jnp.asarray(rb)),
+                 joa(xj, yj, scale=scale, rbits=jnp.asarray(rb),
+                     block=(32, 32, 64), interpret=True)):
+        np.testing.assert_array_equal(bits16(got), bits16(want))
+
+
+def test_ops_outer_accum_draws_rbits_from_the_generator():
+    rng = np.random.default_rng(10)
+    _, xt = bf16_pair(rng.standard_normal((16, 24)))
+    _, yt = bf16_pair(rng.standard_normal((16, 40)))
+    got = ops.outer_accum(xt, yt, torch.Generator().manual_seed(4), sr=True,
+                          lo=True)
+    rb = make_rbits((24, 40), torch.Generator().manual_seed(4), lo=True)
+    assert torch.equal(got.view(torch.int16),
+                       kref.outer_accum_ref(xt, yt, rbits=rb)
+                       .view(torch.int16))
+
+
+# ---------------------------------------------------------------------------
+# sr_round
+# ---------------------------------------------------------------------------
+
+SR_EDGE = np.array([np.inf, -np.inf, np.nan, -np.nan, 0.0, -0.0,
+                    1e-45, -1e-45, 1e-40, -1e-40, 1.1754942e-38,
+                    3.4028235e38, -3.4028235e38, 3.3961776e38, 65504.0,
+                    1.0, -1.0, 0.1], np.float32)
+
+
+@pytest.mark.parametrize("r", [0, 0x7FFF, 0x8000, 0xFFFF, 0xFFFFFFFF,
+                               0x89ABCDEF])
+def test_sr_round_bit_exact_on_edge_values(r):
+    """±inf, NaN, ±0, subnormals and the largest finite values (which
+    carry into inf): the plain version equals the reference oracle and
+    the Pallas kernel bit for bit."""
+    x = np.tile(SR_EDGE, 8).reshape(8, -1)
+    rb = np.full(x.shape, r, np.uint32)
+    got = ksr.sr_round(torch.from_numpy(x), torch.from_numpy(rb.view(np.int32)))
+    for want in (jref.sr_round_ref(jnp.asarray(x), jnp.asarray(rb)),
+                 jround(jnp.asarray(x), jnp.asarray(rb), interpret=True)):
+        np.testing.assert_array_equal(bits16(got), bits16(want))
+
+
+@pytest.mark.parametrize("shape", [(64, 128), (3, 5, 7)])
+def test_sr_round_bit_exact_on_random_bit_patterns(shape):
+    rng = np.random.default_rng(11)
+    n = int(np.prod(shape))
+    x = rng.integers(0, 2**32, size=n, dtype=np.uint64).astype(np.uint32) \
+        .view(np.float32).reshape(shape)
+    rb = rng.integers(0, 2**32, size=shape, dtype=np.uint64).astype(np.uint32)
+    got = ops.sr_round(torch.from_numpy(x.copy()),
+                       rbits=torch.from_numpy(rb.view(np.int32)))
+    want = jref.sr_round_ref(jnp.asarray(x), jnp.asarray(rb))
+    np.testing.assert_array_equal(bits16(got), bits16(want))
+
+
 # ---------------------------------------------------------------------------
 # fused_attn_unit
 # ---------------------------------------------------------------------------
@@ -287,6 +423,11 @@ def test_wrappers_refuse_non_cpu_tensors_without_a_kernel():
     b = torch.empty((8, 4), dtype=torch.bfloat16, device="meta")
     with pytest.raises(ValueError, match="operands on"):
         kmm.sr_matmul(a, b)
+    with pytest.raises(ValueError, match="operands on"):
+        koa.outer_accum(a.t(), b)
+    with pytest.raises(ValueError, match="tensors on meta"):
+        ksr.sr_round(torch.empty((4, 8), device="meta"),
+                     torch.empty((4, 8), dtype=torch.int32, device="meta"))
     inp = _fused_inputs(FUSED_CASES[0])
     tw = {k: bf16_pair(v)[1].to("meta") for k, v in inp["w"].items()}
     meta = lambda *s: torch.empty(s, dtype=torch.bfloat16, device="meta")
@@ -322,8 +463,11 @@ def test_port_imports_neither_jax_nor_the_jax_package():
 
 
 def test_launch_counters_count_only_kernel_launches():
-    kmm.COUNTER.reset()
-    kdf.COUNTER.reset()
+    counters = (kmm.COUNTER, kdf.COUNTER, koa.COUNTER, ksr.COUNTER)
+    for c in counters:
+        c.reset()
     kmm.sr_matmul(torch.ones(2, 3, dtype=torch.bfloat16),
                   torch.ones(3, 2, dtype=torch.bfloat16))
-    assert kmm.COUNTER.n == 0 and kdf.COUNTER.n == 0   # plain versions ran
+    koa.outer_accum(torch.ones(2, 3), torch.ones(2, 4))
+    ksr.sr_round(torch.ones(2, 3), torch.zeros(2, 3, dtype=torch.int32))
+    assert [c.n for c in counters] == [0, 0, 0, 0]   # plain versions ran
