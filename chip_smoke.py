@@ -20,8 +20,17 @@ port (``src/repro_torch``), never JAX or the JAX package, and:
    (random weights from a seed) with the continuous-batching engine on
    the cuda backend — PREFILL through sr_matmul, fused DECODE through
    fused_attn_unit — counting each kernel's launches in that run, and
-   serves the same trace again with the per-op decode words;
-4. trains: four full-width layers under ``fp32`` for two steps on the
+   serves the same trace again with the per-op decode words; then
+   teacher-forces fused and per-op decode on one token stream and holds
+   both against an f32 truth;
+4. the same for rwkv6-1.6b at full width: sr_matmul at its PREFILL
+   shapes, wkv6 (a PREFILL chunk and a DECODE step from a carried state,
+   a ragged chunk, near-total decay) and fused_ffn against their plain
+   versions; the trace served fused (PREFILL through sr_matmul, the
+   recurrence through wkv6, each layer's FF half through fused_ffn) and
+   per-op; the teacher-forced comparison; and, layer by layer, fused_ffn
+   and the per-op FF against the f32 FF on the same input;
+5. trains: four full-width layers under ``fp32`` for two steps on the
    cuda backend against the reference backend (TF32 off), then all 24
    layers under ``paper_sr_bf16`` (adamw, remat block, B=4, S=256) for 8
    steps through ``launch.train`` — FF / BP through sr_matmul, UP
@@ -137,16 +146,36 @@ def phase_build() -> None:
                     print(f"[build] {n}: {line.strip()}")
 
 
-def phase_sr_matmul(cfg, params, peaks) -> dict:
-    """sr_matmul at every PREFILL shape of a 32-token chunk."""
+def qwen2_prefill_shapes(params) -> list:
+    """(name, W, trans_b) of qwen2-0.5b's PREFILL products: one layer's
+    four and the tied LM head (the embedding table, read transposed)."""
+    g0 = {k: v[0] for k, v in params["groups"]["u0"]["attn"].items()}
+    f0 = {k: v[0] for k, v in params["groups"]["u0"]["ffn"].items()}
+    return [("attn_qkv", g0["qkv"], False), ("attn_o", g0["o"], False),
+            ("ffn_in", f0["ffn_in"], False), ("ffn_out", f0["ffn_out"], False),
+            ("lm_head", params["embed"]["table"], True)]
+
+
+def rwkv6_prefill_shapes(cfg, params) -> list:
+    """rwkv6-1.6b's PREFILL products: the four quarters of the fused r, k,
+    v, g table, decay, output, the FF pair and the untied LM head."""
+    d = cfg.d_model
+    r0 = {k: v[0] for k, v in params["groups"]["u0"]["rwkv"].items()}
+    f0 = {k: v[0] for k, v in params["groups"]["u0"]["ffn"].items()}
+    quarters = [(f"rkvg[{i}]", r0["rkvg"][:, i * d:(i + 1) * d].contiguous(),
+                 False) for i in range(4)]
+    return quarters + [("decay", r0["decay"], False), ("rwkv_o", r0["o"], False),
+                       ("ffn_in", f0["ffn_in"], False),
+                       ("ffn_out", f0["ffn_out"], False),
+                       ("lm_head", params["lm_head"], False)]
+
+
+def phase_sr_matmul(label: str, arch: str, shapes: list, peaks, *,
+                    ragged: bool = False) -> dict:
+    """sr_matmul at every PREFILL shape of a 32-token chunk of `arch`."""
     import torch
     from repro_torch.core.rounding import sr_cast_bf16
     from repro_torch.kernels import sr_matmul as kmm
-    g0 = {k: v[0] for k, v in params["groups"]["u0"]["attn"].items()}
-    f0 = {k: v[0] for k, v in params["groups"]["u0"]["ffn"].items()}
-    shapes = [("attn_qkv", g0["qkv"], False), ("attn_o", g0["o"], False),
-              ("ffn_in", f0["ffn_in"], False), ("ffn_out", f0["ffn_out"], False),
-              ("lm_head", params["embed"]["table"], True)]
     gen = torch.Generator(device="cuda").manual_seed(1)
     M = 32
     worst_abs = worst_rel = 0.0
@@ -182,7 +211,7 @@ def phase_sr_matmul(cfg, params, peaks) -> dict:
         b_ms, by = bound(2 * (M * K + K * N) + 4 * M * N, 2 * M * N * K,
                          peaks)
         by_ms[by] += b_ms
-        print(f"[sr_matmul] {name:<8} M={M} K={K} N={N} trans_b={int(tb)}: "
+        print(f"[{label}] {name:<8} M={M} K={K} N={N} trans_b={int(tb)}: "
               f"kernel {ms:.4f}ms plain {plain:.4f}ms torch.matmul "
               f"{lib:.4f}ms bound {b_ms:.4f}ms  max_abs_err {ea:.3g}")
         tot["ms"] += ms
@@ -190,7 +219,7 @@ def phase_sr_matmul(cfg, params, peaks) -> dict:
         tot["lib"] += lib
         tot["bound"] += b_ms
     # ragged edges of M, N and K on both layouts (masking, no overreads)
-    for tb in (False, True):
+    for tb in ((False, True) if ragged else ()):
         a = torch.randn((37, 1000), generator=gen, device="cuda").to(torch.bfloat16)
         w = torch.randn((333, 1000) if tb else (1000, 333), generator=gen,
                         device="cuda").to(torch.bfloat16)
@@ -199,10 +228,10 @@ def phase_sr_matmul(cfg, params, peaks) -> dict:
         check(torch.allclose(got, want, rtol=MM_RTOL, atol=MM_ATOL),
               f"sr_matmul ragged 37x1000x333 trans_b={tb}: max abs err "
               f"{errs(got, want)[0]:.3g}")
-    print(f"[sr_matmul] one PREFILL chunk's five shapes: kernel "
+    print(f"[{label}] one PREFILL chunk's {len(shapes)} products: kernel "
           f"{tot['ms']:.4f}ms plain {tot['plain']:.4f}ms torch.matmul "
           f"{tot['lib']:.4f}ms bound {tot['bound']:.4f}ms")
-    return {"name": "sr_matmul", "route": "cuda",
+    return {"name": label, "route": "cuda",
             "source": "src/repro_torch/csrc/sr_matmul.cu",
             "replaces": "src/repro/kernels/sr_matmul.py:96",
             "tpu_kernel": "repro/kernels/sr_matmul.py::sr_matmul",
@@ -210,8 +239,9 @@ def phase_sr_matmul(cfg, params, peaks) -> dict:
             "ms": tot["ms"], "kernel_ms": tot["ms"], "plain_ms": tot["plain"],
             "library_ms": tot["lib"], "bound_ms": tot["bound"],
             "bound_by": max(by_ms, key=by_ms.get),
-            "shapes": "one 32-token PREFILL chunk: qkv, o, ffn_in, ffn_out "
-                      "of one layer + the tied LM head (trans_b)"}
+            "shapes": f"{arch}, one 32-token PREFILL chunk: "
+                      f"{', '.join(n for n, _, _ in shapes)} (one layer's "
+                      f"products + the LM head)"}
 
 
 def phase_fused(cfg, params, peaks) -> dict:
@@ -542,44 +572,335 @@ def phase_sr_round(cfg, peaks) -> dict:
             "shapes": f"the largest optimizer leaf {shape}, f32 -> bf16"}
 
 
-def phase_serve(cfg, params) -> tuple:
-    """The main path: the engine serves a trace on the cuda backend."""
+# wkv6 against its plain version: an f32 recurrence with fused
+# multiply-adds and another summation order, values O(1)
+# (tests/test_torch_cuda.py).
+WKV_TOL = 1e-4
+
+
+def phase_wkv6(peaks) -> dict:
+    """wkv6 at rwkv6-1.6b's serving shapes (32 heads of 64): a 32-token
+    PREFILL chunk of one slot from a nonzero carried state, a DECODE step
+    of 32 slots, a ragged 100-token chunk and near-total decay."""
+    import torch
+    from repro_torch.kernels import wkv6 as kwkv
+    H, hd = 32, 64
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    rnd = lambda *s: torch.randn(s, generator=gen, device="cuda")
+    tot = {"ms": 0.0, "plain": 0.0, "bound": 0.0}
+    worst = 0.0
+    by_ms = {"bytes": 0.0, "operations": 0.0}
+    for name, B, S, decay, main in (("prefill", 1, 32, None, True),
+                                    ("decode", 32, 1, None, True),
+                                    ("ragged", 1, 100, None, False),
+                                    ("strong", 1, 32, 1e-6, False)):
+        r, k, v = (0.5 * rnd(B, S, H, hd) for _ in range(3))
+        w = (torch.full((B, S, H, hd), decay, device="cuda") if decay
+             else 0.45 + 0.5 * torch.sigmoid(rnd(B, S, H, hd)))
+        u = 0.1 * rnd(H, hd)
+        s0 = 0.3 * rnd(B, H, hd, hd)
+        state = s0.clone()
+        y, s = kwkv.wkv6_bshd(r, k, v, w, u, state)
+        yp, sp = kwkv.wkv6_plain(r, k, v, w, u, s0)
+        torch.cuda.synchronize()
+        err = max(float((y - yp).abs().max()), float((s - sp).abs().max()))
+        check(bool(torch.isfinite(y).all() and torch.isfinite(s).all()),
+              f"wkv6 {name}: non-finite output")
+        check(torch.allclose(y, yp, atol=WKV_TOL, rtol=WKV_TOL)
+              and torch.allclose(s, sp, atol=WKV_TOL, rtol=WKV_TOL),
+              f"wkv6 {name} (B={B} S={S}): max abs err {err:.3g}")
+        worst = max(worst, err)
+        ms = time_ms(lambda: kwkv.wkv6_bshd(r, k, v, w, u, state))
+        plain = time_ms(lambda: kwkv.wkv6_plain(r, k, v, w, u, s0), iters=3,
+                        warmup=1)
+        n_tok = B * S * H * hd
+        nbytes = 4 * (5 * n_tok + H * hd + 2 * B * H * hd * hd)
+        flops = 7 * B * S * H * hd * hd
+        b_ms, by = bound(nbytes, flops, peaks, f32=True)
+        print(f"[wkv6] {name:<8} B={B} S={S} H={H} hd={hd} from state: kernel "
+              f"{ms:.4f}ms plain {plain:.4f}ms bound {b_ms:.4f}ms ({by})  "
+              f"max_abs_err {err:.3g}")
+        if main:
+            tot["ms"] += ms
+            tot["plain"] += plain
+            tot["bound"] += b_ms
+            by_ms[by] += b_ms
+    return {"name": "wkv6", "route": "cuda",
+            "source": "src/repro_torch/csrc/wkv6.cu",
+            "replaces": "src/repro/kernels/wkv6.py:98",
+            "tpu_kernel": "repro/kernels/wkv6.py::wkv6",
+            "max_abs_err": worst, "ms": tot["ms"], "kernel_ms": tot["ms"],
+            "plain_ms": tot["plain"], "library_ms": None,
+            "bound_ms": tot["bound"], "bound_by": max(by_ms, key=by_ms.get),
+            "shapes": "rwkv6-1.6b: a 32-token PREFILL chunk of one slot "
+                      "(B*H = 32) + a DECODE step of 32 slots (B*H = 1024, "
+                      "S = 1), hd 64, from a carried state"}
+
+
+def phase_fused_ffn(cfg, params, peaks) -> dict:
+    """fused_ffn at the rwkv6-1.6b decode shape: 32 rows, layer 0's FF
+    (layernorm with random scale and bias, relu^2)."""
     import torch
     from repro_torch.kernels import decode_fused as kdf
+    B, d, f = 32, cfg.d_model, cfg.d_ff
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    w = dict(w_in=params["groups"]["u0"]["ffn"]["ffn_in"][0],
+             w_out=params["groups"]["u0"]["ffn"]["ffn_out"][0],
+             norm2_scale=1 + 0.3 * torch.randn(d, generator=gen, device="cuda"),
+             norm2_bias=0.2 * torch.randn(d, generator=gen, device="cuda"))
+    kw = dict(norm_kind=cfg.norm, act=cfg.act)
+    n2s, n2b = w["norm2_scale"], w["norm2_bias"]
+    x = (4 * torch.randn((B, d), generator=gen, device="cuda")).bfloat16()
+    y = kdf.fused_ffn(x, **w, **kw)
+    tn = kdf._clip_block_n(256, f)
+    yp = kdf.fused_ffn_plain(x, n2s=n2s, n2b=n2b, w_in=w["w_in"],
+                             w_out=w["w_out"], tn=tn, **kw)
+    torch.cuda.synchronize()
+    ea, _ = errs(y, yp)
+    check(torch.allclose(y.float(), yp.float(), atol=Y_TOL, rtol=Y_TOL),
+          f"fused_ffn B={B} d={d} f={f}: max abs err {ea:.3g}")
+    ms = time_ms(lambda: kdf.fused_ffn(x, **w, **kw))
+    plain = time_ms(lambda: kdf.fused_ffn_plain(
+        x, n2s=n2s, n2b=n2b, w_in=w["w_in"], w_out=w["w_out"], tn=tn, **kw))
+    nbytes = 2 * (2 * d * f) + 2 * 2 * B * d + 4 * 2 * d
+    b_ms, by = bound(nbytes, 2 * B * 2 * d * f, peaks)
+    print(f"[fused_ffn] B={B} d={d} f={f} {cfg.act} {cfg.norm}: kernel "
+          f"{ms:.4f}ms plain {plain:.4f}ms bound {b_ms:.4f}ms ({by})  "
+          f"max_abs_err {ea:.3g}")
+    return {"name": "fused_ffn", "route": "cuda",
+            "source": "src/repro_torch/csrc/decode_fused.cu",
+            "replaces": "src/repro/kernels/decode_fused.py:315",
+            "tpu_kernel": "repro/kernels/decode_fused.py::fused_ffn",
+            "max_abs_err": ea, "ms": ms, "kernel_ms": ms, "plain_ms": plain,
+            "library_ms": None, "bound_ms": b_ms, "bound_by": by,
+            "shapes": f"rwkv6-1.6b, one layer's FF: B={B}, d={d}, f={f}"}
+
+
+def serve_counters(arch: str) -> dict:
+    """The launch counters of the kernels on `arch`'s serving path."""
+    from repro_torch.kernels import decode_fused as kdf
     from repro_torch.kernels import sr_matmul as kmm
+    from repro_torch.kernels import wkv6 as kwkv
+    if arch == "rwkv6-1.6b":
+        return {"sr_matmul": kmm.COUNTER, "wkv6": kwkv.COUNTER,
+                "fused_ffn": kdf.FFN_COUNTER}
+    return {"sr_matmul": kmm.COUNTER, "fused_attn_unit": kdf.COUNTER}
+
+
+def phase_serve(cfg, params, label: str) -> dict:
+    """A main path: the engine serves the seeded trace on the cuda backend,
+    fused decode and then per-op decode, counting each kernel's launches
+    in each run.  Returns the fused run's counts."""
+    import torch
     from repro_torch.serving import build_engine, latency_stats, poisson_trace
     trace = poisson_trace(16, vocab_size=cfg.vocab_size, prompt_lens=(16, 512),
                           gen_tokens=16, mean_interarrival_steps=2.0, seed=0)
+    counters = serve_counters(cfg.name)
     runs = {}
     for fused in (True, False):
         eng = build_engine(cfg, n_slots=32, max_len=528, prefill_chunk=32,
                            kernel_backend="cuda", fused_decode=fused,
                            device="cuda", params=params)
-        kmm.COUNTER.reset()
-        kdf.COUNTER.reset()
+        for c in counters.values():
+            c.reset()
         t0 = time.monotonic()
-        res = eng.run(trace)
+        with torch.no_grad():
+            res = eng.run(trace)
         torch.cuda.synchronize()
         wall = time.monotonic() - t0
-        counts = {"sr_matmul": kmm.COUNTER.n, "fused_attn_unit": kdf.COUNTER.n}
+        counts = {k: c.n for k, c in counters.items()}
         st = latency_stats(eng.events)
-        label = "fused" if fused else "per-op"
-        print(f"[serve:{label}] steps={eng.step_count} generated={st['tokens']}"
-              f" wall={wall:.3f}s tok/s={st['tokens'] / wall:.2f} "
-              f"p50={st['p50_ms']:.3f}ms p99={st['p99_ms']:.3f}ms "
+        mode = "fused" if fused else "per-op"
+        print(f"[{label}:{mode}] steps={eng.step_count} generated="
+              f"{st['tokens']} wall={wall:.3f}s tok/s={st['tokens'] / wall:.2f}"
+              f" p50={st['p50_ms']:.3f}ms p99={st['p99_ms']:.3f}ms "
               f"launches={counts} nonfinite_logits={eng.nonfinite_logits}")
-        check(eng.nonfinite_logits == 0, f"{label}: non-finite logits")
+        check(eng.nonfinite_logits == 0, f"{label}:{mode}: non-finite logits")
         check(sum(len(v) for v in res.values()) == 16 * 16,
-              f"{label}: {sum(len(v) for v in res.values())} tokens, want 256")
-        runs[label] = (res, counts)
-    main_counts = runs["fused"][1]
-    for k, n in main_counts.items():
-        check(n > 0, f"the main path launched {k} no time")
+              f"{label}:{mode}: {sum(len(v) for v in res.values())} tokens, "
+              f"want 256")
+        for k, n in counts.items():
+            want = fused or k not in ("fused_ffn", "fused_attn_unit")
+            check((n > 0) == want, f"{label}:{mode} launched {k} {n} times")
+        runs[mode] = (res, counts)
+        del eng
     a, b = runs["fused"][0], runs["per-op"][0]
     same = sum(x == y for r in a for x, y in zip(a[r], b[r]))
-    print(f"[serve] fused vs per-op decode: {same}/{16 * 16} generated tokens "
-          f"agree ({same / 256:.3f})")
-    return main_counts
+    print(f"[{label}] fused vs per-op decode, free-running: {same}/256 "
+          f"generated tokens agree ({same / 256:.3f})")
+    return runs["fused"][1]
+
+
+def _f32_tree(tree):
+    """Every bf16 leaf of a nested dict as f32 (new tensors)."""
+    if isinstance(tree, dict):
+        return {k: _f32_tree(v) for k, v in tree.items()}
+    return tree.float() if tree.dtype.is_floating_point else tree.clone()
+
+
+def _clone_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _clone_tree(v) for k, v in tree.items()}
+    return tree.clone()
+
+
+def _gap(a, b) -> tuple:
+    """(max |a - b| / std(b), argmax agreement count) of two steps'
+    (rows, 1, V) logits."""
+    d = float((a - b).abs().max() / b.std())
+    agree = int((a.argmax(-1) == b.argmax(-1)).sum())
+    return d, agree
+
+
+def phase_fused_vs_perop(cfg, params, label: str, prompt: int = 32) -> dict:
+    """Teacher-forced: 32 rows prefill `prompt` random tokens each (in
+    32-token chunks), then fused and per-op decode run the same 8 tokens
+    per row.
+    Per step: max |logit difference| over rows and vocabulary in units of
+    the per-op logits' std, and the argmax agreement (256 in all).  Each
+    bf16 path is also held against an f32 truth: the per-op words with f32
+    weights, activations and caches.  A fault in the fused word shows as
+    a fused path farther from the truth than the per-op path."""
+    import torch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core.program import compile_program
+    from repro_torch.models import transformer as tfm
+    from repro_torch.runtime import train_loop as tl
+    B, P, N, C = 32, prompt, 8, 32
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    toks = torch.randint(0, cfg.vocab_size, (B, P + N), generator=gen,
+                         device="cuda", dtype=torch.int32)
+    shape = ShapeConfig("tf", P + N, B, "decode")
+    zeros = torch.zeros(B, dtype=torch.int32, device="cuda")
+
+    def run(prog, prms, cache, fused):
+        chunk = tl.make_chunk_step(cfg, prog, kernel_backend="cuda")
+        step = (tl.make_fused_decode_step if fused else tl.make_decode_step)(
+            cfg, prog, kernel_backend="cuda")
+        out = []
+        with torch.no_grad():
+            for c0 in range(0, P, C):
+                chunk(prms, cache, toks[:, c0:min(c0 + C, P)], zeros + c0)
+            for t in range(N):
+                lg, _ = step(prms, cache, toks[:, P + t:P + t + 1],
+                             torch.full((B,), P + t, dtype=torch.int32,
+                                        device="cuda"))
+                out.append(lg.float())
+        return out
+
+    cache = tfm.init_cache(cfg, B, P + N, device="cuda")
+    per_op = run(compile_program(cfg, shape), params, _clone_tree(cache),
+                 False)
+    fused = run(compile_program(cfg, shape, fused_decode=True), params,
+                _clone_tree(cache), True)
+    truth = run(compile_program(cfg, shape, precision="fp32"),
+                _f32_tree(params), _f32_tree(cache), False)
+    res = {}
+    for name, a, b in (("fused-vs-per-op", fused, per_op),
+                       ("per-op-vs-f32", per_op, truth),
+                       ("fused-vs-f32", fused, truth)):
+        gaps = [_gap(x, y) for x, y in zip(a, b)]
+        ds = sorted(g[0] for g in gaps)
+        res[name] = {"median": ds[len(ds) // 2], "max": ds[-1],
+                     "agree": sum(g[1] for g in gaps)}
+        print(f"[{label}] teacher-forced, {P}-token prompts, {name}: max "
+              f"|dlogit| / std median "
+              f"{res[name]['median']:.4f} max {res[name]['max']:.4f}; argmax "
+              f"agree {res[name]['agree']}/{B * N}")
+    check(all(torch.isfinite(x).all() for x in fused + per_op + truth),
+          f"{label}: non-finite teacher-forced logits")
+    return res
+
+
+# The fused-versus-per-op gates.  A fused decode path with a fault lands
+# farther from the f32 truth than the per-op path does: held within
+# ACCURACY_RATIO of the per-op path's distance (max over the 8 steps),
+# and per layer, fused_ffn's error against the f32 FF within
+# FFN_LAYER_RATIO of the per-op FF's.  The fused-vs-per-op gaps
+# themselves are held just above what the card gave (PERF.md): every
+# kernel and torch call here is deterministic, so a run repeats them.
+ACCURACY_RATIO = 1.1
+FFN_LAYER_RATIO = 1.1
+TF_MAX = {"qwen2-0.5b": 0.1, "rwkv6-1.6b": 0.5, "rwkv6-1.6b:512": 0.6}
+
+
+def check_fused_vs_perop(tf: dict, worst_layer: float) -> None:
+    """tf: {arch: phase_fused_vs_perop's result}."""
+    for arch, res in tf.items():
+        fused, per_op = res["fused-vs-f32"]["max"], res["per-op-vs-f32"]["max"]
+        check(fused <= ACCURACY_RATIO * per_op,
+              f"{arch}: fused decode is {fused:.4f} std from the f32 truth, "
+              f"the per-op decode {per_op:.4f} (gate: {ACCURACY_RATIO}x)")
+        gap = res["fused-vs-per-op"]["max"]
+        check(gap <= TF_MAX[arch], f"{arch} fused vs per-op decode: max "
+              f"|dlogit| {gap:.4f} std (gate {TF_MAX[arch]})")
+    check(worst_layer <= FFN_LAYER_RATIO,
+          f"fused_ffn's error against the f32 FF is {worst_layer:.4f}x the "
+          f"per-op FF's (gate {FFN_LAYER_RATIO}x)")
+
+
+def phase_ffn_bisect(cfg, params) -> float:
+    """rwkv6, layer by layer at one decode step of 32 rows: the fused_ffn
+    kernel and the per-op FF words on the same input (the per-op path's
+    residual after each mixer), each against the same FF in f32 (the
+    plain version on f32 operands).  Returns the worst layer's ratio of
+    the fused error to the per-op error (max |y - y_f32| each)."""
+    import torch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core.phases import Phase
+    from repro_torch.core.program import compile_program
+    from repro_torch.engine.context import PEContext
+    from repro_torch.kernels import decode_fused as kdf
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.layers import apply_norm, embed, mlp
+    from repro_torch.models.ssm import rwkv_block
+    B = 32
+    prog = compile_program(cfg, ShapeConfig("bisect", 8, B, "decode"))
+    sh = PEContext(prog, backend="cuda", phase=Phase.DECODE)
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    cache = tfm.init_cache(cfg, B, 8, device="cuda")
+    for leaf in (cache["u0"]["rwkv"]["wkv"], cache["u0"]["rwkv"]["shift"]):
+        leaf.copy_(torch.randn(leaf.shape, generator=gen, device="cuda"))
+    tok = torch.randint(0, cfg.vocab_size, (B, 1), generator=gen,
+                        device="cuda")
+    x = embed(tok, params["embed"]["table"]).bfloat16()
+    ratios, rows = [], []
+    tn = kdf._clip_block_n(256, cfg.d_ff)
+    with torch.no_grad():
+        for g in range(cfg.n_layers):
+            up = {k: {n: t[g] for n, t in v.items()}
+                  for k, v in params["groups"]["u0"].items()}
+            st = {k: v[g] for k, v in cache["u0"]["rwkv"].items()}
+            n2, ff = up["norm2"], up["ffn"]
+            h = apply_norm(cfg, x, up["norm1"])
+            x = x + rwkv_block(cfg, h, up["rwkv"], sh, st)
+            y_op = x + mlp(cfg, apply_norm(cfg, x, n2), ff["ffn_in"],
+                           ff["ffn_out"], sh)
+            y_fu = kdf.fused_ffn(x[:, 0].contiguous(), norm2_scale=n2["scale"],
+                                 norm2_bias=n2["bias"], w_in=ff["ffn_in"],
+                                 w_out=ff["ffn_out"], norm_kind=cfg.norm,
+                                 act=cfg.act)
+            y32 = kdf.fused_ffn_plain(
+                x[:, 0].float(), n2s=n2["scale"].float(),
+                n2b=n2["bias"].float(), w_in=ff["ffn_in"].float(),
+                w_out=ff["ffn_out"].float(), norm_kind=cfg.norm, act=cfg.act,
+                tn=tn)
+            e_fu = float((y_fu.float() - y32).abs().max())
+            e_op = float((y_op[:, 0].float() - y32).abs().max())
+            ratios.append(e_fu / max(e_op, 1e-30))
+            rows.append((float(x.float().std()),
+                         float((y32 - x[:, 0].float()).std()), e_fu, e_op))
+            x = y_op
+    i = max(range(len(ratios)), key=ratios.__getitem__)
+    print(f"[ffn_bisect] fused_ffn and per-op FF against the f32 FF on the "
+          f"same input, per layer: fused error / per-op error median "
+          f"{sorted(ratios)[len(ratios) // 2]:.4f}, worst {ratios[i]:.4f} "
+          f"(layer {i})")
+    for g in (0, len(rows) // 2, len(rows) - 1):
+        xs, ds, ef, eo = rows[g]
+        print(f"[ffn_bisect] layer {g}: residual std {xs:.4g}, FF delta std "
+              f"{ds:.4g}, max |error| fused {ef:.4g} per-op {eo:.4g}")
+    return ratios[i]
 
 
 def _counters() -> dict:
@@ -794,10 +1115,42 @@ def main() -> int:
                                                 device="cuda"))
         print(f"[init] qwen2-0.5b {cfg.param_count()} params in "
               f"{time.monotonic() - t0:.1f}s on {name}")
-        rows = [phase_sr_matmul(cfg, params, peaks),
+        rows = [phase_sr_matmul("sr_matmul", cfg.name,
+                                qwen2_prefill_shapes(params), peaks,
+                                ragged=True),
                 phase_fused(cfg, params, peaks)]
-        serve_counts = phase_serve(cfg, params)
+        serve_counts = {"sr_matmul": phase_serve(cfg, params, "serve")}
+        serve_counts["fused_attn_unit"] = serve_counts["sr_matmul"]
+        tf_qwen2 = phase_fused_vs_perop(cfg, params, "serve")
         del params, u
+        torch.cuda.empty_cache()
+
+        rcfg = get_config("rwkv6-1.6b")
+        t0 = time.monotonic()
+        rparams = tl.cast_params(tfm.init(gen, rcfg), torch.bfloat16)
+        # random layernorm scales and biases (init makes them 1 and 0)
+        for norm in (rparams["groups"]["u0"]["norm1"],
+                     rparams["groups"]["u0"]["norm2"], rparams["final_norm"]):
+            for key, base in (("scale", 1.0), ("bias", 0.0)):
+                norm[key].copy_(base + 0.1 * torch.randn(
+                    norm[key].shape, generator=gen, device="cuda"))
+        print(f"[init] rwkv6-1.6b {rcfg.param_count()} params in "
+              f"{time.monotonic() - t0:.1f}s")
+        rows += [phase_sr_matmul("sr_matmul:rwkv6", rcfg.name,
+                                 rwkv6_prefill_shapes(rcfg, rparams), peaks),
+                 phase_wkv6(peaks), phase_fused_ffn(rcfg, rparams, peaks)]
+        rwkv_counts = phase_serve(rcfg, rparams, "serve:rwkv6")
+        for k in ("sr_matmul:rwkv6", "wkv6", "fused_ffn"):
+            serve_counts[k] = rwkv_counts
+        tf_rwkv = phase_fused_vs_perop(rcfg, rparams, "serve:rwkv6")
+        tf_rwkv_long = phase_fused_vs_perop(rcfg, rparams, "serve:rwkv6",
+                                            prompt=512)
+        worst_layer = phase_ffn_bisect(rcfg, rparams)
+        check_fused_vs_perop({cfg.name: tf_qwen2, rcfg.name: tf_rwkv,
+                              rcfg.name + ":512": tf_rwkv_long}, worst_layer)
+        del rparams
+        torch.cuda.empty_cache()
+
         rows += [phase_sr_matmul_train(cfg, peaks),
                  phase_outer_accum(cfg, peaks),
                  phase_sr_round(cfg, peaks)]
@@ -809,13 +1162,13 @@ def main() -> int:
         print(f"[chip_smoke] FAIL: {e}", file=sys.stderr)
         return 1
     # launches: each kernel's count in the main path that runs it — the
-    # serve run for PREFILL sr_matmul and fused_attn_unit, the training
+    # qwen2 serve run for its PREFILL sr_matmul and fused_attn_unit, the
+    # rwkv6 serve run for its sr_matmul, wkv6 and fused_ffn, the training
     # run for the rest (sr_matmul:train is sr_matmul's FF + BP count there)
     for r in rows:
-        if r["name"] in serve_counts:
-            r["launches"] = serve_counts[r["name"]]
-        else:
-            r["launches"] = train["counts"][r["name"].split(":")[0]]
+        kernel = r["name"].split(":")[0]
+        counts = serve_counts.get(r["name"], train["counts"])
+        r["launches"] = counts[kernel]
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

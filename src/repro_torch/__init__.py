@@ -3,12 +3,14 @@
 The JAX package ``repro`` is the reference; this package imports nothing
 of it (and never ``jax``).  Its layout mirrors ``repro/``:
 
-  configs/    model, shape and train configs (qwen2-0.5b and its reduced form)
+  configs/    model, shape and train configs (qwen2-0.5b, rwkv6-1.6b and
+              their reduced forms)
   core/       phases, precision policies, SR rounding, the PE program words
   data/       the deterministic synthetic LM pipeline
   kernels/    hand-written CUDA kernels (``csrc/``) + their plain versions
   engine/     the PE dispatch seam (``pe_dot``: FF/BP/UP and serving words)
-  models/     layers, attention, the dense decoder-only transformer
+  models/     layers, attention, RWKV6 time-mix (ssm.py), the decoder-only
+              transformer (dense attention units; rwkv6 units for serving)
   optim/      sgdm / adamw / adagrad with the SR writeback
   runtime/    train- and serve-step builders, single-process fault tolerance
   serving/    slot arena, scheduler, traces, the continuous-batching engine

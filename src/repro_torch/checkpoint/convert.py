@@ -3,8 +3,10 @@ the port's.
 
 The port keeps the reference's keys and layouts (``embed.table`` (V, d),
 ``groups.u0.attn.qkv`` (n_groups, d, (H+2K)*hd), ``qkv_bias``, ``o``,
-``ffn.ffn_in`` (n_groups, d, 2f), ``ffn.ffn_out``, ``norm1/2.scale``,
-``final_norm``), so conversion is a walk over nested dicts.  bf16 arrays
+``ffn.ffn_in`` (n_groups, d, 2f), ``ffn.ffn_out``, ``norm1/2.scale``
+and ``bias``, ``final_norm``, ``lm_head``, and rwkv6's
+``groups.u0.rwkv.{rkvg, decay, o, w0, u, mix}``), so conversion is a
+walk over nested dicts.  bf16 arrays
 (numpy has no bf16; they arrive as ml_dtypes' or as uint16 views) are
 carried by bit pattern.
 """

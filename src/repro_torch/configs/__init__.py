@@ -1,8 +1,12 @@
-"""Config registry: importing this package registers qwen2-0.5b."""
+"""Config registry: importing this package registers qwen2-0.5b and
+rwkv6-1.6b."""
 from repro_torch.configs.base import (AttentionConfig, ModelConfig,
-                                      ShapeConfig, TrainConfig, get_config,
-                                      get_reduced, list_configs, register)
+                                      ShapeConfig, SSMConfig, TrainConfig,
+                                      get_config, get_reduced, list_configs,
+                                      register)
 from repro_torch.configs import qwen2_0p5b  # noqa: F401  (registers)
+from repro_torch.configs import rwkv6_1p6b  # noqa: F401  (registers)
 
-__all__ = ["AttentionConfig", "ModelConfig", "ShapeConfig", "TrainConfig",
-           "get_config", "get_reduced", "list_configs", "register"]
+__all__ = ["AttentionConfig", "ModelConfig", "ShapeConfig", "SSMConfig",
+           "TrainConfig", "get_config", "get_reduced", "list_configs",
+           "register"]

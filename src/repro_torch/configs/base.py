@@ -1,11 +1,12 @@
 """Config system: model / shape / train dataclasses + registry.
 
 The port's own copy of the reference's config types, holding only what
-the serving and training slices need: dense decoder-only models with
-GQA attention.
+the port's slices need: dense decoder-only models with GQA attention,
+and the attention-free RWKV6 family (``ssm``).
 ``get_reduced`` gives the CPU-test variant of the same family (small
-widths, two layers, vocab 256) exactly as the reference derives it, so a
-test can build the same reduced model on both sides.
+widths, two layers, vocab 256) as the reference derives it for dense
+models; rwkv6 registers its own rule (d 128, head_dim 32), and a test
+builds the reference's config from the port's fields.
 """
 from __future__ import annotations
 
@@ -25,14 +26,21 @@ class AttentionConfig:
 
 
 @dataclass(frozen=True)
+class SSMConfig:
+    kind: str = "rwkv6"                # the port runs 'rwkv6' only
+    head_dim: int = 64                 # rwkv6 head size
+
+
+@dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                        # this port serves 'dense' only
+    family: str                        # 'dense' | 'ssm'
     n_layers: int
     d_model: int
     d_ff: int
     vocab_size: int
     attention: Optional[AttentionConfig] = None
+    ssm: Optional[SSMConfig] = None
     norm: str = "rmsnorm"              # rmsnorm|layernorm|nonparametric_ln
     act: str = "swiglu"                # swiglu|gelu|relu_sq|geglu
     tie_embeddings: bool = False
@@ -40,18 +48,23 @@ class ModelConfig:
     notes: str = ""
 
     def param_count(self) -> int:
-        """Analytic parameter count of a dense decoder-only model (the
-        reference's count: embeddings and layers, final norm not counted)."""
+        """Analytic parameter count (the reference's count: embeddings and
+        layers, final norm not counted; its rwkv6 mixer count is the
+        reference's approximation, not the leaves' exact size)."""
         d, f, v, L = self.d_model, self.d_ff, self.vocab_size, self.n_layers
-        a = self.attention
         n = v * d if self.tie_embeddings else 2 * v * d
         n_norm = d if self.norm != "nonparametric_ln" else 0
-        attn = (d * a.n_heads * a.head_dim + 2 * d * a.n_kv_heads * a.head_dim
-                + a.n_heads * a.head_dim * d)
-        if a.qkv_bias:
-            attn += (a.n_heads + 2 * a.n_kv_heads) * a.head_dim
+        if self.family == "ssm":
+            mixer = 5 * d * d + 2 * d + 6 * d
+        else:
+            a = self.attention
+            mixer = (d * a.n_heads * a.head_dim
+                     + 2 * d * a.n_kv_heads * a.head_dim
+                     + a.n_heads * a.head_dim * d)
+            if a.qkv_bias:
+                mixer += (a.n_heads + 2 * a.n_kv_heads) * a.head_dim
         ffn = (3 if self.act in ("swiglu", "geglu") else 2) * d * f
-        n += L * (attn + ffn + 2 * n_norm)
+        n += L * (mixer + ffn + 2 * n_norm)
         return n
 
 

@@ -53,18 +53,41 @@ def _ffn_ops(cfg: ModelConfig, n_layers: int) -> list:
     ]
 
 
+def _ssm_ops(cfg: ModelConfig, n_layers: int) -> list:
+    """The RWKV6 mixer's words: the fused r, k, v, g projection feeding
+    the WKV6 recurrence, the data-dependent decay and the output."""
+    d = cfg.d_model
+    return [
+        OpSpec("rwkv_rkvg", (d, 4 * d), "proj_in", n_layers=n_layers,
+               act_in_features=d, act_out_features=4 * d,
+               flops_per_token=8 * d * d),
+        OpSpec("rwkv_decay", (d, d), "proj_in", n_layers=n_layers,
+               act_in_features=d, act_out_features=d,
+               flops_per_token=2 * d * d),
+        OpSpec("rwkv_o", (d, d), "proj_out", n_layers=n_layers,
+               act_in_features=d, act_out_features=d,
+               flops_per_token=2 * d * d),
+    ]
+
+
 def extract_ops(cfg: ModelConfig) -> list:
-    """Weight-bearing op list of a dense decoder-only model."""
-    if cfg.family != "dense" or cfg.attention is None:
+    """Weight-bearing op list of a dense attention or an RWKV6 model."""
+    if cfg.family == "dense" and cfg.attention is not None:
+        mixer = _attn_ops(cfg, cfg.n_layers)
+    elif cfg.family == "ssm" and cfg.ssm is not None \
+            and cfg.ssm.kind == "rwkv6":
+        mixer = _ssm_ops(cfg, cfg.n_layers)
+    else:
         raise NotImplementedError(
-            f"{cfg.name}: the port serves dense attention models only")
+            f"{cfg.name}: the port runs dense attention and rwkv6 models "
+            f"only")
     d, V = cfg.d_model, cfg.vocab_size
     ops = [OpSpec("embed", (V, d), "embed", act_in_features=0,
                   act_out_features=d, flops_per_token=0.0)]
     if not cfg.tie_embeddings:
         ops.append(OpSpec("lm_head", (d, V), "lm_head", act_in_features=d,
                           act_out_features=V, flops_per_token=2 * d * V))
-    return ops + _attn_ops(cfg, cfg.n_layers) + _ffn_ops(cfg, cfg.n_layers)
+    return ops + mixer + _ffn_ops(cfg, cfg.n_layers)
 
 
 @dataclass(frozen=True)

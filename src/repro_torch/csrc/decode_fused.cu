@@ -27,6 +27,18 @@
 //   4. norm2 (per block) + gate/up (paired column tiles) + activation -> h
 //   5. down-projection + residual -> y
 // Fusing them into one persistent launch is later work (PERF.md).
+//
+// fused_ffn is launches 4 and 5 alone: norm2 + FF + residual for units
+// whose mixer stays per-op (rwkv6's recurrence).  It replaces the TPU
+// kernel repro/kernels/decode_fused.py::fused_ffn (pl.pallas_call at
+// decode_fused.py:315, body _ffn_kernel), whose (B,) grid again re-read
+// the layer's FF weights once per row.  It is bound by those weights'
+// bytes (rwkv6-1.6b: 2 x 2048 x 7168 bf16 = 58.7 MB per layer), and
+// keeps the same split: weight columns across blocks, all rows in each.
+// Cast order, as the TPU kernel's: the norm result in bf16, the
+// activation of the f32 product rounded once to bf16, the
+// down-projection accumulated in f32 and rounded to bf16 before the
+// bf16 residual add.
 #include "common.cuh"
 
 namespace rt {
@@ -347,6 +359,28 @@ RowGemm gemm_args(const void* A, int lda, const void* W, int ldw, int B,
   return p;
 }
 
+// Launches 4 and 5: norm(x) (. gate/up, or up) + activation -> h_buf;
+// h . w_out + x -> y.
+cudaError_t ffn_launches(const void* x, const void* n2s, const void* n2b,
+                         const void* w_in, const void* w_out, void* h_buf,
+                         void* y, int B, int d, int f, int norm_kind, int act,
+                         cudaStream_t st) {
+  const bool gated = act == ACT_SWIGLU || act == ACT_GEGLU;
+  RowGemm g4 = gemm_args(x, d, w_in, gated ? 2 * f : f, B, d, f, h_buf);
+  g4.norm = norm_kind;
+  g4.nscale = static_cast<const float*>(n2s);
+  g4.nbias = static_cast<const float*>(n2b);
+  g4.act = act;
+  g4.up_off = gated ? f : 0;
+  g4.vec_w = g4.vec_w && f % 8 == 0;
+  cudaError_t err = gated ? launch_gemm<EPI_GATED>(g4, st)
+                          : launch_gemm<EPI_ACT>(g4, st);
+  if (err != cudaSuccess) return err;
+  RowGemm g5 = gemm_args(h_buf, f, w_out, d, B, f, d, y);
+  g5.resid = static_cast<const bf16*>(x);
+  return launch_gemm<EPI_RESID>(g5, st);
+}
+
 }  // namespace rt
 
 // One fused decode step of one attention unit for B arena rows.  All
@@ -409,20 +443,20 @@ extern "C" int fused_attn_unit_bf16(
   if ((err = launch_gemm<EPI_RESID>(g3, st)) != cudaSuccess) return (int)err;
   if (!with_ffn) return (int)cudaSuccess;
 
-  // 4. norm2 + gate/up (or up) + activation
-  const bool gated = act == ACT_SWIGLU || act == ACT_GEGLU;
-  RowGemm g4 = gemm_args(x1_buf, d, w_in, gated ? 2 * f : f, B, d, f, h_buf);
-  g4.norm = norm_kind;
-  g4.nscale = static_cast<const float*>(n2s);
-  g4.nbias = static_cast<const float*>(n2b);
-  g4.act = act;
-  g4.up_off = gated ? f : 0;
-  g4.vec_w = g4.vec_w && f % 8 == 0;
-  err = gated ? launch_gemm<EPI_GATED>(g4, st) : launch_gemm<EPI_ACT>(g4, st);
-  if (err != cudaSuccess) return (int)err;
+  // 4. + 5.
+  return (int)ffn_launches(x1_buf, n2s, n2b, w_in, w_out, h_buf, y, B, d, f,
+                           norm_kind, act, st);
+}
 
-  // 5. down-projection + residual
-  RowGemm g5 = gemm_args(h_buf, f, w_out, d, B, f, d, y);
-  g5.resid = static_cast<const bf16*>(x1_buf);
-  return (int)launch_gemm<EPI_RESID>(g5, st);
+// norm2 + FF + residual alone for B rows: y = x + FF(norm(x)).  x (B, d),
+// w_in (d, 2f | f), w_out (f, d), scratch h_buf (B, f), y (B, d) bf16;
+// n2s/n2b (d) f32.  Returns cudaGetLastError() of the first launch that
+// failed, else of the last.
+extern "C" int fused_ffn_bf16(const void* x, const void* n2s, const void* n2b,
+                              const void* w_in, const void* w_out,
+                              void* h_buf, void* y, int B, int d, int f,
+                              int norm_kind, int act, void* stream) {
+  return (int)rt::ffn_launches(x, n2s, n2b, w_in, w_out, h_buf, y, B, d, f,
+                               norm_kind, act,
+                               static_cast<cudaStream_t>(stream));
 }

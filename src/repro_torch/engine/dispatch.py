@@ -25,7 +25,9 @@ Serving phases dispatch forward-only words:
             as the reference leaves this product to XLA),
 
 plus :func:`pe_fused_attn_unit`, the ``decode_fused`` word that runs a
-whole attention unit as one fused kernel call.  A ``decode_fused`` word
+whole attention unit as one fused kernel call, and :func:`pe_fused_ffn`,
+its FF half alone (norm2 + FF + residual) for units whose mixer stays
+per-op (rwkv6).  A ``decode_fused`` word
 that reaches the per-op seam executes as the plain matvec.
 
 Backends:
@@ -214,3 +216,14 @@ def pe_fused_attn_unit(x, cache: dict, pos, *, norm1: Optional[dict],
         head_dim=head_dim, rope_theta=rope_theta, window=window,
         norm_kind=norm_kind, act=act, with_ffn=with_ffn,
         block_n=fused_block_n(word), active=active)
+
+
+def pe_fused_ffn(x, *, norm2: Optional[dict], w_in, w_out, norm_kind: str,
+                 act: str, word: Optional[PEWord] = None):
+    """Issue ONE fused-decode word for a unit's FF half: x (B, d) ->
+    x + FF(norm2(x)) (B, d)."""
+    return kdf.fused_ffn(
+        x, norm2_scale=norm2.get("scale") if norm2 else None,
+        norm2_bias=norm2.get("bias") if norm2 else None, w_in=w_in,
+        w_out=w_out, norm_kind=norm_kind, act=act,
+        block_n=fused_block_n(word))

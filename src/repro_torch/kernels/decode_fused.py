@@ -1,4 +1,8 @@
-"""fused_attn_unit: one decode step of one attention layer for B rows.
+"""fused_attn_unit and fused_ffn: fused decode words for B arena rows.
+
+:func:`fused_attn_unit` is one decode step of one attention layer; its
+FF half alone is :func:`fused_ffn` (norm2 + FF + residual, for units
+whose mixer stays per-op: rwkv6), with :func:`fused_ffn_plain` beside it.
 
 Port of the TPU kernel ``repro/kernels/decode_fused.py::fused_attn_unit``.
 The CUDA kernel is ``csrc/decode_fused.cu`` (five launches per layer;
@@ -35,6 +39,7 @@ import torch.nn.functional as F
 from repro_torch.kernels import build
 
 COUNTER = build.LaunchCounter("fused_attn_unit")
+FFN_COUNTER = build.LaunchCounter("fused_ffn")
 NEG_INF = -1e30
 _NORM_CODE = {"rmsnorm": 1, "layernorm": 2}
 _ACT_CODE = {"swiglu": 0, "geglu": 1, "gelu": 2, "relu_sq": 3}
@@ -254,4 +259,62 @@ def fused_attn_unit(x, cache_k, cache_v, cache_pos, pos, *,
         raise RuntimeError(
             f"fused_attn_unit kernel launch failed (cudaError {err})")
     COUNTER.n += 1
+    return y
+
+
+def _bind_ffn(lib: ctypes.CDLL):
+    fn = lib.fused_ffn_bf16
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 \
+        + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def fused_ffn_plain(x, *, n2s, n2b, w_in, w_out, norm_kind, act, tn):
+    """Plain torch version of :func:`fused_ffn`; n2s/n2b are (d,) f32."""
+    h2 = _norm_f32(x, n2s, n2b, norm_kind)
+    return _ffn_stream(x, h2, w_in, w_out, act=act, tn=tn)
+
+
+def fused_ffn(x, *, norm2_scale=None, norm2_bias=None, w_in, w_out,
+              norm_kind: str = "rmsnorm", act: str = "swiglu",
+              block_n: int = 256) -> torch.Tensor:
+    """Fused norm2 + FF + residual: x (B, d) -> x + FF(norm(x)) (B, d).
+
+    w_in: (d, 2f) for gated acts else (d, f); w_out: (f, d).  CPU
+    tensors take the plain version; CUDA tensors launch the kernel (two
+    launches: csrc/decode_fused.cu's 4 and 5).
+    """
+    B, d = x.shape
+    f = w_out.shape[0]
+    gated = act in ("swiglu", "geglu")
+    if norm_kind not in _NORM_CODE or act not in _ACT_CODE:
+        raise ValueError(f"fused_ffn: norm {norm_kind!r} / act {act!r}")
+    if w_in.shape != (d, 2 * f if gated else f) or w_out.shape != (f, d):
+        raise ValueError(f"fused_ffn: weights {tuple(w_in.shape)}, "
+                         f"{tuple(w_out.shape)} for d={d}, act={act}")
+    dev = x.device
+    n2s = _vec(norm2_scale, d, 1.0, dev)
+    n2b = _vec(norm2_bias, d, 0.0, dev)
+    if dev.type == "cpu":
+        return fused_ffn_plain(x, n2s=n2s, n2b=n2b, w_in=w_in, w_out=w_out,
+                               norm_kind=norm_kind, act=act,
+                               tn=_clip_block_n(block_n, f))
+    if dev.type != "cuda":
+        raise ValueError(f"fused_ffn: tensors on {dev}")
+    for t in (x, w_in, w_out):
+        if t.device != dev or not t.is_contiguous():
+            raise ValueError("fused_ffn kernel takes contiguous tensors on "
+                             "one device")
+        if t.dtype != torch.bfloat16:
+            raise TypeError("fused_ffn kernel takes bf16 rows and weights")
+    h_buf = torch.empty((B, f), dtype=torch.bfloat16, device=dev)
+    y = torch.empty((B, d), dtype=torch.bfloat16, device=dev)
+    fn = _bind_ffn(build.load("decode_fused"))
+    err = fn(build.ptr(x), build.ptr(n2s), build.ptr(n2b), build.ptr(w_in),
+             build.ptr(w_out), build.ptr(h_buf), build.ptr(y), B, d, f,
+             _NORM_CODE[norm_kind], _ACT_CODE[act], build.stream_ptr(dev))
+    if err != 0:
+        raise RuntimeError(f"fused_ffn kernel launch failed (cudaError {err})")
+    FFN_COUNTER.n += 1
     return y

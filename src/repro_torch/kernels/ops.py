@@ -16,8 +16,10 @@ from repro_torch.kernels import decode_fused as _df
 from repro_torch.kernels import outer_accum as _oa
 from repro_torch.kernels import sr_matmul as _mm
 from repro_torch.kernels import sr_round as _rr
+from repro_torch.kernels import wkv6 as _wkv
 
 fused_attn_unit = _df.fused_attn_unit
+fused_ffn = _df.fused_ffn
 
 
 def _entropy(shape, generator, lo: bool, device) -> torch.Tensor:
@@ -66,5 +68,17 @@ def outer_accum(x: torch.Tensor, dy: torch.Tensor,
     return _oa.outer_accum(x, dy, scale=scale, rbits=rbits if sr else None)
 
 
+def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+         w: torch.Tensor, u: torch.Tensor,
+         state: Optional[torch.Tensor] = None, *,
+         active: Optional[torch.Tensor] = None):
+    """WKV6 in the model-facing layout: r, k, v, w (B, S, H, hd), u (H, hd),
+    all f32; state (B, H, hd, hd) updated in place (rows `active` selects)
+    or None for zeros.  Returns (y (B, S, H, hd), final state).  The
+    reference folds to (B*H, S, hd) for its kernel; the port's kernel
+    reads this layout directly."""
+    return _wkv.wkv6_bshd(r, k, v, w, u, state, active=active)
+
+
 __all__ = ["make_rbits", "sr_matmul", "outer_accum", "sr_round",
-           "fused_attn_unit"]
+           "fused_attn_unit", "fused_ffn", "wkv6"]

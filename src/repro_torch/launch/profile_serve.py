@@ -1,11 +1,12 @@
 """Where the serving time goes on the GPU: a torch.profiler window.
 
     PYTHONPATH=src python -m repro_torch.launch.profile_serve \
-        --out profile_serve.txt
+        --arch rwkv6-1.6b --out profile_serve.txt
 
-Serves a seeded Poisson trace through qwen2-0.5b at full width (random
-weights) on the cuda backend with fused decode, and profiles a window of
-engine steps in the middle of the run.  Prints the device time by kernel
+Serves a seeded Poisson trace through one model at full width
+(qwen2-0.5b by default, or rwkv6-1.6b; random weights) on the cuda
+backend with fused decode, and profiles a window of engine steps in the
+middle of the run.  Prints the device time by kernel
 (sum and launch count), the window's wall time, the device's busy and
 idle share of it, and the host-clock time of the window's PREFILL chunk
 calls and DECODE calls.  Needs a CUDA device.
@@ -26,6 +27,8 @@ def _device_us(evt) -> float:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch", default="qwen2-0.5b",
+                    choices=("qwen2-0.5b", "rwkv6-1.6b"))
     ap.add_argument("--requests", type=int, default=16)
     ap.add_argument("--warmup-steps", type=int, default=20)
     ap.add_argument("--steps", type=int, default=10)
@@ -43,7 +46,7 @@ def main(argv=None) -> int:
 
     if not torch.cuda.is_available():
         raise SystemExit("profile_serve needs a CUDA device")
-    cfg = get_config("qwen2-0.5b")
+    cfg = get_config(args.arch)
     eng = build_engine(cfg, n_slots=32, max_len=528, prefill_chunk=32,
                        kernel_backend="cuda", fused_decode=not args.per_op,
                        seed=args.seed, device="cuda")
@@ -84,7 +87,7 @@ def main(argv=None) -> int:
             and str(e.device_type).endswith("CUDA")]
     busy = sum(us for _, us, _ in rows)
     rows.sort(key=lambda r: -r[1])
-    lines = [f"device: {torch.cuda.get_device_name(0)}",
+    lines = [f"device: {torch.cuda.get_device_name(0)}; arch {cfg.name}",
              f"window: {args.steps} engine steps after {args.warmup_steps}, "
              f"{'per-op' if args.per_op else 'fused'} decode, "
              f"wall {wall * 1e3:.3f} ms",

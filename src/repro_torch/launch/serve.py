@@ -4,6 +4,10 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b \
         --kernel-backend cuda --fused-decode --requests 16 --slots 32
 
+    # rwkv6: the recurrence on the wkv6 kernel, the FF half on fused_ffn
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-1.6b \
+        --kernel-backend cuda --fused-decode --requests 16 --slots 32
+
     # on the CPU at the reduced size (the plain reference backend)
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b \
         --reduced --device cpu --requests 4 --prompt-lens 4,20 --gen 4

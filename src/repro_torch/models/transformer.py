@@ -1,4 +1,5 @@
-"""Decoder-only LM for dense attention units: training and serving.
+"""Decoder-only LM: dense attention units (training and serving) and
+RWKV6 units (serving).
 
 Parameters keep the reference's pytree layout: per-unit leaves stacked
 over ``n_groups`` scan groups (``params["groups"]["u0"]["attn"]["qkv"]``
@@ -16,7 +17,11 @@ Entry points:
                      autograd runs BP and UP), remat per scan group
   chunk_step(...)  — T prompt tokens against the caches (PREFILL word)
   decode_step(...) — one token per arena row (DECODE word), per-op or
-                     fused (one ``decode_fused`` word per layer)
+                     fused (one ``decode_fused`` word per layer; an rwkv6
+                     unit keeps its mixer per-op and fuses its FF half)
+
+Training runs dense attention units only: the ``wkv6`` kernel has no
+backward yet.
 """
 from __future__ import annotations
 
@@ -28,7 +33,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.engine.context import PEContext
-from repro_torch.engine.dispatch import pe_fused_attn_unit
+from repro_torch.engine.dispatch import pe_fused_attn_unit, pe_fused_ffn
 from repro_torch.models.attention import (attention_block, attn_params,
                                           chunk_attend, decode_attend,
                                           init_kv_cache, split_qkv,
@@ -36,19 +41,25 @@ from repro_torch.models.attention import (attention_block, attn_params,
 from repro_torch.models.layers import (apply_norm, apply_rope, embed,
                                        lm_logits, lm_loss_chunked, mlp,
                                        norm_params)
+from repro_torch.models.ssm import (rwkv_block, rwkv_init_state,
+                                    rwkv_params)
 
 
 @dataclass(frozen=True)
 class UnitDesc:
-    mixer: str            # 'attn' (the only mixer this slice serves)
+    mixer: str            # 'attn' | 'rwkv6'
     ffn: str              # 'dense'
 
 
 def layer_pattern(cfg: ModelConfig) -> list:
-    if cfg.family != "dense" or cfg.attention is None:
-        raise NotImplementedError(
-            f"{cfg.name}: the port serves dense attention models only")
-    return [UnitDesc("attn", "dense")]
+    """One scan group's units: a single layer for both families here."""
+    if cfg.family == "dense" and cfg.attention is not None:
+        return [UnitDesc("attn", "dense")]
+    if cfg.family == "ssm" and cfg.ssm is not None \
+            and cfg.ssm.kind == "rwkv6":
+        return [UnitDesc("rwkv6", "dense")]
+    raise NotImplementedError(
+        f"{cfg.name}: the port runs dense attention and rwkv6 models only")
 
 
 def n_groups(cfg: ModelConfig) -> int:
@@ -103,7 +114,10 @@ def init(generator: Optional[torch.Generator], cfg: ModelConfig) -> dict:
         p = norm_params(cfg, device=dev, lead=(ng,))
         if p is not None:
             unit[key] = p
-    unit["attn"] = attn_params(cfg, generator, lead=(ng,))
+    if layer_pattern(cfg)[0].mixer == "attn":
+        unit["attn"] = attn_params(cfg, generator, lead=(ng,))
+    else:
+        unit["rwkv"] = rwkv_params(cfg, generator, lead=(ng,))
     unit["ffn"] = {"ffn_in": normal(ng, d, fin) * d ** -0.5,
                    "ffn_out": normal(ng, f, d) * f ** -0.5}
     params["groups"] = {"u0": unit}
@@ -112,11 +126,14 @@ def init(generator: Optional[torch.Generator], cfg: ModelConfig) -> dict:
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                device=None) -> dict:
-    """Per-group stacked caches: {"u0": {"attn": {k, v, pos}}}, leaves
-    shaped (n_groups, batch, ...)."""
+    """Per-group stacked caches, leaves shaped (n_groups, batch, ...):
+    {"u0": {"attn": {k, v, pos}}} or {"u0": {"rwkv": {wkv, shift}}}."""
+    lead = (n_groups(cfg),)
+    if layer_pattern(cfg)[0].mixer == "rwkv6":
+        return {"u0": {"rwkv": rwkv_init_state(cfg, batch, device=device,
+                                               lead=lead)}}
     return {"u0": {"attn": init_kv_cache(cfg.attention, batch, max_len,
-                                         device=device,
-                                         lead=(n_groups(cfg),))}}
+                                         device=device, lead=lead)}}
 
 
 # ---------------------------------------------------------------------------
@@ -154,6 +171,9 @@ def group_scan(cfg: ModelConfig, x: torch.Tensor, groups: dict,
     identical across modes; only what autograd saves differs.
     """
     pattern = layer_pattern(cfg)
+    if any(u.mixer != "attn" for u in pattern):
+        raise NotImplementedError(
+            f"{cfg.name}: training waits for a backward of the wkv6 kernel")
     ng = n_groups(cfg)
     modes = [remat] * ng if isinstance(remat, str) else list(remat)
     if len(modes) != ng:
@@ -209,11 +229,10 @@ def loss_fn(cfg: ModelConfig, params: dict, batch: dict, sh: PEContext, *,
 # ---------------------------------------------------------------------------
 
 
-def _unit_decode(cfg: ModelConfig, x, up: dict, sh: PEContext, cache: dict,
+def _attn_decode(cfg: ModelConfig, h, up: dict, sh: PEContext, cache: dict,
                  pos: torch.Tensor, active: Optional[torch.Tensor]):
-    """x: (B, 1, d); pos: (B,).  Per-op words; returns x."""
+    """The attention mixer of one decode step: h (B, 1, d) -> (B, 1, d)."""
     a = cfg.attention
-    h = apply_norm(cfg, x, up.get("norm1"))
     qkv = sh.dot("attn_qkv", h, up["attn"]["qkv"])
     q, k, v = split_qkv(a, qkv, up["attn"].get("qkv_bias"))
     B = h.shape[0]
@@ -234,7 +253,18 @@ def _unit_decode(cfg: ModelConfig, x, up: dict, sh: PEContext, cache: dict,
         update_cache({"k": kc, "v": vc, "pos": kp}, k[:, 0], v[:, 0], pos)
         update_cache(c, k[:, 0], v[:, 0], pos, active)
     out = decode_attend(q[:, 0], kc, vc, kp, pos, window=a.window)
-    x = x + sh.dot("attn_o", out.reshape(B, 1, -1), up["attn"]["o"])
+    return sh.dot("attn_o", out.reshape(B, 1, -1), up["attn"]["o"])
+
+
+def _unit_decode(cfg: ModelConfig, x, up: dict, unit: UnitDesc,
+                 sh: PEContext, cache: dict, pos: torch.Tensor,
+                 active: Optional[torch.Tensor]):
+    """x: (B, 1, d); pos: (B,).  Per-op words; returns x."""
+    h = apply_norm(cfg, x, up.get("norm1"))
+    if unit.mixer == "attn":
+        x = x + _attn_decode(cfg, h, up, sh, cache, pos, active)
+    else:
+        x = x + rwkv_block(cfg, h, up["rwkv"], sh, cache["rwkv"], active)
     h2 = apply_norm(cfg, x, up.get("norm2"))
     return x + mlp(cfg, h2, up["ffn"]["ffn_in"], up["ffn"]["ffn_out"], sh)
 
@@ -247,21 +277,30 @@ def _fused_norm_args(cfg: ModelConfig, up: dict, key: str):
     return up.get(key), cfg.norm
 
 
-def _unit_decode_fused(cfg: ModelConfig, x, up: dict, sh: PEContext,
-                       cache: dict, pos: torch.Tensor,
+def _unit_decode_fused(cfg: ModelConfig, x, up: dict, unit: UnitDesc,
+                       sh: PEContext, cache: dict, pos: torch.Tensor,
                        active: Optional[torch.Tensor]):
     """The unit as ONE fused-decode word.
 
-    On the cuda backend the whole unit runs as one ``fused_attn_unit``
-    call (kernels/decode_fused.py).  On the reference backend the fused
-    composition is the per-op primitive sequence itself, so fused decode
-    is bit-identical per request to the per-op loop.
+    On the cuda backend an attention unit runs as one ``fused_attn_unit``
+    call (kernels/decode_fused.py); an rwkv6 unit keeps its recurrence on
+    its per-op path (a state word, as the reference keeps it) and runs
+    its FF half as one ``fused_ffn`` call.  On the reference backend the
+    fused composition is the per-op primitive sequence itself, so fused
+    decode is bit-identical per request to the per-op loop.
     """
     if sh.backend == "reference":
-        return _unit_decode(cfg, x, up, sh, cache, pos, active)
-    a = cfg.attention
+        return _unit_decode(cfg, x, up, unit, sh, cache, pos, active)
     n1, nk = _fused_norm_args(cfg, up, "norm1")
     n2, _ = _fused_norm_args(cfg, up, "norm2")
+    if unit.mixer == "rwkv6":
+        h = apply_norm(cfg, x, up.get("norm1"))
+        x = x + rwkv_block(cfg, h, up["rwkv"], sh, cache["rwkv"], active)
+        y = pe_fused_ffn(x[:, 0].contiguous(), norm2=n2,
+                         w_in=up["ffn"]["ffn_in"], w_out=up["ffn"]["ffn_out"],
+                         norm_kind=nk, act=cfg.act, word=sh.word("ffn_in"))
+        return y[:, None]
+    a = cfg.attention
     y = pe_fused_attn_unit(
         x[:, 0].contiguous(), cache["attn"], pos, norm1=n1,
         qkv_w=up["attn"]["qkv"], qkv_bias=up["attn"].get("qkv_bias"),
@@ -273,11 +312,23 @@ def _unit_decode_fused(cfg: ModelConfig, x, up: dict, sh: PEContext,
     return y[:, None]
 
 
-def _unit_chunk(cfg: ModelConfig, x, up: dict, sh: PEContext, cache: dict,
-                pos: torch.Tensor):
-    """Chunked-prefill unit step.  x: (B, T, d); pos: (B, T)."""
-    a = cfg.attention
+def _unit_chunk(cfg: ModelConfig, x, up: dict, unit: UnitDesc,
+                sh: PEContext, cache: dict, pos: torch.Tensor):
+    """Chunked-prefill unit step.  x: (B, T, d); pos: (B, T).  The rwkv6
+    recurrence consumes the whole chunk from the carried state."""
     h = apply_norm(cfg, x, up.get("norm1"))
+    if unit.mixer == "attn":
+        x = x + _attn_chunk(cfg, h, up, sh, cache, pos)
+    else:
+        x = x + rwkv_block(cfg, h, up["rwkv"], sh, cache["rwkv"])
+    h2 = apply_norm(cfg, x, up.get("norm2"))
+    return x + mlp(cfg, h2, up["ffn"]["ffn_in"], up["ffn"]["ffn_out"], sh)
+
+
+def _attn_chunk(cfg: ModelConfig, h, up: dict, sh: PEContext, cache: dict,
+                pos: torch.Tensor):
+    """The attention mixer of a chunk: h (B, T, d) -> (B, T, d)."""
+    a = cfg.attention
     qkv = sh.dot("attn_qkv", h, up["attn"]["qkv"])
     q, k, v = split_qkv(a, qkv, up["attn"].get("qkv_bias"))
     B, T = h.shape[:2]
@@ -298,9 +349,7 @@ def _unit_chunk(cfg: ModelConfig, x, up: dict, sh: PEContext, cache: dict,
     else:
         update_cache_chunk(c, k, v, pos)
         out = chunk_attend(q, c["k"], c["v"], c["pos"], pos)
-    x = x + sh.dot("attn_o", out.reshape(B, T, -1), up["attn"]["o"])
-    h2 = apply_norm(cfg, x, up.get("norm2"))
-    return x + mlp(cfg, h2, up["ffn"]["ffn_in"], up["ffn"]["ffn_out"], sh)
+    return sh.dot("attn_o", out.reshape(B, T, -1), up["attn"]["o"])
 
 
 # ---------------------------------------------------------------------------
@@ -323,8 +372,8 @@ def chunk_step(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
     for g in range(n_groups(cfg)):
         gp = _tree_index(params["groups"], g)
         gc = _tree_index(cache, g)
-        for i in range(len(pattern)):
-            x = _unit_chunk(cfg, x, gp[f"u{i}"], sh, gc[f"u{i}"], pos)
+        for i, unit in enumerate(pattern):
+            x = _unit_chunk(cfg, x, gp[f"u{i}"], unit, sh, gc[f"u{i}"], pos)
     x = apply_norm(cfg, x, params.get("final_norm"))
     return lm_logits(x, cfg, params, sh), cache
 
@@ -343,7 +392,8 @@ def decode_step(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
     for g in range(n_groups(cfg)):
         gp = _tree_index(params["groups"], g)
         gc = _tree_index(cache, g)
-        for i in range(len(pattern)):
-            x = unit_fn(cfg, x, gp[f"u{i}"], sh, gc[f"u{i}"], pos, active)
+        for i, unit in enumerate(pattern):
+            x = unit_fn(cfg, x, gp[f"u{i}"], unit, sh, gc[f"u{i}"], pos,
+                        active)
     x = apply_norm(cfg, x, params.get("final_norm"))
     return lm_logits(x, cfg, params, sh), cache

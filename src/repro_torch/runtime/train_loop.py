@@ -56,7 +56,8 @@ def split_microbatches(batch: dict, nm: int) -> dict:
 
 def make_train_step(cfg: ModelConfig, program: Program,
                     train_cfg: TrainConfig):
-    """(train_step, optimizer).  ``train_step(state, batch, key)`` takes
+    """(train_step, optimizer) of a dense attention model (rwkv6 training
+    waits for a wkv6 backward).  ``train_step(state, batch, key)`` takes
     the state {"params", "opt", "step"}, a batch of numpy arrays or
     tensors {"tokens", "labels"} and the step's integer key, and returns
     (new state, {"loss", "grad_norm"}) — the tensors of the new state are
@@ -133,9 +134,15 @@ def state_shapes(cfg: ModelConfig, program: Program,
 
 def cache_shapes(cfg: ModelConfig, batch: int, max_len: int) -> dict:
     """{leaf path: (shape, dtype)} of the decode cache, without
-    allocating it."""
-    a = cfg.attention
+    allocating it: the KV ring of an attention model, the recurrent state
+    of an rwkv6 model (independent of max_len)."""
     ng = tfm.n_groups(cfg)
+    if tfm.layer_pattern(cfg)[0].mixer == "rwkv6":
+        hd = cfg.ssm.head_dim
+        return {"u0/rwkv/wkv": ((ng, batch, cfg.d_model // hd, hd, hd),
+                                torch.float32),
+                "u0/rwkv/shift": ((ng, batch, cfg.d_model), torch.bfloat16)}
+    a = cfg.attention
     size = min(max_len, a.window) if a.window else max_len
     kv = ((ng, batch, size, a.n_kv_heads, a.head_dim), torch.bfloat16)
     return {"u0/attn/k": kv, "u0/attn/v": kv,
@@ -163,7 +170,8 @@ def make_chunk_step(cfg: ModelConfig, program: Program,
 
 def make_decode_step(cfg: ModelConfig, program: Program,
                      kernel_backend: str = "reference"):
-    """One-token serve step under the per-op DECODE words."""
+    """One-token serve step under the per-op DECODE words (dense attention
+    and rwkv6 units)."""
     sh = PEContext(program, backend=kernel_backend, phase=Phase.DECODE)
     dt = program.policy.ff_dtype
 
@@ -176,7 +184,8 @@ def make_decode_step(cfg: ModelConfig, program: Program,
 
 def make_fused_decode_step(cfg: ModelConfig, program: Program,
                            kernel_backend: str = "reference"):
-    """One-token serve step with each layer as ONE fused-decode word."""
+    """One-token serve step with each layer as ONE fused-decode word (an
+    rwkv6 layer: its per-op mixer, then one fused FF word)."""
     sh = PEContext(program, backend=kernel_backend, phase=Phase.DECODE)
     dt = program.policy.ff_dtype
 

@@ -12,6 +12,10 @@ Two step functions, both under the serving program words:
   PREFILL word (``sr_matmul`` on the cuda backend), run on views of that
   slot's arena row.
 
+An arena row is a request's KV ring (attention) or its recurrent state
+(rwkv6: the wkv state and the token shift, continued by every chunk and
+decode step and zeroed when the slot is leased again).
+
 On the reference backend both are bit-identical, per request, to
 token-by-token decode: the engine changes scheduling, never math.
 Speculative decoding and the fleet hooks wait for later slices.

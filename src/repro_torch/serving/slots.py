@@ -14,7 +14,8 @@ import torch
 
 
 def slot_bytes(cfg, max_len: int) -> int:
-    """Bytes of ONE slot row across every cache leaf."""
+    """Bytes of ONE slot row across every cache leaf: its KV ring, or for
+    rwkv6 its recurrent state (wkv and shift, independent of max_len)."""
     from repro_torch.runtime.train_loop import cache_bytes
     return cache_bytes(cfg, 1, max_len)
 
@@ -67,8 +68,9 @@ class SlotPool:
 
 def reset_slots(cache, slots) -> object:
     """Re-initialise arena rows `slots` in place: integer leaves (the
-    attention ``pos`` maps) to -1, float leaves to 0 — ``init_cache``'s
-    values.  Returns the cache."""
+    attention ``pos`` maps) to -1, float leaves (KV values, the rwkv6
+    ``wkv`` state and token ``shift``) to 0 — ``init_cache``'s values.
+    Returns the cache."""
     if isinstance(cache, dict):
         for v in cache.values():
             reset_slots(v, slots)

@@ -9,10 +9,11 @@ package, so it runs on a machine that has only torch:
 (``--noconftest``: tests/conftest.py configures JAX.)  Tolerances are
 those of the CPU parity tests: sr_matmul's and outer_accum's f32 results
 rtol 5e-4 / atol 1e-4 (another accumulation order over K or T up to
-151936 terms, operands scaled so results are O(1)), fused_attn_unit y
-2e-2 and caches 6e-2 (bf16 results of f32 sums in another order); every
-SR result bit-equal to the plain SR cast of the kernel's own f32 result,
-and sr_round bit-exact.
+151936 terms, operands scaled so results are O(1)), fused_attn_unit and
+fused_ffn y 2e-2 and caches 6e-2 (bf16 results of f32 sums in another
+order); wkv6 y and state 1e-4 (f32 recurrence, fused multiply-adds and
+another summation order, values O(1)); every SR result bit-equal to the
+plain SR cast of the kernel's own f32 result, and sr_round bit-exact.
 """
 import pytest
 
@@ -23,9 +24,11 @@ from repro_torch.kernels import decode_fused as kdf  # noqa: E402
 from repro_torch.kernels import outer_accum as koa  # noqa: E402
 from repro_torch.kernels import sr_matmul as kmm  # noqa: E402
 from repro_torch.kernels import sr_round as ksr  # noqa: E402
+from repro_torch.kernels import wkv6 as kwkv  # noqa: E402
 
 MM_RTOL, MM_ATOL = 5e-4, 1e-4
 Y_TOL, CACHE_TOL = 2e-2, 6e-2
+WKV_TOL = 1e-4
 
 
 @pytest.fixture
@@ -207,3 +210,87 @@ def test_sr_round_kernel_bit_exact(dev, n, offset):
     assert ksr.COUNTER.n == 1
     want = ksr.sr_round_plain(x.cpu(), rb.cpu())
     assert torch.equal(got.cpu().view(torch.int16), want.view(torch.int16))
+
+
+# (B, S, H, hd, decay): a 32-token PREFILL chunk of one rwkv6-1.6b slot,
+# a DECODE step of 32 slots, a ragged chunk, near-total decay, and the
+# reduced head sizes
+WKV_CASES = [(1, 32, 32, 64, None), (32, 1, 32, 64, None),
+             (2, 37, 4, 64, None), (1, 32, 32, 64, 1e-6),
+             (3, 9, 4, 32, None), (2, 5, 2, 16, None)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", WKV_CASES, ids=str)
+def test_wkv6_kernel_matches_plain(dev, case):
+    B, S, H, hd, decay = case
+    g = torch.Generator(device=dev).manual_seed(6)
+    rnd = lambda *s: torch.randn(s, generator=g, device=dev)
+    r, k, v = (0.5 * rnd(B, S, H, hd) for _ in range(3))
+    w = (torch.full((B, S, H, hd), decay, device=dev) if decay
+         else 0.45 + 0.5 * torch.sigmoid(rnd(B, S, H, hd)))
+    u = 0.1 * rnd(H, hd)
+    s0 = 0.3 * rnd(B, H, hd, hd)
+    active = torch.ones(B, dtype=torch.bool, device=dev)
+    active[B // 2] = B == 1                 # one inactive row when B > 1
+    state = s0.clone()
+    kwkv.COUNTER.reset()
+    y, s = kwkv.wkv6_bshd(r, k, v, w, u, state, active=active)
+    torch.cuda.synchronize()
+    assert kwkv.COUNTER.n == 1 and s is state
+    yp, sp = kwkv.wkv6_plain(r, k, v, w, u, s0)
+    assert torch.isfinite(y).all() and torch.isfinite(s).all()
+    torch.testing.assert_close(y, yp, atol=WKV_TOL, rtol=WKV_TOL)
+    torch.testing.assert_close(s[active], sp[active], atol=WKV_TOL,
+                               rtol=WKV_TOL)
+    assert torch.equal(s[~active], s0[~active])
+    # from zeros, in the TPU kernel's (BH, S, hd) fold
+    fold = lambda t: t.transpose(1, 2).reshape(B * H, S, hd).contiguous()
+    yf, sf = kwkv.wkv6(fold(r), fold(k), fold(v), fold(w),
+                       u.repeat(B, 1).contiguous())
+    yfp, sfp = kwkv.wkv6_plain(r, k, v, w, u)
+    torch.testing.assert_close(yf, fold(yfp), atol=WKV_TOL, rtol=WKV_TOL)
+    torch.testing.assert_close(sf, sfp.reshape(B * H, hd, hd),
+                               atol=WKV_TOL, rtol=WKV_TOL)
+
+
+@pytest.mark.cuda
+def test_wkv6_kernel_chunk_equals_single_steps(dev):
+    """The kernel's per-token arithmetic does not depend on S: a chunk
+    and the same tokens one call at a time give the same bits."""
+    B, S, H, hd = 2, 12, 4, 64
+    g = torch.Generator(device=dev).manual_seed(7)
+    r, k, v = (0.5 * torch.randn((B, S, H, hd), generator=g, device=dev)
+               for _ in range(3))
+    w = 0.45 + 0.5 * torch.sigmoid(torch.randn((B, S, H, hd), generator=g,
+                                               device=dev))
+    u = 0.1 * torch.randn((H, hd), generator=g, device=dev)
+    y, s = kwkv.wkv6_bshd(r, k, v, w, u)
+    state = torch.zeros_like(s)
+    ys = [kwkv.wkv6_bshd(*(t[:, i:i + 1].contiguous() for t in (r, k, v, w)),
+                         u, state)[0] for i in range(S)]
+    assert torch.equal(torch.cat(ys, dim=1), y) and torch.equal(state, s)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,d,f,norm,act", [
+    (32, 2048, 7168, "layernorm", "relu_sq"),
+    (5, 64, 128, "rmsnorm", "swiglu"), (3, 200, 72, "layernorm", "gelu")])
+def test_fused_ffn_kernel_matches_plain(dev, B, d, f, norm, act):
+    g = torch.Generator(device=dev).manual_seed(8)
+    rnd = lambda *s: torch.randn(s, generator=g, device=dev)
+    gated = act == "swiglu"
+    x = rnd(B, d).bfloat16()
+    w = dict(w_in=(rnd(d, 2 * f if gated else f) * d ** -0.5).bfloat16(),
+             w_out=(rnd(f, d) * f ** -0.5).bfloat16(),
+             norm2_scale=1 + 0.3 * rnd(d),
+             norm2_bias=0.2 * rnd(d) if norm == "layernorm" else None)
+    kdf.FFN_COUNTER.reset()
+    y = kdf.fused_ffn(x, norm_kind=norm, act=act, **w)
+    torch.cuda.synchronize()
+    assert kdf.FFN_COUNTER.n == 1 and y.dtype == torch.bfloat16
+    yp = kdf.fused_ffn(x.cpu(), norm_kind=norm, act=act,
+                       **{k: None if v is None else v.cpu()
+                          for k, v in w.items()})
+    torch.testing.assert_close(y.cpu().float(), yp.float(), atol=Y_TOL,
+                               rtol=Y_TOL)
