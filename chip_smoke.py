@@ -7,25 +7,31 @@ Run from the root of a checkout.  It imports only ``torch`` and the
 port (``src/repro_torch``), never JAX or the JAX package, and:
 
 1. builds the hand-written CUDA kernels from ``src/repro_torch/csrc``
-   (one nvcc per source, concurrently) and prints the build seconds;
+   (one nvcc per source, concurrently), prints the build seconds and
+   each kernel's registers and spills;
 2. holds each kernel against its plain PyTorch version on the card, at
    the shapes qwen2-0.5b's serving and training paths give it, and times
    kernel, plain version and, where one exists, the one torch call
-   computing the same function: sr_matmul at the PREFILL shapes, and
-   at the FF and BP shapes of a training step (K up to 151936) with
-   bf16 and with f32 operands; fused_attn_unit; outer_accum at the five
-   UP shapes of a step, both operand types; sr_round on the largest
-   optimizer leaf;
+   computing the same function: sr_matmul at the PREFILL shapes (each
+   product's plan — sm90 or generic path, tiles, splits — rows 0..4 of
+   a chunk bit-equal to a 5-row call, device time in a CUDA graph, the
+   host's share of a call), and at the FF and BP shapes of a training
+   step (K up to 151936, split-K calls bit-equal twice) with bf16 and
+   with f32 operands; fused_attn_unit; outer_accum at the five UP
+   shapes of a step, both operand types; sr_round on the largest
+   optimizer leaf; the generic path on operands the TMA cannot describe;
 3. serves a seeded Poisson trace through qwen2-0.5b at full width
    (random weights from a seed) with the continuous-batching engine on
-   the cuda backend — PREFILL through sr_matmul, fused DECODE through
-   fused_attn_unit — counting each kernel's launches in that run, and
-   serves the same trace again with the per-op decode words; then
-   teacher-forces fused and per-op decode on one token stream and holds
-   both against an f32 truth;
+   the cuda backend — PREFILL through sr_matmul's sm90 path, fused
+   DECODE through fused_attn_unit — counting each kernel's launches in
+   that run (the generic path's must stay 0), and serves the same trace
+   again with the per-op decode words; then teacher-forces fused and
+   per-op decode on one token stream and holds both against an f32
+   truth;
 4. the same for rwkv6-1.6b at full width: sr_matmul at its PREFILL
-   shapes, wkv6 (a PREFILL chunk and a DECODE step from a carried state,
-   a ragged chunk, near-total decay) and fused_ffn against their plain
+   shapes (the r, k, v, g quarters as column views of the fused table),
+   wkv6 (a PREFILL chunk and a DECODE step from a carried state, a
+   ragged chunk, near-total decay) and fused_ffn against their plain
    versions; the trace served fused (PREFILL through sr_matmul, the
    recurrence through wkv6, each layer's FF half through fused_ffn) and
    per-op; the teacher-forced comparison; and, layer by layer, fused_ffn
@@ -35,11 +41,13 @@ port (``src/repro_torch``), never JAX or the JAX package, and:
    layers under ``paper_sr_bf16`` (adamw, remat block, B=4, S=256) for 8
    steps through ``launch.train`` — FF / BP through sr_matmul, UP
    through outer_accum, the optimizer's SR writeback through sr_round —
-   counting each kernel's launches per step.
+   counting each kernel's launches per step (every bf16 product on the
+   sm90 path, none on the generic one).
 
-It prints a ``{"kernels": [...]}`` line, the card's name and power
-limit, and as its last line ``{"ok": true, "device": {...}}``.  Any
-failed check exits nonzero.  Without a CUDA device, or outside a
+It prints the sm90 redesign's time targets (met or missed; a miss is
+reported, not failed), a ``{"kernels": [...]}`` line, the card's name
+and power limit, and as its last line ``{"ok": true, "device": {...}}``.
+Any failed check exits nonzero.  Without a CUDA device, or outside a
 checkout, it exits nonzero and prints no result.
 """
 from __future__ import annotations
@@ -126,10 +134,64 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def time_graph_ms(fn, iters: int = 20, replays: int = 5) -> float:
+    """Device time per call: `iters` calls captured in one CUDA graph and
+    replayed, so the host's time per call drops out (time_ms measures
+    back-to-back calls, which a short kernel's host time can bound)."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (replays * iters)
+
+
 def errs(got, want) -> tuple:
     g, w = got.float(), want.float()
     d = (g - w).abs()
     return float(d.max()), float((d / w.abs().clamp_min(1e-6)).max())
+
+
+def ptxas_report(log: str) -> list:
+    """(kernel, registers, spill bytes stored, spill bytes loaded) per
+    entry function of an -Xptxas -v log; gemm_sm90.cuh's mainloop is
+    named by its template arguments <BN, A_MN, B_MN>."""
+    import re
+    rows, cur, spill = [], None, (0, 0)
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?([A-Za-z0-9_]+)", line)
+        if m:
+            cur = m.group(1)
+            g = re.search(r"gemm_kernelILi(\d+)ELb(\d)ELb(\d)E", cur)
+            if g:
+                cur = f"gemm_kernel<{g.group(1)},{g.group(2)},{g.group(3)}>"
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spill = (int(m.group(1)), int(m.group(2)))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur is not None:
+            rows.append((cur, int(m.group(1)), *spill))
+            spill = (0, 0)
+    return rows
 
 
 def phase_build() -> None:
@@ -141,9 +203,9 @@ def phase_build() -> None:
     for n in build.SOURCES:
         log = build.BUILD_DIR / f"{n}.log"
         if log.exists():
-            for line in log.read_text().splitlines():
-                if "registers" in line or "spill" in line:
-                    print(f"[build] {n}: {line.strip()}")
+            for kern, regs, st, ld in ptxas_report(log.read_text()):
+                print(f"[build] {n}: {kern}: {regs} registers, spill "
+                      f"stores {st} B, spill loads {ld} B")
 
 
 def qwen2_prefill_shapes(params) -> list:
@@ -158,40 +220,68 @@ def qwen2_prefill_shapes(params) -> list:
 
 def rwkv6_prefill_shapes(cfg, params) -> list:
     """rwkv6-1.6b's PREFILL products: the four quarters of the fused r, k,
-    v, g table, decay, output, the FF pair and the untied LM head."""
+    v, g table (column views, read in place as on the main path), decay,
+    output, the FF pair and the untied LM head."""
     d = cfg.d_model
     r0 = {k: v[0] for k, v in params["groups"]["u0"]["rwkv"].items()}
     f0 = {k: v[0] for k, v in params["groups"]["u0"]["ffn"].items()}
-    quarters = [(f"rkvg[{i}]", r0["rkvg"][:, i * d:(i + 1) * d].contiguous(),
-                 False) for i in range(4)]
+    quarters = [(f"rkvg[{i}]", r0["rkvg"][:, i * d:(i + 1) * d], False)
+                for i in range(4)]
     return quarters + [("decay", r0["decay"], False), ("rwkv_o", r0["o"], False),
                        ("ffn_in", f0["ffn_in"], False),
                        ("ffn_out", f0["ffn_out"], False),
                        ("lm_head", params["lm_head"], False)]
 
 
+def plan_txt(p) -> str:
+    return f"plan ({p.path}, bm {p.bm}, bn {p.bn}, splits {p.splits})"
+
+
+def path_counts(counter_map: dict) -> dict:
+    return {k: c.n for k, c in counter_map.items()}
+
+
 def phase_sr_matmul(label: str, arch: str, shapes: list, peaks, *,
                     ragged: bool = False) -> dict:
-    """sr_matmul at every PREFILL shape of a 32-token chunk of `arch`."""
+    """sr_matmul at every PREFILL shape of a 32-token chunk of `arch`: the
+    sm90 path against the plain version, the SR epilogue bit-equal to the
+    plain SR cast of the kernel's own product, rows 0..4 of the chunk
+    bit-equal to a 5-row call of the same rows; then the host's share of
+    a call (the TMA maps, encoded alone) and, with `ragged`, the generic
+    path on operands the TMA cannot describe."""
     import torch
     from repro_torch.core.rounding import sr_cast_bf16
     from repro_torch.kernels import sr_matmul as kmm
     gen = torch.Generator(device="cuda").manual_seed(1)
     M = 32
     worst_abs = worst_rel = 0.0
-    tot = {"ms": 0.0, "plain": 0.0, "lib": 0.0, "bound": 0.0}
+    tot = {"ms": 0.0, "plain": 0.0, "lib": 0.0, "bound": 0.0, "dev": 0.0,
+           "lib_dev": 0.0}
     by_ms = {"bytes": 0.0, "operations": 0.0}
+    plans = {}
     for name, w, tb in shapes:
         K = w.shape[1] if tb else w.shape[0]
         N = w.shape[0] if tb else w.shape[1]
         a = torch.randn((M, K), generator=gen, device="cuda").to(torch.bfloat16)
+        p = kmm.operands_plan(a, w, tb)
+        plans[name] = p
+        check(p.path == "sm90", f"sr_matmul {name}: {plan_txt(p)}, want sm90")
+        before = path_counts(kmm.PATH_COUNTERS)
         got = kmm.sr_matmul(a, w, trans_b=tb)
+        after = path_counts(kmm.PATH_COUNTERS)
+        check(after["sm90"] == before["sm90"] + 1
+              and after["generic"] == before["generic"],
+              f"sr_matmul {name} did not launch the sm90 path once")
         want = kmm.sr_matmul_plain(a, w, trans_b=tb)
         torch.cuda.synchronize()
         ea, er = errs(got, want)
         check(torch.allclose(got, want, rtol=MM_RTOL, atol=MM_ATOL),
               f"sr_matmul {name} ({M}x{K}x{N}, trans_b={tb}) f32 path: "
               f"max abs err {ea:.3g}")
+        rows5 = kmm.sr_matmul(a[:5].clone(), w, trans_b=tb)
+        check(torch.equal(rows5, got[:5]),
+              f"sr_matmul {name}: rows 0..4 of the 32-row call differ from "
+              f"a 5-row call of the same rows")
         rb = torch.randint(-2**31, 2**31, (M, N), generator=gen,
                            device="cuda", dtype=torch.int64).to(torch.int32)
         got_sr = kmm.sr_matmul(a, w, rb, trans_b=tb)
@@ -208,37 +298,93 @@ def phase_sr_matmul(label: str, arch: str, shapes: list, peaks, *,
         plain = time_ms(lambda: kmm.sr_matmul_plain(a, w, trans_b=tb))
         wt = w.t() if tb else w
         lib = time_ms(lambda: torch.matmul(a, wt))
+        dev = time_graph_ms(lambda: kmm.sr_matmul(a, w, trans_b=tb))
+        lib_dev = time_graph_ms(lambda: torch.matmul(a, wt))
         b_ms, by = bound(2 * (M * K + K * N) + 4 * M * N, 2 * M * N * K,
                          peaks)
         by_ms[by] += b_ms
-        print(f"[{label}] {name:<8} M={M} K={K} N={N} trans_b={int(tb)}: "
-              f"kernel {ms:.4f}ms plain {plain:.4f}ms torch.matmul "
-              f"{lib:.4f}ms bound {b_ms:.4f}ms  max_abs_err {ea:.3g}")
+        print(f"[{label}] {name:<8} M={M} K={K} N={N} trans_b={int(tb)} "
+              f"{plan_txt(p)}: kernel {ms:.4f}ms plain {plain:.4f}ms "
+              f"torch.matmul {lib:.4f}ms bound {b_ms:.4f}ms; in a CUDA "
+              f"graph: kernel {dev:.4f}ms torch.matmul {lib_dev:.4f}ms  "
+              f"max_abs_err {ea:.3g}  rows 0..4 = 5-row call")
         tot["ms"] += ms
         tot["plain"] += plain
         tot["lib"] += lib
         tot["bound"] += b_ms
-    # ragged edges of M, N and K on both layouts (masking, no overreads)
+        tot["dev"] += dev
+        tot["lib_dev"] += lib_dev
+    # the host's share of one call, on the host clock, at the first
+    # shape: the cached plan lookup, the stream query, a ctypes call that
+    # only encodes the sm90 path's two TMA maps, and the whole call
+    from repro_torch.kernels import build
+    name, w, tb = shapes[0]
+    K = w.shape[1] if tb else w.shape[0]
+    N = w.shape[0] if tb else w.shape[1]
+    a = torch.randn((M, K), generator=gen, device="cuda").to(torch.bfloat16)
+    lda, ldb = kmm.row_stride(a), kmm.row_stride(w)
+    p = kmm.launch_geometry(M, N, K, "k", "k" if tb else "n", lda, ldb,
+                            kmm.aligned16(a, w))[0]
+    maps = build.load("sr_matmul").sr_matmul_sm90_maps
+    check(maps(build.ptr(a), build.ptr(w), M, N, K, lda, ldb, int(tb),
+               p.bn) == 0, f"sr_matmul {name}: the TMA maps were refused")
+    host = {}
+    for what, f in (
+            ("plan", lambda: kmm.launch_geometry(
+                M, N, K, "k", "k" if tb else "n", lda, ldb,
+                kmm.aligned16(a, w))),
+            ("stream", lambda: build.stream_ptr(a.device)),
+            ("maps", lambda: maps(build.ptr(a), build.ptr(w), M, N, K, lda,
+                                  ldb, int(tb), p.bn)),
+            ("call", lambda: kmm.sr_matmul(a, w, trans_b=tb))):
+        for _ in range(20):
+            f()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(200):
+            f()
+        host[what] = (time.perf_counter() - t0) / 200 * 1e3
+        torch.cuda.synchronize()
+    print(f"[{label}] host time per call at {name} (ms): plan lookup "
+          f"{host['plan']:.4f}, stream query {host['stream']:.4f}, a ctypes "
+          f"call encoding the two TMA maps {host['maps']:.4f}, whole call "
+          f"{host['call']:.4f}")
+    # ragged edges of M, N and K on both layouts (masking, no overreads);
+    # B's 666-byte rows (trans_b=0) take the generic path
     for tb in ((False, True) if ragged else ()):
         a = torch.randn((37, 1000), generator=gen, device="cuda").to(torch.bfloat16)
         w = torch.randn((333, 1000) if tb else (1000, 333), generator=gen,
                         device="cuda").to(torch.bfloat16)
+        p = kmm.operands_plan(a, w, tb)
+        check(p.path == ("sm90" if tb else "generic"),
+              f"sr_matmul ragged trans_b={tb}: {plan_txt(p)}")
+        before = path_counts(kmm.PATH_COUNTERS)
         got = kmm.sr_matmul(a, w, trans_b=tb)
+        after = path_counts(kmm.PATH_COUNTERS)
+        check(after[p.path] == before[p.path] + 1,
+              f"sr_matmul ragged trans_b={tb}: {p.path} counter did not move")
         want = kmm.sr_matmul_plain(a, w, trans_b=tb)
         check(torch.allclose(got, want, rtol=MM_RTOL, atol=MM_ATOL),
-              f"sr_matmul ragged 37x1000x333 trans_b={tb}: max abs err "
-              f"{errs(got, want)[0]:.3g}")
+              f"sr_matmul ragged 37x1000x333 trans_b={tb} ({p.path}): max "
+              f"abs err {errs(got, want)[0]:.3g}")
+        print(f"[{label}] ragged 37x1000x333 trans_b={int(tb)} {plan_txt(p)}"
+              f": max_abs_err {errs(got, want)[0]:.3g}")
     print(f"[{label}] one PREFILL chunk's {len(shapes)} products: kernel "
           f"{tot['ms']:.4f}ms plain {tot['plain']:.4f}ms torch.matmul "
-          f"{tot['lib']:.4f}ms bound {tot['bound']:.4f}ms")
+          f"{tot['lib']:.4f}ms bound {tot['bound']:.4f}ms; in a CUDA graph: "
+          f"kernel {tot['dev']:.4f}ms torch.matmul {tot['lib_dev']:.4f}ms")
     return {"name": label, "route": "cuda",
-            "source": "src/repro_torch/csrc/sr_matmul.cu",
+            "source": "src/repro_torch/csrc/gemm_sm90.cuh",
+            "entry": "src/repro_torch/csrc/sr_matmul.cu",
             "replaces": "src/repro/kernels/sr_matmul.py:96",
             "tpu_kernel": "repro/kernels/sr_matmul.py::sr_matmul",
             "max_abs_err": worst_abs, "max_rel_err": worst_rel,
             "ms": tot["ms"], "kernel_ms": tot["ms"], "plain_ms": tot["plain"],
             "library_ms": tot["lib"], "bound_ms": tot["bound"],
             "bound_by": max(by_ms, key=by_ms.get),
+            "graph_ms": tot["dev"], "library_graph_ms": tot["lib_dev"],
+            "host_ms": host,
+            "plans": {n: list(p) for n, p in plans.items()},
             "shapes": f"{arch}, one 32-token PREFILL chunk: "
                       f"{', '.join(n for n, _, _ in shapes)} (one layer's "
                       f"products + the LM head)"}
@@ -350,7 +496,8 @@ def phase_sr_matmul_train(cfg, peaks) -> dict:
     """sr_matmul in its two training roles at a step's shapes, with bf16
     and with f32 operands: FF (y = x . W; the tied head's logits x .
     table^T through trans_b) and BP (dX = dY . W^T through trans_b; the
-    head's dX = g . table with K = vocab)."""
+    head's dX = g . table with K = vocab, split-K: two calls must give
+    the same bits)."""
     import torch
     from repro_torch.kernels import sr_matmul as kmm
     gen = torch.Generator(device="cuda").manual_seed(3)
@@ -358,15 +505,21 @@ def phase_sr_matmul_train(cfg, peaks) -> dict:
     tot = {role: {"ms": 0.0, "plain": 0.0, "lib": 0.0, "bound": 0.0}
            for role in ("ff", "bp", "f32")}
     by_ms = {"bytes": 0.0, "operations": 0.0}
+    head_bp_ms = None
     for name, M, P, Q, tw in _train_ops(cfg):
         # (role, K, N, trans_b): the product (M, K) . B -> (M, N)
         roles = (("ff", Q if tw else P, P if tw else Q, tw),
                  ("bp", P if tw else Q, Q if tw else P, not tw))
         for role, K, N, tb in roles:
             for dt in (torch.bfloat16, torch.float32):
+                f32 = dt == torch.float32
                 a = torch.randn((M, K), generator=gen, device="cuda").to(dt)
                 b = (torch.randn((N, K) if tb else (K, N), generator=gen,
                                  device="cuda") * K ** -0.5).to(dt)
+                p = kmm.Plan("f32", *kmm.TILE, 1) if f32 else \
+                    kmm.operands_plan(a, b, tb)
+                check(f32 or p.path == "sm90",
+                      f"sr_matmul {role} {name}: {plan_txt(p)}, want sm90")
                 got = kmm.sr_matmul(a, b, trans_b=tb)
                 want = kmm.sr_matmul_plain(a, b, trans_b=tb)
                 torch.cuda.synchronize()
@@ -375,30 +528,35 @@ def phase_sr_matmul_train(cfg, peaks) -> dict:
                 check(torch.allclose(got, want, rtol=MM_RTOL, atol=MM_ATOL),
                       f"sr_matmul {role} {name} ({M}x{K}x{N}, trans_b={tb}, "
                       f"{dt}): max abs err {ea:.3g}")
+                det = ""
+                if p.splits > 1:
+                    check(torch.equal(kmm.sr_matmul(a, b, trans_b=tb), got),
+                          f"sr_matmul {role} {name}: two split-K calls "
+                          f"differ")
+                    det = "  split-K: 2 calls bit-equal"
                 ms = time_ms(lambda: kmm.sr_matmul(a, b, trans_b=tb),
                              iters=10)
                 plain = time_ms(lambda: kmm.sr_matmul_plain(a, b,
                                                             trans_b=tb),
                                 iters=10)
-                f32 = dt == torch.float32
+                wt = b.t() if tb else b
+                lib = time_ms(lambda: torch.matmul(a, wt), iters=10)
                 b_ms, by = bound(a.element_size() * (M * K + K * N)
                                  + 4 * M * N, 2 * M * N * K, peaks, f32=f32)
                 t = tot["f32" if f32 else role]
                 t["ms"] += ms
                 t["plain"] += plain
+                t["lib"] += lib
                 t["bound"] += b_ms
                 label = f"f32:{role}" if f32 else role
-                lib_txt = ""
                 if not f32:
                     by_ms[by] += b_ms
-                    wt = b.t() if tb else b
-                    lib = time_ms(lambda: torch.matmul(a, wt), iters=10)
-                    t["lib"] += lib
-                    lib_txt = f" torch.matmul {lib:.4f}ms"
+                    if role == "bp" and tw:
+                        head_bp_ms = ms
                 print(f"[sr_matmul:{label}] {name:<11} M={M} K={K} N={N} "
-                      f"trans_b={int(tb)}: kernel {ms:.4f}ms plain "
-                      f"{plain:.4f}ms{lib_txt} bound {b_ms:.4f}ms ({by})  "
-                      f"max_abs_err {ea:.3g}")
+                      f"trans_b={int(tb)} {plan_txt(p)}: kernel {ms:.4f}ms "
+                      f"plain {plain:.4f}ms torch.matmul {lib:.4f}ms bound "
+                      f"{b_ms:.4f}ms ({by})  max_abs_err {ea:.3g}{det}")
                 del a, b, got, want
     for role in ("ff", "bp"):
         t = tot[role]
@@ -408,11 +566,12 @@ def phase_sr_matmul_train(cfg, peaks) -> dict:
               f"{t['bound']:.4f}ms")
     t = tot["f32"]
     print(f"[sr_matmul:f32] the same FF and BP shapes, f32 operands: kernel "
-          f"{t['ms']:.4f}ms plain {t['plain']:.4f}ms bound {t['bound']:.4f}ms "
-          f"(f32 peak)")
+          f"{t['ms']:.4f}ms plain {t['plain']:.4f}ms torch.matmul (no TF32) "
+          f"{t['lib']:.4f}ms bound {t['bound']:.4f}ms (f32 peak)")
     ff, bp = tot["ff"], tot["bp"]
     return {"name": "sr_matmul:train", "route": "cuda",
-            "source": "src/repro_torch/csrc/sr_matmul.cu",
+            "source": "src/repro_torch/csrc/gemm_sm90.cuh",
+            "entry": "src/repro_torch/csrc/sr_matmul.cu",
             "replaces": "src/repro/kernels/sr_matmul.py:96",
             "tpu_kernel": "repro/kernels/sr_matmul.py::sr_matmul",
             "max_abs_err": worst_abs, "ms": ff["ms"] + bp["ms"],
@@ -421,8 +580,9 @@ def phase_sr_matmul_train(cfg, peaks) -> dict:
             "library_ms": ff["lib"] + bp["lib"],
             "bound_ms": ff["bound"] + bp["bound"],
             "bound_by": max(by_ms, key=by_ms.get),
-            "ff_ms": ff["ms"], "bp_ms": bp["ms"], "f32_ms": tot["f32"]["ms"],
-            "f32_plain_ms": tot["f32"]["plain"],
+            "ff_ms": ff["ms"], "bp_ms": bp["ms"], "head_bp_ms": head_bp_ms,
+            "f32_ms": tot["f32"]["ms"], "f32_plain_ms": tot["f32"]["plain"],
+            "f32_library_ms": tot["f32"]["lib"],
             "f32_bound_ms": tot["f32"]["bound"],
             "shapes": "FF and BP of one layer's four weight ops at "
                       f"T={TRAIN_B * TRAIN_S} + one tied-head loss chunk "
@@ -439,13 +599,16 @@ def phase_outer_accum(cfg, peaks) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(4)
     worst_abs = 0.0
     tot = {"ms": 0.0, "plain": 0.0, "lib": 0.0, "bound": 0.0,
-           "f32_ms": 0.0, "f32_plain": 0.0, "f32_bound": 0.0}
+           "f32_ms": 0.0, "f32_plain": 0.0, "f32_lib": 0.0, "f32_bound": 0.0}
     by_ms = {"bytes": 0.0, "operations": 0.0}
     for name, T, D, F, _ in _train_ops(cfg):
         # dW (D, F) = X (T, D)^T . dY (T, F); for the head X is g (T, V)
         x = torch.randn((T, D), generator=gen, device="cuda").bfloat16()
         dy = (torch.randn((T, F), generator=gen, device="cuda")
               * T ** -0.5).bfloat16()
+        p = koa.up_plan(x, dy)
+        check(p.path == "sm90", f"outer_accum {name}: {plan_txt(p)}, want "
+              f"sm90")
         got = koa.outer_accum(x, dy)
         want = koa.outer_accum_plain(x, dy)
         torch.cuda.synchronize()
@@ -461,6 +624,7 @@ def phase_outer_accum(cfg, peaks) -> dict:
               f"outer_accum {name}: SR epilogue is not bit-equal to the "
               f"plain SR cast of the kernel's own f32 product")
         del got, want
+        f32_out = time_ms(lambda: koa.outer_accum(x, dy), iters=10)
         ms = time_ms(lambda: koa.outer_accum(x, dy, rbits=rb), iters=10)
         plain = time_ms(lambda: koa.outer_accum_plain(x, dy, rbits=rb),
                         iters=10)
@@ -469,9 +633,10 @@ def phase_outer_accum(cfg, peaks) -> dict:
         b_ms, by = bound(2 * T * (D + F) + (4 + 2) * D * F, 2 * T * D * F,
                          peaks)
         by_ms[by] += b_ms
-        print(f"[outer_accum] {name:<11} T={T} D={D} F={F} (SR): kernel "
-              f"{ms:.4f}ms plain {plain:.4f}ms torch.matmul {lib:.4f}ms "
-              f"bound {b_ms:.4f}ms ({by})  max_abs_err {ea:.3g}")
+        print(f"[outer_accum] {name:<11} T={T} D={D} F={F} (SR) "
+              f"{plan_txt(p)}: kernel {ms:.4f}ms (f32 out, no SR bits: "
+              f"{f32_out:.4f}ms) plain {plain:.4f}ms torch.matmul "
+              f"{lib:.4f}ms bound {b_ms:.4f}ms ({by})  max_abs_err {ea:.3g}")
         tot["ms"] += ms
         tot["plain"] += plain
         tot["lib"] += lib
@@ -490,13 +655,16 @@ def phase_outer_accum(cfg, peaks) -> dict:
         del got, want
         ms = time_ms(lambda: koa.outer_accum(x, dy), iters=10)
         plain = time_ms(lambda: koa.outer_accum_plain(x, dy), iters=10)
+        xt = x.t()
+        lib = time_ms(lambda: torch.matmul(xt, dy), iters=10)
         b_ms, by = bound(4 * T * (D + F) + 4 * D * F, 2 * T * D * F, peaks,
                          f32=True)
         print(f"[outer_accum:f32] {name:<11} T={T} D={D} F={F}: kernel "
-              f"{ms:.4f}ms plain {plain:.4f}ms bound {b_ms:.4f}ms ({by})  "
-              f"max_abs_err {ea:.3g}")
+              f"{ms:.4f}ms plain {plain:.4f}ms torch.matmul (no TF32) "
+              f"{lib:.4f}ms bound {b_ms:.4f}ms ({by})  max_abs_err {ea:.3g}")
         tot["f32_ms"] += ms
         tot["f32_plain"] += plain
+        tot["f32_lib"] += lib
         tot["f32_bound"] += b_ms
         del x, dy
     # ragged T, D and F on both operand types
@@ -504,26 +672,36 @@ def phase_outer_accum(cfg, peaks) -> dict:
         x = torch.randn((1000, 333), generator=gen, device="cuda").to(dt)
         dy = (torch.randn((1000, 77), generator=gen, device="cuda")
               * 1000 ** -0.5).to(dt)
+        path = "f32" if dt == torch.float32 else koa.up_plan(x, dy).path
+        check(path != "sm90", "outer_accum ragged: 666-byte rows of X "
+              "planned onto the sm90 path")
+        before = koa.PATH_COUNTERS[path].n
         got = koa.outer_accum(x, dy, scale=0.5)
+        check(koa.PATH_COUNTERS[path].n == before + 1,
+              f"outer_accum ragged: the {path} counter did not move")
         want = koa.outer_accum_plain(x, dy, scale=0.5)
         check(torch.allclose(got, want, rtol=MM_RTOL, atol=MM_ATOL),
-              f"outer_accum ragged 1000x333x77 {dt}: max abs err "
+              f"outer_accum ragged 1000x333x77 {dt} ({path}): max abs err "
               f"{errs(got, want)[0]:.3g}")
+        print(f"[outer_accum] ragged T=1000 D=333 F=77 {dt} ({path} path): "
+              f"max_abs_err {errs(got, want)[0]:.3g}")
     print(f"[outer_accum] a step's five UP shapes (head: one of 4 chunks), "
           f"SR: kernel {tot['ms']:.4f}ms plain {tot['plain']:.4f}ms "
           f"torch.matmul {tot['lib']:.4f}ms bound {tot['bound']:.4f}ms")
     print(f"[outer_accum:f32] the same shapes, f32 operands: kernel "
-          f"{tot['f32_ms']:.4f}ms plain {tot['f32_plain']:.4f}ms bound "
-          f"{tot['f32_bound']:.4f}ms (f32 peak)")
+          f"{tot['f32_ms']:.4f}ms plain {tot['f32_plain']:.4f}ms torch.matmul "
+          f"(no TF32) {tot['f32_lib']:.4f}ms bound {tot['f32_bound']:.4f}ms "
+          f"(f32 peak)")
     return {"name": "outer_accum", "route": "cuda",
-            "source": "src/repro_torch/csrc/outer_accum.cu",
+            "source": "src/repro_torch/csrc/gemm_sm90.cuh",
+            "entry": "src/repro_torch/csrc/outer_accum.cu",
             "replaces": "src/repro/kernels/outer_accum.py:80",
             "tpu_kernel": "repro/kernels/outer_accum.py::outer_accum",
             "max_abs_err": worst_abs, "ms": tot["ms"], "kernel_ms": tot["ms"],
             "plain_ms": tot["plain"], "library_ms": tot["lib"],
             "bound_ms": tot["bound"], "bound_by": max(by_ms, key=by_ms.get),
             "f32_ms": tot["f32_ms"], "f32_plain_ms": tot["f32_plain"],
-            "f32_bound_ms": tot["f32_bound"],
+            "f32_library_ms": tot["f32_lib"], "f32_bound_ms": tot["f32_bound"],
             "shapes": f"the five UP products of a step, SR epilogue: one "
                       f"layer's four at T={TRAIN_B * TRAIN_S} + one tied-head "
                       f"loss chunk (T/4)"}
@@ -681,10 +859,13 @@ def serve_counters(arch: str) -> dict:
     from repro_torch.kernels import decode_fused as kdf
     from repro_torch.kernels import sr_matmul as kmm
     from repro_torch.kernels import wkv6 as kwkv
+    paths = {f"sr_matmul:{p}": kmm.PATH_COUNTERS[p]
+             for p in ("sm90", "generic")}
     if arch == "rwkv6-1.6b":
-        return {"sr_matmul": kmm.COUNTER, "wkv6": kwkv.COUNTER,
+        return {"sr_matmul": kmm.COUNTER, **paths, "wkv6": kwkv.COUNTER,
                 "fused_ffn": kdf.FFN_COUNTER}
-    return {"sr_matmul": kmm.COUNTER, "fused_attn_unit": kdf.COUNTER}
+    return {"sr_matmul": kmm.COUNTER, **paths,
+            "fused_attn_unit": kdf.COUNTER}
 
 
 def phase_serve(cfg, params, label: str) -> dict:
@@ -719,8 +900,10 @@ def phase_serve(cfg, params, label: str) -> dict:
         check(sum(len(v) for v in res.values()) == 16 * 16,
               f"{label}:{mode}: {sum(len(v) for v in res.values())} tokens, "
               f"want 256")
+        # every bf16 product on the sm90 path, none on the generic one
         for k, n in counts.items():
-            want = fused or k not in ("fused_ffn", "fused_attn_unit")
+            want = (k != "sr_matmul:generic"
+                    and (fused or k not in ("fused_ffn", "fused_attn_unit")))
             check((n > 0) == want, f"{label}:{mode} launched {k} {n} times")
         runs[mode] = (res, counts)
         del eng
@@ -909,7 +1092,10 @@ def _counters() -> dict:
     from repro_torch.kernels import sr_matmul as kmm
     from repro_torch.kernels import sr_round as ksr
     return {"sr_matmul": kmm.COUNTER, "outer_accum": koa.COUNTER,
-            "sr_round": ksr.COUNTER, "fused_attn_unit": kdf.COUNTER}
+            "sr_round": ksr.COUNTER, "fused_attn_unit": kdf.COUNTER,
+            **{f"{mod}:{p}": c.PATH_COUNTERS[p]
+               for mod, c in (("sr_matmul", kmm), ("outer_accum", koa))
+               for p in ("sm90", "generic")}}
 
 
 def _step0_grads(cfg, program, backend, params, batch, dtype) -> dict:
@@ -1063,11 +1249,38 @@ def phase_train() -> dict:
     check(len(losses) == 8, f"{len(losses)} training steps, want 8")
     check(losses[-1] < losses[0],
           f"loss did not fall: {losses[0]} -> {losses[-1]}")
-    for k in ("sr_matmul", "outer_accum", "sr_round"):
+    for k in ("sr_matmul", "outer_accum", "sr_round", "sr_matmul:sm90",
+              "outer_accum:sm90"):
         check(all(p[k] > 0 for p in per_step),
               f"a training step launched {k} no time: {per_step}")
+    for k in ("sr_matmul:generic", "outer_accum:generic"):
+        check(totals[k] == 0, f"the training run launched {k} {totals[k]} "
+              f"times (every bf16 product belongs on the sm90 path)")
     return {"counts": totals, "per_step": per_step[-1],
             "ms_per_step": med * 1e3, "tokens_per_s": tok / med}
+
+
+def print_targets(rows: dict) -> None:
+    """The redesign's time targets against this run's yardsticks: met or
+    missed (a missed target is reported, not failed)."""
+    tr, oa = rows["sr_matmul:train"], rows["outer_accum"]
+    targets = [
+        ("sr_matmul:train FF + BP <= 2x torch.matmul", tr["ms"],
+         2 * tr["library_ms"]),
+        ("sr_matmul:train tied head's BP <= 0.25 ms", tr["head_bp_ms"], 0.25),
+        ("outer_accum SR, 5 UP shapes <= 2x bound", oa["ms"],
+         2 * oa["bound_ms"]),
+    ]
+    for arch, key in (("qwen2", "sr_matmul"), ("rwkv6", "sr_matmul:rwkv6")):
+        r = rows[key]
+        targets += [
+            (f"sr_matmul PREFILL {arch} <= torch.matmul", r["ms"],
+             r["library_ms"]),
+            (f"sr_matmul PREFILL {arch} <= torch.matmul, in a CUDA graph",
+             r["graph_ms"], r["library_graph_ms"])]
+    for what, got, limit in targets:
+        print(f"[targets] {what}: {got:.4f}ms against {limit:.4f}ms: "
+              f"{'met' if got <= limit else 'MISSED'}")
 
 
 def main() -> int:
@@ -1169,6 +1382,10 @@ def main() -> int:
         kernel = r["name"].split(":")[0]
         counts = serve_counts.get(r["name"], train["counts"])
         r["launches"] = counts[kernel]
+        if f"{kernel}:sm90" in counts:
+            r["path_launches"] = {p: counts[f"{kernel}:{p}"]
+                                  for p in ("sm90", "generic")}
+    print_targets({r["name"]: r for r in rows})
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

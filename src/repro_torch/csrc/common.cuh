@@ -1,18 +1,21 @@
 // Shared building blocks of the port's hand-written Hopper kernels.
 //
-// Both kernels (sr_matmul.cu, decode_fused.cu) tile their products the
-// same way: a 32 x 32 output tile per 128-thread block, the reduction
-// walked in 64-deep steps inside the block (Hopper has no sequential grid
-// axis, so the loop takes the place of the TPU grid's innermost counter),
-// bf16 operand tiles staged in shared memory with every element outside
-// the matrix zero-filled (a ragged edge of M, N or K never reads past an
+// The generic tile (TM x TN x TK below) serves decode_fused.cu and the
+// generic paths of sr_matmul.cu and outer_accum.cu, which take the
+// operands the TMA cannot describe (gemm_sm90.cuh holds the TMA + wgmma
+// mainloop that the bf16 products of the main path run on): a 32 x 32
+// output tile per 128-thread block, the reduction walked in 64-deep
+// steps inside the block (Hopper has no sequential grid axis, so the
+// loop takes the place of the TPU grid's innermost counter), bf16
+// operand tiles staged in shared memory with every element outside the
+// matrix zero-filled (a ragged edge of M, N or K never reads past an
 // operand), and the product run on the tensor cores through WMMA
 // fragments (mma.sync, bf16 in, f32 accumulate).  The f32 accumulator
 // lives in registers across the whole reduction.
 //
 // sr_bf16_bits is the stochastic-rounding epilogue, kept as a device
-// function of its own so sr_matmul, outer_accum and sr_round share one
-// bit-exact SR.
+// function of its own so sr_matmul, outer_accum, sr_round and the sm90
+// mainloop share one bit-exact SR.
 //
 // f32 operands (the fp32 precision preset) take a SIMT path on the same
 // 32 x 32 output tile: f32 operand tiles staged in shared memory as

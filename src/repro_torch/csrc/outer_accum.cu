@@ -6,30 +6,32 @@
 // (pl.pallas_call at outer_accum.py:80, body _outer_kernel), whose
 // (i, j, l) grid kept an f32 (bd, bf) tile in VMEM across the token
 // reduction l, read X transposed through its BlockSpec wiring and
-// masked the ragged token tail of both operands (t_rem).  Here:
+// masked the ragged token tail of both operands (t_rem).  On the H100
+// the token reduction is the loop inside each block, X is read
+// transposed by wiring (A = X^T never exists in memory), the ragged
+// tail is zero-filled on load, and the scale and the SR writeback
+// (sr_bf16_bits, common.cuh) run once, in the epilogue: dW makes one
+// pass to device memory.
 //
-// - one 128-thread block owns a 32 x 32 tile of dW and walks all T
-//   tokens in 64-deep steps inside the block, the f32 accumulator in
-//   WMMA registers (Hopper has no sequential grid axis), each step's
-//   partial product added to it in f32 (promote, common.cuh);
-// - X is read transposed by wiring: its (T, D) row-major tile is staged
-//   as [t][d] and loaded as a col_major matrix_a fragment, so A = X^T
-//   never exists in memory;
-// - the tile loader zero-fills every element past T, D or F, which
-//   replaces the t_rem masking (a ragged tail never reads past X or dY);
-// - the scale and the SR writeback (sr_bf16_bits, common.cuh) run once,
-//   in the epilogue: dW makes one pass to device memory.
+// Two paths for bf16 operands, chosen by the wrapper from shapes and
+// strides (kernels/sr_matmul.py::plan), never by a failed launch:
+//
+// - sm90: the TMA + wgmma mainloop of gemm_sm90.cuh with A M-major (X's
+//   (T, D) boxes, read through wgmma's transpose bit) and B N-major
+//   (dY's (T, F) boxes).  At a training step's layer shapes (T = 1024)
+//   the product is bound by the tensor cores; the tied head's UP
+//   (T = 256, D = 151936, F = 896) by bytes: reading the SR bits and
+//   writing the bf16 dW, which the epilogue does in 8-byte pairs.
+// - generic: operands TMA cannot describe (base not 16-byte aligned, row
+//   stride not a multiple of 16 bytes).  One 128-thread block per
+//   32 x 32 tile of dW walks all T tokens in 64-deep steps, X staged as
+//   [t][d] and loaded as a col_major matrix_a WMMA fragment, each step's
+//   partial product promoted into an f32 sum (common.cuh).
 //
 // f32 operands (the fp32 preset) take outer_accum_f32_kernel, the same
-// tiles on the CUDA cores with fmaf (common.cuh's SIMT path).
-//
-// What bounds it on the H100: at a training step's shapes (T = 1024
-// tokens, D, F in the hundreds to 151936) the product is compute-bound
-// (2 T D F flops against 2 (T D + T F) + 2-4 D F bytes).  This first
-// kernel does not reach that bound: WMMA 16x16x16 fragments from
-// unpipelined shared-memory tiles, and each X / dY element is read once
-// per 32-wide output tile (PERF.md has its time beside the bound).
+// 32 x 32 tiles on the CUDA cores with fmaf (common.cuh's SIMT path).
 #include "common.cuh"
+#include "gemm_sm90.cuh"
 
 namespace rt {
 
@@ -39,7 +41,8 @@ __global__ void __launch_bounds__(THREADS)
     outer_accum_kernel(const bf16* __restrict__ X, const bf16* __restrict__ Y,
                        const uint32_t* __restrict__ rbits,
                        void* __restrict__ out, int T, int D, int F,
-                       float scale, int sr, int vec_x, int vec_y) {
+                       int ldx, int ldy, float scale, int sr, int vec_x,
+                       int vec_y) {
   __shared__ __align__(128) bf16 Xs[TK * LDX];       // [t][d]
   __shared__ __align__(128) bf16 Ys[TK * LDB_ROW];   // [t][f]
   __shared__ __align__(128) float Cs[TM * LDC];
@@ -51,8 +54,8 @@ __global__ void __launch_bounds__(THREADS)
   AccFrag acc, part;
   wmma::fill_fragment(acc, 0.f);
   for (int t0 = 0; t0 < T; t0 += TK) {
-    load_tile<TK, TM, LDX>(Xs, X, D, t0, d0, T, D, vec_x);
-    load_tile<TK, TN, LDB_ROW>(Ys, Y, F, t0, f0, T, F, vec_y);
+    load_tile<TK, TM, LDX>(Xs, X, ldx, t0, d0, T, D, vec_x);
+    load_tile<TK, TN, LDB_ROW>(Ys, Y, ldy, t0, f0, T, F, vec_y);
     __syncthreads();
     wmma::fill_fragment(part, 0.f);
 #pragma unroll
@@ -108,27 +111,41 @@ __global__ void __launch_bounds__(THREADS)
 
 // out(D, F) = scale * x(T, D)^T . dy(T, F): f32 without SR, bf16 (SR
 // from rbits, uint32 D x F) with it.  f32 selects the f32 operand path
-// (x and dy both f32), else both are bf16.  The grid (ceil(F/TN),
-// ceil(D/TM)) comes from the caller's loop nest.  One launch on
-// `stream`; returns cudaGetLastError().
+// (x and dy both f32 and contiguous), else both are bf16 with row
+// strides ldx, ldy (elements): path 1 runs the sm90 mainloop with the
+// plan's bn, splits and kb_per_split (ws: splits x D x F f32 when
+// splits > 1), path 0 the generic WMMA kernel.  The grid
+// (grid_x, grid_y) comes from the caller's loop nest over the path's
+// tiles.  Launches on `stream`; returns cudaGetLastError() or a
+// gemm_sm90.cuh ERR_ code.
 extern "C" int outer_accum(const void* x, const void* dy, const void* rbits,
-                           void* out, int T, int D, int F, float scale,
-                           int sr, int f32, int grid_x, int grid_y,
-                           void* stream) {
+                           void* out, void* ws, int T, int D, int F,
+                           int ldx, int ldy, float scale, int sr, int f32,
+                           int path, int bn, int splits, int kb_per_split,
+                           int grid_x, int grid_y, void* stream) {
   using namespace rt;
-  const dim3 grid(grid_x, grid_y);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const uint32_t* R = static_cast<const uint32_t*>(rbits);
   if (f32) {
-    outer_accum_f32_kernel<<<grid, THREADS, 0, st>>>(
+    outer_accum_f32_kernel<<<dim3(grid_x, grid_y), THREADS, 0, st>>>(
         static_cast<const float*>(x), static_cast<const float*>(dy), R, out,
         T, D, F, scale, sr);
-  } else {
-    const int vec_x = aligned16(x) && D % 8 == 0;
-    const int vec_y = aligned16(dy) && F % 8 == 0;
-    outer_accum_kernel<<<grid, THREADS, 0, st>>>(
-        static_cast<const bf16*>(x), static_cast<const bf16*>(dy), R, out, T,
-        D, F, scale, sr, vec_x, vec_y);
+    return static_cast<int>(cudaGetLastError());
   }
+  if (path == 1) {
+    float* W = static_cast<float*>(ws);
+    if (bn == 128)
+      return sm90::run<128, true, true>(x, dy, rbits, out, W, D, F, T, ldx,
+                                        ldy, scale, sr, splits, kb_per_split,
+                                        grid_x, grid_y, st);
+    return sm90::run<64, true, true>(x, dy, rbits, out, W, D, F, T, ldx, ldy,
+                                     scale, sr, splits, kb_per_split, grid_x,
+                                     grid_y, st);
+  }
+  const int vec_x = aligned16(x) && ldx % 8 == 0;
+  const int vec_y = aligned16(dy) && ldy % 8 == 0;
+  outer_accum_kernel<<<dim3(grid_x, grid_y), THREADS, 0, st>>>(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(dy), R, out, T,
+      D, F, ldx, ldy, scale, sr, vec_x, vec_y);
   return static_cast<int>(cudaGetLastError());
 }

@@ -3,34 +3,34 @@
 //
 // Replaces the TPU kernel repro/kernels/sr_matmul.py::sr_matmul
 // (pl.pallas_call at sr_matmul.py:96, body _mm_kernel), whose (i, j, l)
-// grid kept an f32 tile resident in VMEM across the reduction l.  Here
-// the grid is (j, i) over 32 x 32 output tiles and the l counter is the
-// loop inside each block; the accumulator stays in registers across it,
-// each 64-deep step's partial product added to it in f32 (promote,
-// common.cuh).
+// grid kept an f32 tile resident in VMEM across the reduction l.  On the
+// H100 the l counter becomes the loop inside each block, and where the
+// (i, j) tiles alone cannot fill the card, a deterministic split of l
+// over blockIdx.z.
 //
-// What bounds it on the H100: at the serving shapes (a 32-token PREFILL
-// chunk, M = 32) every weight byte is used by only 32 rows, so the
-// product is bound by reading B (about 2 * K * N bytes) from device
-// memory, not by the tensor cores.  The design reads each B element once
-// per 32-row block (once in total at M <= 32) and keeps A, 32 x K, small
-// enough to come from L2.  It is a simple first kernel: no TMA, no
-// wgmma, no multi-stage pipeline, and at N = 896 it launches only 28
-// blocks, so it stays well short of the memory bound (PERF.md).
+// Two paths for bf16 operands, chosen by the wrapper from shapes and
+// strides (kernels/sr_matmul.py::plan), never by a failed launch:
 //
-// trans_b computes A . B^T for B(N, K) by staging B tiles [n][k] and
-// reading them column-major — the counter-swept transpose, no transposed
-// copy in memory.  A ragged K tail is zero-filled on both operands, and a
-// ragged M / N edge is masked on store.
+// - sm90: the TMA + wgmma mainloop of gemm_sm90.cuh — A K-major, B
+//   N-major (B(K, N)) or K-major (trans_b, B(N, K)); its header says
+//   what bounds each role (PREFILL, FF, BP) and what the design does.
+// - generic: operands TMA cannot describe (a base pointer that is not
+//   16-byte aligned, a row stride that is not a multiple of 16 bytes).
+//   A 128-thread block per 32 x 32 output tile, WMMA 16x16x16 fragments
+//   from zero-filled shared-memory tiles, one 64-deep step per loop trip
+//   with each step's partial product promoted into an f32 sum
+//   (common.cuh); trans_b stages B tiles [n][k] and reads them
+//   column-major, so no transposed copy exists in memory.
 //
 // Training runs it in two roles: FF (A = activations, B = W) and BP
 // (dX = dY . W^T, B = W read through trans_b; for the tied LM head
 // dX = g . table with K = vocab = 151936, the longest reduction of the
 // step).  The fp32 precision preset gives it f32 operands, which take
-// sr_matmul_f32_kernel: the same tiles, f32 in shared memory, fmaf on
-// the CUDA cores (common.cuh), no TF32 — the TPU kernel accepts f32
-// operands too.
+// sr_matmul_f32_kernel: the same 32 x 32 tiles, f32 in shared memory,
+// fmaf on the CUDA cores (common.cuh), no TF32 — the TPU kernel accepts
+// f32 operands too.
 #include "common.cuh"
+#include "gemm_sm90.cuh"
 
 namespace rt {
 
@@ -38,7 +38,8 @@ template <bool TRANS_B>
 __global__ void __launch_bounds__(THREADS)
     sr_matmul_kernel(const bf16* __restrict__ A, const bf16* __restrict__ B,
                      const uint32_t* __restrict__ rbits, void* __restrict__ out,
-                     int M, int N, int K, int sr, int vec_a, int vec_b) {
+                     int M, int N, int K, int lda, int ldb, int sr, int vec_a,
+                     int vec_b) {
   __shared__ __align__(128) bf16 As[TM * LDA];
   __shared__ __align__(128) bf16 Bs[TRANS_B ? TN * LDB_COL : TK * LDB_ROW];
   __shared__ __align__(128) float Cs[TM * LDC];
@@ -50,11 +51,11 @@ __global__ void __launch_bounds__(THREADS)
   AccFrag acc, part;
   wmma::fill_fragment(acc, 0.f);
   for (int k0 = 0; k0 < K; k0 += TK) {
-    load_tile<TM, TK, LDA>(As, A, K, m0, k0, M, K, vec_a);
+    load_tile<TM, TK, LDA>(As, A, lda, m0, k0, M, K, vec_a);
     if constexpr (TRANS_B)
-      load_tile<TN, TK, LDB_COL>(Bs, B, K, n0, k0, N, K, vec_b);
+      load_tile<TN, TK, LDB_COL>(Bs, B, ldb, n0, k0, N, K, vec_b);
     else
-      load_tile<TK, TN, LDB_ROW>(Bs, B, N, k0, n0, K, N, vec_b);
+      load_tile<TK, TN, LDB_ROW>(Bs, B, ldb, k0, n0, K, N, vec_b);
     __syncthreads();
     wmma::fill_fragment(part, 0.f);
     mma_step<TRANS_B>(part, As, Bs, ar, bc);
@@ -107,29 +108,66 @@ __global__ void __launch_bounds__(THREADS)
 
 }  // namespace rt
 
-// out(M, N) = A(M, K) . B(K, N), or A . B^T for B(N, K) with trans_b.
-// out is f32 without SR, bf16 (SR from rbits, uint32 M x N) with it.
-// The grid (ceil(N/TN), ceil(M/TM)) comes from the caller's loop nest
-// (core/pmag.matmul_nest).  One launch on `stream`; returns
-// cudaGetLastError().
+// out(M, N) = A(M, K) . B(K, N), or A . B^T for B(N, K) with trans_b;
+// lda / ldb are the operands' row strides in elements.  out is f32
+// without SR, bf16 (SR from rbits, uint32 M x N) with it.  path 1 runs
+// the sm90 mainloop with the plan's bn, splits and kb_per_split (ws:
+// splits x M x N f32 when splits > 1), path 0 the generic WMMA kernel.
+// The grid (grid_x, grid_y) comes from the caller's loop nest
+// (core/pmag.matmul_nest) over the path's tiles.  Launches on `stream`;
+// returns cudaGetLastError() or a gemm_sm90.cuh ERR_ code.
 extern "C" int sr_matmul_bf16(const void* a, const void* b, const void* rbits,
-                              void* out, int M, int N, int K, int trans_b,
-                              int sr, int grid_x, int grid_y, void* stream) {
+                              void* out, void* ws, int M, int N, int K,
+                              int lda, int ldb, int trans_b, int sr, int path,
+                              int bn, int splits, int kb_per_split,
+                              int grid_x, int grid_y, void* stream) {
   using namespace rt;
-  const dim3 grid(grid_x, grid_y);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int vec_a = aligned16(a) && K % 8 == 0;
-  const int vec_b = aligned16(b) && (trans_b ? K : N) % 8 == 0;
+  if (path == 1) {
+    float* W = static_cast<float*>(ws);
+#define RT_SM90(BN, B_MN)                                                   \
+  return sm90::run<BN, false, B_MN>(a, b, rbits, out, W, M, N, K, lda, ldb, \
+                                    1.0f, sr, splits, kb_per_split, grid_x, \
+                                    grid_y, st)
+    if (bn == 128) {
+      if (trans_b) RT_SM90(128, false);
+      RT_SM90(128, true);
+    }
+    if (trans_b) RT_SM90(64, false);
+    RT_SM90(64, true);
+#undef RT_SM90
+  }
+  const dim3 grid(grid_x, grid_y);
+  const int vec_a = aligned16(a) && lda % 8 == 0;
+  const int vec_b = aligned16(b) && ldb % 8 == 0;
   const bf16* A = static_cast<const bf16*>(a);
   const bf16* B = static_cast<const bf16*>(b);
   const uint32_t* R = static_cast<const uint32_t*>(rbits);
   if (trans_b)
-    sr_matmul_kernel<true><<<grid, THREADS, 0, st>>>(A, B, R, out, M, N, K,
-                                                     sr, vec_a, vec_b);
+    sr_matmul_kernel<true><<<grid, THREADS, 0, st>>>(
+        A, B, R, out, M, N, K, lda, ldb, sr, vec_a, vec_b);
   else
-    sr_matmul_kernel<false><<<grid, THREADS, 0, st>>>(A, B, R, out, M, N, K,
-                                                      sr, vec_a, vec_b);
+    sr_matmul_kernel<false><<<grid, THREADS, 0, st>>>(
+        A, B, R, out, M, N, K, lda, ldb, sr, vec_a, vec_b);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The host's share of an sm90 call of sr_matmul_bf16 (same arguments):
+// encode its two TMA maps and return, with no launch.  chip_smoke.py
+// times it.  Returns 0 or a gemm_sm90.cuh ERR_ code.
+extern "C" int sr_matmul_sm90_maps(const void* a, const void* b, int M,
+                                   int N, int K, int lda, int ldb,
+                                   int trans_b, int bn) {
+  using namespace rt::sm90;
+  CUtensorMap ma, mb;
+  if (bn == 128)
+    return trans_b ? make_maps<128, false, false>(&ma, &mb, a, b, M, N, K,
+                                                  lda, ldb)
+                   : make_maps<128, false, true>(&ma, &mb, a, b, M, N, K,
+                                                 lda, ldb);
+  return trans_b
+             ? make_maps<64, false, false>(&ma, &mb, a, b, M, N, K, lda, ldb)
+             : make_maps<64, false, true>(&ma, &mb, a, b, M, N, K, lda, ldb);
 }
 
 // The same product for f32 A and B (the fp32 preset): SIMT f32 FMA.

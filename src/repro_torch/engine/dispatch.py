@@ -93,7 +93,9 @@ def _up_rbits(word: PEWord, dyt: torch.Tensor, shape: tuple,
 def _ff(x2: torch.Tensor, w: torch.Tensor, word: PEWord,
         transpose_w: bool) -> torch.Tensor:
     dt = dtype_from_name(word.ff_dtype)
-    y = kmm.sr_matmul(x2.to(dt).contiguous(), w.to(dt).contiguous(), None,
+    # kmm.operand: a column slice (rwkv6's rkvg quarters) is read in
+    # place, with no contiguous copy
+    y = kmm.sr_matmul(kmm.operand(x2.to(dt)), kmm.operand(w.to(dt)), None,
                       trans_b=transpose_w)
     return y.to(x2.dtype)
 
@@ -113,15 +115,15 @@ class _PEMatmul(torch.autograd.Function):
         x2, w = ctx.saved_tensors
         word, transpose_w, key, entropy = ctx.cfg
         bp = dtype_from_name(word.bp_dtype)
-        gb = g.to(bp).contiguous()
+        gb = kmm.operand(g.to(bp))
         dx = dw = None
         if ctx.needs_input_grad[0]:
             # BP: f32 accumulation, no SR (the gradient signal is
             # transient, not persistent state)
-            dx = kmm.sr_matmul(gb, w.to(bp).contiguous(), None,
+            dx = kmm.sr_matmul(gb, kmm.operand(w.to(bp)), None,
                                trans_b=not transpose_w).to(x2.dtype)
         if ctx.needs_input_grad[1]:
-            xb = x2.to(bp).contiguous()
+            xb = kmm.operand(x2.to(bp))
             xt, dyt = (gb, xb) if transpose_w else (xb, gb)
             sr = (word.update_rounding in ("sr", "sr_lo")
                   and w.dtype == torch.bfloat16)

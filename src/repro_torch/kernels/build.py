@@ -1,11 +1,12 @@
 """Build the hand-written CUDA kernels at first use and bind them.
 
-Each ``csrc/<name>.cu`` (plus the shared ``csrc/common.cuh``) compiles
+Each ``csrc/<name>.cu`` (with the shared headers ``csrc/*.cuh``) compiles
 with ``nvcc -gencode arch=compute_90a,code=sm_90a`` into its own shared
 library with a plain C interface, loaded with ``ctypes``.  Builds go into
-``csrc/_build/`` (git-ignored), named by a digest of their sources, so a
-stale library is never loaded; several sources build concurrently, one
-``nvcc`` each.  Only the repository's own sources are compiled.
+``csrc/_build/`` (git-ignored), named by a digest of the source, every
+header and the compiler flags, so a stale library is never loaded;
+several sources build concurrently, one ``nvcc`` each.  Only the
+repository's own sources are compiled.
 """
 from __future__ import annotations
 
@@ -39,8 +40,9 @@ def _nvcc() -> str:
 
 
 def _digest(name: str) -> str:
-    h = hashlib.sha256()
-    for f in (CSRC / "common.cuh", CSRC / f"{name}.cu"):
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in (*sorted(CSRC.glob("*.cuh")), CSRC / f"{name}.cu"):
+        h.update(f.name.encode())
         h.update(f.read_bytes())
     return h.hexdigest()[:16]
 
@@ -100,8 +102,13 @@ def ptr(t) -> ctypes.c_void_p:
 
 
 def stream_ptr(device) -> ctypes.c_void_p:
-    """PyTorch's current CUDA stream on `device` as a ctypes pointer."""
+    """PyTorch's current CUDA stream on `device` as a ctypes pointer (the
+    raw handle straight from torch's C API where it has one: a Stream
+    object costs microseconds on a path that is bound by host time)."""
     import torch
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is not None and device.index is not None:
+        return ctypes.c_void_p(raw(device.index))
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 
 

@@ -1,16 +1,21 @@
 """outer_accum: the UP-phase weight update dW = scale * X^T dY (+ SR cast).
 
 Port of the TPU kernel ``repro/kernels/outer_accum.py::outer_accum``.
-The CUDA kernel is ``csrc/outer_accum.cu`` (its header says what bounds
-it on the H100 and how it reads X transposed and masks ragged edges);
+The CUDA kernels are ``csrc/outer_accum.cu`` and the mainloop it shares
+with sr_matmul, ``csrc/gemm_sm90.cuh`` (their headers say what bounds it
+on the H100 and how it reads X transposed and masks ragged edges);
 :func:`outer_accum_plain` is its plain torch version.  :func:`outer_accum`
-runs the plain version for tensors on the CPU and the kernel for
-tensors on a CUDA device — never one in place of the other.  Operands
-are both bf16 (tensor cores) or both f32 (the fp32 preset, f32 FMA).
+runs the plain version for tensors on the CPU and a kernel for tensors
+on a CUDA device — never one in place of the other.  Operands are both
+bf16 (tensor cores) or both f32 (the fp32 preset, f32 FMA).  bf16
+operands take the ``sm90`` or the ``generic`` path by
+:func:`repro_torch.kernels.sr_matmul.plan`, each with its own launch
+counter.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional
 
 import torch
@@ -18,16 +23,20 @@ import torch
 from repro_torch.core.pmag import LoopDim, LoopNest
 from repro_torch.core.rounding import sr_cast_bf16
 from repro_torch.kernels import build
+from repro_torch.kernels.sr_matmul import (PATHS, TILE, Plan, aligned16,
+                                           launch_error, launch_geometry,
+                                           plan, row_stride, takes_view)
 
-COUNTER = build.LaunchCounter("outer_accum")
-# the kernel's block tile (bd, bf, bt): csrc/common.cuh TM, TN, TK
-TILE = (32, 32, 64)
+COUNTER = build.LaunchCounter("outer_accum")   # every launch, any path
+PATH_COUNTERS = {p: build.LaunchCounter(f"outer_accum:{p}") for p in PATHS}
 
 
+@functools.lru_cache(maxsize=None)
 def _bind(lib: ctypes.CDLL):
+    """The C entry point, without argtypes (sr_matmul._bind): pointers
+    as ctypes.c_void_p or None, ints as Python ints, the scale as a
+    ctypes.c_float."""
     fn = lib.outer_accum
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 \
-        + [ctypes.c_float] + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -39,12 +48,23 @@ def _shapes(x: torch.Tensor, dy: torch.Tensor) -> tuple:
     return x.shape[0], x.shape[1], dy.shape[1]
 
 
-def outer_accum_nest(t: int, d: int, f: int) -> LoopNest:
-    """The (i, j, l) counter bank over (D, F, T): i and j become the grid,
-    the token reduction l the block's loop."""
-    bd, bf, bt = TILE
+def outer_accum_nest(t: int, d: int, f: int, tile: tuple = TILE
+                     ) -> LoopNest:
+    """The (i, j, l) counter bank over (D, F, T) with the block tile
+    (bd, bf, bt): i and j become the grid, the token reduction l the
+    block's loop (and its splits)."""
+    bd, bf, bt = tile
     return LoopNest((LoopDim("i", d, bd), LoopDim("j", f, bf),
                      LoopDim("l", t, bt)))
+
+
+def up_plan(x: torch.Tensor, dy: torch.Tensor) -> Plan:
+    """The plan of dW = X^T dY for bf16 x (T, D), dy (T, F): A = X^T is
+    M-major, dY N-major; D is a weight dimension, so its tiles count
+    towards filling the card."""
+    t, d, f = _shapes(x, dy)
+    return plan(d, f, t, "m", "n", lda=row_stride(x), ldb=row_stride(dy),
+                aligned=aligned16(x, dy), rows_invariant=False)
 
 
 def outer_accum_plain(x: torch.Tensor, dy: torch.Tensor, *,
@@ -60,10 +80,12 @@ def outer_accum(x: torch.Tensor, dy: torch.Tensor, *, scale: float = 1.0,
                 rbits: Optional[torch.Tensor] = None) -> torch.Tensor:
     """x (T, D), dy (T, F) -> dW (D, F) = scale * x^T dy.
 
-    Returns f32 without rbits, SR-bf16 with rbits (32-bit patterns,
-    (D, F)).  CPU tensors take the plain version; CUDA tensors launch the
-    hand-written kernel on the current stream (no synchronisation), and
-    anything the kernel does not take raises.
+    Operands both bf16 (unit inner stride, row stride at least the row
+    length) or both f32 and contiguous.  Returns f32 without rbits,
+    SR-bf16 with rbits (32-bit patterns, (D, F)).  CPU tensors take the
+    plain version; CUDA tensors launch a hand-written kernel on the
+    current stream (no synchronisation), and anything the kernels do not
+    take raises.
     """
     t, d, f = _shapes(x, dy)
     if x.device.type == "cpu" and dy.device.type == "cpu":
@@ -74,8 +96,12 @@ def outer_accum(x: torch.Tensor, dy: torch.Tensor, *, scale: float = 1.0,
     if x.dtype != dy.dtype or x.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"outer_accum kernel takes two bf16 or two f32 "
                         f"operands, got {x.dtype}, {dy.dtype}")
-    if not (x.is_contiguous() and dy.is_contiguous()):
-        raise ValueError("outer_accum kernel takes contiguous operands")
+    f32 = x.dtype == torch.float32
+    if f32 and not (x.is_contiguous() and dy.is_contiguous()):
+        raise ValueError("outer_accum kernel takes contiguous f32 operands")
+    if not (takes_view(x) and takes_view(dy)):
+        raise ValueError("outer_accum kernel takes bf16 operands with unit "
+                         "inner stride and rows no closer than their length")
     sr = rbits is not None
     if sr and (rbits.shape != (d, f) or rbits.device != x.device
                or rbits.dtype not in (torch.int32, torch.uint32)
@@ -88,14 +114,25 @@ def outer_accum(x: torch.Tensor, dy: torch.Tensor, *, scale: float = 1.0,
         return out
     if t == 0:
         return out.zero_()
-    grid_x, grid_y = outer_accum_nest(t, d, f).launch_grid("j", "i")
+    ldx, ldy = row_stride(x), row_stride(dy)
+    if f32:
+        p = Plan("f32", *TILE, 1)
+        grid_x, grid_y = outer_accum_nest(t, d, f).launch_grid("j", "i")
+        kb = p.kb_per_split(t)
+    else:
+        # the (i, j, l) nest over (D, F, T) at the plan's tiles
+        p, grid_x, grid_y, _, kb = launch_geometry(
+            d, f, t, "m", "n", ldx, ldy, aligned16(x, dy), False)
+    ws = (torch.empty((p.splits, d, f), dtype=torch.float32,
+                      device=x.device) if p.splits > 1 else None)
     err = _bind(build.load("outer_accum"))(
         build.ptr(x), build.ptr(dy), build.ptr(rbits) if sr else None,
-        build.ptr(out), t, d, f, float(scale), int(sr),
-        int(x.dtype == torch.float32), grid_x, grid_y,
-        build.stream_ptr(x.device))
+        build.ptr(out), build.ptr(ws) if ws is not None else None, t, d, f,
+        ldx, ldy, ctypes.c_float(scale), int(sr), int(f32),
+        int(p.path == "sm90"),
+        p.bn, p.splits, kb, grid_x, grid_y, build.stream_ptr(x.device))
     if err != 0:
-        raise RuntimeError(f"outer_accum kernel launch failed (cudaError "
-                           f"{err})")
+        raise launch_error("outer_accum", err)
     COUNTER.n += 1
+    PATH_COUNTERS[p.path].n += 1
     return out

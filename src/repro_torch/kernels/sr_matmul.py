@@ -1,17 +1,26 @@
 """sr_matmul: matmul with f32 accumulation, optional fused SR-bf16 cast.
 
 Port of the TPU kernel ``repro/kernels/sr_matmul.py::sr_matmul``.  The
-CUDA kernel is ``csrc/sr_matmul.cu`` (its header says what bounds it on
-the H100 and how it is tiled); :func:`sr_matmul_plain` is its plain torch
-version.  :func:`sr_matmul` runs the plain version for tensors on the
-CPU and the kernel for tensors on a CUDA device — never one in place of
-the other.  Operands are both bf16 (tensor cores) or both f32 (the fp32
-preset: f32 FMA on the CUDA cores, no TF32).
+CUDA kernels are ``csrc/sr_matmul.cu`` and the mainloop it shares with
+outer_accum, ``csrc/gemm_sm90.cuh`` (their headers say what bounds each
+role on the H100 and how it is tiled); :func:`sr_matmul_plain` is the
+plain torch version.  :func:`sr_matmul` runs the plain version for
+tensors on the CPU and a kernel for tensors on a CUDA device — never one
+in place of the other.  Operands are both bf16 (tensor cores) or both
+f32 (the fp32 preset: f32 FMA on the CUDA cores, no TF32).
+
+bf16 operands take one of two paths, chosen by :func:`plan` from shapes
+and strides alone: ``sm90`` (TMA + wgmma, deterministic split-K) for
+every operand the TMA can describe, ``generic`` (WMMA) for the rest — a
+base pointer that is not 16-byte aligned, or a row stride that is not a
+multiple of 16 bytes.  Each path has its own launch counter.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+import functools
+import math
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -19,15 +28,134 @@ from repro_torch.core.pmag import matmul_nest
 from repro_torch.core.rounding import sr_cast_bf16
 from repro_torch.kernels import build
 
-COUNTER = build.LaunchCounter("sr_matmul")
-# the kernel's block tile (tm, tn, tk): csrc/common.cuh TM, TN, TK
+COUNTER = build.LaunchCounter("sr_matmul")     # every launch, any path
+PATHS = ("sm90", "generic", "f32")
+PATH_COUNTERS = {p: build.LaunchCounter(f"sr_matmul:{p}") for p in PATHS}
+# the generic and f32 kernels' block tile (tm, tn, tk): csrc/common.cuh
 TILE = (32, 32, 64)
+# the sm90 mainloop's block rows and depth (csrc/gemm_sm90.cuh BM, BK)
+SM90_BM, SM90_BK = 128, 64
+# the split count fills up to this many SMs (the H100 SXM's 132) where
+# the output tiles alone do not, with at least MIN_SPLIT_KB k-blocks a
+# split; a product takes 64-wide tiles (twice the blocks) unless it has
+# WIDE_N_TILES column tiles of 128 (rows_invariant; else SMS output
+# tiles of 128 x 128), or enough k-blocks for split-K alone to fill the
+# card at 128 wide
+SMS = 132
+MIN_SPLIT_KB = 16
+WIDE_N_TILES = 16
 
 
+class Plan(NamedTuple):
+    """How one product runs: the path, its block tile and the number of
+    splits of the reduction (blockIdx.z)."""
+    path: str
+    bm: int
+    bn: int
+    bk: int
+    splits: int
+
+    def kb_per_split(self, k: int) -> int:
+        return math.ceil(math.ceil(k / self.bk) / self.splits)
+
+    def k_ranges(self, k: int) -> list:
+        """The [k0, k1) reduction range of each split, in order."""
+        step = self.kb_per_split(k) * self.bk
+        return [(s * step, min(k, (s + 1) * step))
+                for s in range(self.splits)]
+
+    def grid(self, m: int, n: int, k: int) -> tuple:
+        """(x, y, z): the (i, j, l) counter bank over the plan's tiles —
+        j and i become the grid's x and y, the splits its z."""
+        nest = matmul_nest(m, n, k, tm=self.bm, tn=self.bn, tk=self.bk)
+        return (*nest.launch_grid("j", "i"), self.splits)
+
+
+@functools.lru_cache(maxsize=4096)
+def plan(m: int, n: int, k: int, a_major: str = "k", b_major: str = "n",
+         *, lda: Optional[int] = None, ldb: Optional[int] = None,
+         aligned: bool = True, rows_invariant: bool = True) -> Plan:
+    """The plan of out(m, n) = A(m, k) . B(k, n) for bf16 operands.
+
+    a_major: "k" (A stored (m, k)) or "m" (A = X^T, X stored (k, m));
+    b_major: "n" (B stored (k, n)) or "k" (B stored (n, k)).  lda / ldb
+    are the stored row strides in elements (default: contiguous), and
+    `aligned` says both base pointers are 16-byte aligned.  The sm90
+    path takes every operand the TMA can describe; the rest take the
+    generic path.  With rows_invariant the split count depends on
+    (n, k, layout) only, never on m, so a row's result does not depend
+    on how many rows share the call (the engine's chunked PREFILL relies
+    on that); without it (outer_accum, whose m is a weight dimension)
+    the m tiles count towards filling the card too.
+    """
+    if a_major not in ("k", "m") or b_major not in ("k", "n"):
+        raise ValueError(f"plan: majorness {a_major!r}, {b_major!r}")
+    lda = (k if a_major == "k" else m) if lda is None else lda
+    ldb = (k if b_major == "k" else n) if ldb is None else ldb
+    if not (aligned and lda % 8 == 0 and ldb % 8 == 0):
+        return Plan("generic", *TILE, 1)
+    k_blocks = max(1, math.ceil(k / SM90_BK))
+    n128 = math.ceil(n / 128)
+    if rows_invariant:
+        wide = (n128 >= WIDE_N_TILES
+                or k_blocks // MIN_SPLIT_KB >= SMS // n128)
+    else:
+        wide = n128 * math.ceil(m / SM90_BM) >= SMS
+    bn = 128 if wide else 64
+    tiles = math.ceil(n / bn)
+    if not rows_invariant:
+        tiles *= math.ceil(m / SM90_BM)
+    splits = max(1, min(SMS // tiles, k_blocks // MIN_SPLIT_KB))
+    per = math.ceil(k_blocks / splits)
+    return Plan("sm90", SM90_BM, bn, SM90_BK, math.ceil(k_blocks / per))
+
+
+def _ld(t: torch.Tensor) -> Optional[int]:
+    """The row stride (elements) at which the bf16 paths read the 2-D
+    `t` as it lies — unit inner stride, rows no closer than their length
+    (a column slice of a wider matrix, say) — or None.  A one-row operand
+    takes its row length rounded up to 8."""
+    rows, cols = t.shape
+    s0, s1 = t.stride()
+    if cols > 1 and s1 != 1:
+        return None
+    if rows > 1:
+        return s0 if s0 >= cols else None
+    return max(8, -(-cols // 8) * 8)
+
+
+def row_stride(t: torch.Tensor) -> int:
+    """Elements between the rows of a 2-D operand as a kernel reads them."""
+    ld = _ld(t)
+    if ld is None:
+        raise ValueError(f"no row stride for strides {t.stride()}")
+    return ld
+
+
+def takes_view(t: torch.Tensor) -> bool:
+    """True when the bf16 paths read the 2-D `t` as it lies."""
+    return t.dim() == 2 and _ld(t) is not None
+
+
+def operand(t: torch.Tensor) -> torch.Tensor:
+    """`t` itself where the bf16 paths take it as a view, else a
+    contiguous copy."""
+    if t.dtype == torch.bfloat16 and takes_view(t):
+        return t
+    return t.contiguous()
+
+
+def aligned16(*ts: torch.Tensor) -> bool:
+    return all(t.data_ptr() % 16 == 0 for t in ts)
+
+
+@functools.lru_cache(maxsize=None)
 def _bind(lib: ctypes.CDLL, f32: bool):
+    """The C entry point, without argtypes: every pointer is passed as a
+    ctypes.c_void_p (build.ptr) or None, every int as a Python int (C int),
+    which costs ctypes a third of the argtypes conversion on a call that
+    the host's time bounds."""
     fn = lib.sr_matmul_f32 if f32 else lib.sr_matmul_bf16
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 \
-        + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -44,6 +172,13 @@ def _shapes(a: torch.Tensor, b: torch.Tensor, trans_b: bool) -> tuple:
     return m, n, k
 
 
+def launch_error(name: str, err: int) -> RuntimeError:
+    what = {-1: "cuTensorMapEncodeTiled is not available from libcuda",
+            -2: "cuTensorMapEncodeTiled refused a TMA tensor map"}.get(
+                err, f"cudaError {err}")
+    return RuntimeError(f"{name} kernel launch failed ({what})")
+
+
 def sr_matmul_plain(a: torch.Tensor, b: torch.Tensor,
                     rbits: Optional[torch.Tensor] = None, *,
                     trans_b: bool = False) -> torch.Tensor:
@@ -54,46 +189,96 @@ def sr_matmul_plain(a: torch.Tensor, b: torch.Tensor,
     return acc if rbits is None else sr_cast_bf16(acc, rbits)
 
 
+def operands_plan(a: torch.Tensor, b: torch.Tensor,
+                  trans_b: bool = False) -> Plan:
+    """The plan a bf16 call on these operands runs."""
+    m, n, k = _shapes(a, b, trans_b)
+    return plan(m, n, k, "k", "k" if trans_b else "n", lda=row_stride(a),
+                ldb=row_stride(b), aligned=aligned16(a, b))
+
+
+@functools.lru_cache(maxsize=4096)
+def launch_geometry(m: int, n: int, k: int, a_major: str, b_major: str,
+                    lda: int, ldb: int, aligned: bool,
+                    rows_invariant: bool = True) -> tuple:
+    """(plan, grid_x, grid_y, splits, kb_per_split) of one bf16 call."""
+    p = plan(m, n, k, a_major, b_major, lda=lda, ldb=ldb, aligned=aligned,
+             rows_invariant=rows_invariant)
+    return (p, *p.grid(m, n, k), p.kb_per_split(k))
+
+
+def _bf16_call(a, b, rbits, out, m: int, n: int, k: int, lda: int,
+               ldb: int, trans_b: bool) -> Plan:
+    """One launch through the bf16 entry point."""
+    p, gx, gy, splits, kb = launch_geometry(
+        m, n, k, "k", "k" if trans_b else "n", lda, ldb, aligned16(a, b))
+    ws = (torch.empty((splits, m, n), dtype=torch.float32, device=a.device)
+          if splits > 1 else None)
+    err = _bind(build.load("sr_matmul"), False)(
+        build.ptr(a), build.ptr(b), build.ptr(rbits) if rbits is not None
+        else None, build.ptr(out), build.ptr(ws) if ws is not None else None,
+        m, n, k, lda, ldb, int(trans_b), int(rbits is not None),
+        int(p.path == "sm90"), p.bn, splits, kb, gx, gy,
+        build.stream_ptr(a.device))
+    if err != 0:
+        raise launch_error("sr_matmul", err)
+    return p
+
+
 def sr_matmul(a: torch.Tensor, b: torch.Tensor,
               rbits: Optional[torch.Tensor] = None, *,
               trans_b: bool = False) -> torch.Tensor:
     """a (M, K) @ b (K, N) — or a @ b.T for b (N, K) with trans_b.
 
-    Operands both bf16 or both f32.  Returns f32 without rbits, SR-bf16
-    with rbits (int32 bit patterns, (M, N)).  CPU tensors take the plain
-    version; CUDA tensors launch the hand-written kernel on the current
-    stream (no synchronisation), and anything the kernel does not take
-    raises.
+    Operands both bf16 (unit inner stride, row stride at least the row
+    length: column slices are read in place) or both f32 and
+    contiguous.  Returns f32 without rbits, SR-bf16 with rbits (int32
+    bit patterns, (M, N)).  CPU tensors take the plain version; CUDA
+    tensors launch a hand-written kernel on the current stream (no
+    synchronisation), and anything the kernels do not take raises.
     """
     m, n, k = _shapes(a, b, trans_b)
-    if a.device.type == "cpu" and b.device.type == "cpu":
+    dev = a.device
+    if dev.type == "cpu" and b.device.type == "cpu":
         return sr_matmul_plain(a, b, rbits, trans_b=trans_b)
-    if a.device.type != "cuda" or b.device != a.device:
-        raise ValueError(f"sr_matmul: operands on {a.device} and {b.device}")
-    if a.dtype != b.dtype or a.dtype not in (torch.bfloat16, torch.float32):
+    if dev.type != "cuda" or b.device != dev:
+        raise ValueError(f"sr_matmul: operands on {dev} and {b.device}")
+    dt = a.dtype
+    if b.dtype != dt or dt not in (torch.bfloat16, torch.float32):
         raise TypeError(f"sr_matmul kernel takes two bf16 or two f32 "
-                        f"operands, got {a.dtype}, {b.dtype}")
-    if not (a.is_contiguous() and b.is_contiguous()):
-        raise ValueError("sr_matmul kernel takes contiguous operands")
+                        f"operands, got {dt}, {b.dtype}")
+    f32 = dt == torch.float32
+    if f32 and not (a.is_contiguous() and b.is_contiguous()):
+        raise ValueError("sr_matmul kernel takes contiguous f32 operands")
+    lda, ldb = _ld(a), _ld(b)
+    if lda is None or ldb is None:
+        raise ValueError("sr_matmul kernel takes bf16 operands with unit "
+                         "inner stride and rows no closer than their length")
     sr = rbits is not None
-    if sr and (rbits.shape != (m, n) or rbits.device != a.device
+    if sr and (rbits.shape != (m, n) or rbits.device != dev
                or rbits.dtype not in (torch.int32, torch.uint32)
                or not rbits.is_contiguous()):
         raise ValueError("sr_matmul: rbits must be contiguous 32-bit (M, N) "
                          "on the operands' device")
     out = torch.empty((m, n), dtype=torch.bfloat16 if sr else torch.float32,
-                      device=a.device)
-    if out.numel() == 0:
+                      device=dev)
+    if m == 0 or n == 0:
         return out
-    # the (i, j, l) counter bank: i, j become the grid, l the block's loop
-    nest = matmul_nest(m, n, k, tm=TILE[0], tn=TILE[1], tk=TILE[2])
-    grid_x, grid_y = nest.launch_grid("j", "i")
-    fn = _bind(build.load("sr_matmul"), a.dtype == torch.float32)
-    err = fn(build.ptr(a), build.ptr(b),
-             build.ptr(rbits) if sr else None, build.ptr(out),
-             m, n, k, int(trans_b), int(sr), grid_x, grid_y,
-             build.stream_ptr(a.device))
-    if err != 0:
-        raise RuntimeError(f"sr_matmul kernel launch failed (cudaError {err})")
+    if k == 0:
+        return out.zero_()
+    if f32:
+        # the (i, j, l) counter bank: i, j become the grid, l the loop
+        grid_x, grid_y = matmul_nest(m, n, k, tm=TILE[0], tn=TILE[1],
+                                     tk=TILE[2]).launch_grid("j", "i")
+        err = _bind(build.load("sr_matmul"), True)(
+            build.ptr(a), build.ptr(b), build.ptr(rbits) if sr else None,
+            build.ptr(out), m, n, k, int(trans_b), int(sr), grid_x, grid_y,
+            build.stream_ptr(dev))
+        if err != 0:
+            raise launch_error("sr_matmul", err)
+        path = "f32"
+    else:
+        path = _bf16_call(a, b, rbits, out, m, n, k, lda, ldb, trans_b).path
     COUNTER.n += 1
+    PATH_COUNTERS[path].n += 1
     return out

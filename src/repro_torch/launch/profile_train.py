@@ -14,6 +14,7 @@ most host time.  Needs a CUDA device.
 from __future__ import annotations
 
 import argparse
+import re
 import shutil
 import tempfile
 import time
@@ -27,11 +28,16 @@ TRAIN_ARGS = ["--arch", "qwen2-0.5b", "--kernel-backend", "cuda",
               "--seq", "256", "--steps", str(WARMUP_STEPS + WINDOW_STEPS),
               "--log-every", "1", "--ckpt-every", "1000"]
 
-# the port's hand-written kernels, by the names their launches carry
-_PORT = {"sr_matmul": ("sr_matmul_kernel", "sr_matmul_f32_kernel"),
-         "outer_accum": ("outer_accum_kernel", "outer_accum_f32_kernel"),
-         "sr_round": ("sr_round_kernel",),
-         "fused_attn_unit": ("row_gemm_kernel", "attn_decode_kernel")}
+# the port's hand-written kernels, by the names their launches carry:
+# gemm_sm90.cuh's mainloop and split reduction serve sr_matmul with A
+# K-major (template argument A_MN false) and outer_accum with A = X^T
+# (A_MN true)
+_PORT = {"sr_matmul": r"rt::(sr_matmul(_f32)?_kernel|sm90::(gemm_kernel<\d+, "
+                      r"false|splitk_reduce<false>))",
+         "outer_accum": r"rt::(outer_accum(_f32)?_kernel|sm90::(gemm_kernel"
+                        r"<\d+, true|splitk_reduce<true>))",
+         "sr_round": r"rt::sr_round_kernel",
+         "fused_attn_unit": r"rt::(row_gemm_kernel|attn_decode_kernel)"}
 
 
 def main(argv=None) -> int:
@@ -75,9 +81,8 @@ def main(argv=None) -> int:
             and str(e.device_type).endswith("CUDA")]
     busy = sum(us for _, us, _ in rows)
     rows.sort(key=lambda r: -r[1])
-    port = {k: sum(us for key, us, _ in rows
-                   if any(f"rt::{p}" in key for p in names))
-            for k, names in _PORT.items()}
+    port = {k: sum(us for key, us, _ in rows if re.search(pat, key))
+            for k, pat in _PORT.items()}
     host = sorted(((e.key, e.self_cpu_time_total, e.count) for e in avgs
                    if e.device_type is not None
                    and str(e.device_type).endswith("CPU")),

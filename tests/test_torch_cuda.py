@@ -179,8 +179,11 @@ def test_outer_accum_kernel_matches_plain(dev, tdf, dtype):
     x = torch.randn((t, d), generator=g, device=dev).to(dtype)
     dy = (torch.randn((t, f), generator=g, device=dev) * t ** -0.5).to(dtype)
     koa.COUNTER.reset()
+    path = "f32" if dtype == torch.float32 else koa.up_plan(x, dy).path
+    before = koa.PATH_COUNTERS[path].n
     got = koa.outer_accum(x, dy, scale=0.5)
     assert koa.COUNTER.n == 1 and got.dtype == torch.float32
+    assert koa.PATH_COUNTERS[path].n == before + 1
     want = koa.outer_accum_plain(x, dy, scale=0.5)
     torch.testing.assert_close(got, want, rtol=MM_RTOL, atol=MM_ATOL)
     rb = _rbits(g, (d, f), dev)
@@ -294,3 +297,149 @@ def test_fused_ffn_kernel_matches_plain(dev, B, d, f, norm, act):
                           for k, v in w.items()})
     torch.testing.assert_close(y.cpu().float(), yp.float(), atol=Y_TOL,
                                rtol=Y_TOL)
+
+
+# ---------------------------------------------------------------------------
+# The sm90 mainloop (TMA + wgmma, deterministic split-K) at the main path's
+# shapes, and the generic path on what the TMA cannot describe
+# ---------------------------------------------------------------------------
+
+# (id, M, K, N, trans_b, row stride of B or None): chip_smoke.py's PREFILL
+# shapes (32-token chunk) of qwen2-0.5b and rwkv6-1.6b (whose r, k, v, g
+# quarters are column views of the (2048, 8192) table), and the FF and
+# BP shapes of a qwen2 training step (T = 1024, the head per 256 rows)
+SM90_SHAPES = [
+    ("qwen2:prefill:qkv", 32, 896, 1152, False, None),
+    ("qwen2:prefill:o", 32, 896, 896, False, None),
+    ("qwen2:prefill:ffn_in", 32, 896, 9728, False, None),
+    ("qwen2:prefill:ffn_out", 32, 4864, 896, False, None),
+    ("qwen2:prefill:head", 32, 896, 151936, True, None),
+    ("rwkv6:prefill:rkvg", 32, 2048, 2048, False, 8192),
+    ("rwkv6:prefill:decay", 32, 2048, 2048, False, None),
+    ("rwkv6:prefill:ffn_in", 32, 2048, 7168, False, None),
+    ("rwkv6:prefill:ffn_out", 32, 7168, 2048, False, None),
+    ("rwkv6:prefill:head", 32, 2048, 65536, False, None),
+    ("qwen2:ff:qkv", 1024, 896, 1152, False, None),
+    ("qwen2:ff:o", 1024, 896, 896, False, None),
+    ("qwen2:ff:ffn_out", 1024, 4864, 896, False, None),
+    ("qwen2:ff:head", 256, 896, 151936, True, None),
+    ("qwen2:bp:qkv", 1024, 1152, 896, True, None),
+    ("qwen2:bp:o", 1024, 896, 896, True, None),
+    ("qwen2:bp:ffn_in", 1024, 9728, 896, True, None),
+    ("qwen2:bp:head", 256, 151936, 896, False, None)]
+
+
+def _operands(g, dev, m, k, n, trans_b, ldb=None):
+    """A (m, k) and B ((n, k) with trans_b, else (k, n)) in bf16, B scaled
+    by k^-0.5; with ldb, B is the first columns of a wider matrix."""
+    a = torch.randn((m, k), generator=g, device=dev).bfloat16()
+    rows, cols = (n, k) if trans_b else (k, n)
+    full = (torch.randn((rows, ldb or cols), generator=g, device=dev)
+            * k ** -0.5).bfloat16()
+    return a, full[:, :cols]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", SM90_SHAPES, ids=lambda c: c[0])
+def test_sr_matmul_sm90_main_shapes_match_plain(dev, case):
+    _, m, k, n, tb, ldb = case
+    g = torch.Generator(device=dev).manual_seed(5)
+    a, b = _operands(g, dev, m, k, n, tb, ldb)
+    assert kmm.operands_plan(a, b, tb).path == "sm90"
+    before = {p: c.n for p, c in kmm.PATH_COUNTERS.items()}
+    got = kmm.sr_matmul(a, b, trans_b=tb)
+    assert kmm.PATH_COUNTERS["sm90"].n == before["sm90"] + 1
+    assert kmm.PATH_COUNTERS["generic"].n == before["generic"]
+    want = kmm.sr_matmul_plain(a, b, trans_b=tb)
+    torch.testing.assert_close(got, want, rtol=MM_RTOL, atol=MM_ATOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [c for c in SM90_SHAPES
+                                  if c[0] in ("qwen2:bp:head",
+                                              "qwen2:prefill:ffn_out",
+                                              "rwkv6:prefill:ffn_out")],
+                         ids=lambda c: c[0])
+def test_sr_matmul_split_k_is_deterministic_and_sr_exact(dev, case):
+    """Split-K with no float atomics: two calls give the same bits, and
+    the SR epilogue after the split reduction is bit-equal to the plain
+    SR cast of the kernel's own f32 result."""
+    _, m, k, n, tb, ldb = case
+    g = torch.Generator(device=dev).manual_seed(6)
+    a, b = _operands(g, dev, m, k, n, tb, ldb)
+    assert kmm.operands_plan(a, b, tb).splits > 1
+    got = kmm.sr_matmul(a, b, trans_b=tb)
+    assert torch.equal(kmm.sr_matmul(a, b, trans_b=tb), got)
+    rb = _rbits(g, (m, n), dev)
+    assert torch.equal(kmm.sr_matmul(a, b, rb, trans_b=tb).view(torch.int16),
+                       sr_cast_bf16(got, rb).view(torch.int16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [c for c in SM90_SHAPES
+                                  if ":prefill:" in c[0]],
+                         ids=lambda c: c[0])
+def test_sr_matmul_rows_do_not_depend_on_m(dev, case):
+    """Rows 0..4 of a 32-row PREFILL chunk equal a 5-row call of the same
+    rows, bit for bit (the plan's splits depend on N, K and layout only)."""
+    _, m, k, n, tb, ldb = case
+    g = torch.Generator(device=dev).manual_seed(7)
+    a, b = _operands(g, dev, m, k, n, tb, ldb)
+    assert torch.equal(kmm.sr_matmul(a[:5].clone(), b, trans_b=tb),
+                       kmm.sr_matmul(a, b, trans_b=tb)[:5])
+
+
+@pytest.mark.cuda
+def test_outer_accum_split_k_sr_exact_and_deterministic(dev):
+    """A narrow dW over many tokens plans splits > 1 (no main-path UP
+    does): deterministic, and SR bit-equal to the plain cast."""
+    g = torch.Generator(device=dev).manual_seed(8)
+    x = torch.randn((8192, 128), generator=g, device=dev).bfloat16()
+    dy = (torch.randn((8192, 96), generator=g, device=dev)
+          * 8192 ** -0.5).bfloat16()
+    assert koa.up_plan(x, dy).splits > 1
+    got = koa.outer_accum(x, dy, scale=0.25)
+    torch.testing.assert_close(got, koa.outer_accum_plain(x, dy, scale=0.25),
+                               rtol=MM_RTOL, atol=MM_ATOL)
+    assert torch.equal(koa.outer_accum(x, dy, scale=0.25), got)
+    rb = _rbits(g, (128, 96), dev)
+    assert torch.equal(
+        koa.outer_accum(x, dy, scale=0.25, rbits=rb).view(torch.int16),
+        sr_cast_bf16(got, rb).view(torch.int16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quarter", range(4))
+def test_sr_matmul_reads_rkvg_views_in_place(dev, quarter):
+    """rwkv6's r, k, v, g quarters: a column view of the (2048, 8192)
+    table runs the sm90 path as it lies and equals its contiguous copy."""
+    g = torch.Generator(device=dev).manual_seed(9)
+    a = torch.randn((32, 2048), generator=g, device=dev).bfloat16()
+    table = (torch.randn((2048, 8192), generator=g, device=dev)
+             * 2048 ** -0.5).bfloat16()
+    view = table[:, quarter * 2048:(quarter + 1) * 2048]
+    assert kmm.operand(view) is view
+    assert kmm.operands_plan(a, view).path == "sm90"
+    assert torch.equal(kmm.sr_matmul(a, view),
+                       kmm.sr_matmul(a, view.contiguous()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("what", ["row-666B", "base-unaligned"])
+def test_generic_path_takes_what_tma_cannot_describe(dev, what):
+    g = torch.Generator(device=dev).manual_seed(10)
+    if what == "row-666B":
+        a = torch.randn((37, 1000), generator=g, device=dev).bfloat16()
+        b = torch.randn((1000, 333), generator=g, device=dev).bfloat16()
+    else:   # rows 1808 bytes apart, but the view starts 2 bytes in
+        a = torch.randn((32, 904), generator=g,
+                        device=dev).bfloat16()[:, 1:897]
+        b = (torch.randn((896, 896), generator=g, device=dev)
+             * 896 ** -0.5).bfloat16()
+    assert kmm.operands_plan(a, b).path == "generic"
+    before = {p: c.n for p, c in kmm.PATH_COUNTERS.items()}
+    got = kmm.sr_matmul(a, b)
+    assert kmm.PATH_COUNTERS["generic"].n == before["generic"] + 1
+    assert kmm.PATH_COUNTERS["sm90"].n == before["sm90"]
+    torch.testing.assert_close(got, kmm.sr_matmul_plain(a, b), rtol=MM_RTOL,
+                               atol=MM_ATOL)

@@ -463,11 +463,167 @@ def test_port_imports_neither_jax_nor_the_jax_package():
 
 
 def test_launch_counters_count_only_kernel_launches():
-    counters = (kmm.COUNTER, kdf.COUNTER, koa.COUNTER, ksr.COUNTER)
+    counters = (kmm.COUNTER, kdf.COUNTER, koa.COUNTER, ksr.COUNTER,
+                *kmm.PATH_COUNTERS.values(), *koa.PATH_COUNTERS.values())
     for c in counters:
         c.reset()
     kmm.sr_matmul(torch.ones(2, 3, dtype=torch.bfloat16),
                   torch.ones(3, 2, dtype=torch.bfloat16))
     koa.outer_accum(torch.ones(2, 3), torch.ones(2, 4))
     ksr.sr_round(torch.ones(2, 3), torch.zeros(2, 3, dtype=torch.int32))
-    assert [c.n for c in counters] == [0, 0, 0, 0]   # plain versions ran
+    assert [c.n for c in counters] == [0] * len(counters)  # plain versions ran
+
+
+# ---------------------------------------------------------------------------
+# The build digest, and the sm90 / generic plan of the bf16 products
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("header", ["gemm_sm90.cuh", "common.cuh"])
+def test_build_digest_changes_with_every_header(monkeypatch, tmp_path,
+                                                header):
+    """A changed shared header renames every library, so a stale .so is
+    never loaded; a change to another kernel's source renames none."""
+    import shutil
+    src = tmp_path / "csrc"
+    shutil.copytree(build.CSRC, src, ignore=shutil.ignore_patterns("_build"))
+    monkeypatch.setattr(build, "CSRC", src)
+    before = {n: build._digest(n) for n in ("sr_matmul", "outer_accum")}
+    (src / "wkv6.cu").write_text((src / "wkv6.cu").read_text() + "\n// x\n")
+    assert {n: build._digest(n) for n in before} == before
+    (src / header).write_text((src / header).read_text() + "\n// x\n")
+    after = {n: build._digest(n) for n in before}
+    assert all(after[n] != before[n] for n in before)
+
+
+def _main_path_products(arch: str) -> list:
+    """(id, m, n, k, a_major, b_major, lda, ldb, rows_invariant) of every
+    bf16 product on `arch`'s main paths, from the port's config: PREFILL
+    at a 32-token chunk; for qwen2 also training's FF, BP (T = 1024 rows,
+    the tied head per 256-row loss chunk) and UP (outer_accum: A = X^T)."""
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    d, f, V = cfg.d_model, cfg.d_ff, cfg.vocab_size
+    out = []
+    if arch == "rwkv6-1.6b":
+        # W (P, Q) with its row stride: the four rkvg quarters are column
+        # views of the (d, 4d) table
+        ws = [(f"rkvg[{i}]", d, d, 4 * d) for i in range(4)]
+        ws += [("decay", d, d, d), ("o", d, d, d), ("ffn_in", d, f, f),
+               ("ffn_out", f, d, d), ("lm_head", d, V, V)]
+        return [(f"{arch}:prefill:{n}", 32, q, p, "k", "n", p, ld, True)
+                for n, p, q, ld in ws]
+    a = cfg.attention
+    qkv = (a.n_heads + 2 * a.n_kv_heads) * a.head_dim
+    ws = [("qkv", d, qkv), ("o", a.n_heads * a.head_dim, d),
+          ("ffn_in", d, 2 * f), ("ffn_out", f, d)]
+    T = 1024
+    for n, p, q in ws:
+        out += [(f"{arch}:prefill:{n}", 32, q, p, "k", "n", p, q, True),
+                (f"{arch}:ff:{n}", T, q, p, "k", "n", p, q, True),
+                (f"{arch}:bp:{n}", T, p, q, "k", "k", q, q, True),
+                (f"{arch}:up:{n}", p, q, T, "m", "n", p, q, False)]
+    # the tied head: logits x . table^T, dX = g . table, dTable = g^T x
+    out += [(f"{arch}:prefill:head", 32, V, d, "k", "k", d, d, True),
+            (f"{arch}:ff:head", T // 4, V, d, "k", "k", d, d, True),
+            (f"{arch}:bp:head", T // 4, d, V, "k", "n", V, d, True),
+            (f"{arch}:up:head", V, d, T // 4, "m", "n", V, d, False)]
+    return out
+
+
+MAIN_PRODUCTS = (_main_path_products("qwen2-0.5b")
+                 + _main_path_products("rwkv6-1.6b"))
+
+
+@pytest.mark.parametrize("case", MAIN_PRODUCTS, ids=lambda c: c[0])
+def test_main_path_products_take_the_sm90_path(case):
+    _, m, n, k, am, bm_, lda, ldb, inv = case
+    p = kmm.plan(m, n, k, am, bm_, lda=lda, ldb=ldb, rows_invariant=inv)
+    assert p.path == "sm90" and p.bk == 64 and p.bm == 128
+    x, y, z = p.grid(m, n, k)
+    assert z == p.splits >= 1 and x * y >= 1
+
+
+@pytest.mark.parametrize("case", [
+    dict(m=37, n=333, k=1000, b="n", ldb=333),      # B's row: 666 bytes
+    dict(m=37, n=333, k=1000, b="k", lda=1001),     # A's row stride
+    dict(m=32, n=896, k=4864, b="n", aligned=False),  # base not 16-aligned
+], ids=["b-row-666B", "a-stride-odd", "unaligned-base"])
+def test_unaligned_operands_take_the_generic_path(case):
+    c = dict(case)
+    m, n, k, b = c.pop("m"), c.pop("n"), c.pop("k"), c.pop("b")
+    p = kmm.plan(m, n, k, "k", b, **c)
+    assert p == kmm.Plan("generic", *kmm.TILE, 1)
+
+
+PLAN_NK = [(896, 151936, "n"), (896, 4864, "n"), (896, 9728, "k"),
+           (1152, 896, "n"), (151936, 896, "k"), (2048, 7168, "n"),
+           (333, 1000, "k"), (64, 200, "n"), (8, 8, "k"), (96, 1, "n")]
+
+
+@pytest.mark.parametrize("n,k,b_major", PLAN_NK)
+def test_plan_k_partition_is_disjoint_and_covers_k(n, k, b_major):
+    p = kmm.plan(32, n, k, "k", b_major)
+    ranges = p.k_ranges(k)
+    assert len(ranges) == p.splits
+    assert ranges[0][0] == 0 and ranges[-1][1] == k
+    for (a0, a1), (b0, _) in zip(ranges, ranges[1:]):
+        assert a1 == b0                       # disjoint, no gap
+    for k0, k1 in ranges:
+        assert k0 < k1                        # no empty split
+        assert k0 % p.bk == 0 and (k1 % p.bk == 0 or k1 == k)
+
+
+@pytest.mark.parametrize("n,k,b_major", PLAN_NK)
+def test_plan_does_not_depend_on_m(n, k, b_major):
+    plans = {kmm.plan(m, n, k, "k", b_major) for m in (1, 5, 32, 256, 1024)}
+    assert len(plans) == 1
+
+
+def test_plan_splits_fill_the_card_at_the_narrow_products():
+    """The tied head's BP and qwen2's PREFILL ffn_out are 896 wide: the
+    split count brings them towards the 132 SMs without a second,
+    part-filled wave of blocks (the head's 151936-deep reduction fills
+    the card at 128-wide tiles, ffn_out's takes 64-wide ones)."""
+    head_bp = kmm.plan(256, 896, 151936, "k", "n")
+    ffn_out = kmm.plan(32, 896, 4864, "k", "n")
+    assert (head_bp.bn, ffn_out.bn) == (128, 64)
+    assert 8 <= head_bp.splits and 7 * head_bp.splits <= kmm.SMS
+    assert ffn_out.splits > 1 and 14 * ffn_out.splits <= kmm.SMS
+
+
+@pytest.mark.parametrize("mnk", [(32, 896, 4864), (256, 896, 151936),
+                                 (1024, 1152, 896), (37, 333, 1000),
+                                 (5, 64, 8)])
+def test_plan_grid_matches_reference_nest(mnk):
+    from repro.core.pmag import matmul_nest as jnest
+    m, n, k = mnk
+    p = kmm.plan(m, n, k, "k", "n")
+    theirs = jnest(m, n, k, tm=p.bm, tn=p.bn, tk=p.bk)
+    assert p.grid(m, n, k) == (theirs.grid[1], theirs.grid[0], p.splits)
+    ours = koa.outer_accum_nest(k, m, n, (p.bm, p.bn, p.bk))
+    assert ours.grid == theirs.grid
+
+
+@pytest.mark.parametrize("quarter", range(4))
+def test_sr_matmul_on_rkvg_column_view_matches_copy_and_pallas(quarter):
+    """rwkv6's r, k, v, g products read a column quarter of the fused
+    (d, 4d) table in place: the view is taken as it lies (no copy), and
+    gives what its contiguous copy and JAX's kernel give."""
+    d, m = 64, 24
+    rng = np.random.default_rng(7 + quarter)
+    aj, at = bf16_pair(rng.standard_normal((m, d)))
+    wj, wt = bf16_pair(rng.standard_normal((d, 4 * d)) * d ** -0.5)
+    view = wt[:, quarter * d:(quarter + 1) * d]
+    assert not view.is_contiguous() and kmm.operand(view) is view
+    assert kmm.plan(m, d, d, "k", "n", ldb=kmm.row_stride(view)).path \
+        == "sm90"
+    got = kmm.sr_matmul(at, kmm.operand(view))
+    np.testing.assert_array_equal(got.numpy(),
+                                  kmm.sr_matmul(at, view.contiguous()).numpy())
+    want = jmm(aj, wj[:, quarter * d:(quarter + 1) * d], None,
+               block=(64, 64, 64), interpret=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=MM_RTOL,
+                               atol=MM_ATOL)
+    tt = wt.t()                                 # a transpose is copied
+    assert kmm.operand(tt) is not tt and kmm.operand(tt).is_contiguous()
