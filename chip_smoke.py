@@ -17,7 +17,12 @@ port (``src/repro_torch``), never JAX or the JAX package, and:
    a chunk bit-equal to a 5-row call, device time in a CUDA graph, the
    host's share of a call), and at the FF and BP shapes of a training
    step (K up to 151936, split-K calls bit-equal twice) with bf16 and
-   with f32 operands; fused_attn_unit; outer_accum at the five UP
+   with f32 operands; fused_attn_unit (device time in a CUDA graph, the
+   host's share split into wrapper and ctypes call, two calls bit-equal,
+   rows independent of B, and a full-width head_dim-128 case at olmo-1b's
+   shapes; each of its seven launches' share of the device time comes
+   from launch/bench_decode.py in a process of its own, at the end);
+   outer_accum at the five UP
    shapes of a step, both operand types; sr_round on the largest
    optimizer leaf; the generic path on operands the TMA cannot describe;
 3. serves a seeded Poisson trace through qwen2-0.5b at full width
@@ -31,7 +36,8 @@ port (``src/repro_torch``), never JAX or the JAX package, and:
 4. the same for rwkv6-1.6b at full width: sr_matmul at its PREFILL
    shapes (the r, k, v, g quarters as column views of the fused table),
    wkv6 (a PREFILL chunk and a DECODE step from a carried state, a
-   ragged chunk, near-total decay) and fused_ffn against their plain
+   ragged chunk, near-total decay) and fused_ffn (timed and checked as
+   fused_attn_unit is) against their plain
    versions; the trace served fused (PREFILL through sr_matmul, the
    recurrence through wkv6, each layer's FF half through fused_ffn) and
    per-op; the teacher-forced comparison; and, layer by layer, fused_ffn
@@ -44,7 +50,8 @@ port (``src/repro_torch``), never JAX or the JAX package, and:
    counting each kernel's launches per step (every bf16 product on the
    sm90 path, none on the generic one).
 
-It prints the sm90 redesign's time targets (met or missed; a miss is
+It prints the time targets of the sm90 redesign and of the fused
+decode words' redesign (met or missed; a miss is
 reported, not failed), a ``{"kernels": [...]}`` line, the card's name
 and power limit, and as its last line ``{"ok": true, "device": {...}}``.
 Any failed check exits nonzero.  Without a CUDA device, or outside a
@@ -390,11 +397,163 @@ def phase_sr_matmul(label: str, arch: str, shapes: list, peaks, *,
                       f"products + the LM head)"}
 
 
-def phase_fused(cfg, params, peaks) -> dict:
-    """fused_attn_unit at B=32 arena rows, S=528, over 3 decode steps."""
+# fused_attn_unit_bf16 / fused_ffn_bf16 argument positions of y and the
+# workspace (csrc/decode_fused.cu), for timing the ctypes call alone
+_DECODE_Y_WS = {"fused_attn_unit_bf16": (16, 17), "fused_ffn_bf16": (5, 6)}
+
+
+def decode_host_ms(call, entry: str, ws_bytes: int, y_shape) -> dict:
+    """Host time of one fused word call on the host clock (no
+    synchronisation; 200 calls after 20): the whole wrapper, and its
+    ctypes call alone with the same arguments (a workspace and y of its
+    own), so the wrapper's Python is their difference."""
+    import torch
+    from repro_torch.kernels import build
+    from repro_torch.kernels import decode_fused as kdf
+    real = kdf._entry(build.load("decode_fused"), entry)
+    seen = {}
+
+    def spy(*a):
+        seen["args"] = list(a)
+        return real(*a)
+    orig = kdf._entry
+    kdf._entry = lambda lib, name: spy if name == entry else orig(lib, name)
+    try:
+        call()
+    finally:
+        kdf._entry = orig
+    ws = torch.empty((ws_bytes,), dtype=torch.uint8, device="cuda")
+    y = torch.empty(y_shape, dtype=torch.bfloat16, device="cuda")
+    args = seen["args"]
+    iy, iws = _DECODE_Y_WS[entry]
+    args[iy], args[iws] = build.ptr(y), build.ptr(ws)
+    host = {}
+    for what, f in (("call", call), ("ctypes", lambda: real(*args))):
+        for _ in range(20):
+            f()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(200):
+            f()
+        host[what] = (time.perf_counter() - t0) / 200 * 1e3
+        torch.cuda.synchronize()
+    host["wrapper"] = host["call"] - host["ctypes"]
+    return host
+
+
+def _launch_txt(parts: dict) -> str:
+    return ", ".join(f"{k} {ms:.4f}ms x{n:g}" for k, (ms, n) in parts.items())
+
+
+def phase_decode_launches(rows: dict) -> None:
+    """Each launch's share of the fused words' device time, from a traced
+    CUDA-graph replay in a process of its own (launch/bench_decode.py at
+    the kernels' split target and the same shapes: one qwen2-0.5b layer,
+    one rwkv6-1.6b FF), so that no torch.profiler runs in this process
+    and the serving phases' host time is not inflated by it."""
+    from repro_torch.kernels import decode_fused as kdf
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    target = str(kdf.SPLIT_BLOCKS)
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.bench_decode",
+         "--targets", target], capture_output=True, text=True, env=env,
+        cwd=ROOT, timeout=600)
+    check(proc.returncode == 0,
+          f"bench_decode failed ({proc.returncode}): {proc.stderr[-2000:]}")
+    res = json.loads(proc.stdout.strip().splitlines()[-1])["targets"][target]
+    for word in ("fused_attn_unit", "fused_ffn"):
+        parts = res[word]["parts"]
+        check(sum(n for _, n in parts.values()) > 0,
+              f"{word}: no decode_fused launch in the traced replay")
+        print(f"[{word}] per launch, in a traced CUDA-graph replay (device "
+              f"ms by which each extends the timeline, per call; launches "
+              f"per call): {_launch_txt(parts)}; graph "
+              f"{res[word]['graph_ms']:.4f}ms (bench_decode's weights)")
+        rows[word]["per_launch_ms"] = {k: v[0] for k, v in parts.items()}
+
+
+def check_deterministic(call, rows5, label: str) -> None:
+    """Two calls on the same inputs give the same bits, and rows 0..4 of
+    the B-row call equal a 5-row call of the same rows.  `call()` and
+    `rows5()` each return a list of tensors (y first)."""
+    import torch
+    a, b, c = call(), call(), rows5()
+    check(all(torch.equal(u, v) for u, v in zip(a, b)),
+          f"{label}: two calls on the same inputs differ")
+    check(all(torch.equal(u[:5], v) for u, v in zip(a, c)),
+          f"{label}: rows 0..4 differ from a 5-row call of the same rows")
+
+
+def _fused_case(B, S, d, H, K, hd, f, gen, w=None):
+    """Synthetic decode inputs: caches half filled per row (random fill,
+    -1 past it), weights scaled by fan-in^-0.5 unless given."""
+    import torch
+    rnd = lambda *s: torch.randn(s, generator=gen, device="cuda")
+    qn = (H + 2 * K) * hd
+    if w is None:
+        w = dict(qkv_w=(rnd(d, qn) * d ** -0.5).bfloat16(),
+                 qkv_bias=0.1 * rnd(qn),
+                 o_w=(rnd(H * hd, d) * (H * hd) ** -0.5).bfloat16(),
+                 w_in=(rnd(d, 2 * f) * d ** -0.5).bfloat16(),
+                 w_out=(rnd(f, d) * f ** -0.5).bfloat16(),
+                 norm1_scale=1 + 0.1 * rnd(d), norm2_scale=1 + 0.1 * rnd(d))
+    ck = (rnd(B, S, K, hd) * 2).to(torch.bfloat16)
+    cv = rnd(B, S, K, hd).to(torch.bfloat16)
+    fill = torch.randint(0, S - 3, (B,), generator=gen, device="cuda")
+    sidx = torch.arange(S, device="cuda")[None]
+    cpos = torch.where(sidx < fill[:, None], sidx, -1).to(torch.int32)
+    return w, [ck, cv, cpos], fill
+
+
+def _check_fused_steps(w, cache, fill, kw, active, gen, label: str,
+                       steps: int = 3) -> tuple:
+    """`steps` decode steps of fused_attn_unit against its plain version
+    on copies of the same caches; returns (max abs err, max rel err)."""
     import torch
     from repro_torch.kernels import decode_fused as kdf
     from repro_torch.kernels.decode_fused import _vec
+    B, d = cache[0].shape[0], w["o_w"].shape[1]
+    f = w["w_out"].shape[0]
+    qn = w["qkv_w"].shape[1]
+    kern = [c.clone() for c in cache]
+    plain = [c.clone() for c in cache]
+    pkw = dict(n1s=_vec(w["norm1_scale"], d, 1.0, "cuda"),
+               n1b=_vec(None, d, 0.0, "cuda"), qkv_w=w["qkv_w"],
+               qkv_b=_vec(w["qkv_bias"], qn, 0.0, "cuda"), o_w=w["o_w"],
+               n2s=_vec(w["norm2_scale"], d, 1.0, "cuda"),
+               n2b=_vec(None, d, 0.0, "cuda"), w_in=w["w_in"],
+               w_out=w["w_out"], window=None, tn=kdf._clip_block_n(256, f),
+               with_ffn=True, active=active, **kw)
+    worst_abs = worst_rel = 0.0
+    for t in range(steps):
+        x = torch.randn((B, d), generator=gen, device="cuda").to(torch.bfloat16)
+        pos = (fill + t).to(torch.int32)
+        y = kdf.fused_attn_unit(x, *kern, pos, active=active, **w, **kw)
+        yp = kdf.fused_attn_unit_plain(x, *plain, pos, **pkw)
+        torch.cuda.synchronize()
+        ea, er = errs(y, yp)
+        worst_abs, worst_rel = max(worst_abs, ea), max(worst_rel, er)
+        check(torch.allclose(y.float(), yp.float(), atol=Y_TOL, rtol=Y_TOL),
+              f"{label} step {t}: y max abs err {ea:.3g}")
+        for got, want in zip(kern[:2], plain[:2]):
+            check(torch.allclose(got.float(), want.float(), atol=CACHE_TOL,
+                                 rtol=CACHE_TOL),
+                  f"{label} step {t}: cache max abs err "
+                  f"{errs(got, want)[0]:.3g}")
+        check(torch.equal(kern[2], plain[2]), f"{label}: cache pos differ")
+    for got, orig in zip(kern, cache):
+        check(torch.equal(got[~active], orig[~active]),
+              f"{label} wrote an inactive arena row")
+    return worst_abs, worst_rel
+
+
+def phase_fused(cfg, params, peaks) -> dict:
+    """fused_attn_unit at B=32 arena rows, S=528, over 3 decode steps, on
+    qwen2-0.5b's layer 0; its times (events, CUDA graph, host, each
+    launch), two calls bit-equal, rows independent of B; then a
+    full-width hd-128 case at olmo-1b's shapes."""
+    import torch
+    from repro_torch.kernels import decode_fused as kdf
     a = cfg.attention
     B, S, d, f = 32, 528, cfg.d_model, cfg.d_ff
     H, K, hd = a.n_heads, a.n_kv_heads, a.head_dim
@@ -407,16 +566,37 @@ def phase_fused(cfg, params, peaks) -> dict:
     kw = dict(heads=H, kv_heads=K, head_dim=hd, rope_theta=a.rope_theta,
               norm_kind="rmsnorm", act="swiglu")
     gen = torch.Generator(device="cuda").manual_seed(2)
-    ck = (torch.randn((B, S, K, hd), generator=gen, device="cuda") * 2
-          ).to(torch.bfloat16)
-    cv = torch.randn((B, S, K, hd), generator=gen, device="cuda").to(torch.bfloat16)
-    fill = torch.randint(0, S - 3, (B,), generator=gen, device="cuda")
-    sidx = torch.arange(S, device="cuda")[None]
-    cpos = torch.where(sidx < fill[:, None], sidx, -1).to(torch.int32)
+    _, cache, fill = _fused_case(B, S, d, H, K, hd, f, gen, w)
     active = torch.ones(B, dtype=torch.bool, device="cuda")
     active[5] = active[17] = False
-    kern = [ck.clone(), cv.clone(), cpos.clone()]
-    plain = [ck.clone(), cv.clone(), cpos.clone()]
+    worst_abs, worst_rel = _check_fused_steps(w, cache, fill, kw, active,
+                                              gen, "fused_attn_unit")
+    plan = kdf.decode_plan(B, d, f=f, gated=True, heads=H, kv_heads=K,
+                           head_dim=hd, S=S)
+    x = torch.randn((B, d), generator=gen, device="cuda").to(torch.bfloat16)
+    pos = (fill + 3).to(torch.int32)
+    kern = [c.clone() for c in cache]
+    call = lambda: kdf.fused_attn_unit(x, *kern, pos, active=active, **w,
+                                       **kw)
+    c0, l0 = kdf.COUNTER.n, kdf.LAUNCHES.n
+    call()
+    per_call = kdf.LAUNCHES.n - l0
+    check(kdf.COUNTER.n == c0 + 1 and per_call == plan.launches == 7,
+          f"fused_attn_unit: {per_call} launches in a call, plan "
+          f"{plan.launches}")
+
+    def two(rows):
+        c = [t[:rows].clone() for t in cache]
+        y = kdf.fused_attn_unit(x[:rows].contiguous(), *c,
+                                pos[:rows].contiguous(),
+                                active=active[:rows].contiguous(), **w, **kw)
+        return [y, *c]
+    check_deterministic(lambda: two(B), lambda: two(5), "fused_attn_unit")
+    ms = time_ms(call)
+    dev_ms = time_graph_ms(call)
+    host = decode_host_ms(call, "fused_attn_unit_bf16", plan.ws_bytes, (B, d))
+    plain = [c.clone() for c in cache]
+    from repro_torch.kernels.decode_fused import _vec
     qn = (H + 2 * K) * hd
     pkw = dict(n1s=_vec(w["norm1_scale"], d, 1.0, "cuda"),
                n1b=_vec(None, d, 0.0, "cuda"), qkv_w=w["qkv_w"],
@@ -425,43 +605,36 @@ def phase_fused(cfg, params, peaks) -> dict:
                n2b=_vec(None, d, 0.0, "cuda"), w_in=w["w_in"],
                w_out=w["w_out"], window=None, tn=kdf._clip_block_n(256, f),
                with_ffn=True, active=active, **kw)
-    worst_abs = worst_rel = 0.0
-    for t in range(3):
-        x = torch.randn((B, d), generator=gen, device="cuda").to(torch.bfloat16)
-        pos = (fill + t).to(torch.int32)
-        y = kdf.fused_attn_unit(x, *kern, pos, active=active, **w, **kw)
-        yp = kdf.fused_attn_unit_plain(x, *plain, pos, **pkw)
-        torch.cuda.synchronize()
-        ea, er = errs(y, yp)
-        worst_abs, worst_rel = max(worst_abs, ea), max(worst_rel, er)
-        check(torch.allclose(y.float(), yp.float(), atol=Y_TOL, rtol=Y_TOL),
-              f"fused_attn_unit step {t}: y max abs err {ea:.3g}")
-        for got, want in zip(kern[:2], plain[:2]):
-            check(torch.allclose(got.float(), want.float(), atol=CACHE_TOL,
-                                 rtol=CACHE_TOL),
-                  f"fused_attn_unit step {t}: cache max abs err "
-                  f"{errs(got, want)[0]:.3g}")
-        check(torch.equal(kern[2], plain[2]), "fused_attn_unit: cache pos differ")
-    for got, orig in zip(kern, (ck, cv, cpos)):
-        check(torch.equal(got[~active], orig[~active]),
-              "fused_attn_unit wrote an inactive arena row")
-    x = torch.randn((B, d), generator=gen, device="cuda").to(torch.bfloat16)
-    pos = (fill + 3).to(torch.int32)
-    ms = time_ms(lambda: kdf.fused_attn_unit(x, *kern, pos, active=active,
-                                             **w, **kw))
     plain_ms = time_ms(lambda: kdf.fused_attn_unit_plain(x, *plain, pos,
                                                          **pkw))
-    qn = (H + 2 * K) * hd
-    weights = 2 * (d * qn + H * hd * d + d * 2 * f + f * d) + 4 * (qn + 2 * d)
+    # yardstick only: torch.matmul on the same four weight products at
+    # M = 32 (the port never calls it)
+    ins = [torch.randn((B, w_.shape[0]), generator=gen, device="cuda"
+                       ).to(torch.bfloat16)
+           for w_ in (w["qkv_w"], w["o_w"], w["w_in"], w["w_out"])]
+    mm_ms = time_graph_ms(lambda: [torch.matmul(i, w_) for i, w_ in zip(
+        ins, (w["qkv_w"], w["o_w"], w["w_in"], w["w_out"]))])
+    weights = 2 * (d * qn + H * hd * d + d * 2 * f + f * d) + 2 * (qn + 2 * d)
     valid = int((fill + 4).sum())                 # cached positions attended
     kv = valid * K * hd * 2 * 2 + B * S * 4
-    io = 2 * 2 * B * d + B * (K * hd * 2 * 2 + 4) + 2 * B * 4
+    io = 2 * 2 * B * d + B * (K * hd * 2 * 2 + 4) + 2 * B * 4 + B
     flops = 2 * B * (d * qn + H * hd * d + 2 * d * f + f * d) \
         + 4 * H * hd * valid
     b_ms, by = bound(weights + kv + io, flops, peaks)
     print(f"[fused_attn_unit] B={B} S={S}: kernel {ms:.4f}ms plain "
-          f"{plain_ms:.4f}ms bound {b_ms:.4f}ms ({by})  max_abs_err "
-          f"{worst_abs:.3g}")
+          f"{plain_ms:.4f}ms bound {b_ms:.4f}ms ({by}); in a CUDA graph "
+          f"{dev_ms:.4f}ms (torch.matmul on the four weight products, a "
+          f"yardstick: {mm_ms:.4f}ms)  max_abs_err {worst_abs:.3g}; "
+          f"{per_call} launches a call; 2 calls bit-equal; rows 0..4 = "
+          f"5-row call")
+    print(f"[fused_attn_unit] host time per call (ms): whole call "
+          f"{host['call']:.4f}, ctypes call {host['ctypes']:.4f}, wrapper "
+          f"Python {host['wrapper']:.4f}")
+    plans = {n: [p.tiles, p.splits] for n, p in plan.products.items()}
+    print(f"[fused_attn_unit] plan (column tiles, splits): {plans}, "
+          f"attention splits {plan.attn_nsplit} of {kdf.ATTN_SPLIT}, "
+          f"workspace {plan.ws_bytes} bytes")
+    olmo = phase_fused_hd128(peaks)
     return {"name": "fused_attn_unit", "route": "cuda",
             "source": "src/repro_torch/csrc/decode_fused.cu",
             "replaces": "src/repro/kernels/decode_fused.py:272",
@@ -469,7 +642,43 @@ def phase_fused(cfg, params, peaks) -> dict:
             "max_abs_err": worst_abs, "max_rel_err": worst_rel,
             "ms": ms, "kernel_ms": ms, "plain_ms": plain_ms,
             "library_ms": None, "bound_ms": b_ms, "bound_by": by,
-            "shapes": f"one layer, B={B} rows, S={S}"}
+            "graph_ms": dev_ms, "matmul_graph_ms": mm_ms, "host_ms": host,
+            "launches_per_call": per_call, "plans": plans, "hd128": olmo,
+            "shapes": f"qwen2-0.5b layer 0, B={B} rows, S={S}"}
+
+
+def phase_fused_hd128(peaks) -> dict:
+    """fused_attn_unit at olmo-1b's full width, head_dim 128: d 2048, 16
+    heads of 128, 16 KV heads, d_ff 8192 swiglu, B=32, S=528, weights
+    from a seed, against the plain version."""
+    import torch
+    from repro_torch.kernels import decode_fused as kdf
+    B, S, d, H, K, hd, f = 32, 528, 2048, 16, 16, 128, 8192
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    w, cache, fill = _fused_case(B, S, d, H, K, hd, f, gen)
+    kw = dict(heads=H, kv_heads=K, head_dim=hd, rope_theta=1e4,
+              norm_kind="rmsnorm", act="swiglu")
+    active = torch.ones(B, dtype=torch.bool, device="cuda")
+    active[3] = False
+    ea, _ = _check_fused_steps(w, cache, fill, kw, active, gen,
+                               "fused_attn_unit hd128", steps=2)
+    x = torch.randn((B, d), generator=gen, device="cuda").to(torch.bfloat16)
+    pos = (fill + 2).to(torch.int32)
+    kern = [c.clone() for c in cache]
+    dev_ms = time_graph_ms(lambda: kdf.fused_attn_unit(
+        x, *kern, pos, active=active, **w, **kw))
+    qn = (H + 2 * K) * hd
+    weights = 2 * (d * qn + H * hd * d + 3 * d * f)
+    valid = int((fill + 3).sum())
+    b_ms, by = bound(weights + valid * K * hd * 4, 2 * B * (
+        d * qn + H * hd * d + 3 * d * f) + 4 * H * hd * valid, peaks)
+    print(f"[fused_attn_unit:hd128] olmo-1b shapes (d {d}, {H} heads of "
+          f"{hd}, {K} KV heads, d_ff {f} swiglu) B={B} S={S}: max_abs_err "
+          f"{ea:.3g} within Y_TOL/CACHE_TOL; in a CUDA graph {dev_ms:.4f}ms "
+          f"bound {b_ms:.4f}ms ({by})")
+    del w, cache, kern
+    torch.cuda.empty_cache()
+    return {"max_abs_err": ea, "graph_ms": dev_ms, "bound_ms": b_ms}
 
 
 def _rbits(gen, shape):
@@ -817,7 +1026,9 @@ def phase_wkv6(peaks) -> dict:
 
 def phase_fused_ffn(cfg, params, peaks) -> dict:
     """fused_ffn at the rwkv6-1.6b decode shape: 32 rows, layer 0's FF
-    (layernorm with random scale and bias, relu^2)."""
+    (layernorm with random scale and bias, relu^2); its times (events,
+    CUDA graph, host, each launch), two calls bit-equal, rows independent
+    of B."""
     import torch
     from repro_torch.kernels import decode_fused as kdf
     B, d, f = 32, cfg.d_model, cfg.d_ff
@@ -829,7 +1040,12 @@ def phase_fused_ffn(cfg, params, peaks) -> dict:
     kw = dict(norm_kind=cfg.norm, act=cfg.act)
     n2s, n2b = w["norm2_scale"], w["norm2_bias"]
     x = (4 * torch.randn((B, d), generator=gen, device="cuda")).bfloat16()
+    c0, l0 = kdf.FFN_COUNTER.n, kdf.FFN_LAUNCHES.n
     y = kdf.fused_ffn(x, **w, **kw)
+    per_call = kdf.FFN_LAUNCHES.n - l0
+    plan = kdf.decode_plan(B, d, f=f, gated=False, attention=False)
+    check(kdf.FFN_COUNTER.n == c0 + 1 and per_call == plan.launches == 3,
+          f"fused_ffn: {per_call} launches in a call, plan {plan.launches}")
     tn = kdf._clip_block_n(256, f)
     yp = kdf.fused_ffn_plain(x, n2s=n2s, n2b=n2b, w_in=w["w_in"],
                              w_out=w["w_out"], tn=tn, **kw)
@@ -837,20 +1053,38 @@ def phase_fused_ffn(cfg, params, peaks) -> dict:
     ea, _ = errs(y, yp)
     check(torch.allclose(y.float(), yp.float(), atol=Y_TOL, rtol=Y_TOL),
           f"fused_ffn B={B} d={d} f={f}: max abs err {ea:.3g}")
-    ms = time_ms(lambda: kdf.fused_ffn(x, **w, **kw))
+    call = lambda: kdf.fused_ffn(x, **w, **kw)
+    check_deterministic(lambda: [call()],
+                        lambda: [kdf.fused_ffn(x[:5].contiguous(), **w,
+                                               **kw)], "fused_ffn")
+    ms = time_ms(call)
+    dev_ms = time_graph_ms(call)
+    host = decode_host_ms(call, "fused_ffn_bf16", plan.ws_bytes, (B, d))
     plain = time_ms(lambda: kdf.fused_ffn_plain(
         x, n2s=n2s, n2b=n2b, w_in=w["w_in"], w_out=w["w_out"], tn=tn, **kw))
+    hf = torch.randn((B, f), generator=gen, device="cuda").bfloat16()
+    mm_ms = time_graph_ms(lambda: (torch.matmul(x, w["w_in"]),
+                                   torch.matmul(hf, w["w_out"])))
     nbytes = 2 * (2 * d * f) + 2 * 2 * B * d + 4 * 2 * d
     b_ms, by = bound(nbytes, 2 * B * 2 * d * f, peaks)
+    plans = {n: [p.tiles, p.splits] for n, p in plan.products.items()}
     print(f"[fused_ffn] B={B} d={d} f={f} {cfg.act} {cfg.norm}: kernel "
-          f"{ms:.4f}ms plain {plain:.4f}ms bound {b_ms:.4f}ms ({by})  "
-          f"max_abs_err {ea:.3g}")
+          f"{ms:.4f}ms plain {plain:.4f}ms bound {b_ms:.4f}ms ({by}); in a "
+          f"CUDA graph {dev_ms:.4f}ms (torch.matmul on the two weight "
+          f"products, a yardstick: {mm_ms:.4f}ms)  max_abs_err {ea:.3g}; "
+          f"{per_call} launches a call; 2 calls bit-equal; rows 0..4 = "
+          f"5-row call; plan (column tiles, splits) {plans}")
+    print(f"[fused_ffn] host time per call (ms): whole call "
+          f"{host['call']:.4f}, ctypes call {host['ctypes']:.4f}, wrapper "
+          f"Python {host['wrapper']:.4f}")
     return {"name": "fused_ffn", "route": "cuda",
             "source": "src/repro_torch/csrc/decode_fused.cu",
             "replaces": "src/repro/kernels/decode_fused.py:315",
             "tpu_kernel": "repro/kernels/decode_fused.py::fused_ffn",
             "max_abs_err": ea, "ms": ms, "kernel_ms": ms, "plain_ms": plain,
             "library_ms": None, "bound_ms": b_ms, "bound_by": by,
+            "graph_ms": dev_ms, "matmul_graph_ms": mm_ms, "host_ms": host,
+            "launches_per_call": per_call, "plans": plans,
             "shapes": f"rwkv6-1.6b, one layer's FF: B={B}, d={d}, f={f}"}
 
 
@@ -863,9 +1097,11 @@ def serve_counters(arch: str) -> dict:
              for p in ("sm90", "generic")}
     if arch == "rwkv6-1.6b":
         return {"sr_matmul": kmm.COUNTER, **paths, "wkv6": kwkv.COUNTER,
-                "fused_ffn": kdf.FFN_COUNTER}
+                "fused_ffn": kdf.FFN_COUNTER,
+                "fused_ffn:launches": kdf.FFN_LAUNCHES}
     return {"sr_matmul": kmm.COUNTER, **paths,
-            "fused_attn_unit": kdf.COUNTER}
+            "fused_attn_unit": kdf.COUNTER,
+            "fused_attn_unit:launches": kdf.LAUNCHES}
 
 
 def phase_serve(cfg, params, label: str) -> dict:
@@ -903,7 +1139,8 @@ def phase_serve(cfg, params, label: str) -> dict:
         # every bf16 product on the sm90 path, none on the generic one
         for k, n in counts.items():
             want = (k != "sr_matmul:generic"
-                    and (fused or k not in ("fused_ffn", "fused_attn_unit")))
+                    and (fused or k.split(":")[0] not in (
+                        "fused_ffn", "fused_attn_unit")))
             check((n > 0) == want, f"{label}:{mode} launched {k} {n} times")
         runs[mode] = (res, counts)
         del eng
@@ -1278,6 +1515,12 @@ def print_targets(rows: dict) -> None:
              r["library_ms"]),
             (f"sr_matmul PREFILL {arch} <= torch.matmul, in a CUDA graph",
              r["graph_ms"], r["library_graph_ms"])]
+    # the fused decode words' redesign: device time of one layer's call
+    targets += [
+        ("fused_attn_unit qwen2 layer, B=32 S=528, in a CUDA graph <= "
+         "0.040 ms", rows["fused_attn_unit"]["graph_ms"], 0.040),
+        ("fused_ffn rwkv6 layer, B=32, in a CUDA graph <= 0.045 ms",
+         rows["fused_ffn"]["graph_ms"], 0.045)]
     for what, got, limit in targets:
         print(f"[targets] {what}: {got:.4f}ms against {limit:.4f}ms: "
               f"{'met' if got <= limit else 'MISSED'}")
@@ -1371,6 +1614,7 @@ def main() -> int:
         phase_train_fp32(cfg)
         torch.cuda.empty_cache()
         train = phase_train()
+        phase_decode_launches({r["name"]: r for r in rows})
     except SmokeFailure as e:
         print(f"[chip_smoke] FAIL: {e}", file=sys.stderr)
         return 1
@@ -1382,6 +1626,8 @@ def main() -> int:
         kernel = r["name"].split(":")[0]
         counts = serve_counts.get(r["name"], train["counts"])
         r["launches"] = counts[kernel]
+        if f"{kernel}:launches" in counts:
+            r["kernel_launches"] = counts[f"{kernel}:launches"]
         if f"{kernel}:sm90" in counts:
             r["path_launches"] = {p: counts[f"{kernel}:{p}"]
                                   for p in ("sm90", "generic")}

@@ -1,9 +1,10 @@
 // Shared building blocks of the port's hand-written Hopper kernels.
 //
-// The generic tile (TM x TN x TK below) serves decode_fused.cu and the
-// generic paths of sr_matmul.cu and outer_accum.cu, which take the
-// operands the TMA cannot describe (gemm_sm90.cuh holds the TMA + wgmma
-// mainloop that the bf16 products of the main path run on): a 32 x 32
+// The generic tile (TM x TN x TK below) serves the generic paths of
+// sr_matmul.cu and outer_accum.cu, which take the operands the TMA
+// cannot describe (gemm_sm90.cuh holds the TMA + wgmma building blocks
+// that the bf16 products of the main path, decode_fused.cu's included,
+// run on): a 32 x 32
 // output tile per 128-thread block, the reduction walked in 64-deep
 // steps inside the block (Hopper has no sequential grid axis, so the
 // loop takes the place of the TPU grid's innermost counter), bf16

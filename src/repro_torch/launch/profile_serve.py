@@ -8,13 +8,30 @@ Serves a seeded Poisson trace through one model at full width
 backend with fused decode, and profiles a window of engine steps in the
 middle of the run.  Prints the device time by kernel
 (sum and launch count), the window's wall time, the device's busy and
-idle share of it, and the host-clock time of the window's PREFILL chunk
-calls and DECODE calls.  Needs a CUDA device.
+idle share of it, each of the port's kernels' device time (PORT_KERNELS),
+and the host-clock time of the window's PREFILL chunk calls and DECODE
+calls.  Needs a CUDA device.
 """
 from __future__ import annotations
 
 import argparse
+import re
 import time
+
+# the port's hand-written kernels, by the names their launches carry:
+# gemm_sm90.cuh's mainloop and split reduction serve sr_matmul with A
+# K-major (template argument A_MN false) and outer_accum with A = X^T
+# (A_MN true); decode_fused.cu's kernels carry their word as the first
+# template argument (0 fused_attn_unit, 1 fused_ffn)
+PORT_KERNELS = {
+    "sr_matmul": r"rt::(sr_matmul(_f32)?_kernel|sm90::(gemm_kernel<\d+, "
+                 r"false|splitk_reduce<false>))",
+    "outer_accum": r"rt::(outer_accum(_f32)?_kernel|sm90::(gemm_kernel"
+                   r"<\d+, true|splitk_reduce<true>))",
+    "sr_round": r"rt::sr_round_kernel",
+    "fused_attn_unit": r"rt::decode::((norm|gemm)_kernel<0\b|attn_kernel)",
+    "fused_ffn": r"rt::decode::(norm|gemm)_kernel<1\b",
+    "wkv6": r"\bwkv6_kernel<"}
 
 
 def _device_us(evt) -> float:
@@ -87,6 +104,9 @@ def main(argv=None) -> int:
             and str(e.device_type).endswith("CUDA")]
     busy = sum(us for _, us, _ in rows)
     rows.sort(key=lambda r: -r[1])
+    port = {k: (sum(us for key, us, _ in rows if re.search(pat, key)),
+                sum(n for key, _, n in rows if re.search(pat, key)))
+            for k, pat in PORT_KERNELS.items()}
     lines = [f"device: {torch.cuda.get_device_name(0)}; arch {cfg.name}",
              f"window: {args.steps} engine steps after {args.warmup_steps}, "
              f"{'per-op' if args.per_op else 'fused'} decode, "
@@ -97,6 +117,9 @@ def main(argv=None) -> int:
              f"host clock: {calls['chunk']} PREFILL chunk calls "
              f"{host['chunk'] * 1e3:.3f} ms, {calls['decode']} DECODE calls "
              f"{host['decode'] * 1e3:.3f} ms",
+             "port kernels, device ms (share of busy, launches): " + ", ".join(
+                 f"{k} {us / 1e3:.3f} ({us / busy:.3f}, {n})"
+                 for k, (us, n) in port.items()),
              "device time by kernel (ms, launches):"]
     for key, us, n in rows[:25]:
         lines.append(f"  {us / 1e3:10.3f}  {n:6d}  {key[:110]}")

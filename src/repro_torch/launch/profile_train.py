@@ -19,7 +19,7 @@ import shutil
 import tempfile
 import time
 
-from repro_torch.launch.profile_serve import _device_us
+from repro_torch.launch.profile_serve import PORT_KERNELS, _device_us
 
 WARMUP_STEPS, WINDOW_STEPS = 2, 3
 TRAIN_ARGS = ["--arch", "qwen2-0.5b", "--kernel-backend", "cuda",
@@ -27,18 +27,6 @@ TRAIN_ARGS = ["--arch", "qwen2-0.5b", "--kernel-backend", "cuda",
               "--optimizer", "adamw", "--remat", "block", "--batch", "4",
               "--seq", "256", "--steps", str(WARMUP_STEPS + WINDOW_STEPS),
               "--log-every", "1", "--ckpt-every", "1000"]
-
-# the port's hand-written kernels, by the names their launches carry:
-# gemm_sm90.cuh's mainloop and split reduction serve sr_matmul with A
-# K-major (template argument A_MN false) and outer_accum with A = X^T
-# (A_MN true)
-_PORT = {"sr_matmul": r"rt::(sr_matmul(_f32)?_kernel|sm90::(gemm_kernel<\d+, "
-                      r"false|splitk_reduce<false>))",
-         "outer_accum": r"rt::(outer_accum(_f32)?_kernel|sm90::(gemm_kernel"
-                        r"<\d+, true|splitk_reduce<true>))",
-         "sr_round": r"rt::sr_round_kernel",
-         "fused_attn_unit": r"rt::(row_gemm_kernel|attn_decode_kernel)"}
-
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -82,7 +70,7 @@ def main(argv=None) -> int:
     busy = sum(us for _, us, _ in rows)
     rows.sort(key=lambda r: -r[1])
     port = {k: sum(us for key, us, _ in rows if re.search(pat, key))
-            for k, pat in _PORT.items()}
+            for k, pat in PORT_KERNELS.items()}
     host = sorted(((e.key, e.self_cpu_time_total, e.count) for e in avgs
                    if e.device_type is not None
                    and str(e.device_type).endswith("CPU")),

@@ -116,6 +116,107 @@ def test_fused_attn_unit_kernel_matches_plain(dev, case):
         assert torch.equal(a[2], b[2])
 
 
+# S = 528 (nine position splits of 64): row 2 attends at position 0 and
+# row 0 at 3, so every later split of theirs has no valid position; the
+# window of 70 masks whole splits of rows 3 and 4 (the ring wraps at
+# row 4's position 528); hd 16 / 64 / 128, up to 16 query heads per KV head
+SPLIT_CASES = [dict(hd=64, H=8, K=2, window=None, with_ffn=True),
+               dict(hd=128, H=16, K=2, window=None, with_ffn=True),
+               dict(hd=128, H=32, K=2, window=70, with_ffn=True),
+               dict(hd=64, H=4, K=4, window=70, with_ffn=False),
+               dict(hd=16, H=32, K=2, window=None, with_ffn=False)]
+
+
+def _split_inputs(dev, case, B=5, S=528, d=256, f=512, seed=3):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    rnd = lambda *s: torch.randn(s, generator=g, device=dev)
+    H, K, hd = case["H"], case["K"], case["hd"]
+    qn = (H + 2 * K) * hd
+    w = dict(qkv_w=(rnd(d, qn) * d ** -0.5).bfloat16(),
+             o_w=(rnd(H * hd, d) * (H * hd) ** -0.5).bfloat16(),
+             qkv_bias=0.3 * rnd(qn), norm1_scale=1 + 0.3 * rnd(d),
+             norm2_scale=1 + 0.3 * rnd(d))
+    if case["with_ffn"]:
+        w.update(w_in=(rnd(d, 2 * f) * d ** -0.5).bfloat16(),
+                 w_out=(rnd(f, d) * f ** -0.5).bfloat16())
+    fill = torch.tensor([3, 64, 0, 300, 527] * (B // 5) + [100] * (B % 5),
+                        device=dev)
+    sidx = torch.arange(S, device=dev)[None]
+    cache = [(2 * rnd(B, S, K, hd)).bfloat16(), rnd(B, S, K, hd).bfloat16(),
+             torch.where(sidx < fill[:, None], sidx, -1).to(torch.int32)]
+    kw = dict(heads=H, kv_heads=K, head_dim=hd, rope_theta=1e4,
+              window=case["window"], norm_kind="rmsnorm", act="swiglu",
+              with_ffn=case["with_ffn"])
+    return w, cache, fill, kw, rnd
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", SPLIT_CASES, ids=lambda c: "-".join(
+    f"{k}{v}" for k, v in c.items()))
+def test_fused_attn_unit_split_kv_matches_plain(dev, case):
+    """The attention split over the cache positions, merged in split
+    order, against the plain version's one softmax."""
+    w, cache, fill, kw, rnd = _split_inputs(dev, case)
+    kern = [c.clone() for c in cache]
+    plain = [c.cpu() for c in cache]
+    active = torch.tensor([True, True, True, False, True], device=dev)
+    kdf.COUNTER.reset()
+    kdf.LAUNCHES.reset()
+    for t in range(2):
+        x = rnd(5, 256).bfloat16()
+        pos = (fill + t).to(torch.int32)
+        y = kdf.fused_attn_unit(x, *kern, pos, active=active, **w, **kw)
+        yp = kdf.fused_attn_unit(x.cpu(), *plain, pos.cpu(),
+                                 active=active.cpu(),
+                                 **{k: v.cpu() for k, v in w.items()}, **kw)
+        torch.testing.assert_close(y.cpu().float(), yp.float(), atol=Y_TOL,
+                                   rtol=Y_TOL)
+    assert kdf.COUNTER.n == 2
+    assert kdf.LAUNCHES.n == 2 * (7 if case["with_ffn"] else 5)
+    for a, b in zip(kern[:2], plain[:2]):
+        torch.testing.assert_close(a.cpu().float(), b.float(),
+                                   atol=CACHE_TOL, rtol=CACHE_TOL)
+    assert torch.equal(kern[2].cpu(), plain[2])
+    for a, b in zip(kern, cache):                 # row 3 inactive
+        assert torch.equal(a[3], b[3])
+
+
+@pytest.mark.cuda
+def test_fused_attn_unit_kernel_two_calls_bit_equal_and_rows_invariant(dev):
+    """Split-K and the split-KV merge run in a fixed order: two calls on
+    the same inputs give the same bits, and rows 0..4 of a 32-row call
+    equal a 5-row call of the same rows."""
+    case = SPLIT_CASES[1]
+    w, cache, fill, kw, rnd = _split_inputs(dev, case, B=32)
+    x = rnd(32, 256).bfloat16()
+    pos = (fill + 1).to(torch.int32)
+    outs = []
+    for rows in (32, 32, 5):
+        c = [t[:rows].clone() for t in cache]
+        y = kdf.fused_attn_unit(x[:rows].contiguous(), *c,
+                                pos[:rows].contiguous(), **w, **kw)
+        outs.append([y, *c])
+    for a, b in zip(outs[0], outs[1]):
+        assert torch.equal(a, b)
+    for a, b in zip(outs[0], outs[2]):
+        assert torch.equal(a[:5], b)
+
+
+@pytest.mark.cuda
+def test_fused_ffn_kernel_two_calls_bit_equal_and_rows_invariant(dev):
+    g = torch.Generator(device=dev).manual_seed(9)
+    rnd = lambda *s: torch.randn(s, generator=g, device=dev)
+    d, f = 2048, 7168
+    x = rnd(32, d).bfloat16()
+    w = dict(w_in=(rnd(d, f) * d ** -0.5).bfloat16(),
+             w_out=(rnd(f, d) * f ** -0.5).bfloat16(),
+             norm2_scale=1 + 0.3 * rnd(d), norm2_bias=0.2 * rnd(d))
+    kw = dict(norm_kind="layernorm", act="relu_sq", **w)
+    y1, y2 = kdf.fused_ffn(x, **kw), kdf.fused_ffn(x, **kw)
+    y5 = kdf.fused_ffn(x[:5].contiguous(), **kw)
+    assert torch.equal(y1, y2) and torch.equal(y1[:5], y5)
+
+
 def _rbits(g, shape, dev):
     return torch.randint(-2**31, 2**31, shape, generator=g, device=dev,
                          dtype=torch.int32)

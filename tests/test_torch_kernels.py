@@ -7,6 +7,7 @@ Tolerances are those of the JAX package's own kernel tests, each with
 its reason.  The CUDA kernels themselves are held against these plain
 versions on the card by tests/test_torch_cuda.py and chip_smoke.py.
 """
+import math
 import re
 from pathlib import Path
 
@@ -409,6 +410,161 @@ def test_fused_attn_unit_leaves_inactive_rows_untouched():
     for a, b in zip(tc, before):
         assert torch.equal(a[0], b[0])          # inactive row: bit-identical
         assert not torch.equal(a[1], b[1])      # active row: appended
+
+
+@pytest.mark.parametrize("kv_split", [24, 64, 7, 1])
+def test_split_kv_combine_matches_pallas(kv_split):
+    """The kernel's attention split over the cache positions (per split
+    m_i, l_i, o_i, merged in split order), emulated in plain torch by
+    fused_attn_unit_plain(kv_split=...), against JAX's fused_attn_unit in
+    interpret mode over three steps: S = 24, a window of 5 (whole splits
+    of 7 and of 1 masked), row 0 inactive."""
+    case = dict(act="swiglu", norm="rmsnorm", window=5, with_ffn=True)
+    inp = _fused_inputs(case, seed=6, S=24)
+    dims = inp["dims"]
+    kw = dict(**dims, rope_theta=1e4, window=5, norm_kind="rmsnorm",
+              act="swiglu")
+    jw = {k: bf16_pair(v)[0] for k, v in inp["w"].items()}
+    tw = {k: bf16_pair(v)[1] for k, v in inp["w"].items()}
+    jv = {k: jnp.asarray(v, jnp.float32) for k, v in inp["vec"].items()}
+    jv.setdefault("norm1_bias", None)
+    tv = {k: torch.from_numpy(v.astype(np.float32))
+          for k, v in inp["vec"].items()}
+    jc = [bf16_pair(inp["ck"])[0], bf16_pair(inp["cv"])[0],
+          jnp.asarray(inp["cpos"], jnp.int32)]
+    tc = [bf16_pair(inp["ck"])[1], bf16_pair(inp["cv"])[1],
+          torch.from_numpy(inp["cpos"].astype(np.int32))]
+    before = [c.clone() for c in tc]
+    jfn = jax.jit(lambda *a, **arrs: jdf.fused_attn_unit(
+        *a, **arrs, **kw, block_n=32, with_ffn=True, interpret=True))
+    d = inp["xs"][0].shape[1]
+    zeros = torch.zeros(d)
+    active = torch.tensor([False, True])
+    for t, x in enumerate(inp["xs"]):
+        pos = (inp["fill"] + t).astype(np.int32)
+        xj, xt = bf16_pair(x)
+        yj, *jc = jfn(xj, *jc, jnp.asarray(pos), **jw, **jv)
+        yt = kdf.fused_attn_unit_plain(
+            xt, *tc, torch.from_numpy(pos), n1s=tv["norm1_scale"], n1b=zeros,
+            qkv_w=tw["qkv_w"], qkv_b=tv["qkv_bias"], o_w=tw["o_w"],
+            n2s=tv["norm2_scale"], n2b=zeros, w_in=tw["w_in"],
+            w_out=tw["w_out"], tn=32, with_ffn=True, active=active,
+            kv_split=kv_split, **kw)
+        # row 0 keeps its cache, so after step 0 it attends to another
+        # cache than JAX's (which appends every row); its y is discarded
+        rows = slice(0, 2) if t == 0 else slice(1, 2)
+        np.testing.assert_allclose(to_np(yt)[rows], to_np(yj)[rows],
+                                   atol=Y_TOL, rtol=Y_TOL)
+    for a, b in zip(tc[:2], jc[:2]):
+        np.testing.assert_allclose(to_np(a)[1], to_np(b)[1], atol=CACHE_TOL,
+                                   rtol=CACHE_TOL)
+    np.testing.assert_array_equal(tc[2].numpy()[1], np.asarray(jc[2])[1])
+    for a, b in zip(tc, before):
+        assert torch.equal(a[0], b[0])
+
+
+@pytest.mark.parametrize("kv_split", [1, 5, 16, 64])
+def test_split_kv_merge_gives_zero_weight_to_masked_splits(kv_split):
+    """A split with no valid position (m_i = -1e30, l_i = its count)
+    contributes exactly nothing; the merge equals one softmax."""
+    g = torch.Generator().manual_seed(3)
+    B, S, K, G, hd = 3, 40, 2, 3, 16
+    q = torch.randn((B, K, G, hd), generator=g)
+    kc = torch.randn((B, S, K, hd), generator=g).bfloat16()
+    vc = torch.randn((B, S, K, hd), generator=g).bfloat16()
+    valid = torch.zeros((B, S), dtype=torch.bool)
+    valid[0, :3] = True                 # every later split masked
+    valid[1, 17:23] = True              # a window in the middle
+    valid[2, 39] = True                 # the last position only
+    want = kdf._attend(q, kc, vc, valid, 0.25, None)
+    got = kdf._attend(q, kc, vc, valid, 0.25, kv_split)
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+    # a masked split's weight exp(-1e30 - m) is exactly zero
+    assert torch.exp(torch.tensor(kdf.NEG_INF) - torch.tensor(3.0)) == 0
+
+
+# ---------------------------------------------------------------------------
+# decode_plan: the launches, splits and workspace of the fused words
+# ---------------------------------------------------------------------------
+
+# the decode shapes of the served models and of the next dense config
+DECODE_SHAPES = {
+    "qwen2-0.5b": dict(d=896, f=4864, gated=True, heads=14, kv_heads=2,
+                       head_dim=64, S=528),
+    "rwkv6-1.6b": dict(d=2048, f=7168, gated=False, attention=False),
+    "olmo-1b": dict(d=2048, f=8192, gated=True, heads=16, kv_heads=16,
+                    head_dim=128, S=528)}
+
+
+@pytest.mark.parametrize("arch", DECODE_SHAPES)
+def test_decode_plan_splits_depend_on_n_k_only_and_fill_split_blocks(arch):
+    """Every product of a word runs at least SPLIT_BLOCKS blocks (3/4 of
+    the H100's 132 SMs) with splits that depend on (n, k) alone and
+    partition K exactly."""
+    plans = [kdf.decode_plan(B, **DECODE_SHAPES[arch]) for B in (1, 5, 32,
+                                                                 100)]
+    assert len({tuple(p.products.items()) for p in plans}) == 1
+    assert len({p.attn_nsplit for p in plans}) == 1
+    for gp in plans[2].products.values():
+        assert gp == kdf.gemm_plan(gp.n, gp.k, gp.boxes)
+        assert gp.blocks(32) >= kdf.SPLIT_BLOCKS
+        ranges = gp.k_ranges()
+        assert len(ranges) == gp.splits
+        assert ranges[0][0] == 0 and ranges[-1][1] == gp.k
+        for (_, a1), (b0, _) in zip(ranges, ranges[1:]):
+            assert a1 == b0                      # disjoint, no gap
+        assert all(k0 < k1 and k0 % kdf.GEMM_BK == 0 for k0, k1 in ranges)
+
+
+@pytest.mark.parametrize("n,k", [(1152, 896), (896, 896), (4864, 896),
+                                 (896, 4864), (2048, 7168), (72, 200),
+                                 (8, 8)])
+def test_gemm_plan_k_partition_covers_k(n, k):
+    gp = kdf.gemm_plan(n, k)
+    got = [k for k0, k1 in gp.k_ranges() for k in range(k0, k1)]
+    assert got == list(range(k))
+    assert 1 <= gp.splits <= math.ceil(k / kdf.GEMM_BK)
+
+
+@pytest.mark.parametrize("arch", DECODE_SHAPES)
+@pytest.mark.parametrize("B", [5, 32])
+def test_decode_layout_matches_the_kernel_and_does_not_overlap(arch, B):
+    src = (build.CSRC / "decode_fused.cu").read_text()
+    fields = re.search(r"enum Layout \{([^}]*)\}", src).group(1)
+    names = [n.strip() for n in fields.split(",") if n.strip()]
+    assert names[-1] == "L_FIELDS"
+    assert [n[2:].lower() for n in names[:-1]] == list(kdf.LAYOUT_FIELDS)
+    sh = DECODE_SHAPES[arch]
+    p = kdf.decode_plan(B, **sh)
+    lay = p.layout
+    d, f = sh["d"], sh["f"]
+    H, K, hd = sh.get("heads", 0), sh.get("kv_heads", 0), sh.get("head_dim",
+                                                                   0)
+    att = sh.get("attention", True)
+    need = {"h1": 2 * B * d * att, "o": 2 * B * H * hd,
+            "x1": 2 * B * d * att, "h2": 2 * B * d, "h": 2 * B * f,
+            "attn": 4 * B * K * p.attn_nsplit * kdf._part_stride(
+                H // max(K, 1), hd),
+            "part": max(4 * g.splits * B * g.boxes * g.n
+                        for n, g in p.products.items()
+                        if g.splits > 1 or n in kdf.RAW_PRODUCTS),
+            "cnt": 4 * lay["n_cnt"]}
+    keys = list(need)
+    for a, b in zip(keys, keys[1:] + [None]):
+        end = p.ws_bytes if b is None else lay[b]
+        assert lay[a] % 256 == 0 and end - lay[a] >= need[a]
+    counts = {"cnt_in": "ffn_in", "cnt_out": "ffn_out"}
+    spans = [(lay[c], p.products[n].tiles * math.ceil(B / 64))
+             for c, n in counts.items() if p.products[n].splits > 1]
+    if p.attn_nsplit > 1:
+        spans.append((lay["cnt_attn"], B * K))
+    spans.sort()
+    for (a0, an), (b0, _) in zip(spans, spans[1:]):
+        assert a0 + an <= b0
+    if spans:
+        assert spans[-1][0] + spans[-1][1] <= lay["n_cnt"]
+    assert p.launches == (7 if att else 3)
+    assert list(p.args) == [lay[k] for k in kdf.LAYOUT_FIELDS]
 
 
 # ---------------------------------------------------------------------------
