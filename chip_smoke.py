@@ -445,31 +445,64 @@ def _launch_txt(parts: dict) -> str:
     return ", ".join(f"{k} {ms:.4f}ms x{n:g}" for k, (ms, n) in parts.items())
 
 
+def _traced_parts(plan) -> dict:
+    """The launches of one call of a decode word by kind, as bench_decode
+    names them, from its plan: one norm (norm1, or fused_ffn's norm2),
+    then QKV, attention, o and the residual + norm2 pass where there is
+    attention, then each FF product."""
+    parts = {"norm": 1}
+    if plan.attn_nsplit:
+        parts.update(qkv=1, attention=1, o=1, o_sum_norm2=1)
+    parts.update({n: 1 for n in ("ffn_in", "ffn_out") if n in plan.products})
+    check(sum(parts.values()) == plan.launches,
+          f"decode plan of {plan.launches} launches, kinds {parts}")
+    return parts
+
+
 def phase_decode_launches(rows: dict) -> None:
-    """Each launch's share of the fused words' device time, from a traced
+    """Each launch's share of the fused words' device time, and the
+    launches of each kind per call that the device ran, from a traced
     CUDA-graph replay in a process of its own (launch/bench_decode.py at
-    the kernels' split target and the same shapes: one qwen2-0.5b layer,
-    one rwkv6-1.6b FF), so that no torch.profiler runs in this process
-    and the serving phases' host time is not inflated by it."""
+    the same shapes: one qwen2-0.5b layer, one rwkv6-1.6b FF), so that no
+    torch.profiler runs in this process and the serving phases' host time
+    is not inflated by it.  The traced kinds and counts must be the
+    plan's.  Beside them, bench_decode's times of the same weight
+    products through sr_matmul's sm90 path."""
     from repro_torch.kernels import decode_fused as kdf
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
-    target = str(kdf.SPLIT_BLOCKS)
     proc = subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.bench_decode",
-         "--targets", target], capture_output=True, text=True, env=env,
-        cwd=ROOT, timeout=600)
+        [sys.executable, "-m", "repro_torch.launch.bench_decode"],
+        capture_output=True, text=True, env=env, cwd=ROOT, timeout=600)
     check(proc.returncode == 0,
           f"bench_decode failed ({proc.returncode}): {proc.stderr[-2000:]}")
-    res = json.loads(proc.stdout.strip().splitlines()[-1])["targets"][target]
-    for word in ("fused_attn_unit", "fused_ffn"):
+    res = json.loads(proc.stdout.strip().splitlines()[-1])["words"]
+    plans = {"fused_attn_unit": kdf.decode_plan(
+                 32, 896, f=4864, gated=True, heads=14, kv_heads=2,
+                 head_dim=64, S=528),
+             "fused_ffn": kdf.decode_plan(32, 2048, f=7168, gated=False,
+                                          attention=False)}
+    for word, plan in plans.items():
         parts = res[word]["parts"]
-        check(sum(n for _, n in parts.values()) > 0,
-              f"{word}: no decode_fused launch in the traced replay")
+        traced = {k: round(n, 6) for k, (_, n) in parts.items()}
+        want = _traced_parts(plan)
+        check(traced == want,
+              f"{word}: the traced replay ran {traced} launches a call, "
+              f"the plan {want}")
+        sm90 = res[word]["sm90_products_ms"]
         print(f"[{word}] per launch, in a traced CUDA-graph replay (device "
               f"ms by which each extends the timeline, per call; launches "
               f"per call): {_launch_txt(parts)}; graph "
-              f"{res[word]['graph_ms']:.4f}ms (bench_decode's weights)")
+              f"{res[word]['graph_ms']:.4f}ms (bench_decode's weights); "
+              f"{sum(traced.values()):g} launches a call traced, as "
+              f"planned")
+        print(f"[{word}] its weight products {res[word]['products_ms']:.4f}"
+              f"ms; the same products through sr_matmul's sm90 path "
+              f"(gemm_sm90.cuh, 32-row A box, f32 out, no decode epilogue) "
+              f"one after another in a CUDA graph {sm90:.4f}ms")
         rows[word]["per_launch_ms"] = {k: v[0] for k, v in parts.items()}
+        rows[word]["traced_launches_per_call"] = sum(traced.values())
+        rows[word]["products_ms"] = res[word]["products_ms"]
+        rows[word]["sm90_products_ms"] = sm90
 
 
 def check_deterministic(call, rows5, label: str) -> None:
@@ -1142,6 +1175,13 @@ def phase_serve(cfg, params, label: str) -> dict:
                     and (fused or k.split(":")[0] not in (
                         "fused_ffn", "fused_attn_unit")))
             check((n > 0) == want, f"{label}:{mode} launched {k} {n} times")
+        # each fused word call made its plan's launches, as its C entry
+        # counted them (every served call runs the FF: 7 and 3)
+        for word, per in (("fused_attn_unit", 7), ("fused_ffn", 3)):
+            if word in counts:
+                check(counts[f"{word}:launches"] == per * counts[word],
+                      f"{label}:{mode}: {counts[f'{word}:launches']} "
+                      f"{word} kernel launches in {counts[word]} calls")
         runs[mode] = (res, counts)
         del eng
     a, b = runs["fused"][0], runs["per-op"][0]

@@ -66,7 +66,7 @@
 //
 // Launches: fused_attn_unit 7 (norm1, QKV, attention, o, the residual
 // with norm2, FF in, FF out; 5 without the FF), fused_ffn 3 (norm2, FF
-// in, FF out).  Kernel names carry the word (template argument W: 0
+// in, FF out); each entry counts the launches it makes for its caller.  Kernel names carry the word (template argument W: 0
 // fused_attn_unit, 1 fused_ffn) and the product or pass, so a trace
 // tells them apart from sr_matmul's and outer_accum's gemm_sm90 launches
 // and from each other.
@@ -933,10 +933,11 @@ int opt_in(const void* kern, int smem) {
 
 // Launch `kern` on `st` with `smem` bytes of dynamic shared memory; with
 // `pdl` it may start while the previous launch on the stream finishes
-// (the kernel waits with griddep_wait).  Returns cudaGetLastError().
+// (the kernel waits with griddep_wait).  Adds one to *launched when the
+// launch is made.  Returns cudaGetLastError().
 template <typename... Params, typename... Args>
-int launch(void (*kern)(Params...), dim3 grid, int threads, int smem,
-           bool pdl, cudaStream_t st, Args&&... args) {
+int launch(int* launched, void (*kern)(Params...), dim3 grid, int threads,
+           int smem, bool pdl, cudaStream_t st, Args&&... args) {
   if (smem > 48 * 1024) {
     const int err = opt_in(reinterpret_cast<const void*>(kern), smem);
     if (err != 0) return err;
@@ -953,13 +954,16 @@ int launch(void (*kern)(Params...), dim3 grid, int threads, int smem,
   cfg.numAttrs = pdl ? 1 : 0;
   const cudaError_t e = cudaLaunchKernelEx(&cfg, kern,
                                            std::forward<Args>(args)...);
-  return (int)(e != cudaSuccess ? e : cudaGetLastError());
+  const int err = (int)(e != cudaSuccess ? e : cudaGetLastError());
+  if (err == 0) ++*launched;
+  return err;
 }
 
 // One weight product: out = epilogue(A (M, K) . W[:, cols]) with W
 // (K, wcols) row-major; grid (column tiles, splits, row tiles).
 template <int W, int P>
-int gemm(const void* a, const void* w, int wcols, Gemm g, cudaStream_t st) {
+int gemm(int* launched, const void* a, const void* w, int wcols, Gemm g,
+         cudaStream_t st) {
   CUtensorMap ma, mb;
   g.a_rows = g.M <= 32 ? 32 : ROWS;
   int err = sm90::make_map(&ma, a, g.M, g.K, g.K, g.a_rows);
@@ -967,8 +971,8 @@ int gemm(const void* a, const void* w, int wcols, Gemm g, cudaStream_t st) {
   if ((err = sm90::make_map(&mb, w, g.K, wcols, wcols, 64)) != 0) return err;
   g.kb = (g.K + BK - 1) / BK;
   const dim3 grid((g.N + 63) / 64, g.splits, (g.M + ROWS - 1) / ROWS);
-  return launch(gemm_kernel<W, P>, grid, GEMM_THREADS, gemm_smem<P>(), true,
-                st, ma, mb, g);
+  return launch(launched, gemm_kernel<W, P>, grid, GEMM_THREADS,
+                gemm_smem<P>(), true, st, ma, mb, g);
 }
 
 struct Word {
@@ -997,20 +1001,20 @@ Gemm gemm_args(int M, int N, int K, int splits, void* out, const Word& w,
 // FF in + activation, FF out + residual: y = x + FF(h2) for the
 // normalised rows h2.
 template <int W>
-int ffn(const void* x, const bf16* h2, const void* w_in, const void* w_out,
-        void* y, const Word& w, int B, int d, int f, int act,
-        cudaStream_t st) {
+int ffn(int* launched, const void* x, const bf16* h2, const void* w_in,
+        const void* w_out, void* y, const Word& w, int B, int d, int f,
+        int act, cudaStream_t st) {
   bf16* h = w.at<bf16>(L_H);
   const bool gated = act == ACT_SWIGLU || act == ACT_GEGLU;
   Gemm g = gemm_args(B, f, d, (int)w.L[L_SP_IN], h, w, L_CNT_IN);
   g.act = act;
   g.up_off = f;
-  int err = gated ? gemm<W, FFN_GATED>(h2, w_in, 2 * f, g, st)
-                  : gemm<W, FFN_IN>(h2, w_in, f, g, st);
+  int err = gated ? gemm<W, FFN_GATED>(launched, h2, w_in, 2 * f, g, st)
+                  : gemm<W, FFN_IN>(launched, h2, w_in, f, g, st);
   if (err != 0) return err;
   Gemm g2 = gemm_args(B, d, f, (int)w.L[L_SP_OUT], y, w, L_CNT_OUT);
   g2.resid = static_cast<const bf16*>(x);
-  return gemm<W, FFN_OUT>(h, w_out, d, g2, st);
+  return gemm<W, FFN_OUT>(launched, h, w_out, d, g2, st);
 }
 
 }  // namespace decode
@@ -1026,8 +1030,8 @@ int ffn(const void* x, const bf16* h2, const void* w_in, const void* w_out,
 // order) is bf16, else f32.  ws is the workspace and L its layout
 // (kernels/decode_fused.py::decode_plan).  norm_kind 1 rmsnorm / 2
 // layernorm; act 0 swiglu, 1 geglu, 2 gelu, 3 relu_sq; window <= 0 for
-// none.  Returns 0, the first failed launch's cudaError_t, or a
-// gemm_sm90.cuh ERR_ code.
+// none.  Adds one to *launched for each kernel launch it makes.  Returns
+// 0, the first failed launch's cudaError_t, or a gemm_sm90.cuh ERR_ code.
 extern "C" int fused_attn_unit_bf16(
     const void* x, void* ck, void* cv, void* cpos, const void* pos,
     const void* active, int active_i32, const void* n1s, const void* n1b,
@@ -1035,7 +1039,7 @@ extern "C" int fused_attn_unit_bf16(
     const void* n2b, const void* w_in, const void* w_out, void* y, void* ws,
     const long long* layout, int vec_bf16, int B, int d, int H, int K,
     int hd, int S, int f, int window, int norm_kind, int act, int with_ffn,
-    float theta, void* stream) {
+    float theta, void* stream, int* launched) {
   using namespace rt::decode;
   using rt::bf16;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -1049,15 +1053,17 @@ extern "C" int fused_attn_unit_bf16(
 
   // 1. norm1, zeroing every counter of the call; the call's first launch
   // waits for all that came before it on the stream
-  int err = launch(norm_kernel<0, 0>, dim3(B), NORM_THREADS, 0, false, st,
-                   xb, nullptr, 0, nullptr, vec(n1s, 0), vec(n1b, 1), h1, d,
-                   norm_kind, w.at<int>(L_CNT), (int)layout[L_N_CNT]);
+  int err = launch(launched, norm_kernel<0, 0>, dim3(B), NORM_THREADS, 0,
+                   false, st, xb, nullptr, 0, nullptr, vec(n1s, 0),
+                   vec(n1b, 1), h1, d, norm_kind, w.at<int>(L_CNT),
+                   (int)layout[L_N_CNT]);
   if (err != 0) return err;
 
   // 2. QKV, its f32 partials
   const int sp_qkv = (int)layout[L_SP_QKV];
   Gemm g1 = gemm_args(B, qn, d, sp_qkv, nullptr, w, -1);
-  if ((err = gemm<0, QKV>(h1, qkv_w, qn, g1, st)) != 0) return err;
+  if ((err = gemm<0, QKV>(launched, h1, qkv_w, qn, g1, st)) != 0)
+    return err;
 
   // 3. QKV's sum + bias, RoPE, append, attention split over the positions
   Attn a{};
@@ -1086,37 +1092,40 @@ extern "C" int fused_attn_unit_bf16(
   auto attn = G <= 1 ? attn_kernel<1> : G <= 2 ? attn_kernel<2>
             : G <= 4 ? attn_kernel<4> : G <= 8 ? attn_kernel<8>
             : attn_kernel<MAXG>;
-  err = launch(attn, dim3(a.nsplit, K, B), ATTN_THREADS,
+  err = launch(launched, attn, dim3(a.nsplit, K, B), ATTN_THREADS,
                (int)attn_smem_bytes(G, hd), true, st, a);
   if (err != 0) return err;
 
   // 4. o-projection, its f32 partials
   const int sp_o = (int)layout[L_SP_O];
   Gemm g3 = gemm_args(B, d, H * hd, sp_o, nullptr, w, -1);
-  if ((err = gemm<0, OPROJ>(ob, o_w, d, g3, st)) != 0) return err;
+  if ((err = gemm<0, OPROJ>(launched, ob, o_w, d, g3, st)) != 0)
+    return err;
 
   // 5. x1 = x + o (the partials summed per row), then norm2 of x1 (only
   // the residual without the FF: x1 is y)
   bf16* x1 = with_ffn ? w.at<bf16>(L_X1) : static_cast<bf16*>(y);
   bf16* h2 = w.at<bf16>(L_H2);
-  err = launch(norm_kernel<0, 1>, dim3(B), NORM_THREADS, 0, true, st, xb,
-               static_cast<const float*>(part), sp_o, x1, vec(n2s, 2),
-               vec(n2b, 3), h2, d, with_ffn ? norm_kind : 0, nullptr, 0);
+  err = launch(launched, norm_kernel<0, 1>, dim3(B), NORM_THREADS, 0, true,
+               st, xb, static_cast<const float*>(part), sp_o, x1,
+               vec(n2s, 2), vec(n2b, 3), h2, d, with_ffn ? norm_kind : 0,
+               nullptr, 0);
   if (err != 0 || !with_ffn) return err;
 
   // 6., 7. FF in, FF out
-  return ffn<0>(x1, h2, w_in, w_out, y, w, B, d, f, act, st);
+  return ffn<0>(launched, x1, h2, w_in, w_out, y, w, B, d, f, act, st);
 }
 
 // norm2 + FF + residual alone for B rows: y = x + FF(norm(x)).  x (B, d),
 // w_in (d, 2f | f), w_out (f, d), y (B, d) bf16; n2s / n2b (d) null, f32
-// or bf16 (bits 0, 1 of vec_bf16); ws and its layout as above.  Returns
-// 0, the first failed launch's cudaError_t, or a gemm_sm90.cuh ERR_ code.
+// or bf16 (bits 0, 1 of vec_bf16); ws and its layout as above.  Adds
+// one to *launched for each kernel launch it makes.  Returns 0, the
+// first failed launch's cudaError_t, or a gemm_sm90.cuh ERR_ code.
 extern "C" int fused_ffn_bf16(const void* x, const void* n2s, const void* n2b,
                               const void* w_in, const void* w_out, void* y,
                               void* ws, const long long* layout, int vec_bf16,
                               int B, int d, int f, int norm_kind, int act,
-                              void* stream) {
+                              void* stream, int* launched) {
   using namespace rt::decode;
   using rt::bf16;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -1124,10 +1133,11 @@ extern "C" int fused_ffn_bf16(const void* x, const void* n2s, const void* n2b,
   bf16* h2 = w.at<bf16>(L_H2);
   // norm2 is the call's first launch (it zeroes the counters): it waits
   // for all that came before it on the stream
-  int err = launch(norm_kernel<1, 0>, dim3(B), NORM_THREADS, 0, false, st,
-                   static_cast<const bf16*>(x), nullptr, 0, nullptr,
-                   Vec{n2s, vec_bf16 & 1}, Vec{n2b, (vec_bf16 >> 1) & 1}, h2,
-                   d, norm_kind, w.at<int>(L_CNT), (int)layout[L_N_CNT]);
+  int err = launch(launched, norm_kernel<1, 0>, dim3(B), NORM_THREADS, 0,
+                   false, st, static_cast<const bf16*>(x), nullptr, 0,
+                   nullptr, Vec{n2s, vec_bf16 & 1},
+                   Vec{n2b, (vec_bf16 >> 1) & 1}, h2, d, norm_kind,
+                   w.at<int>(L_CNT), (int)layout[L_N_CNT]);
   if (err != 0) return err;
-  return ffn<1>(x, h2, w_in, w_out, y, w, B, d, f, act, st);
+  return ffn<1>(launched, x, h2, w_in, w_out, y, w, B, d, f, act, st);
 }

@@ -43,8 +43,9 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import build
 
-# one count per call of each word (a call makes decode_plan(...).launches
-# kernel launches, counted in the :LAUNCHES counters)
+# one count per call of each word; the :launches counters add the kernel
+# launches that the C entry reports having made (decode_plan(...).launches
+# of them when the call succeeds)
 COUNTER = build.LaunchCounter("fused_attn_unit")
 FFN_COUNTER = build.LaunchCounter("fused_ffn")
 LAUNCHES = build.LaunchCounter("fused_attn_unit:launches")
@@ -466,6 +467,7 @@ def fused_attn_unit(x, cache_k, cache_v, cache_pos, pos, *,
                        with_ffn=with_ffn)
     ws = torch.empty((plan.ws_bytes,), dtype=torch.uint8, device=dev)
     y = torch.empty((B, d), dtype=torch.bfloat16, device=dev)
+    launched = ctypes.c_int(0)
     err = _entry(build.load("decode_fused"), "fused_attn_unit_bf16")(
         build.ptr(x), build.ptr(cache_k), build.ptr(cache_v),
         build.ptr(cache_pos), build.ptr(pos),
@@ -476,11 +478,11 @@ def fused_attn_unit(x, cache_k, cache_v, cache_pos, pos, *,
         build.ptr(ws), plan.args, vbits, B, d, heads, kv_heads, hd, S, f,
         0 if window is None else int(window), _NORM_CODE[norm_kind],
         _ACT_CODE[act], int(with_ffn), ctypes.c_float(rope_theta),
-        build.stream_ptr(dev))
+        build.stream_ptr(dev), ctypes.byref(launched))
+    LAUNCHES.n += launched.value
     if err != 0:
         raise launch_error("fused_attn_unit", err)
     COUNTER.n += 1
-    LAUNCHES.n += plan.launches
     return y
 
 
@@ -532,14 +534,15 @@ def fused_ffn(x, *, norm2_scale=None, norm2_bias=None, w_in, w_out,
     plan = decode_plan(B, d, f=f, gated=gated, attention=False)
     ws = torch.empty((plan.ws_bytes,), dtype=torch.uint8, device=dev)
     y = torch.empty((B, d), dtype=torch.bfloat16, device=dev)
+    launched = ctypes.c_int(0)
     err = _entry(build.load("decode_fused"), "fused_ffn_bf16")(
         build.ptr(x), None if n2s is None else build.ptr(n2s),
         None if n2b is None else build.ptr(n2b), build.ptr(w_in),
         build.ptr(w_out), build.ptr(y), build.ptr(ws), plan.args,
         s_bf | (b_bf << 1), B, d, f, _NORM_CODE[norm_kind], _ACT_CODE[act],
-        build.stream_ptr(dev))
+        build.stream_ptr(dev), ctypes.byref(launched))
+    FFN_LAUNCHES.n += launched.value
     if err != 0:
         raise launch_error("fused_ffn", err)
     FFN_COUNTER.n += 1
-    FFN_LAUNCHES.n += plan.launches
     return y

@@ -1,20 +1,21 @@
-"""Device time of the fused decode words under several split targets.
+"""Device time of the fused decode words, launch by launch.
 
-    PYTHONPATH=src python -m repro_torch.launch.bench_decode \
-        --targets 66,100,132
+    PYTHONPATH=src python -m repro_torch.launch.bench_decode
 
 Times ``fused_attn_unit`` at one qwen2-0.5b layer (B=32 rows, S=528,
 GQA 14/2 heads of 64, d_ff 4864 swiglu) and ``fused_ffn`` at one
 rwkv6-1.6b layer's FF (B=32, d 2048, d_ff 7168 relu^2), weights and
-caches random from a seed, in a CUDA graph (device time alone), once
-for each split target: the number of blocks ``kernels/decode_fused.py``
-``gemm_plan`` fills with splits of K (the kernels' own is SPLIT_BLOCKS).
-Prints each word's graph time and each launch's share of it (the time
-by which it extends the device timeline in a traced graph replay), with
-the card's name, and as its last line the same as one JSON object.  It
-runs in a process of its own: after torch.profiler has traced a
-process, that process's later launches may cost more host time.  Needs
-a CUDA device.
+caches random from a seed, in a CUDA graph (device time alone).  Prints
+each word's graph time, each launch's share of it (the time by which it
+extends the device timeline in a traced graph replay) and the launches
+of each kind per call that the trace saw; and, beside them, the same
+weight products at the same 32 rows through ``sr_matmul``'s sm90 path
+(``csrc/gemm_sm90.cuh``'s kernel with its 32-row A box and its
+``splitk_reduce``, f32 out, no decode epilogue), one after another in
+a CUDA graph as the word runs them.  Then the card's name, and as its last line the same as
+one JSON object.  It runs in a process of its own: after torch.profiler
+has traced a process, that process's later launches may cost more host
+time.  Needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -89,26 +90,25 @@ def launch_ms(fn, iters: int = 10) -> dict:
                    if "rt::decode::" in e.name
                    and str(e.device_type).endswith("CUDA")),
                   key=lambda k: k[0])
-    out, prev_end = {}, None
+    us, count, prev_end = {}, {}, None
     for t0, t1, name in kern:
         part = _part(name)
-        ms, n = out.get(part, (0.0, 0))
         lead = t0 if prev_end is None else max(t0, prev_end)
-        out[part] = (ms + max(0.0, t1 - lead) / 1e3 / iters, n + 1 / iters)
+        us[part] = us.get(part, 0.0) + max(0.0, t1 - lead)
+        count[part] = count.get(part, 0) + 1
         prev_end = t1 if prev_end is None else max(prev_end, t1)
-    return out
+    return {p: (us[p] / 1e3 / iters, count[p] / iters) for p in us}
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--targets", default="66,100,132",
-                    help="comma-separated split targets (blocks)")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
 
     import torch
 
     from repro_torch.kernels import decode_fused as kdf
+    from repro_torch.kernels import sr_matmul as kmm
 
     if not torch.cuda.is_available():
         raise SystemExit("bench_decode needs a CUDA device")
@@ -140,29 +140,32 @@ def main(argv=None) -> int:
     rx = rnd(B, rd).bfloat16()
     ffn = lambda: kdf.fused_ffn(rx, **rw, norm_kind="layernorm",
                                 act="relu_sq")
+    # each word's weight products: (name, A's columns, the weight)
+    products = {"fused_attn_unit": (("qkv", d, w["qkv_w"]),
+                                    ("o", H * hd, w["o_w"]),
+                                    ("ffn_in", d, w["w_in"]),
+                                    ("ffn_out", f, w["w_out"])),
+                "fused_ffn": (("ffn_in", rd, rw["w_in"]),
+                              ("ffn_out", rf, rw["w_out"]))}
     print(f"device: {torch.cuda.get_device_name(0)}")
-    default = kdf.SPLIT_BLOCKS
     results = {}
-    try:
-        for target in (int(t) for t in args.targets.split(",")):
-            kdf.SPLIT_BLOCKS = target
-            kdf.gemm_plan.cache_clear()
-            kdf.decode_plan.cache_clear()
-            for word, model, fn in (("fused_attn_unit", "qwen2-0.5b", attn),
-                                    ("fused_ffn", "rwkv6-1.6b", ffn)):
-                ms = graph_ms(fn)
-                parts = launch_ms(fn)
-                results.setdefault(str(target), {})[word] = {
-                    "graph_ms": ms, "parts": parts}
-                print(f"target {target}: {word} {model}: graph {ms:.4f} ms; "
-                      + ", ".join(f"{k} {v:.4f} x{n:g}"
-                                  for k, (v, n) in parts.items()))
-    finally:
-        kdf.SPLIT_BLOCKS = default
-        kdf.gemm_plan.cache_clear()
-        kdf.decode_plan.cache_clear()
+    for word, model, fn in (("fused_attn_unit", "qwen2-0.5b", attn),
+                            ("fused_ffn", "rwkv6-1.6b", ffn)):
+        ms = graph_ms(fn)
+        parts = launch_ms(fn)
+        pairs = [(rnd(B, k).bfloat16(), wt) for _, k, wt in products[word]]
+        sm90 = graph_ms(lambda: [kmm.sr_matmul(a, wt) for a, wt in pairs])
+        own = sum(parts[n][0] for n, _, _ in products[word])
+        results[word] = {"graph_ms": ms, "parts": parts,
+                         "products_ms": own, "sm90_products_ms": sm90}
+        print(f"{word} {model}: graph {ms:.4f} ms; "
+              + ", ".join(f"{k} {v:.4f} x{n:g}"
+                          for k, (v, n) in parts.items()))
+        print(f"{word} {model}: its weight products {own:.4f} ms; the same "
+              f"products through sr_matmul's sm90 path in a graph "
+              f"{sm90:.4f} ms")
     print(json.dumps({"device": torch.cuda.get_device_name(0),
-                      "targets": results}))
+                      "words": results}))
     return 0
 
 

@@ -567,6 +567,32 @@ def test_decode_layout_matches_the_kernel_and_does_not_overlap(arch, B):
     assert list(p.args) == [lay[k] for k in kdf.LAYOUT_FIELDS]
 
 
+def test_decode_entries_count_each_launch_they_make():
+    """The C entries report their launches through a last `int*
+    launched`, and every kernel launch of the file goes through the one
+    helper that adds to it once the launch is made."""
+    src = (build.CSRC / "decode_fused.cu").read_text()
+    for entry in ("fused_attn_unit_bf16", "fused_ffn_bf16"):
+        sig = re.search(rf'extern "C" int {entry}\(([^)]*)\)', src).group(1)
+        assert sig.split(",")[-1].split() == ["int*", "launched"]
+    assert "<<<" not in src and src.count("cudaLaunchKernelEx(") == 1
+    helper = src[src.index("cudaLaunchKernelEx("):]
+    assert re.match(r"[^;]*;\s*const int err = [^;]*;\s*if \(err == 0\) "
+                    r"\+\+\*launched;", helper)
+
+
+@pytest.mark.parametrize("variant", ["base", "r1", "r4", "r7", "nocompute",
+                                     "noprefetch", "noqkvsum", "stages4",
+                                     "merge2"])
+def test_decode_variants_edit_the_current_source(variant):
+    """launch/decode_variants.py finds the lines it edits in today's
+    csrc/decode_fused.cu (a variant whose anchor moved raises)."""
+    from repro_torch.launch import decode_variants as dv
+    src = (build.CSRC / "decode_fused.cu").read_text()
+    got = dv.edit(src, variant)
+    assert (got == src) == (variant == "base")
+
+
 # ---------------------------------------------------------------------------
 # No fallback, and the package boundary
 # ---------------------------------------------------------------------------
