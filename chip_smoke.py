@@ -17,9 +17,10 @@ port (``src/repro_torch``), never JAX or the JAX package, and:
    a chunk bit-equal to a 5-row call, device time in a CUDA graph, the
    host's share of a call), and at the FF and BP shapes of a training
    step (K up to 151936, split-K calls bit-equal twice) with bf16 and
-   with f32 operands; fused_attn_unit (device time in a CUDA graph, the
-   host's share split into wrapper and ctypes call, two calls bit-equal,
-   rows independent of B, and a full-width head_dim-128 case at olmo-1b's
+   with f32 operands (the f32 ones also in a CUDA graph);
+   fused_attn_unit (device time in a CUDA graph, the host's share split
+   into wrapper and ctypes call, two calls bit-equal, rows independent
+   of B, and a full-width head_dim-128 case at olmo-1b's
    shapes; each of its seven launches' share of the device time comes
    from launch/bench_decode.py in a process of its own, at the end);
    outer_accum at the five UP
@@ -43,15 +44,16 @@ port (``src/repro_torch``), never JAX or the JAX package, and:
    per-op; the teacher-forced comparison; and, layer by layer, fused_ffn
    and the per-op FF against the f32 FF on the same input;
 5. trains: four full-width layers under ``fp32`` for two steps on the
-   cuda backend against the reference backend (TF32 off), then all 24
-   layers under ``paper_sr_bf16`` (adamw, remat block, B=4, S=256) for 8
-   steps through ``launch.train`` — FF / BP through sr_matmul, UP
-   through outer_accum, the optimizer's SR writeback through sr_round —
-   counting each kernel's launches per step (every bf16 product on the
-   sm90 path, none on the generic one).
+   cuda backend against the reference backend (TF32 off); all 24 layers
+   under ``fp32`` (adamw, remat block, B=4, S=256) for 3 steps through
+   ``launch.train``, every product on the f32 path (sgemm_sm90.cuh);
+   then all 24 layers under ``paper_sr_bf16`` for 8 steps — FF / BP
+   through sr_matmul, UP through outer_accum, the optimizer's SR
+   writeback through sr_round — counting each kernel's launches per
+   step (every bf16 product on the sm90 path, none on the generic one).
 
-It prints the time targets of the sm90 redesign and of the fused
-decode words' redesign (met or missed; a miss is
+It prints the time targets of the sm90 redesign, of the fused decode
+words' redesign and of the f32 mainloop's (met or missed; a miss is
 reported, not failed), a ``{"kernels": [...]}`` line, the card's name
 and power limit, and as its last line ``{"ok": true, "device": {...}}``.
 Any failed check exits nonzero.  Without a CUDA device, or outside a
@@ -59,6 +61,7 @@ checkout, it exits nonzero and prints no result.
 """
 from __future__ import annotations
 
+import itertools
 import json
 import math
 import os
@@ -177,7 +180,8 @@ def errs(got, want) -> tuple:
 def ptxas_report(log: str) -> list:
     """(kernel, registers, spill bytes stored, spill bytes loaded) per
     entry function of an -Xptxas -v log; gemm_sm90.cuh's mainloop is
-    named by its template arguments <BN, A_MN, B_MN>."""
+    named by its template arguments <BN, A_MN, B_MN>, sgemm_sm90.cuh's
+    by <A_MN, B_MN>."""
     import re
     rows, cur, spill = [], None, (0, 0)
     for line in log.splitlines():
@@ -188,6 +192,9 @@ def ptxas_report(log: str) -> list:
             g = re.search(r"gemm_kernelILi(\d+)ELb(\d)ELb(\d)E", cur)
             if g:
                 cur = f"gemm_kernel<{g.group(1)},{g.group(2)},{g.group(3)}>"
+            g = re.search(r"sgemm_kernelILb(\d)ELb(\d)E", cur)
+            if g:
+                cur = f"sgemm_kernel<{g.group(1)},{g.group(2)}>"
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       line)
@@ -738,15 +745,19 @@ def phase_sr_matmul_train(cfg, peaks) -> dict:
     """sr_matmul in its two training roles at a step's shapes, with bf16
     and with f32 operands: FF (y = x . W; the tied head's logits x .
     table^T through trans_b) and BP (dX = dY . W^T through trans_b; the
-    head's dX = g . table with K = vocab, split-K: two calls must give
-    the same bits)."""
+    head's dX = g . table with K = vocab).  Split-K calls must give the
+    same bits twice.  Returns the bf16 row and the f32 row (with device
+    times in a CUDA graph)."""
     import torch
     from repro_torch.kernels import sr_matmul as kmm
     gen = torch.Generator(device="cuda").manual_seed(3)
     worst_abs = 0.0
-    tot = {role: {"ms": 0.0, "plain": 0.0, "lib": 0.0, "bound": 0.0}
+    tot = {role: {"ms": 0.0, "plain": 0.0, "lib": 0.0, "bound": 0.0,
+                  "graph": 0.0, "lib_graph": 0.0}
            for role in ("ff", "bp", "f32")}
     by_ms = {"bytes": 0.0, "operations": 0.0}
+    f32_by = dict(by_ms)
+    f32_abs = 0.0
     head_bp_ms = None
     for name, M, P, Q, tw in _train_ops(cfg):
         # (role, K, N, trans_b): the product (M, K) . B -> (M, N)
@@ -758,15 +769,17 @@ def phase_sr_matmul_train(cfg, peaks) -> dict:
                 a = torch.randn((M, K), generator=gen, device="cuda").to(dt)
                 b = (torch.randn((N, K) if tb else (K, N), generator=gen,
                                  device="cuda") * K ** -0.5).to(dt)
-                p = kmm.Plan("f32", *kmm.TILE, 1) if f32 else \
-                    kmm.operands_plan(a, b, tb)
-                check(f32 or p.path == "sm90",
-                      f"sr_matmul {role} {name}: {plan_txt(p)}, want sm90")
+                p = kmm.operands_plan(a, b, tb)
+                check(p.path == ("f32" if f32 else "sm90"),
+                      f"sr_matmul {role} {name} {dt}: {plan_txt(p)}")
                 got = kmm.sr_matmul(a, b, trans_b=tb)
                 want = kmm.sr_matmul_plain(a, b, trans_b=tb)
                 torch.cuda.synchronize()
                 ea, _ = errs(got, want)
-                worst_abs = max(worst_abs, ea)
+                if f32:
+                    f32_abs = max(f32_abs, ea)
+                else:
+                    worst_abs = max(worst_abs, ea)
                 check(torch.allclose(got, want, rtol=MM_RTOL, atol=MM_ATOL),
                       f"sr_matmul {role} {name} ({M}x{K}x{N}, trans_b={tb}, "
                       f"{dt}): max abs err {ea:.3g}")
@@ -791,14 +804,27 @@ def phase_sr_matmul_train(cfg, peaks) -> dict:
                 t["lib"] += lib
                 t["bound"] += b_ms
                 label = f"f32:{role}" if f32 else role
-                if not f32:
+                graph = ""
+                if f32:
+                    f32_by[by] += b_ms
+                    g_ms = time_graph_ms(
+                        lambda: kmm.sr_matmul(a, b, trans_b=tb), iters=5,
+                        replays=3)
+                    g_lib = time_graph_ms(lambda: torch.matmul(a, wt),
+                                          iters=5, replays=3)
+                    t["graph"] += g_ms
+                    t["lib_graph"] += g_lib
+                    graph = (f" (in a CUDA graph: kernel {g_ms:.4f}ms, "
+                             f"torch.matmul {g_lib:.4f}ms)")
+                else:
                     by_ms[by] += b_ms
                     if role == "bp" and tw:
                         head_bp_ms = ms
                 print(f"[sr_matmul:{label}] {name:<11} M={M} K={K} N={N} "
                       f"trans_b={int(tb)} {plan_txt(p)}: kernel {ms:.4f}ms "
                       f"plain {plain:.4f}ms torch.matmul {lib:.4f}ms bound "
-                      f"{b_ms:.4f}ms ({by})  max_abs_err {ea:.3g}{det}")
+                      f"{b_ms:.4f}ms ({by}){graph}  max_abs_err "
+                      f"{ea:.3g}{det}")
                 del a, b, got, want
     for role in ("ff", "bp"):
         t = tot[role]
@@ -809,9 +835,23 @@ def phase_sr_matmul_train(cfg, peaks) -> dict:
     t = tot["f32"]
     print(f"[sr_matmul:f32] the same FF and BP shapes, f32 operands: kernel "
           f"{t['ms']:.4f}ms plain {t['plain']:.4f}ms torch.matmul (no TF32) "
-          f"{t['lib']:.4f}ms bound {t['bound']:.4f}ms (f32 peak)")
+          f"{t['lib']:.4f}ms bound {t['bound']:.4f}ms (f32 peak); in a CUDA "
+          f"graph: kernel {t['graph']:.4f}ms, torch.matmul "
+          f"{t['lib_graph']:.4f}ms")
     ff, bp = tot["ff"], tot["bp"]
-    return {"name": "sr_matmul:train", "route": "cuda",
+    f32_row = {"name": "sr_matmul:f32", "route": "cuda",
+               "source": "src/repro_torch/csrc/sgemm_sm90.cuh",
+               "entry": "src/repro_torch/csrc/sr_matmul.cu",
+               "replaces": "src/repro/kernels/sr_matmul.py:96",
+               "tpu_kernel": "repro/kernels/sr_matmul.py::sr_matmul",
+               "max_abs_err": f32_abs, "ms": t["ms"], "kernel_ms": t["ms"],
+               "graph_ms": t["graph"], "plain_ms": t["plain"],
+               "library_ms": t["lib"], "library_graph_ms": t["lib_graph"],
+               "bound_ms": t["bound"],
+               "bound_by": max(f32_by, key=f32_by.get),
+               "shapes": "the same ten FF and BP products, f32 operands "
+                         "(the fp32 preset)"}
+    row = {"name": "sr_matmul:train", "route": "cuda",
             "source": "src/repro_torch/csrc/gemm_sm90.cuh",
             "entry": "src/repro_torch/csrc/sr_matmul.cu",
             "replaces": "src/repro/kernels/sr_matmul.py:96",
@@ -823,26 +863,29 @@ def phase_sr_matmul_train(cfg, peaks) -> dict:
             "bound_ms": ff["bound"] + bp["bound"],
             "bound_by": max(by_ms, key=by_ms.get),
             "ff_ms": ff["ms"], "bp_ms": bp["ms"], "head_bp_ms": head_bp_ms,
-            "f32_ms": tot["f32"]["ms"], "f32_plain_ms": tot["f32"]["plain"],
-            "f32_library_ms": tot["f32"]["lib"],
-            "f32_bound_ms": tot["f32"]["bound"],
             "shapes": "FF and BP of one layer's four weight ops at "
                       f"T={TRAIN_B * TRAIN_S} + one tied-head loss chunk "
                       f"(T/4; BP with K=vocab), bf16 operands"}
+    return [row, f32_row]
 
 
 def phase_outer_accum(cfg, peaks) -> dict:
     """outer_accum at the five UP shapes of a full-width step: one
     layer's four at T = 1024 rows and one tied-head loss chunk (T/4),
-    with bf16 operands (SR epilogue and f32 output) and f32 operands."""
+    with bf16 operands (SR epilogue and f32 output) and f32 operands
+    (with device times in a CUDA graph).  Returns the bf16 row and the
+    f32 row."""
     import torch
     from repro_torch.core.rounding import sr_cast_bf16
     from repro_torch.kernels import outer_accum as koa
     gen = torch.Generator(device="cuda").manual_seed(4)
     worst_abs = 0.0
     tot = {"ms": 0.0, "plain": 0.0, "lib": 0.0, "bound": 0.0,
-           "f32_ms": 0.0, "f32_plain": 0.0, "f32_lib": 0.0, "f32_bound": 0.0}
+           "f32_ms": 0.0, "f32_plain": 0.0, "f32_lib": 0.0, "f32_bound": 0.0,
+           "f32_graph": 0.0, "f32_lib_graph": 0.0}
     by_ms = {"bytes": 0.0, "operations": 0.0}
+    f32_by = dict(by_ms)
+    f32_abs = 0.0
     for name, T, D, F, _ in _train_ops(cfg):
         # dW (D, F) = X (T, D)^T . dY (T, F); for the head X is g (T, V)
         x = torch.randn((T, D), generator=gen, device="cuda").bfloat16()
@@ -886,37 +929,53 @@ def phase_outer_accum(cfg, peaks) -> dict:
         del rb, got_sr
         # the fp32 preset's f32-operand path at the same shape
         x, dy = x.float(), dy.float()
+        p = koa.up_plan(x, dy)
+        check(p.path == "f32", f"outer_accum {name} f32: {plan_txt(p)}")
         got = koa.outer_accum(x, dy)
         want = koa.outer_accum_plain(x, dy)
         torch.cuda.synchronize()
         ea, _ = errs(got, want)
-        worst_abs = max(worst_abs, ea)
+        f32_abs = max(f32_abs, ea)
         check(torch.allclose(got, want, rtol=MM_RTOL, atol=MM_ATOL),
               f"outer_accum {name} (T={T}, D={D}, F={F}) f32 operands: max "
               f"abs err {ea:.3g}")
+        det = ""
+        if p.splits > 1:
+            check(torch.equal(koa.outer_accum(x, dy), got),
+                  f"outer_accum {name} f32: two split-K calls differ")
+            det = "  split-K: 2 calls bit-equal"
         del got, want
         ms = time_ms(lambda: koa.outer_accum(x, dy), iters=10)
         plain = time_ms(lambda: koa.outer_accum_plain(x, dy), iters=10)
         xt = x.t()
         lib = time_ms(lambda: torch.matmul(xt, dy), iters=10)
+        g_ms = time_graph_ms(lambda: koa.outer_accum(x, dy), iters=5,
+                             replays=3)
+        g_lib = time_graph_ms(lambda: torch.matmul(xt, dy), iters=5,
+                              replays=3)
         b_ms, by = bound(4 * T * (D + F) + 4 * D * F, 2 * T * D * F, peaks,
                          f32=True)
-        print(f"[outer_accum:f32] {name:<11} T={T} D={D} F={F}: kernel "
-              f"{ms:.4f}ms plain {plain:.4f}ms torch.matmul (no TF32) "
-              f"{lib:.4f}ms bound {b_ms:.4f}ms ({by})  max_abs_err {ea:.3g}")
+        f32_by[by] += b_ms
+        print(f"[outer_accum:f32] {name:<11} T={T} D={D} F={F} "
+              f"{plan_txt(p)}: kernel {ms:.4f}ms plain {plain:.4f}ms "
+              f"torch.matmul (no TF32) {lib:.4f}ms bound {b_ms:.4f}ms ({by}) "
+              f"(in a CUDA graph: kernel {g_ms:.4f}ms, torch.matmul "
+              f"{g_lib:.4f}ms)  max_abs_err {ea:.3g}{det}")
         tot["f32_ms"] += ms
         tot["f32_plain"] += plain
         tot["f32_lib"] += lib
         tot["f32_bound"] += b_ms
+        tot["f32_graph"] += g_ms
+        tot["f32_lib_graph"] += g_lib
         del x, dy
     # ragged T, D and F on both operand types
     for dt in (torch.bfloat16, torch.float32):
         x = torch.randn((1000, 333), generator=gen, device="cuda").to(dt)
         dy = (torch.randn((1000, 77), generator=gen, device="cuda")
               * 1000 ** -0.5).to(dt)
-        path = "f32" if dt == torch.float32 else koa.up_plan(x, dy).path
-        check(path != "sm90", "outer_accum ragged: 666-byte rows of X "
-              "planned onto the sm90 path")
+        path = koa.up_plan(x, dy).path
+        check(path == ("f32" if dt == torch.float32 else "generic"),
+              f"outer_accum ragged {dt}: planned onto the {path} path")
         before = koa.PATH_COUNTERS[path].n
         got = koa.outer_accum(x, dy, scale=0.5)
         check(koa.PATH_COUNTERS[path].n == before + 1,
@@ -933,8 +992,22 @@ def phase_outer_accum(cfg, peaks) -> dict:
     print(f"[outer_accum:f32] the same shapes, f32 operands: kernel "
           f"{tot['f32_ms']:.4f}ms plain {tot['f32_plain']:.4f}ms torch.matmul "
           f"(no TF32) {tot['f32_lib']:.4f}ms bound {tot['f32_bound']:.4f}ms "
-          f"(f32 peak)")
-    return {"name": "outer_accum", "route": "cuda",
+          f"(f32 peak); in a CUDA graph: kernel {tot['f32_graph']:.4f}ms, "
+          f"torch.matmul {tot['f32_lib_graph']:.4f}ms")
+    f32_row = {"name": "outer_accum:f32", "route": "cuda",
+               "source": "src/repro_torch/csrc/sgemm_sm90.cuh",
+               "entry": "src/repro_torch/csrc/outer_accum.cu",
+               "replaces": "src/repro/kernels/outer_accum.py:80",
+               "tpu_kernel": "repro/kernels/outer_accum.py::outer_accum",
+               "max_abs_err": f32_abs, "ms": tot["f32_ms"],
+               "kernel_ms": tot["f32_ms"], "graph_ms": tot["f32_graph"],
+               "plain_ms": tot["f32_plain"], "library_ms": tot["f32_lib"],
+               "library_graph_ms": tot["f32_lib_graph"],
+               "bound_ms": tot["f32_bound"],
+               "bound_by": max(f32_by, key=f32_by.get),
+               "shapes": "the same five UP products, f32 operands (the "
+                         "fp32 preset), f32 out"}
+    row = {"name": "outer_accum", "route": "cuda",
             "source": "src/repro_torch/csrc/gemm_sm90.cuh",
             "entry": "src/repro_torch/csrc/outer_accum.cu",
             "replaces": "src/repro/kernels/outer_accum.py:80",
@@ -942,11 +1015,10 @@ def phase_outer_accum(cfg, peaks) -> dict:
             "max_abs_err": worst_abs, "ms": tot["ms"], "kernel_ms": tot["ms"],
             "plain_ms": tot["plain"], "library_ms": tot["lib"],
             "bound_ms": tot["bound"], "bound_by": max(by_ms, key=by_ms.get),
-            "f32_ms": tot["f32_ms"], "f32_plain_ms": tot["f32_plain"],
-            "f32_library_ms": tot["f32_lib"], "f32_bound_ms": tot["f32_bound"],
             "shapes": f"the five UP products of a step, SR epilogue: one "
                       f"layer's four at T={TRAIN_B * TRAIN_S} + one tied-head "
                       f"loss chunk (T/4)"}
+    return [row, f32_row]
 
 
 def phase_sr_round(cfg, peaks) -> dict:
@@ -1007,7 +1079,8 @@ def phase_wkv6(peaks) -> dict:
     H, hd = 32, 64
     gen = torch.Generator(device="cuda").manual_seed(6)
     rnd = lambda *s: torch.randn(s, generator=gen, device="cuda")
-    tot = {"ms": 0.0, "plain": 0.0, "bound": 0.0}
+    tot = {"ms": 0.0, "graph": 0.0, "plain": 0.0, "bound": 0.0}
+    per_shape = {}
     worst = 0.0
     by_ms = {"bytes": 0.0, "operations": 0.0}
     for name, B, S, decay, main in (("prefill", 1, 32, None, True),
@@ -1031,27 +1104,47 @@ def phase_wkv6(peaks) -> dict:
               f"wkv6 {name} (B={B} S={S}): max abs err {err:.3g}")
         worst = max(worst, err)
         ms = time_ms(lambda: kwkv.wkv6_bshd(r, k, v, w, u, state))
+        g_ms = time_graph_ms(lambda: kwkv.wkv6_bshd(r, k, v, w, u, state))
         plain = time_ms(lambda: kwkv.wkv6_plain(r, k, v, w, u, s0), iters=3,
                         warmup=1)
         n_tok = B * S * H * hd
         nbytes = 4 * (5 * n_tok + H * hd + 2 * B * H * hd * hd)
         flops = 7 * B * S * H * hd * hd
         b_ms, by = bound(nbytes, flops, peaks, f32=True)
+        # served, a layer's state and inputs are cold in L2 (32 slots'
+        # state is 403 MB over the 24 layers): the same call on distinct
+        # copies that together exceed the 50 MB L2, one after another
+        sets = [tuple(t.clone() for t in (r, k, v, w, state))
+                for _ in range(max(2, math.ceil((64 << 20) / nbytes)))]
+        cyc = itertools.cycle(sets)
+
+        def cold_call():
+            rr, kk, vv, ww, ss = next(cyc)
+            kwkv.wkv6_bshd(rr, kk, vv, ww, u, ss)
+
+        g_cold = time_graph_ms(cold_call, iters=len(sets), replays=5)
+        del sets
         print(f"[wkv6] {name:<8} B={B} S={S} H={H} hd={hd} from state: kernel "
-              f"{ms:.4f}ms plain {plain:.4f}ms bound {b_ms:.4f}ms ({by})  "
-              f"max_abs_err {err:.3g}")
+              f"{ms:.4f}ms (in a CUDA graph {g_ms:.4f}ms; cold in L2 "
+              f"{g_cold:.4f}ms) plain {plain:.4f}ms bound {b_ms:.4f}ms "
+              f"({by})  max_abs_err {err:.3g}")
         if main:
             tot["ms"] += ms
+            tot["graph"] += g_cold
             tot["plain"] += plain
             tot["bound"] += b_ms
             by_ms[by] += b_ms
+            per_shape["step" if S == 1 else "chunk"] = {
+                "B": B, "S": S, "ms": ms, "warm_graph_ms": g_ms,
+                "graph_ms": g_cold, "bound_ms": b_ms}
     return {"name": "wkv6", "route": "cuda",
             "source": "src/repro_torch/csrc/wkv6.cu",
             "replaces": "src/repro/kernels/wkv6.py:98",
             "tpu_kernel": "repro/kernels/wkv6.py::wkv6",
             "max_abs_err": worst, "ms": tot["ms"], "kernel_ms": tot["ms"],
-            "plain_ms": tot["plain"], "library_ms": None,
-            "bound_ms": tot["bound"], "bound_by": max(by_ms, key=by_ms.get),
+            "graph_ms": tot["graph"], "plain_ms": tot["plain"],
+            "library_ms": None, "bound_ms": tot["bound"],
+            "bound_by": max(by_ms, key=by_ms.get), "per_shape": per_shape,
             "shapes": "rwkv6-1.6b: a 32-token PREFILL chunk of one slot "
                       "(B*H = 32) + a DECODE step of 32 slots (B*H = 1024, "
                       "S = 1), hd 64, from a carried state"}
@@ -1130,6 +1223,7 @@ def serve_counters(arch: str) -> dict:
              for p in ("sm90", "generic")}
     if arch == "rwkv6-1.6b":
         return {"sr_matmul": kmm.COUNTER, **paths, "wkv6": kwkv.COUNTER,
+                **{f"wkv6:{k}": c for k, c in kwkv.SHAPE_COUNTERS.items()},
                 "fused_ffn": kdf.FFN_COUNTER,
                 "fused_ffn:launches": kdf.FFN_LAUNCHES}
     return {"sr_matmul": kmm.COUNTER, **paths,
@@ -1372,7 +1466,7 @@ def _counters() -> dict:
             "sr_round": ksr.COUNTER, "fused_attn_unit": kdf.COUNTER,
             **{f"{mod}:{p}": c.PATH_COUNTERS[p]
                for mod, c in (("sr_matmul", kmm), ("outer_accum", koa))
-               for p in ("sm90", "generic")}}
+               for p in kmm.PATHS}}
 
 
 def _step0_grads(cfg, program, backend, params, batch, dtype) -> dict:
@@ -1530,11 +1624,66 @@ def phase_train() -> dict:
               "outer_accum:sm90"):
         check(all(p[k] > 0 for p in per_step),
               f"a training step launched {k} no time: {per_step}")
-    for k in ("sr_matmul:generic", "outer_accum:generic"):
+    for k in ("sr_matmul:generic", "outer_accum:generic", "sr_matmul:f32",
+              "outer_accum:f32"):
         check(totals[k] == 0, f"the training run launched {k} {totals[k]} "
               f"times (every bf16 product belongs on the sm90 path)")
     return {"counts": totals, "per_step": per_step[-1],
             "ms_per_step": med * 1e3, "tokens_per_s": tok / med}
+
+
+def phase_train_fp32_full() -> dict:
+    """The fp32 preset's main path at full width: launch.train, all 24
+    layers of qwen2-0.5b, adamw, remat block, B=4, S=256, 3 steps on the
+    cuda backend — every FF and BP through sr_matmul's f32 path, every UP
+    through outer_accum's, none on a bf16 path.  ms/step is the median
+    of steps 2-3."""
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.launch import train as launch_train
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_fp32_")
+    args = launch_train.parser().parse_args([
+        "--arch", "qwen2-0.5b", "--kernel-backend", "cuda", "--device",
+        "cuda", "--precision", "fp32", "--optimizer", "adamw", "--remat",
+        "block", "--batch", str(TRAIN_B), "--seq", str(TRAIN_S), "--steps",
+        "3", "--log-every", "1", "--ckpt-every", "1000", "--ckpt-dir",
+        ckpt_dir])
+    counters = _counters()
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters.values():
+        c.reset()
+    t0 = time.monotonic()
+    try:
+        res = launch_train.run(args)
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    wall = time.monotonic() - t0
+    counts = {k: c.n for k, c in counters.items()}
+    losses, secs = res["losses"], res["seconds"]
+    check(len(losses) == 3, f"{len(losses)} fp32 training steps, want 3")
+    med = (secs[1] + secs[2]) / 2       # the median of steps 2 and 3
+    tok = TRAIN_B * TRAIN_S
+    print(f"[train:fp32:full] qwen2-0.5b 24 layers fp32 adamw remat=block "
+          f"B={TRAIN_B} S={TRAIN_S}: losses {losses}")
+    print(f"[train:fp32:full] ms/step {[round(x * 1e3, 1) for x in secs]} "
+          f"median (steps 2-3) {med * 1e3:.1f}ms, {tok / med:.1f} tokens/s; "
+          f"wall {wall:.1f}s incl. init and final checkpoint; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    print(f"[train:fp32:full] launches in the run {counts}")
+    check(all(math.isfinite(x) for x in losses),
+          f"fp32: non-finite loss {losses}")
+    check(losses[2] < losses[0],
+          f"fp32: loss did not fall: {losses[0]} -> {losses[2]}")
+    for k in ("sr_matmul", "outer_accum", "sr_matmul:f32",
+              "outer_accum:f32"):
+        check(counts[k] > 0, f"the fp32 run launched {k} no time")
+    for k in ("sr_matmul", "outer_accum"):
+        check(counts[f"{k}:f32"] == counts[k] and counts[f"{k}:sm90"] == 0
+              and counts[f"{k}:generic"] == 0,
+              f"the fp32 run launched {k} off the f32 path: {counts}")
+    return {"counts": counts, "ms_per_step": med * 1e3,
+            "tokens_per_s": tok / med}
 
 
 def print_targets(rows: dict) -> None:
@@ -1555,6 +1704,15 @@ def print_targets(rows: dict) -> None:
              r["library_ms"]),
             (f"sr_matmul PREFILL {arch} <= torch.matmul, in a CUDA graph",
              r["graph_ms"], r["library_graph_ms"])]
+    # the f32 mainloop's redesign, against torch.matmul with TF32 off
+    for key, what in (("sr_matmul:f32", "the ten FF + BP products"),
+                      ("outer_accum:f32", "the five UP products")):
+        r = rows[key]
+        targets += [
+            (f"{key} {what} <= 1.5x torch.matmul", r["ms"],
+             1.5 * r["library_ms"]),
+            (f"{key} {what} <= 1.5x torch.matmul, in a CUDA graph",
+             r["graph_ms"], 1.5 * r["library_graph_ms"])]
     # the fused decode words' redesign: device time of one layer's call
     targets += [
         ("fused_attn_unit qwen2 layer, B=32 S=528, in a CUDA graph <= "
@@ -1647,11 +1805,13 @@ def main() -> int:
         del rparams
         torch.cuda.empty_cache()
 
-        rows += [phase_sr_matmul_train(cfg, peaks),
-                 phase_outer_accum(cfg, peaks),
+        rows += [*phase_sr_matmul_train(cfg, peaks),
+                 *phase_outer_accum(cfg, peaks),
                  phase_sr_round(cfg, peaks)]
         torch.cuda.empty_cache()
         phase_train_fp32(cfg)
+        torch.cuda.empty_cache()
+        fp32_full = phase_train_fp32_full()
         torch.cuda.empty_cache()
         train = phase_train()
         phase_decode_launches({r["name"]: r for r in rows})
@@ -1660,17 +1820,30 @@ def main() -> int:
         return 1
     # launches: each kernel's count in the main path that runs it — the
     # qwen2 serve run for its PREFILL sr_matmul and fused_attn_unit, the
-    # rwkv6 serve run for its sr_matmul, wkv6 and fused_ffn, the training
-    # run for the rest (sr_matmul:train is sr_matmul's FF + BP count there)
+    # rwkv6 serve run for its sr_matmul, wkv6 and fused_ffn, the fp32
+    # training run for the f32 rows, the paper_sr_bf16 training run for
+    # the rest (sr_matmul:train is sr_matmul's FF + BP count there)
     for r in rows:
         kernel = r["name"].split(":")[0]
-        counts = serve_counts.get(r["name"], train["counts"])
+        counts = (fp32_full["counts"] if r["name"].endswith(":f32")
+                  else serve_counts.get(r["name"], train["counts"]))
         r["launches"] = counts[kernel]
         if f"{kernel}:launches" in counts:
             r["kernel_launches"] = counts[f"{kernel}:launches"]
-        if f"{kernel}:sm90" in counts:
-            r["path_launches"] = {p: counts[f"{kernel}:{p}"]
-                                  for p in ("sm90", "generic")}
+        paths = {p: counts[f"{kernel}:{p}"] for p in ("sm90", "generic",
+                                                      "f32")
+                 if f"{kernel}:{p}" in counts}
+        if paths:
+            r["path_launches"] = paths
+        for shape, d in r.get("per_shape", {}).items():
+            d["launches"] = counts[f"{kernel}:{shape}"]
+            d["excess_ms"] = d["launches"] * (d["graph_ms"] - d["bound_ms"])
+            print(f"[wkv6] {shape} (B={d['B']}, S={d['S']}): "
+                  f"{d['launches']} launches in the rwkv6 trace x (graph, "
+                  f"cold in L2, {d['graph_ms']:.4f} - bound "
+                  f"{d['bound_ms']:.4f} ms) = "
+                  f"{d['excess_ms']:.3f} ms; graph / bound "
+                  f"{d['graph_ms'] / d['bound_ms']:.2f}")
     print_targets({r["name"]: r for r in rows})
     print(json.dumps({"kernels": rows}))
     print(smi)

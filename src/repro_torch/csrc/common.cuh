@@ -18,10 +18,8 @@
 // function of its own so sr_matmul, outer_accum, sr_round and the sm90
 // mainloop share one bit-exact SR.
 //
-// f32 operands (the fp32 precision preset) take a SIMT path on the same
-// 32 x 32 output tile: f32 operand tiles staged in shared memory as
-// [k][m] and [k][n] with zero fill outside the matrix, each thread
-// owning column t % 32 of rows t / 32 + 4 i, fmaf in full f32 (no TF32).
+// f32 operands (the fp32 precision preset) take sgemm_sm90.cuh's
+// mainloop.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -129,48 +127,6 @@ __device__ __forceinline__ void store_out(void* out,
     reinterpret_cast<uint16_t*>(out)[o] = sr_bf16_bits(v, rbits[o]);
   else
     reinterpret_cast<float*>(out)[o] = v;
-}
-
-// ---- SIMT f32 path ---------------------------------------------------------
-
-constexpr int LDF = TM + 1;               // f32 tiles [TK][TM] / [TK][TN]
-constexpr int F_ROWS = TM * TN / THREADS; // outputs per thread (8)
-constexpr int F_STRIDE = THREADS / TN;    // row stride between them (4)
-static_assert(TM == TN, "the f32 tiles share one leading dimension");
-
-// Copy the ROWS x COLS tile at (r0, c0) of a row-major f32 matrix g
-// (nrows x ncols, leading dimension ld) into s (leading dimension LDF),
-// as s[r][c], or as s[c][r] when TRANS; zero outside the matrix.  Global
-// reads are coalesced along c; LDF is odd, so a transposed store does
-// not conflict on shared-memory banks.
-template <int ROWS, int COLS, bool TRANS>
-__device__ __forceinline__ void load_tile_f32(float* s,
-                                              const float* __restrict__ g,
-                                              int ld, int r0, int c0,
-                                              int nrows, int ncols) {
-  for (int e = threadIdx.x; e < ROWS * COLS; e += blockDim.x) {
-    const int r = e / COLS, c = e % COLS;
-    const int gr = r0 + r, gc = c0 + c;
-    const float v = (gr < nrows && gc < ncols) ? g[(size_t)gr * ld + gc] : 0.f;
-    if (TRANS)
-      s[c * LDF + r] = v;
-    else
-      s[r * LDF + c] = v;
-  }
-}
-
-// acc[i] += sum_k As[k][row_i] * Bs[k][col] for one staged TK step, with
-// As [TK][TM] and Bs [TK][TN]; row_i = t / TN + F_STRIDE * i, col = t % TN.
-__device__ __forceinline__ void fma_step(float (&acc)[F_ROWS],
-                                         const float* As, const float* Bs) {
-  const int c = threadIdx.x % TN, r0 = threadIdx.x / TN;
-#pragma unroll 8
-  for (int k = 0; k < TK; ++k) {
-    const float b = Bs[k * LDF + c];
-#pragma unroll
-    for (int i = 0; i < F_ROWS; ++i)
-      acc[i] = fmaf(As[k * LDF + r0 + F_STRIDE * i], b, acc[i]);
-  }
 }
 
 }  // namespace rt

@@ -28,10 +28,13 @@
 //   [t][d] and loaded as a col_major matrix_a WMMA fragment, each step's
 //   partial product promoted into an f32 sum (common.cuh).
 //
-// f32 operands (the fp32 preset) take outer_accum_f32_kernel, the same
-// 32 x 32 tiles on the CUDA cores with fmaf (common.cuh's SIMT path).
+// f32 operands (the fp32 preset) take the f32 mainloop of
+// sgemm_sm90.cuh with A M-major (X's rows copied as they lie) and B
+// N-major: fmaf on the CUDA cores, no TF32, the scale and SR writeback
+// in its epilogue.
 #include "common.cuh"
 #include "gemm_sm90.cuh"
+#include "sgemm_sm90.cuh"
 
 namespace rt {
 
@@ -81,43 +84,18 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
-__global__ void __launch_bounds__(THREADS)
-    outer_accum_f32_kernel(const float* __restrict__ X,
-                           const float* __restrict__ Y,
-                           const uint32_t* __restrict__ rbits,
-                           void* __restrict__ out, int T, int D, int F,
-                           float scale, int sr) {
-  __shared__ float Xs[TK * LDF];   // [t][d]
-  __shared__ float Ys[TK * LDF];   // [t][f]
-  const int d0 = blockIdx.y * TM, f0 = blockIdx.x * TN;
-  float acc[F_ROWS] = {};
-  for (int t0 = 0; t0 < T; t0 += TK) {
-    load_tile_f32<TK, TM, false>(Xs, X, D, t0, d0, T, D);
-    load_tile_f32<TK, TN, false>(Ys, Y, F, t0, f0, T, F);
-    __syncthreads();
-    fma_step(acc, Xs, Ys);
-    __syncthreads();
-  }
-  const int gf = f0 + threadIdx.x % TN;
-#pragma unroll
-  for (int i = 0; i < F_ROWS; ++i) {
-    const int gd = d0 + threadIdx.x / TN + F_STRIDE * i;
-    if (gd < D && gf < F)
-      store_out(out, rbits, (size_t)gd * F + gf, acc[i] * scale, sr);
-  }
-}
-
 }  // namespace rt
 
 // out(D, F) = scale * x(T, D)^T . dy(T, F): f32 without SR, bf16 (SR
-// from rbits, uint32 D x F) with it.  f32 selects the f32 operand path
-// (x and dy both f32 and contiguous), else both are bf16 with row
-// strides ldx, ldy (elements): path 1 runs the sm90 mainloop with the
-// plan's bn, splits and kb_per_split (ws: splits x D x F f32 when
-// splits > 1), path 0 the generic WMMA kernel.  The grid
-// (grid_x, grid_y) comes from the caller's loop nest over the path's
-// tiles.  Launches on `stream`; returns cudaGetLastError() or a
-// gemm_sm90.cuh ERR_ code.
+// from rbits, uint32 D x F) with it.  x and dy have row strides ldx, ldy
+// (elements).  f32 selects the f32 operand path (sgemm_sm90.cuh, ws:
+// splits x D x F f32 partials, then grid_x * grid_y zeroed int32
+// counters, when splits > 1); else both are bf16: path 1 runs the sm90
+// mainloop with the plan's bn (ws: splits x D x F f32 when splits > 1),
+// path 0 the generic WMMA kernel.  The plan gives splits and
+// kb_per_split, and the grid (grid_x, grid_y) comes from the caller's
+// loop nest over the path's tiles.  Launches on `stream`; returns
+// cudaGetLastError() or a gemm_sm90.cuh ERR_ code.
 extern "C" int outer_accum(const void* x, const void* dy, const void* rbits,
                            void* out, void* ws, int T, int D, int F,
                            int ldx, int ldy, float scale, int sr, int f32,
@@ -126,12 +104,11 @@ extern "C" int outer_accum(const void* x, const void* dy, const void* rbits,
   using namespace rt;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const uint32_t* R = static_cast<const uint32_t*>(rbits);
-  if (f32) {
-    outer_accum_f32_kernel<<<dim3(grid_x, grid_y), THREADS, 0, st>>>(
-        static_cast<const float*>(x), static_cast<const float*>(dy), R, out,
-        T, D, F, scale, sr);
-    return static_cast<int>(cudaGetLastError());
-  }
+  if (f32)
+    return sgemm::run<true, true>(
+        static_cast<const float*>(x), static_cast<const float*>(dy), rbits,
+        out, static_cast<float*>(ws), D, F, T, ldx, ldy, scale, sr, splits,
+        kb_per_split, grid_x, grid_y, st);
   if (path == 1) {
     float* W = static_cast<float*>(ws);
     if (bn == 128)

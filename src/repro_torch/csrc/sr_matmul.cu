@@ -26,11 +26,12 @@
 // (dX = dY . W^T, B = W read through trans_b; for the tied LM head
 // dX = g . table with K = vocab = 151936, the longest reduction of the
 // step).  The fp32 precision preset gives it f32 operands, which take
-// sr_matmul_f32_kernel: the same 32 x 32 tiles, f32 in shared memory,
-// fmaf on the CUDA cores (common.cuh), no TF32 — the TPU kernel accepts
-// f32 operands too.
+// the f32 mainloop of sgemm_sm90.cuh (fmaf on the CUDA cores, no TF32,
+// deterministic split-K; its header says what bounds it and how it is
+// tiled) — the TPU kernel accepts f32 operands too.
 #include "common.cuh"
 #include "gemm_sm90.cuh"
+#include "sgemm_sm90.cuh"
 
 namespace rt {
 
@@ -75,34 +76,6 @@ __global__ void __launch_bounds__(THREADS)
       reinterpret_cast<uint16_t*>(out)[o] = sr_bf16_bits(v, rbits[o]);
     else
       reinterpret_cast<float*>(out)[o] = v;
-  }
-}
-
-template <bool TRANS_B>
-__global__ void __launch_bounds__(THREADS)
-    sr_matmul_f32_kernel(const float* __restrict__ A,
-                         const float* __restrict__ B,
-                         const uint32_t* __restrict__ rbits,
-                         void* __restrict__ out, int M, int N, int K, int sr) {
-  __shared__ float As[TK * LDF];   // [k][m]
-  __shared__ float Bs[TK * LDF];   // [k][n]
-  const int m0 = blockIdx.y * TM, n0 = blockIdx.x * TN;
-  float acc[F_ROWS] = {};
-  for (int k0 = 0; k0 < K; k0 += TK) {
-    load_tile_f32<TM, TK, true>(As, A, K, m0, k0, M, K);
-    if constexpr (TRANS_B)
-      load_tile_f32<TN, TK, true>(Bs, B, K, n0, k0, N, K);
-    else
-      load_tile_f32<TK, TN, false>(Bs, B, N, k0, n0, K, N);
-    __syncthreads();
-    fma_step(acc, As, Bs);
-    __syncthreads();
-  }
-  const int gn = n0 + threadIdx.x % TN;
-#pragma unroll
-  for (int i = 0; i < F_ROWS; ++i) {
-    const int gm = m0 + threadIdx.x / TN + F_STRIDE * i;
-    if (gm < M && gn < N) store_out(out, rbits, (size_t)gm * N + gn, acc[i], sr);
   }
 }
 
@@ -170,21 +143,25 @@ extern "C" int sr_matmul_sm90_maps(const void* a, const void* b, int M,
              : make_maps<64, false, true>(&ma, &mb, a, b, M, N, K, lda, ldb);
 }
 
-// The same product for f32 A and B (the fp32 preset): SIMT f32 FMA.
+// The same product for f32 A and B (the fp32 preset): sgemm_sm90.cuh's
+// mainloop with the plan's splits and kb_per_split (ws:
+// splits x M x N f32 partials, then grid_x * grid_y zeroed int32
+// counters, when splits > 1).  lda / ldb are the operands' row strides
+// in elements.  Returns cudaGetLastError().
 extern "C" int sr_matmul_f32(const void* a, const void* b, const void* rbits,
-                             void* out, int M, int N, int K, int trans_b,
-                             int sr, int grid_x, int grid_y, void* stream) {
-  using namespace rt;
-  const dim3 grid(grid_x, grid_y);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+                             void* out, void* ws, int M, int N, int K,
+                             int lda, int ldb, int trans_b, int sr,
+                             int splits, int kb_per_split, int grid_x,
+                             int grid_y, void* stream) {
   const float* A = static_cast<const float*>(a);
   const float* B = static_cast<const float*>(b);
-  const uint32_t* R = static_cast<const uint32_t*>(rbits);
+  float* W = static_cast<float*>(ws);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (trans_b)
-    sr_matmul_f32_kernel<true><<<grid, THREADS, 0, st>>>(A, B, R, out, M, N,
-                                                         K, sr);
-  else
-    sr_matmul_f32_kernel<false><<<grid, THREADS, 0, st>>>(A, B, R, out, M, N,
-                                                          K, sr);
-  return static_cast<int>(cudaGetLastError());
+    return rt::sgemm::run<false, false>(A, B, rbits, out, W, M, N, K, lda,
+                                        ldb, 1.0f, sr, splits, kb_per_split,
+                                        grid_x, grid_y, st);
+  return rt::sgemm::run<false, true>(A, B, rbits, out, W, M, N, K, lda, ldb,
+                                     1.0f, sr, splits, kb_per_split, grid_x,
+                                     grid_y, st);
 }

@@ -20,12 +20,12 @@ from typing import Optional
 
 import torch
 
-from repro_torch.core.pmag import LoopDim, LoopNest
 from repro_torch.core.rounding import sr_cast_bf16
 from repro_torch.kernels import build
-from repro_torch.kernels.sr_matmul import (PATHS, TILE, Plan, aligned16,
+from repro_torch.kernels.sr_matmul import (PATHS, Plan, aligned16,
                                            launch_error, launch_geometry,
-                                           plan, row_stride, takes_view)
+                                           plan, row_stride, split_workspace,
+                                           takes_view)
 
 COUNTER = build.LaunchCounter("outer_accum")   # every launch, any path
 PATH_COUNTERS = {p: build.LaunchCounter(f"outer_accum:{p}") for p in PATHS}
@@ -48,23 +48,14 @@ def _shapes(x: torch.Tensor, dy: torch.Tensor) -> tuple:
     return x.shape[0], x.shape[1], dy.shape[1]
 
 
-def outer_accum_nest(t: int, d: int, f: int, tile: tuple = TILE
-                     ) -> LoopNest:
-    """The (i, j, l) counter bank over (D, F, T) with the block tile
-    (bd, bf, bt): i and j become the grid, the token reduction l the
-    block's loop (and its splits)."""
-    bd, bf, bt = tile
-    return LoopNest((LoopDim("i", d, bd), LoopDim("j", f, bf),
-                     LoopDim("l", t, bt)))
-
-
 def up_plan(x: torch.Tensor, dy: torch.Tensor) -> Plan:
-    """The plan of dW = X^T dY for bf16 x (T, D), dy (T, F): A = X^T is
+    """The plan of dW = X^T dY for x (T, D), dy (T, F): A = X^T is
     M-major, dY N-major; D is a weight dimension, so its tiles count
-    towards filling the card."""
+    towards filling the card (f32 operands: sr_matmul.f32_plan)."""
     t, d, f = _shapes(x, dy)
     return plan(d, f, t, "m", "n", lda=row_stride(x), ldb=row_stride(dy),
-                aligned=aligned16(x, dy), rows_invariant=False)
+                aligned=aligned16(x, dy), rows_invariant=False,
+                f32=x.dtype == torch.float32)
 
 
 def outer_accum_plain(x: torch.Tensor, dy: torch.Tensor, *,
@@ -115,16 +106,14 @@ def outer_accum(x: torch.Tensor, dy: torch.Tensor, *, scale: float = 1.0,
     if t == 0:
         return out.zero_()
     ldx, ldy = row_stride(x), row_stride(dy)
+    # the (i, j, l) nest over (D, F, T) at the plan's tiles
+    p, grid_x, grid_y, _, kb = launch_geometry(
+        d, f, t, "m", "n", ldx, ldy, aligned16(x, dy), False, f32)
     if f32:
-        p = Plan("f32", *TILE, 1)
-        grid_x, grid_y = outer_accum_nest(t, d, f).launch_grid("j", "i")
-        kb = p.kb_per_split(t)
+        ws = split_workspace(p, d, f, x.device)
     else:
-        # the (i, j, l) nest over (D, F, T) at the plan's tiles
-        p, grid_x, grid_y, _, kb = launch_geometry(
-            d, f, t, "m", "n", ldx, ldy, aligned16(x, dy), False)
-    ws = (torch.empty((p.splits, d, f), dtype=torch.float32,
-                      device=x.device) if p.splits > 1 else None)
+        ws = (torch.empty((p.splits, d, f), dtype=torch.float32,
+                          device=x.device) if p.splits > 1 else None)
     err = _bind(build.load("outer_accum"))(
         build.ptr(x), build.ptr(dy), build.ptr(rbits) if sr else None,
         build.ptr(out), build.ptr(ws) if ws is not None else None, t, d, f,

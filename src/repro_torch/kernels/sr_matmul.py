@@ -7,13 +7,16 @@ role on the H100 and how it is tiled); :func:`sr_matmul_plain` is the
 plain torch version.  :func:`sr_matmul` runs the plain version for
 tensors on the CPU and a kernel for tensors on a CUDA device — never one
 in place of the other.  Operands are both bf16 (tensor cores) or both
-f32 (the fp32 preset: f32 FMA on the CUDA cores, no TF32).
+f32 (the fp32 preset: f32 FMA on the CUDA cores, no TF32, through
+``csrc/sgemm_sm90.cuh``).
 
 bf16 operands take one of two paths, chosen by :func:`plan` from shapes
 and strides alone: ``sm90`` (TMA + wgmma, deterministic split-K) for
 every operand the TMA can describe, ``generic`` (WMMA) for the rest — a
 base pointer that is not 16-byte aligned, or a row stride that is not a
-multiple of 16 bytes.  Each path has its own launch counter.
+multiple of 16 bytes.  f32 operands take the ``f32`` path, planned by
+:func:`f32_plan` from (M, N, K) alone.  Each path has its own launch
+counter.
 """
 from __future__ import annotations
 
@@ -31,7 +34,7 @@ from repro_torch.kernels import build
 COUNTER = build.LaunchCounter("sr_matmul")     # every launch, any path
 PATHS = ("sm90", "generic", "f32")
 PATH_COUNTERS = {p: build.LaunchCounter(f"sr_matmul:{p}") for p in PATHS}
-# the generic and f32 kernels' block tile (tm, tn, tk): csrc/common.cuh
+# the generic kernels' block tile (tm, tn, tk): csrc/common.cuh
 TILE = (32, 32, 64)
 # the sm90 mainloop's block rows and depth (csrc/gemm_sm90.cuh BM, BK)
 SM90_BM, SM90_BK = 128, 64
@@ -44,7 +47,19 @@ SM90_BM, SM90_BK = 128, 64
 SMS = 132
 MIN_SPLIT_KB = 16
 WIDE_N_TILES = 16
-
+# the f32 mainloop (csrc/sgemm_sm90.cuh): its block tile and the blocks
+# an SM holds at once (its launch bounds); a split takes at least
+# F32_MIN_SPLIT_KB k-blocks
+F32_TILE = (128, 128, 16)
+F32_OCC = 2
+F32_MIN_SPLIT_KB = 8
+# f32_plan's cost model: an SM's fma rate as this kernel reaches it
+# (about 0.7 of the H100's 67 TFLOP/s over 132 SMs), the device memory
+# rate that the split partials cross twice, and the rate at which one
+# block sums them
+F32_SM_FMA = 1.78e11
+F32_HBM = 2.5e12
+F32_BLOCK_BW = 1e11
 
 class Plan(NamedTuple):
     """How one product runs: the path, its block tile and the number of
@@ -74,8 +89,10 @@ class Plan(NamedTuple):
 @functools.lru_cache(maxsize=4096)
 def plan(m: int, n: int, k: int, a_major: str = "k", b_major: str = "n",
          *, lda: Optional[int] = None, ldb: Optional[int] = None,
-         aligned: bool = True, rows_invariant: bool = True) -> Plan:
-    """The plan of out(m, n) = A(m, k) . B(k, n) for bf16 operands.
+         aligned: bool = True, rows_invariant: bool = True,
+         f32: bool = False) -> Plan:
+    """The plan of out(m, n) = A(m, k) . B(k, n): f32 operands take
+    :func:`f32_plan`, bf16 operands the sm90 or the generic path.
 
     a_major: "k" (A stored (m, k)) or "m" (A = X^T, X stored (k, m));
     b_major: "n" (B stored (k, n)) or "k" (B stored (n, k)).  lda / ldb
@@ -90,6 +107,8 @@ def plan(m: int, n: int, k: int, a_major: str = "k", b_major: str = "n",
     """
     if a_major not in ("k", "m") or b_major not in ("k", "n"):
         raise ValueError(f"plan: majorness {a_major!r}, {b_major!r}")
+    if f32:
+        return f32_plan(m, n, k)
     lda = (k if a_major == "k" else m) if lda is None else lda
     ldb = (k if b_major == "k" else n) if ldb is None else ldb
     if not (aligned and lda % 8 == 0 and ldb % 8 == 0):
@@ -108,6 +127,48 @@ def plan(m: int, n: int, k: int, a_major: str = "k", b_major: str = "n",
     splits = max(1, min(SMS // tiles, k_blocks // MIN_SPLIT_KB))
     per = math.ceil(k_blocks / splits)
     return Plan("sm90", SM90_BM, bn, SM90_BK, math.ceil(k_blocks / per))
+
+
+@functools.lru_cache(maxsize=4096)
+def f32_plan(m: int, n: int, k: int) -> Plan:
+    """The plan of out(m, n) = A(m, k) . B(k, n) for f32 operands, from
+    the shape alone (never majorness, strides or the device): the split
+    count that a cost model of whole waves ranks fastest.  A wave holds
+    SMS x F32_OCC blocks, and one that is not full costs as much as a
+    full one, so a product whose tiles leave the card part-empty (the
+    tied head's BP: 2 x 7 tiles) splits its reduction, paying the
+    partials' round trip and their ordered sum."""
+    bm, bn, bk = F32_TILE
+    kb = max(1, math.ceil(k / bk))
+    tiles = math.ceil(m / bm) * math.ceil(n / bn)
+    best = None
+    for splits in range(1, kb + 1):
+        per = math.ceil(kb / splits)
+        if splits > 1 and per < F32_MIN_SPLIT_KB:
+            break
+        if math.ceil(kb / per) != splits:
+            continue                           # the same as fewer splits
+        waves = math.ceil(tiles * splits / (SMS * F32_OCC))
+        t = waves * F32_OCC * bm * bn * per * bk / F32_SM_FMA
+        if splits > 1:
+            t += (2 * splits * m * n * 4 / F32_HBM
+                  + splits * bm * bn * 4 / F32_BLOCK_BW)
+        if best is None or t < best[0]:
+            best = (t, splits)
+    return Plan("f32", bm, bn, bk, best[1])
+
+
+def split_workspace(p: Plan, m: int, n: int, device) -> Optional[torch.Tensor]:
+    """The f32 path's split-K workspace, or None without splits: splits x
+    m x n f32 partials, then one int32 counter per output tile (zeroed:
+    the last block of a tile to finish sees splits - 1)."""
+    if p.splits <= 1:
+        return None
+    tiles = math.ceil(m / p.bm) * math.ceil(n / p.bn)
+    ws = torch.empty(p.splits * m * n + tiles, dtype=torch.float32,
+                     device=device)
+    ws[p.splits * m * n:].view(torch.int32).zero_()
+    return ws
 
 
 def _ld(t: torch.Tensor) -> Optional[int]:
@@ -191,8 +252,10 @@ def sr_matmul_plain(a: torch.Tensor, b: torch.Tensor,
 
 def operands_plan(a: torch.Tensor, b: torch.Tensor,
                   trans_b: bool = False) -> Plan:
-    """The plan a bf16 call on these operands runs."""
+    """The plan a call on these operands runs."""
     m, n, k = _shapes(a, b, trans_b)
+    if a.dtype == torch.float32:
+        return f32_plan(m, n, k)
     return plan(m, n, k, "k", "k" if trans_b else "n", lda=row_stride(a),
                 ldb=row_stride(b), aligned=aligned16(a, b))
 
@@ -200,10 +263,10 @@ def operands_plan(a: torch.Tensor, b: torch.Tensor,
 @functools.lru_cache(maxsize=4096)
 def launch_geometry(m: int, n: int, k: int, a_major: str, b_major: str,
                     lda: int, ldb: int, aligned: bool,
-                    rows_invariant: bool = True) -> tuple:
-    """(plan, grid_x, grid_y, splits, kb_per_split) of one bf16 call."""
+                    rows_invariant: bool = True, f32: bool = False) -> tuple:
+    """(plan, grid_x, grid_y, splits, kb_per_split) of one call."""
     p = plan(m, n, k, a_major, b_major, lda=lda, ldb=ldb, aligned=aligned,
-             rows_invariant=rows_invariant)
+             rows_invariant=rows_invariant, f32=f32)
     return (p, *p.grid(m, n, k), p.kb_per_split(k))
 
 
@@ -267,12 +330,16 @@ def sr_matmul(a: torch.Tensor, b: torch.Tensor,
     if k == 0:
         return out.zero_()
     if f32:
-        # the (i, j, l) counter bank: i, j become the grid, l the loop
-        grid_x, grid_y = matmul_nest(m, n, k, tm=TILE[0], tn=TILE[1],
-                                     tk=TILE[2]).launch_grid("j", "i")
+        # the (i, j, l) counter bank over the plan's tiles: i, j become
+        # the grid, l the loop and its splits
+        p, gx, gy, splits, kb = launch_geometry(m, n, k, "k", "k" if trans_b
+                                                else "n", lda, ldb, True,
+                                                f32=True)
+        ws = split_workspace(p, m, n, dev)
         err = _bind(build.load("sr_matmul"), True)(
             build.ptr(a), build.ptr(b), build.ptr(rbits) if sr else None,
-            build.ptr(out), m, n, k, int(trans_b), int(sr), grid_x, grid_y,
+            build.ptr(out), build.ptr(ws) if ws is not None else None, m, n,
+            k, lda, ldb, int(trans_b), int(sr), splits, kb, gx, gy,
             build.stream_ptr(dev))
         if err != 0:
             raise launch_error("sr_matmul", err)

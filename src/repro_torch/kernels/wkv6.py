@@ -28,6 +28,9 @@ import torch
 from repro_torch.kernels import build
 
 COUNTER = build.LaunchCounter("wkv6")
+# the same launches by shape: one token (S = 1, a DECODE step) or a chunk
+SHAPE_COUNTERS = {s: build.LaunchCounter(f"wkv6:{s}")
+                  for s in ("step", "chunk")}
 HEAD_DIMS = (16, 32, 64)          # csrc/wkv6.cu's instantiations
 _F32, _F64 = torch.float32, torch.float64
 
@@ -94,6 +97,7 @@ def _launch(r, k, v, w, u, state, active, u_per_b: bool):
     if err != 0:
         raise RuntimeError(f"wkv6 kernel launch failed (cudaError {err})")
     COUNTER.n += 1
+    SHAPE_COUNTERS["step" if S == 1 else "chunk"].n += 1
     return y, s_out
 
 

@@ -19,15 +19,16 @@ import re
 import time
 
 # the port's hand-written kernels, by the names their launches carry:
-# gemm_sm90.cuh's mainloop and split reduction serve sr_matmul with A
-# K-major (template argument A_MN false) and outer_accum with A = X^T
-# (A_MN true); decode_fused.cu's kernels carry their word as the first
-# template argument (0 fused_attn_unit, 1 fused_ffn)
+# gemm_sm90.cuh's mainloop and split reduction (bf16) and sgemm_sm90.cuh's
+# (f32) serve sr_matmul with A K-major (template argument A_MN false) and
+# outer_accum with A = X^T (A_MN true); decode_fused.cu's kernels carry
+# their word as the first template argument (0 fused_attn_unit, 1
+# fused_ffn)
 PORT_KERNELS = {
-    "sr_matmul": r"rt::(sr_matmul(_f32)?_kernel|sm90::(gemm_kernel<\d+, "
-                 r"false|splitk_reduce<false>))",
-    "outer_accum": r"rt::(outer_accum(_f32)?_kernel|sm90::(gemm_kernel"
-                   r"<\d+, true|splitk_reduce<true>))",
+    "sr_matmul": r"rt::(sr_matmul_kernel|sm90::(gemm_kernel<\d+, false|"
+                 r"splitk_reduce<false>)|sgemm::sgemm_kernel<false)",
+    "outer_accum": r"rt::(outer_accum_kernel|sm90::(gemm_kernel<\d+, true|"
+                   r"splitk_reduce<true>)|sgemm::sgemm_kernel<true)",
     "sr_round": r"rt::sr_round_kernel",
     "fused_attn_unit": r"rt::decode::((norm|gemm)_kernel<0\b|attn_kernel)",
     "fused_ffn": r"rt::decode::(norm|gemm)_kernel<1\b",

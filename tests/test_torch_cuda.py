@@ -243,6 +243,128 @@ def test_sr_matmul_f32_operands_match_plain(dev, mnk, trans_b):
                        .view(torch.int16))
 
 
+# (m, n, k) of the f32 path off the 128 x 128 x 16 tile: M, N and K not
+# multiples of 128 or 16 (or of 4: the scalar loads and stores), N = 1,
+# K = 1, and a reduction long enough to split
+F32_RAGGED = [(37, 333, 1000), (130, 1, 17), (1, 200, 1), (129, 131, 15),
+              (1, 1, 1), (300, 77, 3), (200, 260, 2051), (5, 36, 4100)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("trans_b", [False, True])
+@pytest.mark.parametrize("mnk", F32_RAGGED, ids=str)
+def test_sr_matmul_f32_kernel_ragged_shapes_match_plain(dev, mnk, trans_b):
+    """The f32 mainloop zero-fills ragged M, N and K on both operand
+    layouts (cp.async for B (K, N), register transposes for A and for
+    B (N, K)), and masks its stores; its SR epilogue is the plain SR
+    cast of its own f32 result."""
+    m, n, k = mnk
+    g = torch.Generator(device=dev).manual_seed(11)
+    a = torch.randn((m, k), generator=g, device=dev)
+    b = torch.randn((n, k) if trans_b else (k, n), generator=g,
+                    device=dev) * k ** -0.5
+    before = kmm.PATH_COUNTERS["f32"].n
+    got = kmm.sr_matmul(a, b, trans_b=trans_b)
+    assert kmm.PATH_COUNTERS["f32"].n == before + 1
+    torch.testing.assert_close(got, kmm.sr_matmul_plain(a, b, trans_b=trans_b),
+                               rtol=MM_RTOL, atol=MM_ATOL)
+    rb = _rbits(g, (m, n), dev)
+    assert torch.equal(kmm.sr_matmul(a, b, rb, trans_b=trans_b)
+                       .view(torch.int16), sr_cast_bf16(got, rb)
+                       .view(torch.int16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tdf", [(1000, 333, 77), (17, 130, 1), (1, 200, 36),
+                                 (15, 129, 131), (1, 1, 1), (4100, 36, 5)],
+                         ids=str)
+def test_outer_accum_f32_kernel_ragged_shapes_match_plain(dev, tdf):
+    """dW = X^T dY with both operands copied as they lie (cp.async, 4-byte
+    where a row is not 16-byte aligned), ragged T, D and F."""
+    t, d, f = tdf
+    g = torch.Generator(device=dev).manual_seed(12)
+    x = torch.randn((t, d), generator=g, device=dev)
+    dy = torch.randn((t, f), generator=g, device=dev) * t ** -0.5
+    before = koa.PATH_COUNTERS["f32"].n
+    got = koa.outer_accum(x, dy, scale=0.5)
+    assert koa.PATH_COUNTERS["f32"].n == before + 1
+    torch.testing.assert_close(got, koa.outer_accum_plain(x, dy, scale=0.5),
+                               rtol=MM_RTOL, atol=MM_ATOL)
+    rb = _rbits(g, (d, f), dev)
+    assert torch.equal(
+        koa.outer_accum(x, dy, scale=0.5, rbits=rb).view(torch.int16),
+        sr_cast_bf16(got, rb).view(torch.int16))
+
+
+# (id, m, k, n, trans_b): the FF and BP products of a full-width qwen2
+# training step under fp32 (layers at T = 1024 rows, the tied head per
+# 256-row loss chunk; the head's BP cut to 32 rows, its K = vocab kept)
+F32_TRAIN = [("ff:qkv", 1024, 896, 1152, False),
+             ("ff:o", 1024, 896, 896, False),
+             ("ff:ffn_in", 1024, 896, 9728, False),
+             ("ff:ffn_out", 1024, 4864, 896, False),
+             ("ff:head", 256, 896, 151936, True),
+             ("bp:qkv", 1024, 1152, 896, True),
+             ("bp:o", 1024, 896, 896, True),
+             ("bp:ffn_in", 1024, 9728, 896, True),
+             ("bp:ffn_out", 1024, 896, 4864, True),
+             ("bp:head", 32, 151936, 896, False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", F32_TRAIN, ids=lambda c: c[0])
+def test_sr_matmul_f32_training_shapes_match_plain(dev, case):
+    _, m, k, n, tb = case
+    g = torch.Generator(device=dev).manual_seed(13)
+    a = torch.randn((m, k), generator=g, device=dev)
+    b = torch.randn((n, k) if tb else (k, n), generator=g,
+                    device=dev) * k ** -0.5
+    assert kmm.operands_plan(a, b, tb).path == "f32"
+    got = kmm.sr_matmul(a, b, trans_b=tb)
+    torch.testing.assert_close(got, kmm.sr_matmul_plain(a, b, trans_b=tb),
+                               rtol=MM_RTOL, atol=MM_ATOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [c for c in F32_TRAIN
+                                  if c[0] in ("ff:o", "bp:ffn_in", "bp:head")],
+                         ids=lambda c: c[0])
+def test_sr_matmul_f32_split_k_is_deterministic_and_sr_exact(dev, case):
+    """f32 split-K sums the partials in split order in the last block of
+    each tile (an integer counter, no float atomics): two calls give the
+    same bits, and the SR epilogue after it is the plain SR cast of the
+    kernel's own f32 result."""
+    _, m, k, n, tb = case
+    g = torch.Generator(device=dev).manual_seed(14)
+    a = torch.randn((m, k), generator=g, device=dev)
+    b = torch.randn((n, k) if tb else (k, n), generator=g,
+                    device=dev) * k ** -0.5
+    assert kmm.operands_plan(a, b, tb).splits > 1
+    got = kmm.sr_matmul(a, b, trans_b=tb)
+    assert torch.equal(kmm.sr_matmul(a, b, trans_b=tb), got)
+    rb = _rbits(g, (m, n), dev)
+    assert torch.equal(kmm.sr_matmul(a, b, rb, trans_b=tb).view(torch.int16),
+                       sr_cast_bf16(got, rb).view(torch.int16))
+
+
+@pytest.mark.cuda
+def test_outer_accum_f32_split_k_is_deterministic_and_sr_exact(dev):
+    """The f32 UP of o (D = F = 896 over T = 1024) splits its token
+    reduction: two calls bit-equal, SR bit-equal to the plain cast."""
+    g = torch.Generator(device=dev).manual_seed(15)
+    x = torch.randn((1024, 896), generator=g, device=dev)
+    dy = torch.randn((1024, 896), generator=g, device=dev) * 1024 ** -0.5
+    assert koa.up_plan(x, dy).splits > 1
+    got = koa.outer_accum(x, dy, scale=0.25)
+    torch.testing.assert_close(got, koa.outer_accum_plain(x, dy, scale=0.25),
+                               rtol=MM_RTOL, atol=MM_ATOL)
+    assert torch.equal(koa.outer_accum(x, dy, scale=0.25), got)
+    rb = _rbits(g, (896, 896), dev)
+    assert torch.equal(
+        koa.outer_accum(x, dy, scale=0.25, rbits=rb).view(torch.int16),
+        sr_cast_bf16(got, rb).view(torch.int16))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("mnk,trans_b", [
     ((256, 896, 9728), True),      # BP of ffn_in: dY (T, 2f) . W(d, 2f)^T
@@ -339,9 +461,13 @@ def test_wkv6_kernel_matches_plain(dev, case):
     active[B // 2] = B == 1                 # one inactive row when B > 1
     state = s0.clone()
     kwkv.COUNTER.reset()
+    shape = {n: c.n for n, c in kwkv.SHAPE_COUNTERS.items()}
     y, s = kwkv.wkv6_bshd(r, k, v, w, u, state, active=active)
     torch.cuda.synchronize()
     assert kwkv.COUNTER.n == 1 and s is state
+    kind = "step" if S == 1 else "chunk"      # the launch counted by shape
+    assert {n: c.n - shape[n] for n, c in kwkv.SHAPE_COUNTERS.items()} == {
+        n: int(n == kind) for n in shape}
     yp, sp = kwkv.wkv6_plain(r, k, v, w, u, s0)
     assert torch.isfinite(y).all() and torch.isfinite(s).all()
     torch.testing.assert_close(y, yp, atol=WKV_TOL, rtol=WKV_TOL)

@@ -741,11 +741,23 @@ def test_unaligned_operands_take_the_generic_path(case):
 PLAN_NK = [(896, 151936, "n"), (896, 4864, "n"), (896, 9728, "k"),
            (1152, 896, "n"), (151936, 896, "k"), (2048, 7168, "n"),
            (333, 1000, "k"), (64, 200, "n"), (8, 8, "k"), (96, 1, "n")]
+# (m, n, k) of f32 products: a training step's FF, BP and UP under the
+# fp32 preset (the head's BP at 256 and at 32 rows), then ragged shapes
+F32_MNK = [(1024, 1152, 896), (1024, 896, 896), (1024, 9728, 896),
+           (1024, 896, 4864), (256, 151936, 896), (1024, 896, 9728),
+           (256, 896, 151936), (32, 896, 151936), (896, 896, 1024),
+           (151936, 896, 256), (37, 333, 1000), (5, 36, 4100), (1, 1, 1),
+           (130, 1, 17)]
 
 
-@pytest.mark.parametrize("n,k,b_major", PLAN_NK)
-def test_plan_k_partition_is_disjoint_and_covers_k(n, k, b_major):
-    p = kmm.plan(32, n, k, "k", b_major)
+@pytest.mark.parametrize("m,n,k,b_major,f32", [
+    *(pytest.param(32, n, k, b, False, id=f"{n}-{k}-{b}")
+      for n, k, b in PLAN_NK),
+    *(pytest.param(m, n, k, "n", True, id=f"f32-{m}-{n}-{k}")
+      for m, n, k in F32_MNK)])
+def test_plan_k_partition_is_disjoint_and_covers_k(m, n, k, b_major, f32):
+    p = kmm.plan(m, n, k, "k", b_major, f32=f32)
+    assert (p.path == "f32") == f32
     ranges = p.k_ranges(k)
     assert len(ranges) == p.splits
     assert ranges[0][0] == 0 and ranges[-1][1] == k
@@ -760,6 +772,56 @@ def test_plan_k_partition_is_disjoint_and_covers_k(n, k, b_major):
 def test_plan_does_not_depend_on_m(n, k, b_major):
     plans = {kmm.plan(m, n, k, "k", b_major) for m in (1, 5, 32, 256, 1024)}
     assert len(plans) == 1
+
+
+def _mnk_id(c) -> str:
+    return "x".join(map(str, c))
+
+
+@pytest.mark.parametrize("mnk", F32_MNK, ids=_mnk_id)
+def test_f32_plan_depends_on_the_shape_alone(mnk):
+    """An f32 plan comes from (M, N, K) alone: not from the operands'
+    majorness, strides, alignment or row invariance, nor from the
+    device; its grid is the reference's loop nest over its tiles."""
+    from repro.core.pmag import matmul_nest as jnest
+    m, n, k = mnk
+    plans = {kmm.plan(m, n, k, am, bm_, lda=lda, ldb=ldb, aligned=al,
+                      rows_invariant=ri, f32=True)
+             for am in ("k", "m") for bm_ in ("k", "n")
+             for lda, ldb in ((None, None), (k + 3, n + 5))
+             for al in (True, False) for ri in (True, False)}
+    assert plans == {kmm.f32_plan(m, n, k)}
+    p = kmm.f32_plan(m, n, k)
+    assert p.path == "f32" and (p.bm, p.bn, p.bk) == kmm.F32_TILE
+    theirs = jnest(m, n, k, tm=p.bm, tn=p.bn, tk=p.bk)
+    assert p.grid(m, n, k) == (theirs.grid[1], theirs.grid[0], p.splits)
+    meta = lambda *shape: torch.empty(shape, device="meta")
+    assert koa.up_plan(meta(k, m), meta(k, n)) == p
+
+
+@pytest.mark.parametrize("mnk", [c for c in F32_MNK
+                                 if kmm.f32_plan(*c).splits > 1],
+                         ids=_mnk_id)
+def test_f32_split_workspace_does_not_overlap_the_output(mnk):
+    """The f32 split-K workspace: splits x M x N f32 partials, then one
+    zeroed int32 counter per output tile, in one allocation apart from
+    the output; no workspace without splits."""
+    m, n, k = mnk
+    p = kmm.f32_plan(m, n, k)
+    out = torch.empty((m, n))
+    ws = kmm.split_workspace(p, m, n, "cpu")
+    gx, gy, splits = p.grid(m, n, k)
+    parts = ws[:splits * m * n]
+    counters = ws[splits * m * n:].view(torch.int32)
+    assert counters.numel() == gx * gy and bool((counters == 0).all())
+
+    def span(t):
+        return t.data_ptr(), t.data_ptr() + t.numel() * t.element_size()
+
+    (p0, p1), (c0, c1), (o0, o1) = span(parts), span(counters), span(out)
+    assert p1 == c0                               # counters right after
+    assert c1 <= o0 or o1 <= p0                   # the output elsewhere
+    assert kmm.split_workspace(kmm.f32_plan(1, 1, 1), 1, 1, "cpu") is None
 
 
 def test_plan_splits_fill_the_card_at_the_narrow_products():
@@ -783,8 +845,6 @@ def test_plan_grid_matches_reference_nest(mnk):
     p = kmm.plan(m, n, k, "k", "n")
     theirs = jnest(m, n, k, tm=p.bm, tn=p.bn, tk=p.bk)
     assert p.grid(m, n, k) == (theirs.grid[1], theirs.grid[0], p.splits)
-    ours = koa.outer_accum_nest(k, m, n, (p.bm, p.bn, p.bk))
-    assert ours.grid == theirs.grid
 
 
 @pytest.mark.parametrize("quarter", range(4))
