@@ -37,7 +37,9 @@ port (``src/repro_torch``), never JAX or the JAX package, and:
 4. the same for rwkv6-1.6b at full width: sr_matmul at its PREFILL
    shapes (the r, k, v, g quarters as column views of the fused table),
    wkv6 (a PREFILL chunk and a DECODE step from a carried state, a
-   ragged chunk, near-total decay) and fused_ffn (timed and checked as
+   ragged chunk, 257 tokens, near-total decay; each with bf16 r, k, v
+   as served and with f32 ones; two calls bit-equal; cold in L2 in a
+   CUDA graph) and fused_ffn (timed and checked as
    fused_attn_unit is) against their plain
    versions; the trace served fused (PREFILL through sr_matmul, the
    recurrence through wkv6, each layer's FF half through fused_ffn) and
@@ -53,7 +55,7 @@ port (``src/repro_torch``), never JAX or the JAX package, and:
    step (every bf16 product on the sm90 path, none on the generic one).
 
 It prints the time targets of the sm90 redesign, of the fused decode
-words' redesign and of the f32 mainloop's (met or missed; a miss is
+words' redesign, of the f32 mainloop's and of wkv6's (met or missed; a miss is
 reported, not failed), a ``{"kernels": [...]}`` line, the card's name
 and power limit, and as its last line ``{"ok": true, "device": {...}}``.
 Any failed check exits nonzero.  Without a CUDA device, or outside a
@@ -181,7 +183,8 @@ def ptxas_report(log: str) -> list:
     """(kernel, registers, spill bytes stored, spill bytes loaded) per
     entry function of an -Xptxas -v log; gemm_sm90.cuh's mainloop is
     named by its template arguments <BN, A_MN, B_MN>, sgemm_sm90.cuh's
-    by <A_MN, B_MN>."""
+    by <A_MN, B_MN>, wkv6.cu's by <hd, columns a block, columns a
+    thread, bf16 r/k/v>."""
     import re
     rows, cur, spill = [], None, (0, 0)
     for line in log.splitlines():
@@ -195,6 +198,10 @@ def ptxas_report(log: str) -> list:
             g = re.search(r"sgemm_kernelILb(\d)ELb(\d)E", cur)
             if g:
                 cur = f"sgemm_kernel<{g.group(1)},{g.group(2)}>"
+            g = re.search(r"wkv6_kernelILi(\d+)ELi(\d+)ELi(\d+)ELb(\d)E",
+                          cur)
+            if g:
+                cur = f"wkv6_kernel<{','.join(g.groups())}>"
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       line)
@@ -1073,7 +1080,10 @@ WKV_TOL = 1e-4
 def phase_wkv6(peaks) -> dict:
     """wkv6 at rwkv6-1.6b's serving shapes (32 heads of 64): a 32-token
     PREFILL chunk of one slot from a nonzero carried state, a DECODE step
-    of 32 slots, a ragged 100-token chunk and near-total decay."""
+    of 32 slots, a ragged 100-token chunk (four token tiles), 257 tokens
+    (nine) and near-total decay; each with bf16 r, k, v (the serving
+    path's projections, read in place) and with f32 ones.  The bf16
+    chunk and step are the main shapes (timed cold in L2, as served)."""
     import torch
     from repro_torch.kernels import wkv6 as kwkv
     H, hd = 32, 64
@@ -1083,11 +1093,14 @@ def phase_wkv6(peaks) -> dict:
     per_shape = {}
     worst = 0.0
     by_ms = {"bytes": 0.0, "operations": 0.0}
-    for name, B, S, decay, main in (("prefill", 1, 32, None, True),
-                                    ("decode", 32, 1, None, True),
-                                    ("ragged", 1, 100, None, False),
-                                    ("strong", 1, 32, 1e-6, False)):
+    for (name, B, S, decay, main), rkv in itertools.product(
+            (("prefill", 1, 32, None, True), ("decode", 32, 1, None, True),
+             ("ragged", 1, 100, None, False), ("long", 1, 257, None, False),
+             ("strong", 1, 32, 1e-6, False)),
+            (torch.bfloat16, torch.float32)):
+        main = main and rkv == torch.bfloat16
         r, k, v = (0.5 * rnd(B, S, H, hd) for _ in range(3))
+        r, k, v = (t.to(rkv) for t in (r, k, v))
         w = (torch.full((B, S, H, hd), decay, device="cuda") if decay
              else 0.45 + 0.5 * torch.sigmoid(rnd(B, S, H, hd)))
         u = 0.1 * rnd(H, hd)
@@ -1097,18 +1110,26 @@ def phase_wkv6(peaks) -> dict:
         yp, sp = kwkv.wkv6_plain(r, k, v, w, u, s0)
         torch.cuda.synchronize()
         err = max(float((y - yp).abs().max()), float((s - sp).abs().max()))
+        tag = f"{name} {str(rkv).split('.')[-1]}"
         check(bool(torch.isfinite(y).all() and torch.isfinite(s).all()),
-              f"wkv6 {name}: non-finite output")
+              f"wkv6 {tag}: non-finite output")
         check(torch.allclose(y, yp, atol=WKV_TOL, rtol=WKV_TOL)
               and torch.allclose(s, sp, atol=WKV_TOL, rtol=WKV_TOL),
-              f"wkv6 {name} (B={B} S={S}): max abs err {err:.3g}")
+              f"wkv6 {tag} (B={B} S={S}): max abs err {err:.3g}")
+        # two calls on the same inputs: the same bits
+        s2 = s0.clone()
+        y2, _ = kwkv.wkv6_bshd(r, k, v, w, u, s2)
+        check(torch.equal(y2, y) and torch.equal(s2, s),
+              f"wkv6 {tag}: two calls differ")
         worst = max(worst, err)
         ms = time_ms(lambda: kwkv.wkv6_bshd(r, k, v, w, u, state))
         g_ms = time_graph_ms(lambda: kwkv.wkv6_bshd(r, k, v, w, u, state))
         plain = time_ms(lambda: kwkv.wkv6_plain(r, k, v, w, u, s0), iters=3,
                         warmup=1)
         n_tok = B * S * H * hd
-        nbytes = 4 * (5 * n_tok + H * hd + 2 * B * H * hd * hd)
+        # r, k, v in their type; w in, y out f32; u; the state in and out
+        nbytes = (3 * r.element_size() * n_tok + 8 * n_tok + 4 * H * hd
+                  + 8 * B * H * hd * hd)
         flops = 7 * B * S * H * hd * hd
         b_ms, by = bound(nbytes, flops, peaks, f32=True)
         # served, a layer's state and inputs are cold in L2 (32 slots'
@@ -1124,10 +1145,13 @@ def phase_wkv6(peaks) -> dict:
 
         g_cold = time_graph_ms(cold_call, iters=len(sets), replays=5)
         del sets
-        print(f"[wkv6] {name:<8} B={B} S={S} H={H} hd={hd} from state: kernel "
-              f"{ms:.4f}ms (in a CUDA graph {g_ms:.4f}ms; cold in L2 "
+        p = kwkv.wkv6_plan(B, H, S, hd)
+        print(f"[wkv6] {tag:<15} B={B} S={S} H={H} hd={hd} from state: "
+              f"kernel {ms:.4f}ms (in a CUDA graph {g_ms:.4f}ms; cold in L2 "
               f"{g_cold:.4f}ms) plain {plain:.4f}ms bound {b_ms:.4f}ms "
-              f"({by})  max_abs_err {err:.3g}")
+              f"({by})  max_abs_err {err:.3g}; 2 calls bit-equal; plan "
+              f"{p.grid} blocks x {p.threads} threads, {p.cols} columns, "
+              f"tile {p.tile} x {p.stages}, {p.smem} B")
         if main:
             tot["ms"] += ms
             tot["graph"] += g_cold
@@ -1147,7 +1171,7 @@ def phase_wkv6(peaks) -> dict:
             "bound_by": max(by_ms, key=by_ms.get), "per_shape": per_shape,
             "shapes": "rwkv6-1.6b: a 32-token PREFILL chunk of one slot "
                       "(B*H = 32) + a DECODE step of 32 slots (B*H = 1024, "
-                      "S = 1), hd 64, from a carried state"}
+                      "S = 1), hd 64, bf16 r, k, v, from a carried state"}
 
 
 def phase_fused_ffn(cfg, params, peaks) -> dict:
@@ -1719,6 +1743,13 @@ def print_targets(rows: dict) -> None:
          "0.040 ms", rows["fused_attn_unit"]["graph_ms"], 0.040),
         ("fused_ffn rwkv6 layer, B=32, in a CUDA graph <= 0.045 ms",
          rows["fused_ffn"]["graph_ms"], 0.045)]
+    # wkv6's redesign: bf16 r, k, v in a CUDA graph, cold in L2
+    wk = rows["wkv6"]["per_shape"]
+    targets += [
+        ("wkv6 PREFILL chunk B=1 S=32, in a CUDA graph cold in L2 <= "
+         "0.0060 ms", wk["chunk"]["graph_ms"], 0.0060),
+        ("wkv6 DECODE step B=32, in a CUDA graph cold in L2 <= 0.0125 ms",
+         wk["step"]["graph_ms"], 0.0125)]
     for what, got, limit in targets:
         print(f"[targets] {what}: {got:.4f}ms against {limit:.4f}ms: "
               f"{'met' if got <= limit else 'MISSED'}")

@@ -72,8 +72,8 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
          w: torch.Tensor, u: torch.Tensor,
          state: Optional[torch.Tensor] = None, *,
          active: Optional[torch.Tensor] = None):
-    """WKV6 in the model-facing layout: r, k, v, w (B, S, H, hd), u (H, hd),
-    all f32; state (B, H, hd, hd) updated in place (rows `active` selects)
+    """WKV6 in the model-facing layout: r, k, v, w (B, S, H, hd), u (H, hd);
+    r, k, v bf16 or f32, the rest f32; state (B, H, hd, hd) updated in place (rows `active` selects)
     or None for zeros.  Returns (y (B, S, H, hd), final state).  The
     reference folds to (B*H, S, hd) for its kernel; the port's kernel
     reads this layout directly."""

@@ -9,7 +9,8 @@ backend with fused decode, and profiles a window of engine steps in the
 middle of the run.  Prints the device time by kernel
 (sum and launch count), the window's wall time, the device's busy and
 idle share of it, each of the port's kernels' device time (PORT_KERNELS),
-and the host-clock time of the window's PREFILL chunk calls and DECODE
+torch's copy kernels' time and launches (COPY_KERNELS), and the
+host-clock time of the window's PREFILL chunk calls and DECODE
 calls.  Needs a CUDA device.
 """
 from __future__ import annotations
@@ -33,6 +34,9 @@ PORT_KERNELS = {
     "fused_attn_unit": r"rt::decode::((norm|gemm)_kernel<0\b|attn_kernel)",
     "fused_ffn": r"rt::decode::(norm|gemm)_kernel<1\b",
     "wkv6": r"\bwkv6_kernel<"}
+# torch's copy and dtype-conversion kernel (.to, .contiguous, copy_:
+# direct_copy_kernel_cuda)
+COPY_KERNELS = r"copy_kernel"
 
 
 def _device_us(evt) -> float:
@@ -108,6 +112,7 @@ def main(argv=None) -> int:
     port = {k: (sum(us for key, us, _ in rows if re.search(pat, key)),
                 sum(n for key, _, n in rows if re.search(pat, key)))
             for k, pat in PORT_KERNELS.items()}
+    copies = [(us, n) for key, us, n in rows if re.search(COPY_KERNELS, key)]
     lines = [f"device: {torch.cuda.get_device_name(0)}; arch {cfg.name}",
              f"window: {args.steps} engine steps after {args.warmup_steps}, "
              f"{'per-op' if args.per_op else 'fused'} decode, "
@@ -121,6 +126,8 @@ def main(argv=None) -> int:
              "port kernels, device ms (share of busy, launches): " + ", ".join(
                  f"{k} {us / 1e3:.3f} ({us / busy:.3f}, {n})"
                  for k, (us, n) in port.items()),
+             f"torch copy kernels: {sum(us for us, _ in copies) / 1e3:.3f} "
+             f"ms, {sum(n for _, n in copies)} launches",
              "device time by kernel (ms, launches):"]
     for key, us, n in rows[:25]:
         lines.append(f"  {us / 1e3:10.3f}  {n:6d}  {key[:110]}")

@@ -11,7 +11,9 @@ gate and the ``rwkv_o`` output projection.
 The recurrence runs on the ``wkv6`` kernel on the cuda backend
 (``kernels/wkv6.py``; its plain version on CPU tensors) and on that
 plain version on the reference backend: ``kernels.wkv6.wkv6_plain`` is
-the port of the reference's ``wkv6_scan`` (same layout, state0 in).  A
+the port of the reference's ``wkv6_scan`` (same layout, state0 in).
+Both read r, k and v in the projections' dtype (bf16 when serving)
+and convert exactly, so no f32 copy of them is made.  A
 given state is updated IN PLACE, on the rows ``active`` selects, where
 the reference returns a new state.  Mamba waits for its slice.
 """
@@ -100,8 +102,10 @@ def rwkv_block(cfg: ModelConfig, x: torch.Tensor, params: dict,
         + sh.dot("rwkv_decay", xw, params["decay"]).to(_F32)
     w = torch.exp(-torch.exp(wlog.to(_F64))).to(_F32)
 
-    heads = [t.reshape(B, S, H, hd).to(_F32).contiguous()
-             for t in (r, k, v, w)]
+    # r, k, v as the projections give them (bf16 on the serving path): a
+    # reshape, no copy; the kernel converts on load, the plain version
+    # per token, both exactly
+    heads = [t.reshape(B, S, H, hd) for t in (r, k, v, w)]
     u = params["u"].to(_F32).contiguous()
     wkv = state["wkv"] if state is not None else None
     run = kwkv.wkv6_bshd if sh.backend == "cuda" else kwkv.wkv6_bshd_plain

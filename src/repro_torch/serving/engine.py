@@ -56,11 +56,13 @@ def _rows(cache, slot: int):
 
 
 class ServingEngine:
-    """Continuous-batching engine over a fixed slot arena."""
+    """Continuous-batching engine over a fixed slot arena.  ``device``
+    None runs on CUDA and raises when there is none; pass device="cpu"
+    to run on the CPU (``runtime/train_loop.resolve_device``)."""
 
     def __init__(self, cfg: ModelConfig, program: Program, params, *,
                  n_slots: int, max_len: int, prefill_chunk: int = 32,
-                 kernel_backend: str = "reference", device="cpu",
+                 kernel_backend: str = "reference", device=None,
                  max_prefill_chunks_per_step: int = 1,
                  evict_patience: Optional[int] = None):
         self.cfg = cfg
@@ -69,7 +71,7 @@ class ServingEngine:
         self.n_slots = n_slots
         self.max_len = max_len
         self.prefill_chunk = prefill_chunk
-        self.device = torch.device(device)
+        self.device = tl.resolve_device(device)
         self.pool = SlotPool(n_slots)
         self.sched = Scheduler(
             self.pool, prefill_chunk=prefill_chunk,

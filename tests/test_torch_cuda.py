@@ -439,24 +439,37 @@ def test_sr_round_kernel_bit_exact(dev, n, offset):
 
 
 # (B, S, H, hd, decay): a 32-token PREFILL chunk of one rwkv6-1.6b slot,
-# a DECODE step of 32 slots, a ragged chunk, near-total decay, and the
-# reduced head sizes
+# a DECODE step of 32 slots, a ragged chunk, near-total decay, the
+# reduced head sizes, and chunks of several token tiles (a prompt's
+# 100-token tail, 257 tokens: nine tiles, the last of one token) and a
+# DECODE step on the one-block-a-head plan at hd 32; each with f32 and
+# with bf16 r, k, v (the serving path's projections)
 WKV_CASES = [(1, 32, 32, 64, None), (32, 1, 32, 64, None),
              (2, 37, 4, 64, None), (1, 32, 32, 64, 1e-6),
-             (3, 9, 4, 32, None), (2, 5, 2, 16, None)]
+             (3, 9, 4, 32, None), (2, 5, 2, 16, None),
+             (1, 100, 32, 64, None), (1, 257, 32, 64, None),
+             (3, 70, 2, 16, None), (40, 1, 4, 32, None)]
+RKV_DTYPES = ["float32", "bfloat16"]
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("case", WKV_CASES, ids=str)
-def test_wkv6_kernel_matches_plain(dev, case):
-    B, S, H, hd, decay = case
-    g = torch.Generator(device=dev).manual_seed(6)
+def _wkv_inputs(dev, B, S, H, hd, decay, rkv, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
     rnd = lambda *s: torch.randn(s, generator=g, device=dev)
     r, k, v = (0.5 * rnd(B, S, H, hd) for _ in range(3))
     w = (torch.full((B, S, H, hd), decay, device=dev) if decay
          else 0.45 + 0.5 * torch.sigmoid(rnd(B, S, H, hd)))
     u = 0.1 * rnd(H, hd)
     s0 = 0.3 * rnd(B, H, hd, hd)
+    dt = getattr(torch, rkv)
+    return [t.to(dt) for t in (r, k, v)] + [w, u, s0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rkv", RKV_DTYPES)
+@pytest.mark.parametrize("case", WKV_CASES, ids=str)
+def test_wkv6_kernel_matches_plain(dev, case, rkv):
+    B, S, H, hd, decay = case
+    r, k, v, w, u, s0 = _wkv_inputs(dev, B, S, H, hd, decay, rkv, 6)
     active = torch.ones(B, dtype=torch.bool, device=dev)
     active[B // 2] = B == 1                 # one inactive row when B > 1
     state = s0.clone()
@@ -464,7 +477,7 @@ def test_wkv6_kernel_matches_plain(dev, case):
     shape = {n: c.n for n, c in kwkv.SHAPE_COUNTERS.items()}
     y, s = kwkv.wkv6_bshd(r, k, v, w, u, state, active=active)
     torch.cuda.synchronize()
-    assert kwkv.COUNTER.n == 1 and s is state
+    assert kwkv.COUNTER.n == 1 and s is state and y.dtype == torch.float32
     kind = "step" if S == 1 else "chunk"      # the launch counted by shape
     assert {n: c.n - shape[n] for n, c in kwkv.SHAPE_COUNTERS.items()} == {
         n: int(n == kind) for n in shape}
@@ -485,21 +498,41 @@ def test_wkv6_kernel_matches_plain(dev, case):
 
 
 @pytest.mark.cuda
-def test_wkv6_kernel_chunk_equals_single_steps(dev):
-    """The kernel's per-token arithmetic does not depend on S: a chunk
-    and the same tokens one call at a time give the same bits."""
-    B, S, H, hd = 2, 12, 4, 64
-    g = torch.Generator(device=dev).manual_seed(7)
-    r, k, v = (0.5 * torch.randn((B, S, H, hd), generator=g, device=dev)
-               for _ in range(3))
-    w = 0.45 + 0.5 * torch.sigmoid(torch.randn((B, S, H, hd), generator=g,
-                                               device=dev))
-    u = 0.1 * torch.randn((H, hd), generator=g, device=dev)
+@pytest.mark.parametrize("rkv", RKV_DTYPES)
+@pytest.mark.parametrize("B,S", [(2, 12), (2, 40), (33, 12)])
+def test_wkv6_kernel_chunk_equals_single_steps(dev, B, S, rkv):
+    """The kernel's per-token arithmetic does not depend on S (nor on the
+    plan's tile and column split): a chunk and the same tokens one call
+    at a time give the same bits — at B = 33 the single steps run on the
+    one-block-a-head plan and the chunk on 16-column blocks."""
+    H, hd = 4, 64
+    r, k, v, w, u, _ = _wkv_inputs(dev, B, S, H, hd, None, rkv, 7)
     y, s = kwkv.wkv6_bshd(r, k, v, w, u)
     state = torch.zeros_like(s)
     ys = [kwkv.wkv6_bshd(*(t[:, i:i + 1].contiguous() for t in (r, k, v, w)),
                          u, state)[0] for i in range(S)]
     assert torch.equal(torch.cat(ys, dim=1), y) and torch.equal(state, s)
+    # bf16 r, k, v give the bits of their f32 casts (exact conversion)
+    if rkv == "bfloat16":
+        y32, s32 = kwkv.wkv6_bshd(*(t.float() for t in (r, k, v)), w, u)
+        assert torch.equal(y32, y) and torch.equal(s32, s)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rkv", RKV_DTYPES)
+@pytest.mark.parametrize("B,S", [(1, 32), (32, 1), (1, 257)])
+def test_wkv6_kernel_two_calls_bit_equal(dev, B, S, rkv):
+    """Two calls on the same inputs and state give the same bits."""
+    H, hd = 32, 64
+    r, k, v, w, u, s0 = _wkv_inputs(dev, B, S, H, hd, None, rkv, 8)
+    outs = []
+    for _ in range(2):
+        state = s0.clone()
+        y, _ = kwkv.wkv6_bshd(r, k, v, w, u, state)
+        outs.append((y, state))
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0][0], outs[1][0])
+    assert torch.equal(outs[0][1], outs[1][1])
 
 
 @pytest.mark.cuda

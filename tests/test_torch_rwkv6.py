@@ -174,7 +174,7 @@ def test_wkv6_plain_matches_pallas_interpret(B, S, H, hd, chunk):
                                atol=WKV_TOL)
     # the TPU kernel's (BH, S, hd) fold and the oracle's name agree
     fold = lambda a: torch.from_numpy(a).transpose(1, 2).reshape(
-        B * H, S, hd)
+        B * H, S, hd).contiguous()
     uu = torch.from_numpy(np.tile(u, (B, 1)))
     yf, sf = kwkv.wkv6(fold(r), fold(k), fold(v), fold(w), uu)
     yr, sr = kref.wkv6_ref(fold(r), fold(k), fold(v), fold(w), uu)
@@ -209,8 +209,8 @@ def test_wkv6_chunks_equal_one_call():
                      wkv_inputs(np.random.default_rng(7), B, S, H, hd))
     y_all, s_all = kwkv.wkv6_bshd(r, k, v, w, u)
     state = torch.zeros_like(s_all)
-    ys = [kwkv.wkv6_bshd(r[:, a:b], k[:, a:b], v[:, a:b], w[:, a:b], u,
-                         state)[0] for a, b in ((0, 5), (5, 6), (6, 16))]
+    ys = [kwkv.wkv6_bshd(*(t[:, a:b].contiguous() for t in (r, k, v, w)),
+                         u, state)[0] for a, b in ((0, 5), (5, 6), (6, 16))]
     assert torch.equal(torch.cat(ys, dim=1), y_all)
     assert torch.equal(state, s_all)
 
@@ -230,6 +230,117 @@ def test_wkv6_wrapper_refuses_other_devices():
     r = torch.zeros((1, 2, 1, 16), device="meta")
     with pytest.raises(ValueError, match="meta"):
         kwkv.wkv6_bshd(r, r, r, r, torch.zeros((1, 16), device="meta"))
+
+
+def test_wkv6_wrapper_refuses_f16_and_noncontiguous_inputs():
+    """The kernel's operand checks run on every device: r, k, v bf16 or
+    f32 (one type), w, u and the state f32, every operand contiguous."""
+    B, S, H, hd = 2, 4, 2, 16
+    r, k, v, w, u = (torch.from_numpy(a) for a in
+                     wkv_inputs(np.random.default_rng(9), B, S, H, hd))
+    state = torch.zeros((B, H, hd, hd))
+    bf = [t.to(torch.bfloat16) for t in (r, k, v)]
+    kwkv.wkv6_bshd(*bf, w, u, state)                  # bf16 r, k, v: taken
+    for args in ([r.half(), k.half(), v.half(), w, u],
+                 [bf[0], bf[1], v, w, u],             # mixed r, k, v
+                 [r, k, v, w.to(torch.bfloat16), u],
+                 [r, k, v, w, u.half()]):
+        with pytest.raises(TypeError):
+            kwkv.wkv6_bshd(*args, state)
+    with pytest.raises(TypeError, match="f32"):
+        kwkv.wkv6_bshd(r, k, v, w, u, state.double())
+    strided = torch.zeros((B, 2 * S, H, hd))[:, ::2]
+    for i in range(4):
+        args = [r, k, v, w]
+        args[i] = strided.copy_(args[i])
+        with pytest.raises(TypeError, match="contiguous"):
+            kwkv.wkv6_bshd(*args, u, state)
+    with pytest.raises(TypeError, match="contiguous"):
+        kwkv.wkv6_bshd(r, k, v, w, u, state.transpose(2, 3))
+    with pytest.raises(TypeError, match="contiguous"):
+        kwkv.wkv6(*(t[:, :, 0].transpose(0, 1) for t in (r, k, v, w)),
+                  torch.zeros((S, hd)))
+
+
+@pytest.mark.parametrize("B,S,H,hd", [(1, 32, 32, 64), (32, 1, 32, 64),
+                                      (1, 100, 32, 64), (1, 257, 32, 64),
+                                      (2, 37, 4, 64), (3, 9, 4, 32),
+                                      (2, 5, 2, 16), (1, 1, 1, 16),
+                                      (33, 1, 4, 32), (33, 12, 4, 64)])
+def test_wkv6_plan_covers_every_column_once(B, S, H, hd):
+    """wkv6_plan: block x owns columns (x % (hd/cols)) * cols + [0, cols)
+    of head x // (hd/cols), a thread cv of them for each of the hd / 4
+    row groups; every (b, h, column) once a row group, whole 32-byte
+    sectors of the state rows, shared memory within the card's 227 KB
+    and enough for csrc/wkv6.cu's layout with bf16 or f32 r, k, v."""
+    p = kwkv.wkv6_plan(B, H, S, hd)
+    assert (p.cols, p.cv) in ((8, 1), (16, 1)) + ((hd, 4),) * (hd >= 32)
+    assert hd % p.cols == 0 and p.cols * 4 % 32 == 0
+    ncb, nq = hd // p.cols, p.cols // p.cv
+    assert p.threads == hd // kwkv.ROWS * nq <= 1024
+    # thread t of block x: rows 4 (t // nq) + [0, 4), columns
+    # c0 + cv (t % nq) + [0, cv) of head x // ncb's state
+    tid = np.arange(p.threads)
+    rows = (kwkv.ROWS * (tid // nq))[:, None] + np.arange(kwkv.ROWS)
+    cols = (p.cv * (tid % nq))[:, None] + np.arange(p.cv)
+    owned = np.zeros((B * H, hd, hd), dtype=int)
+    for x in range(p.grid):
+        c0 = (x % ncb) * p.cols
+        np.add.at(owned[x // ncb], (rows[:, :, None],
+                                    c0 + cols[:, None, :]), 1)
+    assert (owned == 1).all()
+    assert 1 <= p.tile <= min(S, kwkv.TILE)
+    assert p.stages == (2 if S > p.tile else 1)
+    for es in (2, 4):                  # csrc/wkv6.cu::smem_need
+        need = (p.stages * p.tile * (2 * hd * es + 4 * hd + p.cols * es)
+                + p.tile * (hd // kwkv.ROWS) * p.cols * 4)
+        assert need <= p.smem <= kwkv.SMEM_MAX
+    if (B, S, H, hd) == (1, 32, 32, 64):      # a one-slot PREFILL chunk
+        assert (p.grid, p.cols, p.cv, p.threads) == (128, 16, 1, 256)
+    if (B, S, H, hd) == (32, 1, 32, 64):      # a DECODE step of 32 slots
+        assert (p.grid, p.cols, p.cv, p.threads) == (1024, 64, 4, 256)
+
+
+def test_wkv6_plan_depends_on_the_shape_alone():
+    """The plan takes (B, H, S, hd) and nothing else — not the dtype, the
+    device or the data — and the same shape always gives the same plan."""
+    import inspect
+    assert list(inspect.signature(kwkv.wkv6_plan).parameters) == [
+        "B", "H", "S", "hd"]
+    shapes = [(1, 32, 32, 64), (32, 32, 1, 64), (1, 32, 257, 64),
+              (2, 4, 37, 32)]
+    assert [kwkv.wkv6_plan(*s) for s in shapes] == [
+        kwkv.wkv6_plan(*s) for s in shapes]
+    # the split changes with B * H and S, the tile with S
+    assert kwkv.wkv6_plan(1, 4, 8, 64).cols == 8
+    assert kwkv.wkv6_plan(32, 32, 2, 64).cols == 16
+    assert kwkv.wkv6_plan(32, 32, 1, 64).cols == 64
+    assert kwkv.wkv6_plan(32, 32, 1, 16).cols == 16
+    assert kwkv.wkv6_plan(1, 32, 100, 64).tile == kwkv.TILE
+
+
+@pytest.mark.parametrize("S", [1, 6, 33])
+def test_wkv6_plain_bf16_rkv_equals_their_f32_casts(S):
+    """bf16 r, k, v give the same bits as their f32 casts (the cast is
+    exact), from a carried state and on the `active` rows."""
+    B, H, hd = 3, 2, 32
+    rng = np.random.default_rng(10 + S)
+    r, k, v, w, u = (torch.from_numpy(a) for a in
+                     wkv_inputs(rng, B, S, H, hd))
+    s0 = torch.from_numpy((0.3 * rng.standard_normal(
+        (B, H, hd, hd))).astype(np.float32))
+    bf = [t.to(torch.bfloat16) for t in (r, k, v)]
+    y, s = kwkv.wkv6_plain(*bf, w, u, s0)
+    y32, s32 = kwkv.wkv6_plain(*(t.float() for t in bf), w, u, s0)
+    assert y.dtype == s.dtype == torch.float32
+    assert torch.equal(y, y32) and torch.equal(s, s32)
+    active = torch.tensor([True, False, True])
+    st, st32 = s0.clone(), s0.clone()
+    yb, _ = kwkv.wkv6_bshd(*bf, w, u, st, active=active)
+    yf, _ = kwkv.wkv6_bshd(*(t.float() for t in bf), w, u, st32,
+                           active=active)
+    assert torch.equal(yb, yf) and torch.equal(st, st32)
+    assert torch.equal(st[1], s0[1])
 
 
 # ---------------------------------------------------------------------------
@@ -318,6 +429,58 @@ def test_rwkv_block_with_state_matches_reference(dtype, backends):
             atol=BLOCK_F32_TOL if dtype == "float32" else STATE_TOL,
             rtol=BLOCK_F32_TOL if dtype == "float32" else STATE_TOL)
         assert np.array_equal(to_np(st["shift"]), to_np(jst["shift"]))
+
+
+@pytest.mark.parametrize("backend", ["reference", "cuda"])
+def test_rwkv_block_passes_rkv_uncopied_with_the_same_bits(monkeypatch,
+                                                           backend):
+    """rwkv_block hands the recurrence the projections' bf16 r, k, v as
+    they are (no f32 copy) and gives the same bits as with the f32 copies
+    it made before, on the reference backend and on the cuda backend's
+    CPU plain path, from a carried state on the `active` rows."""
+    cfg = get_reduced(ARCH)
+    B, S, d = 3, 6, cfg.d_model
+    H, hd = d // cfg.ssm.head_dim, cfg.ssm.head_dim
+    rng = np.random.default_rng(11)
+    gen = torch.Generator().manual_seed(3)
+    p = {k: v.to(torch.bfloat16) for k, v in
+         ssm.rwkv_params(cfg, gen).items()}
+    p["w0"] = torch.from_numpy(
+        (-2 + 0.5 * rng.standard_normal(d)).astype(np.float32))
+    x = torch.from_numpy(rng.standard_normal((B, S, d)).astype(
+        np.float32)).to(torch.bfloat16)
+    wkv0 = torch.from_numpy((0.3 * rng.standard_normal(
+        (B, H, hd, hd))).astype(np.float32))
+    shift0 = torch.from_numpy(rng.standard_normal((B, d)).astype(
+        np.float32)).to(torch.bfloat16)
+    active = torch.tensor([True, False, True])
+    name = "wkv6_bshd" if backend == "cuda" else "wkv6_bshd_plain"
+    orig = getattr(kwkv, name)
+    seen = []
+
+    def spy(r, k, v, w, *rest, **kw):
+        seen.append((r.dtype, k.dtype, v.dtype, w.dtype))
+        return orig(r, k, v, w, *rest, **kw)
+
+    def copying(r, k, v, w, *rest, **kw):     # the f32 copies of before
+        return orig(*(t.to(torch.float32).contiguous()
+                      for t in (r, k, v, w)), *rest, **kw)
+
+    outs = []
+    for fn in (spy, copying):
+        monkeypatch.setattr(kwkv, name, fn)
+        st = {"wkv": wkv0.clone(), "shift": shift0.clone()}
+        with torch.no_grad():
+            out = ssm.rwkv_block(cfg, x, p, PEContext(backend=backend), st,
+                                 active=active)
+        outs.append((out, st))
+    assert seen == [(torch.bfloat16,) * 3 + (torch.float32,)]
+    (out, st), (out_c, st_c) = outs
+    assert out.dtype == torch.bfloat16
+    assert torch.equal(out, out_c)
+    assert torch.equal(st["wkv"], st_c["wkv"])
+    assert torch.equal(st["wkv"][1], wkv0[1])
+    assert not torch.equal(st["wkv"][0], wkv0[0])
 
 
 # ---------------------------------------------------------------------------

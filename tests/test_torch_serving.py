@@ -40,8 +40,8 @@ from repro_torch.kernels import sr_matmul as kmm  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import transformer as tfm  # noqa: E402
 from repro_torch.runtime import train_loop as tl  # noqa: E402
-from repro_torch.serving import (Request, build_engine,  # noqa: E402
-                                 poisson_trace)
+from repro_torch.serving import (Request, ServingEngine,  # noqa: E402
+                                 build_engine, poisson_trace)
 
 MESH1 = MeshSpec(axis_sizes={"data": 1, "model": 1}, batch_axes=("data",))
 ARCH = "qwen2-0.5b"
@@ -292,6 +292,26 @@ def test_build_engine_without_cuda_raises(monkeypatch):
         build_engine(get_reduced(ARCH), n_slots=2, max_len=16)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         build_engine(get_reduced(ARCH), n_slots=2, max_len=16, device="cuda")
+
+
+def test_serving_engine_without_device_raises_and_runs_on_cpu(monkeypatch):
+    """ServingEngine built directly takes CUDA unless the caller asks
+    for the CPU: with no device and no GPU it raises; device="cpu" serves
+    the same tokens as build_engine on the CPU with the same weights."""
+    cfg = get_reduced(ARCH)
+    reqs = mixed_requests(cfg, [5, 9], gen=3, seed=4)
+    want, ref = run(cfg, reqs, n_slots=2)
+    kw = dict(n_slots=2, max_len=32, prefill_chunk=6)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ServingEngine(cfg, ref.program, ref.params, **kw)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ServingEngine(cfg, ref.program, ref.params, device="cuda", **kw)
+    eng = ServingEngine(cfg, ref.program, ref.params, device="cpu", **kw)
+    assert eng.device == torch.device("cpu")
+    assert all(v.device.type == "cpu" for v in leaves(eng.cache).values())
+    with torch.no_grad():
+        assert eng.run(reqs) == want
 
 
 def test_serve_cli_on_cpu_and_without_cuda(monkeypatch, capsys):
