@@ -1151,7 +1151,7 @@ def phase_wkv6(peaks) -> dict:
               f"{g_cold:.4f}ms) plain {plain:.4f}ms bound {b_ms:.4f}ms "
               f"({by})  max_abs_err {err:.3g}; 2 calls bit-equal; plan "
               f"{p.grid} blocks x {p.threads} threads, {p.cols} columns, "
-              f"tile {p.tile} x {p.stages}, {p.smem} B")
+              f"tile {p.tile} x {p.stages}")
         if main:
             tot["ms"] += ms
             tot["graph"] += g_cold

@@ -36,10 +36,9 @@
 //    registers for the whole call: NG = hd / 4 row groups x CW / CV
 //    column threads.  kernels/wkv6.py::wkv6_plan picks one of two
 //    layouts from the shape:
-//    - a chunk: CW = 16 (8 when 16 leaves the card under three quarters
-//      busy), CV = 1, so the serial token loop runs on many threads: a
-//      one-slot chunk at hd 64 is 32 heads x 4 blocks of 256 threads =
-//      128 blocks, one wave of 132 SMs;
+//    - a chunk: CW = 16, CV = 1, so the serial token loop runs on many
+//      threads: a one-slot chunk at hd 64 is 32 heads x 4 blocks of 256
+//      threads = 128 blocks, one wave of 132 SMs;
 //    - a DECODE step with a head for every SM (S = 1, B*H >= 132): one
 //      block a head, CW = hd, CV = 4, each state row read and written
 //      as float4s, so many bytes are in flight (32 slots: 1024 blocks of
@@ -48,7 +47,7 @@
 //      ms cold in L2 against this layout's 0.0122, H100 SXM at 700 W,
 //      chip_smoke.py's phase_wkv6).
 //    A warp covers whole 32-byte sectors of the state rows (CW / CV
-//    threads x CV x 4 bytes, c0 a multiple of 8), read once at the
+//    threads x CV x 4 bytes, c0 a multiple of 16), read once at the
 //    start and written once at the end.
 // 2. The chunk is staged on chip before the recurrence.  cp.async
 //    (16 bytes, L2 only) copies r, k, w (all hd rows) and v (the block's
@@ -75,9 +74,7 @@
 // Alternatives not taken: the y reduction is a shared-memory sum in
 // fixed order rather than warp shuffles (a warp holds two row groups of
 // 16 columns, so a shuffle tree would only save the first of 16 adds);
-// the plan sizes shared memory for f32 inputs whatever their type, so
-// it depends on (B, H, S, hd) alone (bf16 inputs use less of it); and
-// the state is written after the last tile's y sum — written right
+// and the state is written after the last tile's y sum — written right
 // after the last token, before that barrier, a DECODE step measured
 // slower (0.0130–0.0131 ms cold against 0.0122–0.0128, same card).
 //
@@ -200,7 +197,10 @@ __device__ __forceinline__ void store_cols(float* dst, const float (&x)[CV]) {
 
 // Blocks of 256 and 128 threads keep 64 registers a thread, so four or
 // eight fit an SM (a DECODE step's state loads need them in flight);
-// smaller blocks, hd 16's, may take more.
+// smaller blocks, hd 16's, may take more.  At 64 the hd-64 DECODE
+// layout with bf16 r, k, v spills 4 bytes; 80 registers (three blocks
+// an SM) spill none but measured slower: 0.0128-0.0130 ms cold in L2
+// against 0.0122-0.0126 (H100 SXM at 700 W, chip_smoke.py's phase_wkv6).
 constexpr int min_blocks(int nt) { return 1024 / nt < 8 ? 1024 / nt : 8; }
 
 // HD: head size; CW: state columns a block; CV: columns a thread (1, or
@@ -348,11 +348,10 @@ cudaError_t by_type(const Args& a, int B, int bf, int smem, cudaStream_t st) {
             : launch<HD, CW, CV, false>(a, B, smem, st);
 }
 
-// (cols, cv): (8, 1) or (16, 1), or (hd, 4) for hd 32 and 64
+// (cols, cv): (16, 1), or (hd, 4) for hd 32 and 64
 template <int HD>
 cudaError_t by_cols(const Args& a, int B, int cw, int cv, int bf, int smem,
                     cudaStream_t st) {
-  if (cv == 1 && cw == 8) return by_type<HD, 8, 1>(a, B, bf, smem, st);
   if (cv == 1 && cw == 16) return by_type<HD, 16, 1>(a, B, bf, smem, st);
   if constexpr (HD >= 32) {
     if (cv == 4 && cw == HD) return by_type<HD, HD, 4>(a, B, bf, smem, st);
@@ -363,20 +362,18 @@ cudaError_t by_cols(const Args& a, int B, int cw, int cv, int bf, int smem,
 }  // namespace
 
 // r, k, v: bf16 (rkv_bf16 = 1) or f32; w, u, state, y: f32; active:
-// int32; s_in and active may be null.  hd is 16, 32 or 64; cols and
-// cv ((8 | 16, 1) or (hd, 4)), tile and smem come from
-// kernels/wkv6.py::wkv6_plan.  Returns the launch's cudaGetLastError(),
-// or cudaErrorInvalidValue for an hd, cols, cv or tile it does not take
-// or an smem below what the launch needs.
+// int32; s_in and active may be null.  hd is 16, 32 or 64; cols, cv
+// ((16, 1) or (hd, 4)) and tile come from kernels/wkv6.py::wkv6_plan.
+// Returns the launch's cudaGetLastError(), or cudaErrorInvalidValue for
+// an hd, cols, cv or tile it does not take.
 extern "C" int wkv6_launch(const void* r, const void* k, const void* v,
                            const void* w, const void* u, const void* s_in,
                            void* s_out, void* y, const void* active, int B,
                            int H, int S, int hd, int u_per_b, int rkv_bf16,
-                           int cols, int cv, int tile, int smem,
-                           void* stream) {
-  if (tile < 1 || S < 1 ||
-      smem < smem_need(hd, cols, rkv_bf16 ? 2 : 4, tile, S > tile ? 2 : 1))
-    return (int)cudaErrorInvalidValue;
+                           int cols, int cv, int tile, void* stream) {
+  if (tile < 1 || S < 1) return (int)cudaErrorInvalidValue;
+  const int smem =
+      smem_need(hd, cols, rkv_bf16 ? 2 : 4, tile, S > tile ? 2 : 1);
   const Args a{r, k, v, static_cast<const float*>(w),
                static_cast<const float*>(u), static_cast<const float*>(s_in),
                static_cast<float*>(s_out), static_cast<float*>(y),

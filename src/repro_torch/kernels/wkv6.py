@@ -32,6 +32,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.sr_matmul import SMS
 
 COUNTER = build.LaunchCounter("wkv6")
 # the same launches by shape: one token (S = 1, a DECODE step) or a chunk
@@ -41,20 +42,17 @@ HEAD_DIMS = (16, 32, 64)          # csrc/wkv6.cu's instantiations
 RKV_DTYPES = (torch.float32, torch.bfloat16)
 _F32, _F64 = torch.float32, torch.float64
 
-SMS = 132                         # H100 SXM
 TILE = 32                         # tokens staged a stage
 ROWS = 4                          # state rows a thread owns (csrc RPG)
-SMEM_MAX = 232448                 # dynamic shared memory a block can use
 
 
 class WkvPlan(NamedTuple):
     grid: int       # blocks: B * H * (hd // cols), a head's blocks adjacent
-    cols: int       # state (value) columns a block: 8, 16, or hd
+    cols: int       # state (value) columns a block: 16, or hd
     cv: int         # columns a thread: 1, or 4 (float4) with cols = hd
     threads: int    # (hd / ROWS) row groups x (cols / cv)
     tile: int       # tokens staged a stage
     stages: int     # 2 when S spans more than one tile
-    smem: int       # dynamic shared memory bytes (sized for f32 r, k, v)
 
 
 def wkv6_plan(B: int, H: int, S: int, hd: int) -> WkvPlan:
@@ -64,21 +62,17 @@ def wkv6_plan(B: int, H: int, S: int, hd: int) -> WkvPlan:
     hd >= 32 runs one block a head, four columns (a float4 of each state
     row) a thread, so many state bytes are in flight (32 slots x 32
     heads of 64: 1024 blocks of 256 threads).  Otherwise 16 columns a
-    block, one a thread — or 8 when 16 leaves under three quarters of a
-    wave busy — so the serial token loop runs on many threads (a
-    one-slot chunk at hd 64: 32 heads x 4 = 128 blocks of 256).  Tiles
-    of up to TILE tokens, two stages when S spans several.  The bits do
-    not depend on the plan: every sum's order is fixed by hd."""
-    if S == 1 and B * H >= SMS and hd >= 32:
-        cols, cv = hd, 4
-    else:
-        cols, cv = (16 if B * H * (hd // 16) >= SMS * 3 // 4 else 8), 1
+    block, one a thread, so the serial token loop runs on many threads
+    (a one-slot chunk at hd 64: 32 heads x 4 = 128 blocks of 256).
+    Tiles of up to TILE tokens, two stages when S spans several; the
+    kernel sizes its shared memory from these (csrc/wkv6.cu::smem_need).
+    The bits do not depend on the plan: every sum's order is fixed by
+    hd."""
+    cols, cv = (hd, 4) if S == 1 and B * H >= SMS and hd >= 32 else (16, 1)
     tile = min(S, TILE)
     stages = 2 if S > tile else 1
-    smem = (stages * tile * (3 * hd * 4 + cols * 4)
-            + tile * (hd // ROWS) * cols * 4)
     return WkvPlan(B * H * (hd // cols), cols, cv, hd // ROWS * cols // cv,
-                   tile, stages, smem)
+                   tile, stages)
 
 
 def wkv6_plain(r, k, v, w, u, state0: Optional[torch.Tensor] = None):
@@ -106,7 +100,7 @@ def wkv6_plain(r, k, v, w, u, state0: Optional[torch.Tensor] = None):
 
 def _bind(lib: ctypes.CDLL):
     fn = lib.wkv6_launch
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 10 \
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9 \
         + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -163,7 +157,7 @@ def _launch(r, k, v, w, u, state, active, u_per_b: bool):
         build.ptr(state) if state is not None else null, build.ptr(s_out),
         build.ptr(y), build.ptr(act32) if act32 is not None else null,
         B, H, S, hd, int(u_per_b), int(r.dtype == torch.bfloat16), p.cols,
-        p.cv, p.tile, p.smem, build.stream_ptr(dev))
+        p.cv, p.tile, build.stream_ptr(dev))
     if err != 0:
         raise RuntimeError(f"wkv6 kernel launch failed (cudaError {err})")
     COUNTER.n += 1

@@ -271,10 +271,11 @@ def test_wkv6_plan_covers_every_column_once(B, S, H, hd):
     """wkv6_plan: block x owns columns (x % (hd/cols)) * cols + [0, cols)
     of head x // (hd/cols), a thread cv of them for each of the hd / 4
     row groups; every (b, h, column) once a row group, whole 32-byte
-    sectors of the state rows, shared memory within the card's 227 KB
-    and enough for csrc/wkv6.cu's layout with bf16 or f32 r, k, v."""
+    sectors of the state rows, and the shared memory that csrc/wkv6.cu
+    sizes from the plan within the card's 227 KB with bf16 or f32 r, k,
+    v."""
     p = kwkv.wkv6_plan(B, H, S, hd)
-    assert (p.cols, p.cv) in ((8, 1), (16, 1)) + ((hd, 4),) * (hd >= 32)
+    assert (p.cols, p.cv) in ((16, 1),) + ((hd, 4),) * (hd >= 32)
     assert hd % p.cols == 0 and p.cols * 4 % 32 == 0
     ncb, nq = hd // p.cols, p.cols // p.cv
     assert p.threads == hd // kwkv.ROWS * nq <= 1024
@@ -294,7 +295,7 @@ def test_wkv6_plan_covers_every_column_once(B, S, H, hd):
     for es in (2, 4):                  # csrc/wkv6.cu::smem_need
         need = (p.stages * p.tile * (2 * hd * es + 4 * hd + p.cols * es)
                 + p.tile * (hd // kwkv.ROWS) * p.cols * 4)
-        assert need <= p.smem <= kwkv.SMEM_MAX
+        assert need <= 232448          # sm_90's dynamic shared memory
     if (B, S, H, hd) == (1, 32, 32, 64):      # a one-slot PREFILL chunk
         assert (p.grid, p.cols, p.cv, p.threads) == (128, 16, 1, 256)
     if (B, S, H, hd) == (32, 1, 32, 64):      # a DECODE step of 32 slots
@@ -312,7 +313,8 @@ def test_wkv6_plan_depends_on_the_shape_alone():
     assert [kwkv.wkv6_plan(*s) for s in shapes] == [
         kwkv.wkv6_plan(*s) for s in shapes]
     # the split changes with B * H and S, the tile with S
-    assert kwkv.wkv6_plan(1, 4, 8, 64).cols == 8
+    assert kwkv.wkv6_plan(1, 4, 8, 64).cols == 16
+    assert kwkv.wkv6_plan(1, 32, 1, 64).cols == 16
     assert kwkv.wkv6_plan(32, 32, 2, 64).cols == 16
     assert kwkv.wkv6_plan(32, 32, 1, 64).cols == 64
     assert kwkv.wkv6_plan(32, 32, 1, 16).cols == 16
