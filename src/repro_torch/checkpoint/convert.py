@@ -5,8 +5,9 @@ The port keeps the reference's keys and layouts (``embed.table`` (V, d),
 ``groups.u0.attn.qkv`` (n_groups, d, (H+2K)*hd), ``qkv_bias``, ``o``,
 ``ffn.ffn_in`` (n_groups, d, 2f), ``ffn.ffn_out``, ``norm1/2.scale``
 and ``bias``, ``final_norm``, ``lm_head``, and rwkv6's
-``groups.u0.rwkv.{rkvg, decay, o, w0, u, mix}``), so conversion is a
-walk over nested dicts.  bf16 arrays
+``groups.u0.rwkv.{rkvg, decay, o, w0, u, mix}``, and the paper nets'
+``convs`` / ``fcs`` / ``layers`` lists of layer dicts), so conversion is
+a walk over nested dicts and lists.  bf16 arrays
 (numpy has no bf16; they arrive as ml_dtypes' or as uint16 views) are
 carried by bit pattern.
 """
@@ -31,11 +32,14 @@ def _leaf(a, device, dtype: Optional[torch.dtype]) -> torch.Tensor:
 
 def params_from_numpy(tree, device="cpu",
                       dtype: Optional[torch.dtype] = None):
-    """Nested dict of numpy arrays -> the same dict of torch tensors on
-    `device`; floating leaves cast to `dtype` when given."""
+    """Nested dicts / lists of numpy arrays -> the same tree of torch
+    tensors on `device`; floating leaves cast to `dtype` when given.  A
+    list stays a list, so its leaves keep JAX's order (index order)."""
     if isinstance(tree, dict):
         return {k: params_from_numpy(v, device, dtype)
                 for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [params_from_numpy(v, device, dtype) for v in tree]
     return _leaf(tree, device, dtype)
 
 

@@ -18,6 +18,10 @@ fused SR epilogues; both exist in the reference and both are kept.
 Every function takes a ``torch.Generator`` or the bits themselves, so
 tests can inject the reference's threefry bits.
 
+:func:`fixed_quantize` emulates the paper's fixed-point MAC datapath
+(Qm.n: scale, round nearest / SR / SR-LO, saturate, de-scale) for the
+Fig 10 precision study; its SR-LO entropy is the same sliding window.
+
 The bit math runs in int64: torch on the CPU has no uint32 ``add``, and a
 wide add cannot overflow.  The f32 bit pattern is zero-extended, the low
 16 random bits added, the sum shifted right by 16 and its low 16 bits are
@@ -26,6 +30,7 @@ add gives.
 """
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Callable, Optional
 
 import torch
@@ -172,3 +177,72 @@ def sr_by_name(name: str) -> Callable:
     if name == "nearest":
         return lambda x, generator=None: round_nearest_bf16(x)
     raise ValueError(f"unknown rounding mode {name!r}")
+
+
+# ---------------------------------------------------------------------------
+# Fixed-point emulation (Fig 10 / Table 1)
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class FixedPointConfig:
+    total_bits: int = 32
+    frac_bits: int = 16
+    rounding: str = "nearest"      # nearest | sr | sr_lo
+
+    @property
+    def scale(self) -> float:
+        return float(1 << self.frac_bits)
+
+    @property
+    def qmax(self) -> float:
+        return float((1 << (self.total_bits - 1)) - 1)
+
+
+FX16 = FixedPointConfig(total_bits=16, frac_bits=8)
+FX32 = FixedPointConfig(total_bits=32, frac_bits=16)
+FX32_SR = FixedPointConfig(total_bits=32, frac_bits=16, rounding="sr")
+FX32_SR_LO = FixedPointConfig(total_bits=32, frac_bits=16, rounding="sr_lo")
+
+
+def fixed_quantize(x: torch.Tensor, cfg: FixedPointConfig,
+                   generator: Optional[torch.Generator] = None, *,
+                   uniforms: Optional[torch.Tensor] = None,
+                   stream: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Quantize-dequantize through Qm.n fixed point (returns f32).
+
+    Scale by 2^frac_bits, round, saturate to total_bits, de-scale.
+    Rounding 'sr' adds a uniform in [0, 1) before the floor: `uniforms`
+    (x's shape, f32) when given, else drawn from `generator`.  'sr_lo'
+    takes its uniform from the 16-bit sliding window of a shared word
+    stream (``ceil(n/32)+1`` 32-bit words): `stream` when given, else
+    drawn from `generator`.
+    """
+    x = x.to(torch.float32)
+    scaled = x * cfg.scale
+    if cfg.rounding == "nearest":
+        q = torch.round(scaled)
+    else:
+        if cfg.rounding == "sr":
+            if uniforms is None:
+                if generator is None:
+                    raise ValueError("stochastic rounding needs a generator "
+                                     "or uniforms")
+                uniforms = torch.rand(x.shape, generator=generator,
+                                      dtype=torch.float32,
+                                      device=generator.device)
+            u = uniforms.to(device=x.device, dtype=torch.float32)
+        elif cfg.rounding == "sr_lo":
+            n = x.numel()
+            if stream is None:
+                if generator is None:
+                    raise ValueError("stochastic rounding needs a generator "
+                                     "or a stream")
+                stream = _words((n + 31) // 32 + 1, generator)
+            r16 = sliding_window_bits(stream.to(x.device), n)
+            u = (r16.to(torch.float32) / 65536.0).reshape(x.shape)
+        else:
+            raise ValueError(f"unknown rounding {cfg.rounding!r}")
+        q = torch.floor(scaled + u)
+    q = torch.clamp(q, -cfg.qmax - 1, cfg.qmax)
+    return q / cfg.scale

@@ -23,6 +23,23 @@ from repro_torch.engine.context import PEContext
 _F32, _F64 = torch.float32, torch.float64
 
 
+def param_device(generator: Optional[torch.Generator]) -> torch.device:
+    """Where an init puts its tensors: the generator's device, or the
+    meta device (shapes and dtypes only) without a generator."""
+    return generator.device if generator is not None \
+        else torch.device("meta")
+
+
+def param_normal(generator: Optional[torch.Generator], shape: tuple,
+                 std: float = 1.0) -> torch.Tensor:
+    """f32 N(0, std^2) of `shape` drawn from `generator`; without one, an
+    unallocated meta tensor."""
+    if generator is None:
+        return torch.empty(shape, dtype=_F32, device="meta")
+    return torch.randn(shape, generator=generator, dtype=_F32,
+                       device=generator.device) * std
+
+
 def _mean_f32(t: torch.Tensor) -> torch.Tensor:
     """Mean over the last axis of an f32 tensor, summed in f64."""
     return t.to(_F64).mean(dim=-1, keepdim=True).to(_F32)

@@ -703,3 +703,109 @@ def test_generic_path_takes_what_tma_cannot_describe(dev, what):
     assert kmm.PATH_COUNTERS["sm90"].n == before["sm90"]
     torch.testing.assert_close(got, kmm.sr_matmul_plain(a, b), rtol=MM_RTOL,
                                atol=MM_ATOL)
+
+
+# ---------------------------------------------------------------------------
+# The paper networks' product shapes (runtime/paper_step.py)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tdf", [(401408, 3, 64), (387200, 3, 96)],
+                         ids=["vgg16-conv1-B8", "alexnet-conv1-B128"])
+def test_outer_accum_f32_conv_tap_with_three_channels(dev, tdf):
+    """A conv tap of the first conv (Ci = 3): 12-byte rows of X, which
+    take the f32 path's 4-byte cp.async loads, over T ~ 400,000 rows into
+    one (3, Co) tile — split over the reduction, summed in split order:
+    two calls bit-equal."""
+    t, d, f = tdf
+    g = torch.Generator(device=dev).manual_seed(21)
+    x = torch.randn((t, d), generator=g, device=dev)
+    dy = torch.randn((t, f), generator=g, device=dev) * t ** -0.5
+    p = koa.up_plan(x, dy)
+    assert p.path == "f32" and p.splits > 1
+    before = koa.PATH_COUNTERS["f32"].n
+    got = koa.outer_accum(x, dy)
+    assert koa.PATH_COUNTERS["f32"].n == before + 1
+    torch.testing.assert_close(got, koa.outer_accum_plain(x, dy),
+                               rtol=MM_RTOL, atol=MM_ATOL)
+    assert torch.equal(koa.outer_accum(x, dy), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("trans_b", [False, True], ids=["ff", "bp"])
+def test_sr_matmul_f32_skinny_captioning_product(dev, trans_b):
+    """The captioning GRU's input product at B = 8: x (8, 43264) . wx
+    (43264, 30000) as FF, and dG (8, 30000) . wx^T as BP (trans_b, wx
+    read as stored): one 128-row tile of which 8 rows are real."""
+    m, k, n = (8, 43264, 30000) if not trans_b else (8, 30000, 43264)
+    g = torch.Generator(device=dev).manual_seed(22)
+    a = torch.randn((m, k), generator=g, device=dev)
+    w = torch.randn((43264, 30000), generator=g, device=dev) * k ** -0.5
+    assert kmm.operands_plan(a, w, trans_b).path == "f32"
+    before = kmm.PATH_COUNTERS["f32"].n
+    got = kmm.sr_matmul(a, w, trans_b=trans_b)
+    assert kmm.PATH_COUNTERS["f32"].n == before + 1
+    torch.testing.assert_close(got, kmm.sr_matmul_plain(a, w,
+                                                        trans_b=trans_b),
+                               rtol=MM_RTOL, atol=MM_ATOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("role", ["ff", "bp", "up"])
+@pytest.mark.parametrize("k", [4096, 9216])
+def test_fc_products_with_1000_classes(dev, role, k):
+    """The last FC layer of AlexNet / VGG-16 (4096 -> 1000) at B = 128,
+    and the first's K = 9216, in bf16 on the sm90 path: FF x . W, BP
+    dY . W^T (K = 1000), UP X^T dY (F = 1000)."""
+    g = torch.Generator(device=dev).manual_seed(23)
+    before = {p: c.n for p, c in kmm.PATH_COUNTERS.items()}
+    up_before = {p: c.n for p, c in koa.PATH_COUNTERS.items()}
+    if role == "up":
+        x = torch.randn((128, k), generator=g, device=dev).bfloat16()
+        dy = (torch.randn((128, 1000), generator=g, device=dev)
+              * 128 ** -0.5).bfloat16()
+        assert koa.up_plan(x, dy).path == "sm90"
+        got, want = koa.outer_accum(x, dy), koa.outer_accum_plain(x, dy)
+        assert koa.PATH_COUNTERS["sm90"].n == up_before["sm90"] + 1
+    else:
+        w = (torch.randn((k, 1000), generator=g, device=dev)
+             * k ** -0.5).bfloat16()
+        a = torch.randn((128, k if role == "ff" else 1000), generator=g,
+                        device=dev).bfloat16()
+        tb = role == "bp"
+        assert kmm.operands_plan(a, w, tb).path == "sm90"
+        got = kmm.sr_matmul(a, w, trans_b=tb)
+        want = kmm.sr_matmul_plain(a, w, trans_b=tb)
+        assert kmm.PATH_COUNTERS["sm90"].n == before["sm90"] + 1
+    torch.testing.assert_close(got, want, rtol=MM_RTOL, atol=MM_ATOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [(11, 4, "VALID", 99, 3, 96, 4),
+                                  (5, 1, "SAME", 27, 96, 256, 2),
+                                  (3, 1, "SAME", 56, 3, 64, 4)],
+                         ids=["alexnet-conv1", "alexnet-conv2", "vgg-conv1"])
+def test_conv_up_as_matmul_matches_autograd_conv_dw(dev, case):
+    """The Fig 6 lowering on the card — one f32 outer_accum launch a tap
+    — against autograd's conv dW in f64: an f32 sum in another order,
+    within 1e-4 of the largest |dW|."""
+    from repro_torch.models import cnn
+    k, s, pad, hw, ci, co, B = case
+    g = torch.Generator(device=dev).manual_seed(24)
+    ho = (hw - k) // s + 1 if pad == "VALID" else hw
+    x = torch.randn((B, hw, hw, ci), generator=g, device=dev)
+    dy = torch.randn((B, ho, ho, co), generator=g, device=dev)
+    before = (koa.COUNTER.n, koa.PATH_COUNTERS["f32"].n)
+    got = cnn.conv_up_as_matmul(x, dy, k, s, pad, backend="cuda")
+    assert koa.COUNTER.n - before[0] == k * k
+    assert koa.PATH_COUNTERS["f32"].n - before[1] == k * k
+    w = torch.zeros((co, ci, k, k), dtype=torch.float64, device=dev,
+                    requires_grad=True)
+    y = torch.nn.functional.conv2d(x.double().permute(0, 3, 1, 2), w,
+                                   stride=s,
+                                   padding=k // 2 if pad == "SAME" else 0)
+    dw, = torch.autograd.grad(y, w, dy.double().permute(0, 3, 1, 2))
+    want = dw.permute(2, 3, 1, 0)
+    err = float((got.double() - want).abs().max())
+    assert err <= 1e-4 * float(want.abs().max())
