@@ -1744,10 +1744,13 @@ PAPER_STEPS = 4
 PAPER_GRAD_T = {"paper-captioning-gru": 2}
 # step-0 gradients, cuda against reference backend: leaves computed in
 # f32 (the GRUs' weights) leaf by leaf within GRAD_REL, the loss within
-# PAPER_F32_LOSS; leaves computed in bf16 (convs, FC and MLP layers) as a
-# whole in L2 norm, no farther from the reference's than the reference's
-# bf16 gradients lie from its own f32-compute gradients (the witness),
-# the loss within PAPER_BF16_LOSS (bf16 logits)
+# PAPER_F32_LOSS; leaves computed in bf16 held in L2 norm no farther from
+# the reference's than the reference's bf16 gradients lie from its own
+# f32-compute gradients (the witness): the FC and MLP leaves, which
+# sr_matmul and outer_accum compute, each against its own witness; the
+# conv leaves (cuDNN on both sides, where a one-ulp change can move a
+# max-pool's argmax) as a whole; the loss within PAPER_BF16_LOSS (bf16
+# logits)
 PAPER_F32_LOSS, PAPER_BF16_LOSS = 1e-5, 1e-2
 # conv_up_as_matmul against autograd's conv dW in f64: an f32 sum over
 # up to 400k positions in another order
@@ -1848,16 +1851,31 @@ def paper_grad_check(net, params, batch) -> None:
     if bf16:
         losses["witness"], wit = _paper_grads(net, params, batch,
                                               "reference", torch.float32)
-        l2 = _l2_rel(grads["cuda"], grads["ref"], bf16)
-        wl2 = _l2_rel(grads["ref"], wit, bf16)
-        worst = max(bf16, key=lambda p: _l2_rel(grads["cuda"], grads["ref"],
-                                                 [p]))
-        msg.append(f"bf16 leaves: L2 rel {l2:.3g} against the witness "
-                   f"(reference bf16 vs f32 compute) {wl2:.3g}; worst leaf "
-                   f"{worst} L2 rel "
-                   f"{_l2_rel(grads['cuda'], grads['ref'], [worst]):.3g}")
-        check(l2 <= wl2, f"{net.name} step-0 bf16 gradients: L2 rel {l2:.3g}"
-              f" exceeds the reference's own bf16 error {wl2:.3g}")
+        conv = [p for p in bf16 if "convs/" in p]
+        fc = [p for p in bf16 if p not in conv]
+        if conv:
+            l2 = _l2_rel(grads["cuda"], grads["ref"], conv)
+            wl2 = _l2_rel(grads["ref"], wit, conv)
+            msg.append(f"bf16 conv leaves as a whole: L2 rel {l2:.3g} "
+                       f"against the witness (reference bf16 vs f32 "
+                       f"compute) {wl2:.3g}")
+            check(l2 <= wl2, f"{net.name} step-0 bf16 conv gradients: L2 "
+                  f"rel {l2:.3g} exceeds the reference's own bf16 error "
+                  f"{wl2:.3g}")
+        ratio = {}
+        for p in fc:
+            l2 = _l2_rel(grads["cuda"], grads["ref"], [p])
+            wl2 = _l2_rel(grads["ref"], wit, [p])
+            ratio[p] = l2 / max(wl2, 1e-300)
+            check(l2 <= wl2, f"{net.name} step-0 bf16 gradient of {p}: L2 "
+                  f"rel {l2:.3g} exceeds the reference's own bf16 error "
+                  f"{wl2:.3g} on that leaf")
+        if fc:
+            worst = max(ratio, key=ratio.get)
+            msg.append(f"bf16 FC leaves each against its witness: worst "
+                       f"{worst} L2 rel "
+                       f"{_l2_rel(grads['cuda'], grads['ref'], [worst]):.3g}"
+                       f" = {ratio[worst]:.3g} of its witness")
         del wit
     tol = PAPER_BF16_LOSS if net.kind in ("cnn", "mlp") else PAPER_F32_LOSS
     lrel = abs(losses["cuda"] / losses["ref"] - 1)
@@ -1953,7 +1971,8 @@ def paper_shape_rows(net, shapes: dict, peaks) -> list:
             lib = functools.partial(torch.matmul, a, wt)
             nbytes = a.element_size() * (m * k + k * n) + 4 * m * n
             what = f"M={m} K={k} N={n} trans_b={int(tb)}"
-            src = "sr_matmul.cu", "src/repro/kernels/sr_matmul.py:96"
+            src = ("sr_matmul.cu", "src/repro/kernels/sr_matmul.py:96",
+                   "repro/kernels/sr_matmul.py::sr_matmul")
         else:
             x = torch.randn((k, m), generator=gen, device="cuda").to(dtype)
             dy = (torch.randn((k, n), generator=gen, device="cuda")
@@ -1965,12 +1984,13 @@ def paper_shape_rows(net, shapes: dict, peaks) -> list:
             lib = functools.partial(torch.matmul, xt, dy)
             nbytes = x.element_size() * k * (m + n) + 4 * m * n
             what = f"T={k} D={m} F={n}"
-            src = "outer_accum.cu", "src/repro/kernels/outer_accum.py:80"
+            src = ("outer_accum.cu", "src/repro/kernels/outer_accum.py:80",
+                   "repro/kernels/outer_accum.py::outer_accum")
         check(p.path == ("f32" if f32 else "sm90"),
               f"{net.name} {kern} {role} {what} {dt}: {plan_txt(p)}")
         got, want = call(), plain()
         torch.cuda.synchronize()
-        ea, _ = errs(got, want)
+        ea, er = errs(got, want)
         check(torch.allclose(got, want, rtol=MM_RTOL, atol=MM_ATOL),
               f"{net.name} {kern} {role} {what} {dt}: max abs err {ea:.3g}")
         det = ""
@@ -1999,7 +2019,8 @@ def paper_shape_rows(net, shapes: dict, peaks) -> list:
             "source": ("src/repro_torch/csrc/sgemm_sm90.cuh" if f32
                        else "src/repro_torch/csrc/gemm_sm90.cuh"),
             "entry": f"src/repro_torch/csrc/{src[0]}", "replaces": src[1],
-            "max_abs_err": ea, "ms": ms, "kernel_ms": ms, "graph_ms": g_ms,
+            "tpu_kernel": src[2], "max_abs_err": ea, "max_rel_err": er,
+            "ms": ms, "kernel_ms": ms, "graph_ms": g_ms,
             "plain_ms": p_ms, "library_ms": l_ms,
             "library_graph_ms": gl_ms, "bound_ms": b_ms, "bound_by": by,
             "plan": list(p), "per_step": per_step, "launches": launches,
@@ -2020,7 +2041,8 @@ def phase_conv_up(peaks) -> dict:
     from repro_torch.models import cnn
     from repro_torch.runtime import paper_step as ps
     gen = torch.Generator(device="cuda").manual_seed(9)
-    worst, tot = 0.0, {"ms": 0.0, "graph": 0.0, "plain": 0.0, "lib": 0.0,
+    worst = worst_rel = 0.0
+    tot = {"ms": 0.0, "graph": 0.0, "plain": 0.0, "lib": 0.0,
                        "bound": 0.0}
     by_ms = {"bytes": 0.0, "operations": 0.0}
     launches = 0
@@ -2060,6 +2082,7 @@ def phase_conv_up(peaks) -> dict:
                 scale = float(want.abs().max())
                 err = float((got.double() - want).abs().max())
                 worst = max(worst, err)
+                worst_rel = max(worst_rel, errs(got, want)[1])
                 check(err <= CONV_UP_REL * scale,
                       f"conv_up {name} conv{i + 1}: max abs err {err:.3g} "
                       f"of max |dW| {scale:.3g} (tol {CONV_UP_REL})")
@@ -2104,7 +2127,8 @@ def phase_conv_up(peaks) -> dict:
             "source": "src/repro_torch/csrc/sgemm_sm90.cuh",
             "entry": "src/repro_torch/csrc/outer_accum.cu",
             "replaces": "src/repro/kernels/outer_accum.py:80",
-            "max_abs_err": worst, "ms": tot["ms"], "kernel_ms": tot["ms"],
+            "tpu_kernel": "repro/kernels/outer_accum.py::outer_accum",
+            "max_abs_err": worst, "max_rel_err": worst_rel, "ms": tot["ms"], "kernel_ms": tot["ms"],
             "graph_ms": tot["graph"], "plain_ms": tot["plain"],
             "library_ms": tot["lib"], "bound_ms": tot["bound"],
             "bound_by": max(by_ms, key=by_ms.get), "launches": launches,

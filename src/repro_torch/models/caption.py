@@ -35,10 +35,10 @@ def n_features(ccfg: CNNConfig) -> int:
     return hw * hw * ch
 
 
-def init(generator: Optional[torch.Generator], gcfg=CAPTION_GRU,
+def init(generator: torch.Generator, gcfg=CAPTION_GRU,
          ccfg: CNNConfig = CAPTION_CNN) -> dict:
-    """{"cnn": {"convs": [...]}, "gru": {...}} in f32 (on the meta device
-    without a generator)."""
+    """{"cnn": {"convs": [...]}, "gru": {...}} in f32 on the generator's
+    device."""
     if n_features(ccfg) != gcfg.n_input:
         raise ValueError(f"{ccfg.name} gives {n_features(ccfg)} features, "
                          f"{gcfg.name} takes {gcfg.n_input}")

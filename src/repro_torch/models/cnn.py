@@ -26,7 +26,7 @@ from repro_torch.configs.paper_nets import CNNConfig, ConvSpec
 from repro_torch.core.phases import Phase
 from repro_torch.engine.dispatch import BACKENDS, op_key, pe_dot
 from repro_torch.kernels import outer_accum as koa
-from repro_torch.models.layers import param_device, param_normal
+from repro_torch.models.layers import param_normal
 
 
 def conv_hw(hw: int, c: ConvSpec) -> int:
@@ -41,11 +41,10 @@ def conv_out_hw(hw: int, c: ConvSpec) -> int:
     return hw // c.pool if c.pool else hw
 
 
-def init(generator: Optional[torch.Generator], cfg: CNNConfig) -> dict:
+def init(generator: torch.Generator, cfg: CNNConfig) -> dict:
     """f32 parameters on the generator's device: He-normal conv (HWIO)
-    and FC (in, out) weights, zero biases.  generator=None gives the
-    same tree on the meta device."""
-    dev = param_device(generator)
+    and FC (in, out) weights, zero biases."""
+    dev = generator.device
 
     def normal(shape, fan_in):
         return param_normal(generator, shape, (2.0 / fan_in) ** 0.5)

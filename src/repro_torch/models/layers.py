@@ -23,19 +23,9 @@ from repro_torch.engine.context import PEContext
 _F32, _F64 = torch.float32, torch.float64
 
 
-def param_device(generator: Optional[torch.Generator]) -> torch.device:
-    """Where an init puts its tensors: the generator's device, or the
-    meta device (shapes and dtypes only) without a generator."""
-    return generator.device if generator is not None \
-        else torch.device("meta")
-
-
-def param_normal(generator: Optional[torch.Generator], shape: tuple,
+def param_normal(generator: torch.Generator, shape: tuple,
                  std: float = 1.0) -> torch.Tensor:
-    """f32 N(0, std^2) of `shape` drawn from `generator`; without one, an
-    unallocated meta tensor."""
-    if generator is None:
-        return torch.empty(shape, dtype=_F32, device="meta")
+    """f32 N(0, std^2) of `shape` drawn from `generator`, on its device."""
     return torch.randn(shape, generator=generator, dtype=_F32,
                        device=generator.device) * std
 

@@ -21,7 +21,7 @@ from repro_torch.configs.paper_nets import GRUConfig, MLPConfig
 from repro_torch.core.phases import Phase
 from repro_torch.core.program import PEWord
 from repro_torch.engine.dispatch import op_key, pe_dot
-from repro_torch.models.layers import param_device, param_normal
+from repro_torch.models.layers import param_normal
 
 QuantFn = Optional[Callable[[torch.Tensor], torch.Tensor]]
 
@@ -30,21 +30,19 @@ QuantFn = Optional[Callable[[torch.Tensor], torch.Tensor]]
 _GRU_WORD = PEWord(op="gru", ff_dtype="float32", bp_dtype="float32")
 
 
-def gru_init(generator: Optional[torch.Generator], cfg: GRUConfig) -> dict:
-    """f32 parameters on the generator's device (the meta device without
-    one): wx (n_input, 3 n_hidden), wh (n_hidden, 3 n_hidden), b
+def gru_init(generator: torch.Generator, cfg: GRUConfig) -> dict:
+    """f32 parameters on the generator's device: wx (n_input, 3 n_hidden), wh (n_hidden, 3 n_hidden), b
     (3 n_hidden,), wo (n_hidden, n_output)."""
     ni, nh, no = cfg.n_input, cfg.n_hidden, cfg.n_output
     return {"wx": param_normal(generator, (ni, 3 * nh), ni ** -0.5),
             "wh": param_normal(generator, (nh, 3 * nh), nh ** -0.5),
             "b": torch.zeros((3 * nh,), dtype=torch.float32,
-                             device=param_device(generator)),
+                             device=generator.device),
             "wo": param_normal(generator, (nh, no), nh ** -0.5)}
 
 
 def gru_forward(cfg: GRUConfig, params: dict, x: torch.Tensor,
-                quant: QuantFn = None, h0: Optional[torch.Tensor] = None,
-                *, backend: str = "reference",
+                quant: QuantFn = None, *, backend: str = "reference",
                 key: Optional[int] = None) -> tuple:
     """x (B, T, n_input) -> (outputs (B, T, n_output), final h (B,
     n_hidden)).  `key` seeds the words' UP entropy (drawn only by a word
@@ -52,8 +50,7 @@ def gru_forward(cfg: GRUConfig, params: dict, x: torch.Tensor,
     q = (lambda a: a) if quant is None else quant
     wx, wh, b, wo = (params[k] for k in ("wx", "wh", "b", "wo"))
     nh = cfg.n_hidden
-    h = (torch.zeros((x.shape[0], nh), dtype=torch.float32, device=x.device)
-         if h0 is None else h0)
+    h = torch.zeros((x.shape[0], nh), dtype=torch.float32, device=x.device)
 
     def dot(name, a, w):
         k = None if key is None else op_key(key, name)
@@ -88,16 +85,16 @@ def gru_loss(cfg: GRUConfig, params: dict, batch: dict,
 # ---------------------------------------------------------------------------
 
 
-def mlp_init(generator: Optional[torch.Generator], cfg: MLPConfig,
+def mlp_init(generator: torch.Generator, cfg: MLPConfig,
              n_in: int = 2560, n_out: int = 256) -> dict:
-    """{"layers": [{"w" (in, out), "b"}, ...]} in f32 (on the meta device
-    without a generator)."""
+    """{"layers": [{"w" (in, out), "b"}, ...]} in f32 on the generator's
+    device."""
     widths = [n_in, *cfg.widths, n_out]
     return {"layers": [
         {"w": param_normal(generator, (widths[i], widths[i + 1]),
                            widths[i] ** -0.5),
          "b": torch.zeros((widths[i + 1],), dtype=torch.float32,
-                          device=param_device(generator))}
+                          device=generator.device)}
         for i in range(len(widths) - 1)]}
 
 

@@ -49,10 +49,8 @@ def paper_net(name: str) -> PaperNet:
     return PaperNet(name, kind, cfg)
 
 
-def init_params(net: PaperNet,
-                generator: Optional[torch.Generator]) -> dict:
-    """f32 parameters on the generator's device (the meta device, nothing
-    allocated, without one)."""
+def init_params(net: PaperNet, generator: torch.Generator) -> dict:
+    """f32 parameters on the generator's device."""
     if net.kind == "cnn":
         return cnn.init(generator, net.cfg)
     if net.kind == "mlp":
@@ -91,11 +89,10 @@ def synthetic_batch(net: PaperNet, batch: int,
 
 def loss_fn(net: PaperNet, params: dict, batch: dict, *,
             backend: str = "reference", key: Optional[int] = None,
-            quant: rnn.QuantFn = None,
             compute_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
     """The net's training loss: cross-entropy for a CNN, MSE for the rest
-    (`quant` is the GRU's fixed-point hook; `compute_dtype` that of the
-    CNN, MLP and captioning convs — the GRU computes in f32)."""
+    (`compute_dtype` is that of the CNN, MLP and captioning convs; the
+    GRU computes in f32)."""
     if net.kind == "cnn":
         return cnn.loss_fn(net.cfg, params, batch, backend=backend, key=key,
                            compute_dtype=compute_dtype)
@@ -104,16 +101,14 @@ def loss_fn(net: PaperNet, params: dict, batch: dict, *,
                             key=key, compute_dtype=compute_dtype)
         return torch.mean((y - batch["y"]) ** 2)
     if net.kind == "gru":
-        return rnn.gru_loss(net.cfg, params, batch, quant, backend=backend,
-                            key=key)
+        return rnn.gru_loss(net.cfg, params, batch, backend=backend, key=key)
     return caption.loss_fn(params, batch, gcfg=net.cfg, ccfg=net.cnn,
                            backend=backend, key=key,
                            compute_dtype=compute_dtype)
 
 
 def make_paper_step(net: PaperNet, *, lr: float, backend: str = "reference",
-                    device=None, writeback: Optional[FixedPointConfig] = None,
-                    quant: rnn.QuantFn = None):
+                    device=None, writeback: Optional[FixedPointConfig] = None):
     """``step(params, batch, key, generator=None) -> (new params,
     {"loss", "grad_norm"})``: one SGD step of `net` on `device` (CUDA,
     or raise, unless the caller names one).  With `writeback` every new
@@ -132,8 +127,7 @@ def make_paper_step(net: PaperNet, *, lr: float, backend: str = "reference",
         # the step's UP entropy: only the cuda backend draws any
         up = fold_key(key, 1) if backend == "cuda" else None
         with torch.enable_grad():
-            loss = loss_fn(net, req, batch, backend=backend, key=up,
-                           quant=quant)
+            loss = loss_fn(net, req, batch, backend=backend, key=up)
             grads = torch.autograd.grad(loss, leaves)
         with torch.no_grad():
             new = [p - lr * g for p, g in zip(leaves, grads)]
