@@ -66,7 +66,17 @@ port (``src/repro_torch``), never JAX or the JAX package, and:
    a conv tap) at AlexNet's five convs and VGG-16's first at full
    resolution against autograd's conv dW; prints each net's step time,
    throughput, TFLOP/s and peak memory, and Fig 16's std/mean of
-   TFLOP/s across the five.
+   TFLOP/s across the five;
+7. trains rwkv6-1.6b: holds wkv6_bwd (the recurrence's gradient,
+   ``csrc/wkv6_bwd.cu``) against its plain version at the training shape
+   (B=4, S=256, 32 heads of 64, bf16 r, k, v), at head_dim 16 and 32, at
+   S = 1 and 33 and under near-total decay, two calls bit-equal, and
+   times it; four full-width layers under ``fp32``, step-0 loss and
+   every gradient leaf on the cuda backend against the reference
+   backend; then all 24 layers under ``paper_sr_bf16`` for 8 steps
+   through ``launch.train`` — FF / BP / UP through sr_matmul and
+   outer_accum, the recurrence through wkv6 and wkv6_bwd, the writeback
+   through sr_round — counting each kernel's launches per step.
 
 It prints the time targets of the sm90 redesign, of the fused decode
 words' redesign, of the f32 mainloop's and of wkv6's (met or missed; a miss is
@@ -200,7 +210,7 @@ def ptxas_report(log: str) -> list:
     entry function of an -Xptxas -v log; gemm_sm90.cuh's mainloop is
     named by its template arguments <BN, A_MN, B_MN>, sgemm_sm90.cuh's
     by <A_MN, B_MN>, wkv6.cu's by <hd, columns a block, columns a
-    thread, bf16 r/k/v>."""
+    thread, bf16 r/k/v>, wkv6_bwd.cu's by <hd, bf16 r/k/v>."""
     import re
     rows, cur, spill = [], None, (0, 0)
     for line in log.splitlines():
@@ -218,6 +228,9 @@ def ptxas_report(log: str) -> list:
                           cur)
             if g:
                 cur = f"wkv6_kernel<{','.join(g.groups())}>"
+            g = re.search(r"wkv6_bwd_kernelILi(\d+)ELb(\d)E", cur)
+            if g:
+                cur = f"wkv6_bwd_kernel<{','.join(g.groups())}>"
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       line)
@@ -1502,17 +1515,19 @@ def _counters() -> dict:
     from repro_torch.kernels import outer_accum as koa
     from repro_torch.kernels import sr_matmul as kmm
     from repro_torch.kernels import sr_round as ksr
+    from repro_torch.kernels import wkv6 as kwkv
     return {"sr_matmul": kmm.COUNTER, "outer_accum": koa.COUNTER,
             "sr_round": ksr.COUNTER, "fused_attn_unit": kdf.COUNTER,
+            "wkv6": kwkv.COUNTER, "wkv6_bwd": kwkv.BWD_COUNTER,
             **{f"{mod}:{p}": c.PATH_COUNTERS[p]
                for mod, c in (("sr_matmul", kmm), ("outer_accum", koa))
                for p in kmm.PATHS}}
 
 
-def _step0_grads(cfg, program, backend, params, batch, dtype) -> dict:
-    """{leaf path: f32 gradient} of one forward and backward of the
-    training loss (remat block) on `backend`, as the training step takes
-    them."""
+def _step0_grads(cfg, program, backend, params, batch, dtype) -> tuple:
+    """(loss, {leaf path: f32 gradient}) of one forward and backward of
+    the training loss (remat block) on `backend`, as the training step
+    takes them."""
     import torch
     from repro_torch.core.phases import Phase
     from repro_torch.core.rounding import fold_key
@@ -1528,7 +1543,8 @@ def _step0_grads(cfg, program, backend, params, batch, dtype) -> dict:
         loss = tfm.loss_fn(cfg, req, batch, sh, compute_dtype=dtype,
                            remat="block")
         grads = torch.autograd.grad(loss, [p for _, p in leaves])
-    return {path: g.float() for (path, _), g in zip(leaves, grads)}
+    return float(loss.detach()), {
+        path: g.float() for (path, _), g in zip(leaves, grads)}
 
 
 def _grad_rel(got: dict, want: dict) -> tuple:
@@ -1569,9 +1585,9 @@ def phase_train_fp32(cfg) -> None:
         if state0 is None:
             state0 = tl.init_state(cfg4, program, train, gen, opt)
         t0 = time.monotonic()
-        grads[backend] = _step0_grads(cfg4, program, backend,
-                                      state0["params"], batch0,
-                                      torch.float32)
+        _, grads[backend] = _step0_grads(cfg4, program, backend,
+                                         state0["params"], batch0,
+                                         torch.float32)
         state, out = state0, []
         for s in range(2):
             state, met = step_fn(state, pipe.batch_at(s), s)
@@ -1587,8 +1603,8 @@ def phase_train_fp32(cfg) -> None:
     leaf, rel = _grad_rel(grads["cuda"], ref)
     # the control: the same state and batch through bf16 operands
     ctrl_prog = compile_program(cfg4, shape, precision="bf16_nearest")
-    ctrl = _step0_grads(cfg4, ctrl_prog, "cuda", state0["params"], batch0,
-                        torch.bfloat16)
+    _, ctrl = _step0_grads(cfg4, ctrl_prog, "cuda", state0["params"],
+                           batch0, torch.bfloat16)
     c_leaf, c_rel = _grad_rel(ctrl, ref)
     g_rel = abs(gnorms["cuda"] / gnorms["reference"] - 1)
     print(f"[train:fp32] cuda vs reference: step 1 rel "
@@ -1612,16 +1628,19 @@ def phase_train_fp32(cfg) -> None:
           f"lower-precision gradient")
 
 
-def phase_train() -> dict:
+def phase_train(arch: str = "qwen2-0.5b", label: str = "train",
+                per_step_exact: dict = None) -> dict:
     """The training main path: launch.train at full width, paper_sr_bf16,
-    counting each kernel's launches per step."""
+    counting each kernel's launches per step; ``per_step_exact`` {kernel:
+    launches} also holds those kernels to exact counts in every step."""
     import shutil
     import tempfile
     import torch
     from repro_torch.launch import train as launch_train
+    per_step_exact = per_step_exact or {}
     ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_train_")
     args = launch_train.parser().parse_args([
-        "--arch", "qwen2-0.5b", "--kernel-backend", "cuda", "--device",
+        "--arch", arch, "--kernel-backend", "cuda", "--device",
         "cuda", "--precision", "paper_sr_bf16", "--optimizer", "adamw",
         "--remat", "block", "--batch", str(TRAIN_B), "--seq", str(TRAIN_S),
         "--steps", "8", "--log-every", "1", "--ckpt-every", "1000",
@@ -1649,27 +1668,33 @@ def phase_train() -> dict:
     steady = sorted(secs[1:])
     med = steady[len(steady) // 2]
     tok = TRAIN_B * TRAIN_S
-    print(f"[train] qwen2-0.5b 24 layers paper_sr_bf16 adamw remat=block "
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"[{label}] {arch} 24 layers paper_sr_bf16 adamw remat=block "
           f"B={TRAIN_B} S={TRAIN_S}: losses {[round(x, 4) for x in losses]}")
-    print(f"[train] ms/step {[round(x * 1e3, 1) for x in secs]} median "
+    print(f"[{label}] ms/step {[round(x * 1e3, 1) for x in secs]} median "
           f"(steps 1-7) {med * 1e3:.1f}ms, {tok / med:.1f} tokens/s; "
           f"wall {wall:.1f}s incl. init and final checkpoint; peak memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    print(f"[train] launches per step {per_step[-1]}; in the run {totals}")
+          f"{peak:.2f} GiB")
+    print(f"[{label}] launches per step {per_step[-1]}; in the run {totals}")
     check(all(math.isfinite(x) for x in losses), f"non-finite loss {losses}")
     check(len(losses) == 8, f"{len(losses)} training steps, want 8")
     check(losses[-1] < losses[0],
           f"loss did not fall: {losses[0]} -> {losses[-1]}")
     for k in ("sr_matmul", "outer_accum", "sr_round", "sr_matmul:sm90",
-              "outer_accum:sm90"):
+              "outer_accum:sm90", *per_step_exact):
         check(all(p[k] > 0 for p in per_step),
               f"a training step launched {k} no time: {per_step}")
+    for k, n in per_step_exact.items():
+        check(all(p[k] == n for p in per_step),
+              f"a training step launched {k} other than {n} times: "
+              f"{[p[k] for p in per_step]}")
     for k in ("sr_matmul:generic", "outer_accum:generic", "sr_matmul:f32",
               "outer_accum:f32"):
         check(totals[k] == 0, f"the training run launched {k} {totals[k]} "
               f"times (every bf16 product belongs on the sm90 path)")
     return {"counts": totals, "per_step": per_step[-1],
-            "ms_per_step": med * 1e3, "tokens_per_s": tok / med}
+            "ms_per_step": med * 1e3, "tokens_per_s": tok / med,
+            "peak_gib": peak}
 
 
 def phase_train_fp32_full() -> dict:
@@ -2191,6 +2216,180 @@ def phase_paper(peaks) -> list:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# rwkv6-1.6b training: wkv6_bwd, the fp32 check, the bf16 main path
+# ---------------------------------------------------------------------------
+
+# wkv6_bwd against its plain version (f64 sums): f32 sums in another
+# order, each output within this share of its own largest value
+WKV_BWD_REL = 1e-4
+RWKV_LAYERS = 24
+# (label, B, S, H, hd, decay or None for w in (0.45, 0.95), r/k/v dtype)
+WKV_BWD_CASES = (("train", 4, 256, 32, 64, None, "bfloat16"),
+                 ("train f32", 4, 256, 32, 64, None, "float32"),
+                 ("hd16", 4, 256, 128, 16, None, "bfloat16"),
+                 ("hd32", 4, 256, 64, 32, None, "bfloat16"),
+                 ("S=1", 4, 1, 32, 64, None, "bfloat16"),
+                 ("S=33", 4, 33, 32, 64, None, "bfloat16"),
+                 ("strong", 4, 256, 32, 64, 1e-6, "bfloat16"))
+
+
+def phase_wkv6_bwd(peaks) -> dict:
+    """wkv6_bwd (csrc/wkv6_bwd.cu) against wkv6_bwd_plain on the card at
+    WKV_BWD_CASES: each of dr, dk, dv, dw, du within WKV_BWD_REL of its
+    largest value, finite, and two calls bit-equal.  The training shape
+    (B=4, S=256, 32 heads of 64, bf16 r, k, v) is timed in events and in
+    a CUDA graph beside its bound and the plain version."""
+    import torch
+    from repro_torch.kernels import wkv6 as kwkv
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    rnd = lambda *s: torch.randn(s, generator=gen, device="cuda")  # noqa
+    names = ("dr", "dk", "dv", "dw", "du")
+    row, worst_abs, worst_rel = None, 0.0, 0.0
+    for label, B, S, H, hd, decay, dt in WKV_BWD_CASES:
+        rkv = getattr(torch, dt)
+        r, k, v = ((0.5 * rnd(B, S, H, hd)).to(rkv) for _ in range(3))
+        w = (torch.full((B, S, H, hd), decay, device="cuda") if decay
+             else 0.45 + 0.5 * torch.sigmoid(rnd(B, S, H, hd)))
+        u = 0.1 * rnd(H, hd)
+        dy = rnd(B, S, H, hd)
+        args = (r, k, v, w, u, dy)
+        got = kwkv.wkv6_bwd(*args)
+        again = kwkv.wkv6_bwd(*args)
+        want = kwkv.wkv6_bwd_plain(*args)
+        torch.cuda.synchronize()
+        rels = {}
+        for nm, g, g2, wv in zip(names, got, again, want):
+            check(bool(torch.isfinite(g).all()),
+                  f"wkv6_bwd {label}: non-finite {nm}")
+            check(torch.equal(g, g2), f"wkv6_bwd {label}: two calls differ "
+                  f"in {nm}")
+            err = float((g - wv).abs().max())
+            big = float(wv.abs().max())
+            rels[nm] = err / max(big, 1e-30)
+            worst_abs = max(worst_abs, err)
+            check(err <= WKV_BWD_REL * big,
+                  f"wkv6_bwd {label} (B={B} S={S} H={H} hd={hd}): {nm} max "
+                  f"abs err {err:.3g} against its largest {big:.3g} "
+                  f"(share {WKV_BWD_REL})")
+        worst_rel = max(worst_rel, max(rels.values()))
+        print(f"[wkv6_bwd] {label:<9} B={B} S={S} H={H} hd={hd} r,k,v {dt}: "
+              f"max abs err / largest "
+              f"{', '.join(f'{n} {x:.3g}' for n, x in rels.items())}; "
+              f"2 calls bit-equal")
+        if label != "train":
+            continue
+        ms = time_ms(lambda: kwkv.wkv6_bwd(*args), iters=10)
+        g_ms = time_graph_ms(lambda: kwkv.wkv6_bwd(*args), iters=10)
+        plain = time_ms(lambda: kwkv.wkv6_bwd_plain(*args), iters=2,
+                        warmup=1)
+        n_tok = B * S * H * hd
+        # r, k, v in their type, w and dy in, dr, dk, dv, dw out (f32); u
+        # in, du out
+        nbytes = n_tok * (3 * r.element_size() + 8 + 16) + 8 * H * hd
+        # a token and head: the forward recurrence (3 hd^2) and the
+        # reverse step (17 hd^2: dr, dk, dv, dw sums and the G update)
+        flops = 20 * n_tok * hd
+        b_ms, by = bound(nbytes, flops, peaks, f32=True)
+        print(f"[wkv6_bwd] {label} B={B} S={S} H={H} hd={hd}: kernel "
+              f"{ms:.4f}ms (in a CUDA graph {g_ms:.4f}ms) plain "
+              f"{plain:.4f}ms bound {b_ms:.4f}ms ({by}: {flops / 1e9:.3f} "
+              f"GFLOP f32, {nbytes / 1e6:.1f} MB); graph / bound "
+              f"{g_ms / b_ms:.2f}; one block a (b, h): {B * H} blocks x "
+              f"{(hd // 4) ** 2} threads, tile {kwkv.BWD_TILE}")
+        row = {"name": "wkv6_bwd", "route": "cuda",
+               "source": "src/repro_torch/csrc/wkv6_bwd.cu",
+               "replaces": "src/repro/models/ssm.py:82",
+               "tpu_kernel": None, "ms": ms, "kernel_ms": ms, "graph_ms": g_ms,
+               "plain_ms": plain, "library_ms": None, "bound_ms": b_ms,
+               "bound_by": by,
+               "shapes": "rwkv6-1.6b training: B=4, S=256, H=32, hd=64, "
+                         "bf16 r, k, v, from a zero state; one call a "
+                         "layer a step"}
+    row["max_abs_err"] = worst_abs
+    row["max_rel_of_largest"] = worst_rel
+    return row
+
+
+def phase_train_rwkv6_fp32(rcfg) -> None:
+    """Four full-width rwkv6-1.6b layers under fp32 (remat block, B=4,
+    S=256, random layernorm scales and biases): step-0 loss and every
+    gradient leaf, the cuda backend (f32 sr_matmul / outer_accum, wkv6,
+    wkv6_bwd) against the reference backend (f64-accumulated products,
+    the plain recurrence and its plain reverse), TF32 off.  Each leaf
+    within GRAD_REL of its largest value, the loss within TRAIN_RTOL[0];
+    every product on the f32 path; each layer's recurrence launched
+    twice (remat block) and its backward once."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import TrainConfig
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core.program import compile_program
+    from repro_torch.data import SyntheticLM
+    from repro_torch.runtime import train_loop as tl
+    n = 4
+    cfg4 = dataclasses.replace(rcfg, n_layers=n)
+    shape = ShapeConfig("smoke", TRAIN_S, TRAIN_B, "train")
+    program = compile_program(cfg4, shape, precision="fp32")
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    train = TrainConfig(precision="fp32", kernel_backend="cuda",
+                        remat="block")
+    params = tl.init_state(cfg4, program, train, gen)["params"]
+    for norm in (params["groups"]["u0"]["norm1"],
+                 params["groups"]["u0"]["norm2"], params["final_norm"]):
+        for key, base in (("scale", 1.0), ("bias", 0.0)):
+            norm[key].copy_(base + 0.1 * torch.randn(
+                norm[key].shape, generator=gen, device="cuda"))
+    batch0 = {k: torch.as_tensor(v, device="cuda")
+              for k, v in SyntheticLM(cfg4, shape).batch_at(0).items()}
+    counters = _counters()
+    out = {}
+    for backend in ("reference", "cuda"):
+        for c in counters.values():
+            c.reset()
+        t0 = time.monotonic()
+        loss, grads = _step0_grads(cfg4, program, backend, params, batch0,
+                                   torch.float32)
+        torch.cuda.synchronize()
+        counts = {k: c.n for k, c in counters.items()}
+        out[backend] = (loss, grads, counts)
+        print(f"[train:rwkv6:fp32] {backend:<9} {n} layers B={TRAIN_B} "
+              f"S={TRAIN_S}: step-0 loss {loss!r} "
+              f"({time.monotonic() - t0:.1f}s); launches "
+              f"{ {k: v for k, v in counts.items() if v} }")
+    (lr, gr, cr), (lc, gc, cc) = out["reference"], out["cuda"]
+    leaf, rel = _grad_rel(gc, gr)
+    l_rel = abs(lc / lr - 1)
+    print(f"[train:rwkv6:fp32] cuda vs reference: loss rel {l_rel:.3g}, "
+          f"worst leaf gradient rel {rel:.3g} ({leaf}); per leaf "
+          + ", ".join(f"{k} {v:.3g}" for k, v in sorted(
+              {k: float((gc[k] - gr[k]).abs().max()
+                        / gr[k].abs().max().clamp_min(1e-30))
+               for k in gr}.items())))
+    check(l_rel <= TRAIN_RTOL[0], f"rwkv6 fp32 step-0 loss: cuda {lc} vs "
+          f"reference {lr} (rtol {TRAIN_RTOL[0]})")
+    check(rel < GRAD_REL, f"rwkv6 fp32 step-0 gradient of {leaf}: rel "
+          f"{rel:.3g} (gate {GRAD_REL})")
+    check(not any(cr.values()), f"the reference backend launched a kernel: "
+          f"{cr}")
+    for k in ("sr_matmul", "outer_accum"):
+        check(cc[k] > 0 and cc[f"{k}:f32"] == cc[k]
+              and cc[f"{k}:sm90"] == 0 and cc[f"{k}:generic"] == 0,
+              f"the rwkv6 fp32 step launched {k} off the f32 path: {cc}")
+    check(cc["wkv6"] == 2 * n and cc["wkv6_bwd"] == n,
+          f"the rwkv6 fp32 step launched wkv6 {cc['wkv6']} and wkv6_bwd "
+          f"{cc['wkv6_bwd']} times (want {2 * n} and {n})")
+
+
+def phase_train_rwkv6() -> dict:
+    """rwkv6-1.6b's training main path: launch.train at full width (24
+    layers, B=4, S=256, paper_sr_bf16, adamw, remat block), 8 steps;
+    every step launches each layer's recurrence twice (its forward and
+    the remat recompute) and its backward once."""
+    return phase_train("rwkv6-1.6b", "train:rwkv6",
+                       {"wkv6": 2 * RWKV_LAYERS, "wkv6_bwd": RWKV_LAYERS})
+
+
 def print_targets(rows: dict) -> None:
     """The redesign's time targets against this run's yardsticks: met or
     missed (a missed target is reported, not failed)."""
@@ -2329,14 +2528,24 @@ def main() -> int:
         phase_decode_launches({r["name"]: r for r in rows})
         torch.cuda.empty_cache()
         paper_rows = phase_paper(peaks)
+        torch.cuda.empty_cache()
+        rows.append(phase_wkv6_bwd(peaks))
+        torch.cuda.empty_cache()
+        phase_train_rwkv6_fp32(rcfg)
+        torch.cuda.empty_cache()
+        rwkv_train = phase_train_rwkv6()
+        serve_counts["wkv6_bwd"] = rwkv_train["counts"]
+        rows[-1]["launches_per_step"] = rwkv_train["per_step"]["wkv6_bwd"]
+        print(f"[train:rwkv6] on {smi}")
     except SmokeFailure as e:
         print(f"[chip_smoke] FAIL: {e}", file=sys.stderr)
         return 1
     # launches: each kernel's count in the main path that runs it — the
     # qwen2 serve run for its PREFILL sr_matmul and fused_attn_unit, the
-    # rwkv6 serve run for its sr_matmul, wkv6 and fused_ffn, the fp32
-    # training run for the f32 rows, the paper_sr_bf16 training run for
-    # the rest (sr_matmul:train is sr_matmul's FF + BP count there)
+    # rwkv6 serve run for its sr_matmul, wkv6 and fused_ffn, the rwkv6
+    # training run for wkv6_bwd, the fp32 training run for the f32 rows,
+    # the paper_sr_bf16 training run for the rest (sr_matmul:train is
+    # sr_matmul's FF + BP count there)
     for r in rows:
         kernel = r["name"].split(":")[0]
         counts = (fp32_full["counts"] if r["name"].endswith(":f32")

@@ -23,6 +23,12 @@ f32 (one type for the three; the kernel converts bf16 on load, which is
 exact); w, u and the state are f32; y is f32.  Every device checks the
 same operands; CPU tensors then take the plain version, CUDA tensors
 launch the kernel or raise.
+
+Training differentiates the recurrence from a zero state through
+:func:`wkv6_train`: the forward above, and as its backward
+:func:`wkv6_bwd` — the hand-written kernel ``csrc/wkv6_bwd.cu`` (no TPU
+kernel: the reference lets XLA differentiate ``wkv6_scan``) — or its
+plain version :func:`wkv6_bwd_plain`, an explicit reverse recurrence.
 """
 from __future__ import annotations
 
@@ -35,6 +41,7 @@ from repro_torch.kernels import build
 from repro_torch.kernels.sr_matmul import SMS
 
 COUNTER = build.LaunchCounter("wkv6")
+BWD_COUNTER = build.LaunchCounter("wkv6_bwd")
 # the same launches by shape: one token (S = 1, a DECODE step) or a chunk
 SHAPE_COUNTERS = {s: build.LaunchCounter(f"wkv6:{s}")
                   for s in ("step", "chunk")}
@@ -44,6 +51,8 @@ _F32, _F64 = torch.float32, torch.float64
 
 TILE = 32                         # tokens staged a stage
 ROWS = 4                          # state rows a thread owns (csrc RPG)
+BWD_TILE = 8                      # csrc/wkv6_bwd.cu's tokens a tile
+PLAIN_BWD_TILE = 32               # wkv6_bwd_plain's tokens a tile
 
 
 class WkvPlan(NamedTuple):
@@ -209,3 +218,160 @@ def wkv6(r, k, v, w, u, state: Optional[torch.Tensor] = None, *,
                 state[:, None] if state is not None else None, active,
                 u_per_b=True)
     return y[:, :, 0], s[:, 0]
+
+
+# ---------------------------------------------------------------------------
+# The gradient (training: from a zero state, no carried state out)
+# ---------------------------------------------------------------------------
+
+
+def wkv6_bwd_plain(r, k, v, w, u, dy):
+    """The recurrence's gradient, written out step by step (no autograd).
+
+    r, k, v, w, dy: (B, S, H, hd); u: (H, hd).  With G_t = dL/dS_t
+    (G_S = 0), running t from S down to 1:
+
+        G_{t-1} = diag(w_t) G_t + r_t (x) dy_t
+        dr_t = (S_{t-1} + diag(u) k_t (x) v_t) dy_t
+        dk_t = G_t v_t + (u . r_t) (v_t . dy_t)
+        dv_t = G_t^T k_t + (r_t . (u . k_t)) dy_t
+        dw_t = rowsum(G_t . S_{t-1})
+        du = sum over b, t of r_t . k_t (v_t . dy_t)
+
+    S_{t-1} is recomputed forward from zeros, a tile of PLAIN_BWD_TILE
+    tokens at a time from the state kept at each tile's start, so memory
+    stays at a tile of states (nothing divides by w, which reaches ~0
+    under strong decay).  The elementwise updates run in f32; every sum
+    runs in f64 and rounds to f32, so a row's result does not depend on
+    the batch shape.  Returns (dr, dk, dv, dw) (B, S, H, hd) and du
+    (H, hd), all f32.
+    """
+    B, S, H, hd = r.shape
+    dev = r.device
+    tile = PLAIN_BWD_TILE
+    uu = u.to(_F32)[..., :, None]                       # (H, hd, 1)
+    at = lambda a, t: a[:, t].to(_F32)                  # noqa: E731
+    s = torch.zeros((B, H, hd, hd), dtype=_F32, device=dev)
+    starts = []
+    for t in range(S):
+        if t % tile == 0:
+            starts.append(s)
+        s = at(w, t)[..., :, None] * s \
+            + at(k, t)[..., :, None] * at(v, t)[..., None, :]
+    dr, dk, dv, dw = (torch.empty((B, S, H, hd), dtype=_F32, device=dev)
+                      for _ in range(4))
+    du = torch.zeros((H, hd), dtype=_F64, device=dev)
+    g = torch.zeros((B, H, hd, hd), dtype=_F32, device=dev)
+    for t0 in reversed(range(0, S, tile)):
+        s, prev = starts[t0 // tile], []
+        for t in range(t0, min(t0 + tile, S)):
+            prev.append(s)
+            s = at(w, t)[..., :, None] * s \
+                + at(k, t)[..., :, None] * at(v, t)[..., None, :]
+        for t in reversed(range(t0, min(t0 + tile, S))):
+            rt, kt, vt, wt, dyt = (at(a, t) for a in (r, k, v, w, dy))
+            sp = prev[t - t0].to(_F64)
+            kv = kt[..., :, None] * vt[..., None, :]
+            gu = g + uu * (rt[..., :, None] * dyt[..., None, :])
+            v64, dy64 = vt.to(_F64), dyt.to(_F64)
+            dr[:, t] = ((sp + (uu * kv).to(_F64)) * dy64[..., None, :]
+                        ).sum(-1).to(_F32)
+            dk[:, t] = (gu.to(_F64) * v64[..., None, :]).sum(-1).to(_F32)
+            dv[:, t] = (gu.to(_F64) * kt.to(_F64)[..., :, None]).sum(-2) \
+                .to(_F32)
+            dw[:, t] = (g.to(_F64) * sp).sum(-1).to(_F32)
+            du += ((rt * kt).to(_F64)
+                   * (v64 * dy64).sum(-1, keepdim=True)).sum(0)
+            g = wt[..., :, None] * g + rt[..., :, None] * dyt[..., None, :]
+    return dr, dk, dv, dw, du.to(_F32)
+
+
+def _bind_bwd(lib: ctypes.CDLL):
+    fn = lib.wkv6_bwd_launch
+    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 5 \
+        + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _check_bwd_operands(r, k, v, w, u, dy) -> None:
+    """The forward's operands (no state) and dy: f32 of r's shape."""
+    _check_operands(r, k, v, w, u, None, None)
+    B, S, H, hd = r.shape
+    if dy.shape != r.shape or dy.dtype != _F32 or dy.device != r.device \
+            or not dy.is_contiguous():
+        raise TypeError(f"wkv6_bwd: dy must be contiguous f32 "
+                        f"{tuple(r.shape)} on {r.device}, got {dy.dtype} "
+                        f"{tuple(dy.shape)} on {dy.device}")
+    if u.shape != (H, hd):
+        raise ValueError(f"wkv6_bwd: u {tuple(u.shape)} for {(H, hd)}")
+
+
+def wkv6_bwd(r, k, v, w, u, dy):
+    """The gradient of :func:`wkv6_bshd`'s y from a zero state, given dy =
+    dL/dy.  r, k, v: (B, S, H, hd) bf16 or f32 (one type); w, dy: f32 of
+    that shape; u: (H, hd) f32; all contiguous.  Returns (dr, dk, dv, dw)
+    (B, S, H, hd) and du (H, hd), all f32.  CPU tensors take
+    :func:`wkv6_bwd_plain`; CUDA tensors launch ``csrc/wkv6_bwd.cu`` (one
+    block a (b, h); du's per-b partials then sum over b) or raise."""
+    _check_bwd_operands(r, k, v, w, u, dy)
+    if r.device.type == "cpu":
+        return wkv6_bwd_plain(r, k, v, w, u, dy)
+    if r.device.type != "cuda":
+        raise ValueError(f"wkv6_bwd: tensors on {r.device}")
+    B, S, H, hd = r.shape
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"wkv6_bwd kernel takes head_dim in {HEAD_DIMS}, "
+                         f"got {hd}")
+    dev = r.device
+    dr, dk, dv, dw = (torch.empty(r.shape, dtype=_F32, device=dev)
+                      for _ in range(4))
+    du_b = torch.empty((B, H, hd), dtype=_F32, device=dev)
+    # the state at every tile's start after the first, a (b, h)'s in a row
+    ntiles = -(-S // BWD_TILE)
+    bounds = torch.empty((B * H, max(ntiles - 1, 1), hd * hd), dtype=_F32,
+                         device=dev)
+    err = _bind_bwd(build.load("wkv6_bwd"))(
+        *(build.ptr(t) for t in (r, k, v, w, u, dy, dr, dk, dv, dw, du_b,
+                                 bounds)),
+        B, H, S, hd, int(r.dtype == torch.bfloat16), build.stream_ptr(dev))
+    if err != 0:
+        raise RuntimeError(f"wkv6_bwd kernel launch failed (cudaError {err})")
+    BWD_COUNTER.n += 1
+    return dr, dk, dv, dw, du_b.sum(0)
+
+
+class _WKV6Train(torch.autograd.Function):
+    """y of the recurrence from zeros, with the backward above.  It saves
+    only r, k, v, w and u; dr, dk, dv come back in r's dtype (as the
+    reference's VJP through ``astype(f32)``), dw and du in f32."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u, plain: bool):
+        ctx.save_for_backward(r, k, v, w, u)
+        ctx.plain = plain
+        y, _ = (wkv6_bshd_plain if plain else wkv6_bshd)(r, k, v, w, u)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        r, k, v, w, u = ctx.saved_tensors
+        bwd = wkv6_bwd_plain if ctx.plain else wkv6_bwd
+        dr, dk, dv, dw, du = bwd(r, k, v, w, u,
+                                 dy.to(_F32).contiguous())
+        return (dr.to(r.dtype), dk.to(k.dtype), dv.to(v.dtype), dw, du,
+                None)
+
+
+def wkv6_train(r, k, v, w, u, state: Optional[torch.Tensor] = None, *,
+               plain: bool = False):
+    """The differentiable recurrence of a training step: y (B, S, H, hd)
+    f32 from a zero state, operands as for :func:`wkv6_bshd`.  The
+    forward is :func:`wkv6_bshd` and the backward :func:`wkv6_bwd` (each
+    its plain version on CPU tensors); ``plain`` runs the plain versions
+    on any device (the reference backend).  Training carries no state:
+    a given one raises (its gradient is not computed)."""
+    if state is not None:
+        raise ValueError("wkv6_train runs from a zero state: a carried "
+                         "state (and a gradient for it) is not supported")
+    return _WKV6Train.apply(r, k, v, w, u, plain)

@@ -33,7 +33,7 @@ PORT_KERNELS = {
     "sr_round": r"rt::sr_round_kernel",
     "fused_attn_unit": r"rt::decode::((norm|gemm)_kernel<0\b|attn_kernel)",
     "fused_ffn": r"rt::decode::(norm|gemm)_kernel<1\b",
-    "wkv6": r"\bwkv6_kernel<"}
+    "wkv6": r"\bwkv6_kernel<", "wkv6_bwd": r"\bwkv6_bwd_kernel<"}
 # torch's copy and dtype-conversion kernel (.to, .contiguous, copy_:
 # direct_copy_kernel_cuda)
 COPY_KERNELS = r"copy_kernel"

@@ -1,12 +1,12 @@
 """Where the training time goes on the GPU: a torch.profiler window.
 
     PYTHONPATH=src python -m repro_torch.launch.profile_train \
-        --out profile_train.txt [--precision fp32]
+        --out profile_train.txt [--precision fp32] [--arch rwkv6-1.6b]
 
-Runs the training CLI's own loop (``launch.train.run``) on qwen2-0.5b at
-full width (random weights from a seed) on the cuda backend under
-paper_sr_bf16 (or ``--precision``; adamw, remat block, B=4, S=256), and
-profiles the steps
+Runs the training CLI's own loop (``launch.train.run``) on qwen2-0.5b (or
+``--arch``) at full width (random weights from a seed) on the cuda
+backend under paper_sr_bf16 (or ``--precision``; adamw, remat block,
+B=4, S=256), and profiles the steps
 after a warm-up.  Prints the window's wall time per step, the device's
 busy and idle share of it, the device time by kernel (sum and launch
 count), the share of the port's kernels, and the host operators with the
@@ -23,9 +23,9 @@ import time
 from repro_torch.launch.profile_serve import PORT_KERNELS, _device_us
 
 WARMUP_STEPS, WINDOW_STEPS = 2, 3
-TRAIN_ARGS = ["--arch", "qwen2-0.5b", "--kernel-backend", "cuda",
-              "--device", "cuda", "--optimizer", "adamw", "--remat",
-              "block", "--batch", "4", "--seq", "256", "--steps",
+TRAIN_ARGS = ["--kernel-backend", "cuda", "--device", "cuda",
+              "--optimizer", "adamw", "--remat", "block", "--batch", "4",
+              "--seq", "256", "--steps",
               str(WARMUP_STEPS + WINDOW_STEPS), "--log-every", "1",
               "--ckpt-every", "1000"]
 
@@ -34,6 +34,8 @@ def main(argv=None) -> int:
     ap.add_argument("--out", default=None, help="also write the report here")
     ap.add_argument("--precision", default="paper_sr_bf16",
                     help="the training precision preset")
+    ap.add_argument("--arch", default="qwen2-0.5b",
+                    help="the model to train (qwen2-0.5b or rwkv6-1.6b)")
     args = ap.parse_args(argv)
 
     import torch
@@ -46,7 +48,7 @@ def main(argv=None) -> int:
     ckpt_dir = tempfile.mkdtemp(prefix="profile_train_")
     train_args = launch_train.parser().parse_args(
         TRAIN_ARGS + ["--precision", args.precision, "--ckpt-dir",
-                      ckpt_dir])
+                      ckpt_dir, "--arch", args.arch])
     prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
     window = {}
 
@@ -81,8 +83,8 @@ def main(argv=None) -> int:
                   key=lambda r: -r[1])
     n = WINDOW_STEPS
     lines = [f"device: {torch.cuda.get_device_name(0)}",
-             f"launch.train {' '.join(TRAIN_ARGS)} --precision "
-             f"{args.precision}: window {n} steps after "
+             f"launch.train --arch {args.arch} {' '.join(TRAIN_ARGS)} "
+             f"--precision {args.precision}: window {n} steps after "
              f"{WARMUP_STEPS}, wall {wall * 1e3 / n:.3f} ms/step (under the "
              f"profiler)",
              f"device busy {busy / 1e3 / n:.3f} ms/step "

@@ -1,5 +1,5 @@
-"""Decoder-only LM: dense attention units (training and serving) and
-RWKV6 units (serving).
+"""Decoder-only LM: dense attention units and RWKV6 units, each trained
+and served.
 
 Parameters keep the reference's pytree layout: per-unit leaves stacked
 over ``n_groups`` scan groups (``params["groups"]["u0"]["attn"]["qkv"]``
@@ -19,9 +19,6 @@ Entry points:
   decode_step(...) — one token per arena row (DECODE word), per-op or
                      fused (one ``decode_fused`` word per layer; an rwkv6
                      unit keeps its mixer per-op and fuses its FF half)
-
-Training runs dense attention units only: the ``wkv6`` kernel has no
-backward yet.
 """
 from __future__ import annotations
 
@@ -141,10 +138,14 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
 # ---------------------------------------------------------------------------
 
 
-def _unit_forward(cfg: ModelConfig, x, up: dict, sh: PEContext, positions):
-    """One dense attention unit over the full sequence.  x: (B, S, d)."""
+def _unit_forward(cfg: ModelConfig, x, up: dict, unit: UnitDesc,
+                  sh: PEContext, positions):
+    """One unit over the full sequence from no state.  x: (B, S, d)."""
     h = apply_norm(cfg, x, up.get("norm1"))
-    x = x + attention_block(cfg, h, up["attn"], sh, positions=positions)
+    if unit.mixer == "attn":
+        x = x + attention_block(cfg, h, up["attn"], sh, positions=positions)
+    else:
+        x = x + rwkv_block(cfg, h, up["rwkv"], sh)
     h2 = apply_norm(cfg, x, up.get("norm2"))
     return x + mlp(cfg, h2, up["ffn"]["ffn_in"], up["ffn"]["ffn_out"], sh)
 
@@ -171,9 +172,6 @@ def group_scan(cfg: ModelConfig, x: torch.Tensor, groups: dict,
     identical across modes; only what autograd saves differs.
     """
     pattern = layer_pattern(cfg)
-    if any(u.mixer != "attn" for u in pattern):
-        raise NotImplementedError(
-            f"{cfg.name}: training waits for a backward of the wkv6 kernel")
     ng = n_groups(cfg)
     modes = [remat] * ng if isinstance(remat, str) else list(remat)
     if len(modes) != ng:
@@ -181,8 +179,8 @@ def group_scan(cfg: ModelConfig, x: torch.Tensor, groups: dict,
                          f"{ng} scan groups")
 
     def group_step(x, gp):
-        for i in range(len(pattern)):
-            x = _unit_forward(cfg, x, gp[f"u{i}"], sh, positions)
+        for i, unit in enumerate(pattern):
+            x = _unit_forward(cfg, x, gp[f"u{i}"], unit, sh, positions)
         return x
 
     for gp, mode in zip(_group_slices(groups, ng), modes):
@@ -211,8 +209,8 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
 
 def head_loss(cfg: ModelConfig, params: dict, hidden: torch.Tensor,
               labels: torch.Tensor, sh: PEContext) -> torch.Tensor:
-    """The loss head on the final-normed hidden states (dense units add
-    no auxiliary loss)."""
+    """The loss head on the final-normed hidden states (no unit adds an
+    auxiliary loss)."""
     return lm_loss_chunked(cfg, hidden, params, labels, sh)
 
 

@@ -56,8 +56,8 @@ def split_microbatches(batch: dict, nm: int) -> dict:
 
 def make_train_step(cfg: ModelConfig, program: Program,
                     train_cfg: TrainConfig):
-    """(train_step, optimizer) of a dense attention model (rwkv6 training
-    waits for a wkv6 backward).  ``train_step(state, batch, key)`` takes
+    """(train_step, optimizer) of a dense attention or rwkv6 model.
+    ``train_step(state, batch, key)`` takes
     the state {"params", "opt", "step"}, a batch of numpy arrays or
     tensors {"tokens", "labels"} and the step's integer key, and returns
     (new state, {"loss", "grad_norm"}) — the tensors of the new state are

@@ -12,8 +12,10 @@ rtol 5e-4 / atol 1e-4 (another accumulation order over K or T up to
 151936 terms, operands scaled so results are O(1)), fused_attn_unit and
 fused_ffn y 2e-2 and caches 6e-2 (bf16 results of f32 sums in another
 order); wkv6 y and state 1e-4 (f32 recurrence, fused multiply-adds and
-another summation order, values O(1)); every SR result bit-equal to the
-plain SR cast of the kernel's own f32 result, and sr_round bit-exact.
+another summation order, values O(1)); wkv6_bwd's outputs within 1e-4
+of each one's largest (64-term f32 sums against f64); every SR result
+bit-equal to the plain SR cast of the kernel's own f32 result, and
+sr_round bit-exact.
 """
 import pytest
 
@@ -533,6 +535,79 @@ def test_wkv6_kernel_two_calls_bit_equal(dev, B, S, rkv):
     torch.cuda.synchronize()
     assert torch.equal(outs[0][0], outs[1][0])
     assert torch.equal(outs[0][1], outs[1][1])
+
+
+# (B, S, H, hd, decay): the training shape of rwkv6-1.6b (B=4, S=256,
+# 32 heads of 64), its head count at hd 16 and 32, one token, 33 tokens
+# (a ragged last tile), and near-total decay
+WKV_BWD_CASES = [(4, 256, 32, 64, None), (4, 256, 128, 16, None),
+                 (4, 256, 64, 32, None), (4, 1, 32, 64, None),
+                 (4, 33, 32, 64, None), (2, 33, 4, 16, None),
+                 (4, 256, 32, 64, 1e-6)]
+# the backward's sums (64-term f32 against the plain version's f64):
+# each output within this share of its own largest value
+WKV_BWD_REL = 1e-4
+
+
+def _wkv_bwd_inputs(dev, B, S, H, hd, decay, rkv, seed):
+    r, k, v, w, u, _ = _wkv_inputs(dev, B, S, H, hd, decay, rkv, seed)
+    g = torch.Generator(device=dev).manual_seed(seed + 100)
+    return r, k, v, w, u, torch.randn((B, S, H, hd), generator=g,
+                                      device=dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rkv", RKV_DTYPES)
+@pytest.mark.parametrize("case", WKV_BWD_CASES, ids=str)
+def test_wkv6_bwd_kernel_matches_plain(dev, case, rkv):
+    args = _wkv_bwd_inputs(dev, *case, rkv, 9)
+    kwkv.BWD_COUNTER.reset()
+    got = kwkv.wkv6_bwd(*args)
+    torch.cuda.synchronize()
+    assert kwkv.BWD_COUNTER.n == 1
+    want = kwkv.wkv6_bwd_plain(*args)
+    for name, g, w in zip(("dr", "dk", "dv", "dw", "du"), got, want):
+        assert g.dtype == torch.float32 and g.shape == w.shape, name
+        assert torch.isfinite(g).all(), name
+        err = float((g - w).abs().max())
+        assert err <= WKV_BWD_REL * float(w.abs().max()), (name, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rkv", RKV_DTYPES)
+def test_wkv6_bwd_kernel_two_calls_bit_equal(dev, rkv):
+    """No float atomics: the same inputs give the same bits."""
+    args = _wkv_bwd_inputs(dev, 4, 256, 32, 64, None, rkv, 10)
+    a, b = kwkv.wkv6_bwd(*args), kwkv.wkv6_bwd(*args)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.cuda
+def test_wkv6_train_runs_both_kernels_and_raises_what_it_does_not_take(dev):
+    r, k, v, w, u, dy = _wkv_bwd_inputs(dev, 2, 40, 4, 64, None, "bfloat16",
+                                        11)
+    leaves = [t.clone().requires_grad_() for t in (r, k, v, w, u)]
+    kwkv.COUNTER.reset()
+    kwkv.BWD_COUNTER.reset()
+    y = kwkv.wkv6_train(*leaves)
+    grads = torch.autograd.grad((y * dy).sum(), leaves)
+    assert (kwkv.COUNTER.n, kwkv.BWD_COUNTER.n) == (1, 1)
+    assert [g.dtype for g in grads] == [torch.bfloat16] * 3 \
+        + [torch.float32] * 2
+    # the forward's and the backward's kernels, their results as they are
+    # (dr, dk, dv rounded to r's dtype)
+    assert torch.equal(y, kwkv.wkv6_bshd(r, k, v, w, u)[0])
+    for g, want in zip(grads, kwkv.wkv6_bwd(r, k, v, w, u, dy)):
+        assert torch.equal(g, want.to(g.dtype))
+    # head_dim 128: no instantiation
+    big = _wkv_bwd_inputs(dev, 1, 4, 2, 128, None, "float32", 12)
+    with pytest.raises(ValueError, match="head_dim"):
+        kwkv.wkv6_bwd(*big)
+    # a carried state: training runs from zeros and has no gradient for it
+    state = torch.zeros((2, 4, 64, 64), device=dev, requires_grad=True)
+    with pytest.raises(ValueError, match="carried state"):
+        kwkv.wkv6_train(*leaves, state)
 
 
 @pytest.mark.cuda

@@ -143,18 +143,6 @@ def test_program_words_match_reference(fused):
                                       for e in jprog.ibuffer_entries()]
 
 
-def test_training_refuses_rwkv6():
-    cfg = get_reduced(ARCH)
-    prog = compile_program(cfg, ShapeConfig("t", 8, 2, "train"))
-    from repro_torch.configs import TrainConfig
-    step, _ = tl.make_train_step(cfg, prog, TrainConfig())
-    state = tl.init_state(cfg, prog, TrainConfig(),
-                          torch.Generator().manual_seed(0))
-    toks = np.zeros((2, 8), np.int32)
-    with pytest.raises(NotImplementedError, match="backward of the wkv6"):
-        step(state, {"tokens": toks, "labels": toks}, 0)
-
-
 # ---------------------------------------------------------------------------
 # wkv6
 # ---------------------------------------------------------------------------
