@@ -2287,9 +2287,12 @@ def phase_wkv6_bwd(peaks) -> dict:
         # r, k, v in their type, w and dy in, dr, dk, dv, dw out (f32); u
         # in, du out
         nbytes = n_tok * (3 * r.element_size() + 8 + 16) + 8 * H * hd
-        # a token and head: the forward recurrence (3 hd^2) and the
-        # reverse step (17 hd^2: dr, dk, dv, dw sums and the G update)
-        flops = 20 * n_tok * hd
+        # what the gradient needs a token and head: one forward recompute
+        # of the state (3 hd^2), the G update (3 hd^2) and the dr, dk, dv,
+        # dw sums (2 hd^2 each); the u terms are rank-1, O(hd).  The
+        # kernel's second forward pass and its u terms in the hd^2 loop
+        # are its own design, not counted
+        flops = 14 * n_tok * hd
         b_ms, by = bound(nbytes, flops, peaks, f32=True)
         print(f"[wkv6_bwd] {label} B={B} S={S} H={H} hd={hd}: kernel "
               f"{ms:.4f}ms (in a CUDA graph {g_ms:.4f}ms) plain "

@@ -20,11 +20,15 @@
 // ~10 torch ops a token in each direction, for each layer, and would keep
 // a (B, H, hd, hd) state a token; this kernel is one launch a layer.
 //
-// What bounds it on the H100: ~10 hd^2 f32 FMAs a token and head (the
-// forward recompute included) on ~6 hd values in and 4 hd out, so by
-// operations (training shape B=4, S=256, H=32, hd=64: ~2.7 GFLOP, 0.04 ms
-// at 67 TFLOP/s f32; ~63 MB, 0.019 ms at 3.35 TB/s).  Its serial chain is
-// two passes over S tokens on one block a head.
+// What bounds it on the H100: the gradient needs 14 hd^2 f32 operations a
+// token and head (one forward recompute of the state, 3; the G update, 3;
+// the dr, dk, dv and dw sums, 2 each; the u terms are rank-1, O(hd)) on
+// ~6 hd values in and 4 hd out, so by operations (training shape B=4,
+// S=256, H=32, hd=64: 1.88 GFLOP, 0.028 ms at 67 TFLOP/s f32; ~63 MB,
+// 0.019 ms at 3.35 TB/s).  This design does more than that: a second
+// forward pass (pass A, then each tile's recompute) and the u terms
+// folded into the hd^2 loop.  Its serial chain is two passes over S
+// tokens on one block a head.
 //
 // Design (simple and deterministic first):
 //

@@ -15,8 +15,8 @@ the port of the reference's ``wkv6_scan`` (same layout, state0 in).
 Both read r, k and v in the projections' dtype (bf16 when serving)
 and convert exactly, so no f32 copy of them is made.  A
 given state is updated IN PLACE, on the rows ``active`` selects, where
-the reference returns a new state.  Training (autograd on, no state)
-differentiates it through ``kernels.wkv6.wkv6_train``: the ``wkv6_bwd``
+the reference returns a new state.  A call without a state (training)
+runs through ``kernels.wkv6.wkv6_train``, whose backward is the ``wkv6_bwd``
 kernel on the cuda backend, the plain reverse recurrence on the
 reference backend.  Mamba waits for its slice.
 """
@@ -84,8 +84,8 @@ def rwkv_block(cfg: ModelConfig, x: torch.Tensor, params: dict,
     """RWKV6 time-mix.  x: (B, S, d) (the normed layer input).  Returns
     out (B, S, d).  With `state` ({"wkv", "shift"} rows of x's batch) the
     recurrence continues it, and both leaves are updated in place on the
-    rows `active` (B,) selects (None = every row).  Without a state and
-    with autograd on, the recurrence is differentiable (from zeros)."""
+    rows `active` (B,) selects (None = every row).  Without a state the
+    recurrence runs from zeros and is differentiable."""
     d = cfg.d_model
     hd = cfg.ssm.head_dim
     H = d // hd
@@ -111,13 +111,12 @@ def rwkv_block(cfg: ModelConfig, x: torch.Tensor, params: dict,
     # per token, both exactly
     heads = [t.reshape(B, S, H, hd) for t in (r, k, v, w)]
     u = params["u"].to(_F32).contiguous()
-    if state is None and torch.is_grad_enabled():
+    if state is None:
         y = kwkv.wkv6_train(*heads, u, plain=sh.backend != "cuda")
     else:
         run = (kwkv.wkv6_bshd if sh.backend == "cuda"
                else kwkv.wkv6_bshd_plain)
-        y, _ = run(*heads, u, state["wkv"] if state is not None else None,
-                   active=active)
+        y, _ = run(*heads, u, state["wkv"], active=active)
     if state is not None:
         last = x[:, -1].to(state["shift"].dtype)
         if active is None:

@@ -77,13 +77,13 @@ BWD_BF16_REL = 2e-2
 # rwkv_block: f32 (measured <= 6.5e-7: the decay's transcendentals run in
 # f64 here, in f32 there), bf16 (measured <= 1.3e-2: bf16 activations
 # and gradients rounded at other places)
-BLOCK_F32_REL, BLOCK_BF16_REL = 1e-5, 1e-1
+BLOCK_F32_REL, BLOCK_BF16_REL = 1e-5, 6.5e-2
 # step 0, (loss, each gradient leaf, gradient norm): fp32 (measured 0,
 # <= 2.5e-6, 0); paper_sr_bf16 (measured <= 2.0e-5, <= 2.1e-2 — the cuda
 # backend's SR dW against the reference's nearest, bf16 chains rounded
 # at other places — and <= 1.9e-3)
 STEP0_TOL = {"fp32": (1e-6, 2e-5, 1e-6),
-             "paper_sr_bf16": (2e-4, 0.15, 1e-2)}
+             "paper_sr_bf16": (2e-4, 0.105, 1e-2)}
 
 
 def jax_reduced():
