@@ -70,19 +70,20 @@ port (``src/repro_torch``), never JAX or the JAX package, and:
 7. trains rwkv6-1.6b: holds wkv6_bwd (the recurrence's gradient,
    ``csrc/wkv6_bwd.cu``) against its plain version at the training shape
    (B=4, S=256, 32 heads of 64, bf16 r, k, v), at head_dim 16 and 32, at
-   S = 1 and 33 and under near-total decay, two calls bit-equal, and
-   times it; four full-width layers under ``fp32``, step-0 loss and
-   every gradient leaf on the cuda backend against the reference
-   backend; then all 24 layers under ``paper_sr_bf16`` for 8 steps
-   through ``launch.train`` — FF / BP / UP through sr_matmul and
-   outer_accum, the recurrence through wkv6 and wkv6_bwd, the writeback
-   through sr_round — counting each kernel's launches per step.
+   S = 1, 5, 9 and 33, at B=3 with 7 heads and under near-total decay,
+   two calls bit-equal, and times it; four full-width layers under
+   ``fp32``, step-0 loss and every gradient leaf on the cuda backend
+   against the reference backend; then all 24 layers under
+   ``paper_sr_bf16`` for 8 steps through ``launch.train`` — FF / BP / UP
+   through sr_matmul and outer_accum, the recurrence through wkv6 and
+   wkv6_bwd, the writeback through sr_round — counting each kernel's
+   launches per step.
 
 It prints the time targets of the sm90 redesign, of the fused decode
-words' redesign, of the f32 mainloop's and of wkv6's (met or missed; a miss is
-reported, not failed), a ``{"kernels": [...]}`` line, the card's name
-and power limit, and as its last line ``{"ok": true, "device": {...}}``.
-Any failed check exits nonzero.  Without a CUDA device, or outside a
+words' redesign, of the f32 mainloop's, of wkv6's and of wkv6_bwd's (met
+or missed; a miss is reported, not failed), a ``{"kernels": [...]}``
+line, the card's name and power limit, and as its last line ``{"ok":
+true, "device": {...}}``.  Any failed check exits nonzero.  Without a CUDA device, or outside a
 checkout, it exits nonzero and prints no result.
 """
 from __future__ import annotations
@@ -2231,7 +2232,11 @@ WKV_BWD_CASES = (("train", 4, 256, 32, 64, None, "bfloat16"),
                  ("hd32", 4, 256, 64, 32, None, "bfloat16"),
                  ("S=1", 4, 1, 32, 64, None, "bfloat16"),
                  ("S=33", 4, 33, 32, 64, None, "bfloat16"),
-                 ("strong", 4, 256, 32, 64, 1e-6, "bfloat16"))
+                 ("strong", 4, 256, 32, 64, 1e-6, "bfloat16"),
+                 ("S=5", 4, 5, 32, 64, None, "bfloat16"),
+                 ("S=9", 4, 9, 32, 64, None, "bfloat16"),
+                 ("B=3 H=7", 3, 40, 7, 64, None, "bfloat16"),
+                 ("B=3 H=7 f32", 3, 40, 7, 64, None, "float32"))
 
 
 def phase_wkv6_bwd(peaks) -> dict:
@@ -2284,22 +2289,25 @@ def phase_wkv6_bwd(peaks) -> dict:
         plain = time_ms(lambda: kwkv.wkv6_bwd_plain(*args), iters=2,
                         warmup=1)
         n_tok = B * S * H * hd
+        plan = kwkv.wkv6_bwd_plan(B, H, S, hd)
         # r, k, v in their type, w and dy in, dr, dk, dv, dw out (f32); u
         # in, du out
         nbytes = n_tok * (3 * r.element_size() + 8 + 16) + 8 * H * hd
         # what the gradient needs a token and head: one forward recompute
         # of the state (3 hd^2), the G update (3 hd^2) and the dr, dk, dv,
         # dw sums (2 hd^2 each); the u terms are rank-1, O(hd).  The
-        # kernel's second forward pass and its u terms in the hd^2 loop
-        # are its own design, not counted
+        # kernel's pass A (the state every tile) and its walk's 1.25
+        # forward steps a token are its own design, not counted
         flops = 14 * n_tok * hd
         b_ms, by = bound(nbytes, flops, peaks, f32=True)
         print(f"[wkv6_bwd] {label} B={B} S={S} H={H} hd={hd}: kernel "
               f"{ms:.4f}ms (in a CUDA graph {g_ms:.4f}ms) plain "
               f"{plain:.4f}ms bound {b_ms:.4f}ms ({by}: {flops / 1e9:.3f} "
               f"GFLOP f32, {nbytes / 1e6:.1f} MB); graph / bound "
-              f"{g_ms / b_ms:.2f}; one block a (b, h): {B * H} blocks x "
-              f"{(hd // 4) ** 2} threads, tile {kwkv.BWD_TILE}")
+              f"{g_ms / b_ms:.2f}; wkv6_bwd_plan: one block a (b, h), "
+              f"{plan.grid} blocks x {plan.threads} threads ({plan.cols} "
+              f"state values a thread), tile {plan.tile}, {plan.smem} B "
+              f"shared")
         row = {"name": "wkv6_bwd", "route": "cuda",
                "source": "src/repro_torch/csrc/wkv6_bwd.cu",
                "replaces": "src/repro/models/ssm.py:82",
@@ -2433,6 +2441,10 @@ def print_targets(rows: dict) -> None:
          "0.0060 ms", wk["chunk"]["graph_ms"], 0.0060),
         ("wkv6 DECODE step B=32, in a CUDA graph cold in L2 <= 0.0125 ms",
          wk["step"]["graph_ms"], 0.0125)]
+    # wkv6_bwd's redesign: bf16 r, k, v at the training shape
+    targets.append(("wkv6_bwd training shape B=4 S=256 H=32 hd=64, in a "
+                    "CUDA graph <= 0.10 ms", rows["wkv6_bwd"]["graph_ms"],
+                    0.10))
     for what, got, limit in targets:
         print(f"[targets] {what}: {got:.4f}ms against {limit:.4f}ms: "
               f"{'met' if got <= limit else 'MISSED'}")

@@ -7,11 +7,11 @@
 // training reads no final state), running t from S down to 1:
 //
 //   G_{t-1} = diag(w_t) G_t + r_t (x) dy_t
-//   dr_t[i] = sum_j (S_{t-1}[i][j] + u_i k_t[i] v_t[j]) dy_t[j]
-//   dk_t[i] = sum_j (G_t[i][j] + u_i r_t[i] dy_t[j]) v_t[j]
-//   dv_t[j] = sum_i (G_t[i][j] + u_i r_t[i] dy_t[j]) k_t[i]
+//   dr_t[i] = sum_j S_{t-1}[i][j] dy_t[j] + u_i k_t[i] (v_t . dy_t)
+//   dk_t[i] = sum_j G_t[i][j] v_t[j]      + u_i r_t[i] (v_t . dy_t)
+//   dv_t[j] = sum_i G_t[i][j] k_t[i]      + (sum_i u_i r_t[i] k_t[i]) dy_t[j]
 //   dw_t[i] = sum_j G_t[i][j] S_{t-1}[i][j]
-//   du[i]   = sum_t r_t[i] k_t[i] sum_j v_t[j] dy_t[j]   (per b here)
+//   du[i]   = sum_t r_t[i] k_t[i] (v_t . dy_t)             (per b here)
 //
 // Replaces no TPU kernel: the TPU kernel repro/kernels/wkv6.py::wkv6 has
 // no backward, and the reference trains by letting XLA differentiate the
@@ -25,32 +25,60 @@
 // the dr, dk, dv and dw sums, 2 each; the u terms are rank-1, O(hd)) on
 // ~6 hd values in and 4 hd out, so by operations (training shape B=4,
 // S=256, H=32, hd=64: 1.88 GFLOP, 0.028 ms at 67 TFLOP/s f32; ~63 MB,
-// 0.019 ms at 3.35 TB/s).  This design does more than that: a second
-// forward pass (pass A, then each tile's recompute) and the u terms
-// folded into the hd^2 loop.  Its serial chain is two passes over S
-// tokens on one block a head.
+// 0.019 ms at 3.35 TB/s).  A head is a serial chain of S tokens, so one
+// SM works on one head (B*H = 128 heads on 132 SMs).  No tensor cores:
+// the gate holds every output within 1e-4 of its largest value, which
+// TF32 or bf16 products do not keep.  The work stays in f32 FMAs.
 //
-// Design (simple and deterministic first):
+// What bounds this design: with 4 state values a thread, every thread
+// needs its row's r, k, w and its 4 columns' v, dy each token, and sends
+// 3 row sums and 4 column sums out, so a warp moves ~23 shared-memory
+// wavefronts or shuffles a token (the reverse step's 9 loads, 7 shuffles
+// and 2 stores, and 1.25 forward steps of 4 loads).  The SM's shared
+// memory pipe serves one a cycle: ~740 cycles a token for the 32 warps
+// of a head, ~0.1 ms at the training shape before pass A, against the
+// 14 hd^2 bound's 0.028.  The design trades registers and instruction
+// count for that pipe's traffic; latency is hidden by 32 warps.  (A
+// chunked form with explicit decay products within a chunk, which needs
+// no ratios of w, moves ~20% fewer wavefronts in its walk, but its chunk
+// sums and output assembly cost as much again at this thread count.)
 //
-// 1. One block a (b, h) owns the whole hd x hd state and its gradient in
-//    registers: thread (g, q) holds rows 4g .. 4g + 3 and columns
-//    4q .. 4q + 3 (16 values of each), hd^2 / 16 threads (256 at hd 64).
-//    No sum crosses a block, so there are no atomics: two calls give
-//    the same bits.  At B*H = 128 the grid is one wave of 132 SMs.
-// 2. Pass A runs the recurrence forward and writes the state at the start
-//    of every tile of T = 8 tokens after the first to global scratch
-//    ((ceil(S/T) - 1) x 16 KB a head at hd 64).
-// 3. Pass B walks the tiles in reverse.  For a tile it stages r, k, v, w
-//    and dy (converted to f32) in shared memory, reloads the tile's
-//    starting state, recomputes the tile's T states S_{t-1} into shared
-//    memory (T x hd^2 f32: 128 KB at hd 64; each thread reads back only
-//    what it wrote), then runs the reverse recurrence token by token.
-// 4. Sums over value columns (dr, dk, dw, du) reduce over the hd / 4
-//    threads of a row group with a butterfly of warp shuffles; dv's sum
-//    over key rows reduces over the row groups of a warp by shuffles,
-//    then over the warps in shared memory in warp order after the tile.
-//    Every order is fixed by hd alone.  Outputs are written coalesced
-//    once a tile.
+// Design:
+//
+// 1. Many threads on a head.  One block a (b, h) of hd^2 / 4 threads
+//    (1024 at hd 64: 32 warps on the SM, 8 a scheduler, where the
+//    previous design had 256 threads holding 16 values each): thread
+//    (i, q) holds state row i, columns 4q .. 4q + 3, of S and of G in
+//    registers.  A warp covers 8 rows x 16 columns, so its v and dy are
+//    64 bytes a token, and what leaves it a token is 3 x 8 row sums and
+//    16 column sums.  At 1024 threads a thread has 64 registers, so a
+//    tile's states are recomputed 4 tokens at a time (SUB).
+// 2. Row sums (dr, dk, dw over j) reduce over the 4 lanes of a row in a
+//    transposed step pair (3 shuffles for the 3 values, where 3
+//    butterflies take 6), then over the hd / 16 column blocks in shared
+//    memory; dv's column sum reduces over the warp's 8 rows transposed
+//    (4 shuffles for 4 values), then over the hd / 8 row blocks.  Every
+//    order is fixed by hd: no atomics, two calls give the same bits.
+// 3. The u terms are rank-1 and stay out of the hd^2 loop: a warp a
+//    token sums v.dy and sum_i u_i r_i k_i, and the threads that write a
+//    tile's outputs add u_i k_i (v.dy), u_i r_i (v.dy) and (sum u r k)
+//    dy_j, and sum du, once an output.
+// 4. Staging by cp.async (16 bytes a copy; tokens past S zero-filled,
+//    which leaves G = 0 through them), waited on a phase after it was
+//    issued.  Pass A keeps two tiles in flight in a ring of three.  In
+//    pass B the staged tiles (r, k, v, w, dy as they come, three) and
+//    starting states (three) rotate with the token sums and output
+//    partials (two each), so a tile costs one block barrier: tile it
+//    walks back while tile it - 1 is copied in and tile it + 1's
+//    outputs are summed and written, on threads spread over the warps.
+// 5. Pass A runs the recurrence forward from the staged k, v, w read in
+//    place (bf16 converted on load) and writes the state at the start of
+//    every tile after the first to global scratch (thread-major float4s,
+//    (ceil(S/T) - 1) x hd^2 floats a head).  Pass B walks a tile back in
+//    two halves from its starting state: 4 tokens forward, then the next
+//    4 states into registers and 4 tokens back; then the first half the
+//    same way.  The walk is unrolled over the tile, so its shared memory
+//    offsets are constants; the states never go through shared memory.
 //
 // Layout: r, k, v, w, dy, dr, dk, dv, dw are (B, S, H, hd); r, k, v bf16
 // (rkv_bf16 = 1) or f32, the rest f32; u is (H, hd); du (B, H, hd) per-b
@@ -60,10 +88,11 @@
 
 namespace {
 
-constexpr int RPG = 4;            // state rows a thread
-constexpr int CPG = 4;            // state columns a thread
+constexpr int CPT = 4;            // state columns a thread (of one row)
+constexpr int WR = 8;             // state rows a warp
+constexpr int WC = 16;            // state columns a warp (4 lanes a row)
 constexpr int T = 8;              // tokens a tile (kernels/wkv6.py BWD_TILE)
-constexpr int NIN = 5;            // staged inputs: r, k, v, w, dy
+constexpr int SUB = 4;            // tokens of states a thread keeps
 constexpr int MAX_DEVICES = 16;
 
 struct Args {
@@ -82,237 +111,360 @@ struct Args {
   int H, S;
 };
 
+__host__ __device__ constexpr int n_threads(int hd) { return hd * hd / CPT; }
+
+// Shared memory, bytes (kernels/wkv6.py::wkv6_bwd_plan sizes it alike):
+// three staged tiles of r, k, v, w, dy at 4 bytes a value whatever r, k,
+// v's type (pass A's ring of k, v, w tiles lives there too); three
+// tiles' starting states; two tiles' token sums {v.dy, sum u r k}; two
+// tiles of output partials (dr, dk, dw a column block of 16, dv a row
+// block of 8).
+__host__ __device__ constexpr int raw_bytes(int hd) { return 5 * T * hd * 4; }
+__host__ __device__ constexpr int part_floats(int hd) {
+  return 3 * T * (hd / WC) * hd + T * (hd / WR) * hd;
+}
+__host__ __device__ constexpr int smem_bytes(int hd) {
+  return 3 * raw_bytes(hd) + 3 * hd * hd * 4 + 2 * T * 8 +
+         2 * part_floats(hd) * 4;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared; with src_bytes 0 the 16 bytes read as zero.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+// element o of a staged r, k or v array as f32
 template <bool BF>
-__device__ __forceinline__ float load_rkv(const void* p, size_t i) {
+__device__ __forceinline__ float rkv_at(const unsigned char* p, int o) {
   if constexpr (BF) {
     return __uint_as_float(
-        uint32_t(static_cast<const uint16_t*>(p)[i]) << 16);
+        uint32_t(reinterpret_cast<const uint16_t*>(p)[o]) << 16);
   } else {
-    return static_cast<const float*>(p)[i];
+    return reinterpret_cast<const float*>(p)[o];
   }
 }
 
-__host__ __device__ constexpr int n_threads(int hd) {
-  return (hd / RPG) * (hd / CPG);
+// elements o .. o + 3 (o % 4 == 0) of a staged r, k or v array as f32
+template <bool BF>
+__device__ __forceinline__ float4 rkv4_at(const unsigned char* p, int o) {
+  if constexpr (BF) {
+    const uint2 x = *reinterpret_cast<const uint2*>(p + 2 * o);
+    return make_float4(__uint_as_float(x.x << 16),
+                       __uint_as_float(x.x & 0xffff0000u),
+                       __uint_as_float(x.y << 16),
+                       __uint_as_float(x.y & 0xffff0000u));
+  } else {
+    return *reinterpret_cast<const float4*>(p + 4 * o);
+  }
 }
 
-__host__ __device__ constexpr int n_warps(int hd) {
-  return n_threads(hd) >= 32 ? n_threads(hd) / 32 : 1;
-}
-
-// Shared memory (floats): the staged inputs, the tile's states, the row
-// sums (dr, dk, dw) and dv's per-warp partials.
-__host__ __device__ constexpr int smem_floats(int hd) {
-  return NIN * T * hd + T * hd * hd + 3 * T * hd + T * n_warps(hd) * hd;
-}
-
-// The butterfly over `width` lanes (a power of two): every lane ends with
-// the same sum, in an order fixed by width.
-template <int WIDTH>
-__device__ __forceinline__ float lane_sum(float x, unsigned mask) {
+__device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll
-  for (int off = WIDTH / 2; off >= 1; off /= 2)
-    x += __shfl_xor_sync(mask, x, off);
+  for (int off = 16; off >= 1; off /= 2)
+    x += __shfl_xor_sync(0xffffffffu, x, off);
   return x;
+}
+
+// one token of the forward recurrence on 4 values of a row: s = w s + k v
+__device__ __forceinline__ void advance(float (&s)[CPT], float k, float w,
+                                        float4 v) {
+  s[0] = fmaf(w, s[0], k * v.x);
+  s[1] = fmaf(w, s[1], k * v.y);
+  s[2] = fmaf(w, s[2], k * v.z);
+  s[3] = fmaf(w, s[3], k * v.w);
 }
 
 template <int HD, bool BF>
 __global__ void __launch_bounds__(n_threads(HD), 1) wkv6_bwd_kernel(Args a) {
-  constexpr int NQ = HD / CPG;          // column groups (lanes of a row group)
   constexpr int NT = n_threads(HD);
-  constexpr int NW = n_warps(HD);
-  constexpr int WL = NT < 32 ? NT : 32;  // lanes of a warp in use
-  constexpr unsigned MASK = NT >= 32 ? 0xffffffffu : (1u << NT) - 1u;
-  constexpr int HH = HD * HD;
-  extern __shared__ __align__(16) float smem[];
-  float* xs = smem;                      // [NIN][T][HD]
-  float* stash = xs + NIN * T * HD;      // [T][16][NT]
-  float* rows = stash + T * HH;          // [3][T][HD]: dr, dk, dw
-  float* dvp = rows + 3 * T * HD;        // [T][NW][HD]
-  float* rs = xs;
-  float* ks = xs + T * HD;
-  float* vs = xs + 2 * T * HD;
-  float* ws = xs + 3 * T * HD;
-  float* dys = xs + 4 * T * HD;
+  constexpr int NCB = HD / WC, NRB = HD / WR;   // column, row blocks
+  constexpr int ESZ = BF ? 2 : 4;               // bytes of r, k, v
+  constexpr int TH = T * HD;                    // values of a tile's array
+  constexpr int RAW = raw_bytes(HD), PART = part_floats(HD);
+  constexpr unsigned FULL = 0xffffffffu;
+  extern __shared__ __align__(16) unsigned char smem[];
+  unsigned char* raw = smem;                           // [3][RAW]
+  float4* sbnd = reinterpret_cast<float4*>(raw + 3 * RAW);      // [3][NT]
+  float2* scal = reinterpret_cast<float2*>(sbnd + 3 * NT);      // [2][T]
+  float* part = reinterpret_cast<float*>(scal + 2 * T);         // [2][PART]
 
   const int H = a.H, S = a.S;
   const int bh = blockIdx.x, b = bh / H, h = bh % H;
-  const int tid = threadIdx.x, q = tid % NQ, g = tid / NQ;
-  const int lane = tid % 32, warp = tid / 32;
-  const int i0 = RPG * g, j0 = CPG * q;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int rb = warp / NCB, cb = warp % NCB;
+  const int ql = lane % (WC / CPT);               // the lane's place in a row
+  const int i = rb * WR + lane / (WC / CPT);      // the thread's state row
+  const int j0 = cb * WC + ql * CPT;              // its first column
   const int ntiles = (S + T - 1) / T;
   const size_t tok = (size_t)H * HD;                  // elements a token
   const size_t base = ((size_t)b * S * H + h) * HD;   // token 0 of (b, h)
-  float* bnd = a.bounds + (size_t)bh * (ntiles > 1 ? ntiles - 1 : 1) * HH;
+  float4* bnd = reinterpret_cast<float4*>(a.bounds) +
+                (size_t)bh * (ntiles > 1 ? ntiles - 1 : 1) * NT;
 
-  // n tokens of k, v, w (and with `all`, r and dy) from token t0 into
-  // shared memory as f32
-  auto stage = [&](int t0, int n, bool all) {
-    for (int o = tid; o < n * HD; o += NT) {
-      const int t = o / HD, c = o - t * HD;
-      const size_t idx = base + (size_t)(t0 + t) * tok + c;
-      ks[t * HD + c] = load_rkv<BF>(a.k, idx);
-      vs[t * HD + c] = load_rkv<BF>(a.v, idx);
-      ws[t * HD + c] = a.w[idx];
-      if (all) {
-        rs[t * HD + c] = load_rkv<BF>(a.r, idx);
-        dys[t * HD + c] = a.dy[idx];
+  // Staging: a tile of the arrays r, k, v (ESZ bytes a value), w, dy (f32)
+  // is T * CR, T * CR, T * CR, T * CF, T * CF copies of 16 bytes, in that
+  // order, copy c on thread c % NT.  A thread's copies are fixed by tid
+  // and which arrays are staged (`all`: r and dy too), so their offsets
+  // are worked out once and a tile adds t0 tokens; tokens past S read as
+  // zero.
+  constexpr int CR = HD * ESZ / 16, CF = HD / 4;   // copies a token
+  constexpr int NCP = (3 * T * CR + 2 * T * CF + NT - 1) / NT;  // a thread's
+  struct Copy {
+    const char* src;   // the copy's source at token 0 (null: none)
+    int dst, t;        // its byte offset in a [5][T][HD x 4 B] buffer; token
+  };
+  auto copy_of = [&](int m, bool all) {
+    const void* arrs[5] = {a.r, a.k, a.v, a.w, a.dy};
+    const int n[5] = {all ? T * CR : 0, T * CR, T * CR, T * CF,
+                      all ? T * CF : 0};
+    Copy cp{nullptr, 0, 0};
+    int c = tid + m * NT;
+#pragma unroll
+    for (int x = 0; x < 5; ++x) {
+      if (cp.src == nullptr && c >= 0 && c < n[x]) {
+        const int per = x < 3 ? CR : CF, esz = x < 3 ? ESZ : 4;
+        const int t = c / per, o = (c % per) * 16;
+        cp.src = static_cast<const char*>(arrs[x]) +
+                 (base + (size_t)t * tok) * esz + o;
+        cp.dst = x * TH * 4 + t * HD * esz + o;
+        cp.t = t;
       }
+      c -= n[x];
+    }
+    return cp;
+  };
+  auto stage = [&](const Copy (&cps)[NCP], int it, unsigned char* buf) {
+    const int t0 = it * T;
+#pragma unroll
+    for (int m = 0; m < NCP; ++m) {
+      const Copy& cp = cps[m];
+      if (cp.src == nullptr) continue;
+      const int esz = cp.dst < 3 * TH * 4 ? ESZ : 4;
+      const bool in = t0 + cp.t < S;
+      cp_async16(buf + cp.dst, in ? cp.src + (size_t)t0 * tok * esz : cp.src,
+                 in ? 16 : 0);
     }
   };
-  // one token of the forward recurrence on this thread's 16 values
-  auto advance = [&](float (&st)[RPG][CPG], int t) {
-    float kk[RPG], ww[RPG], vv[CPG];
+
+  // Pass A: the state at the start of tiles 1 .. ntiles - 1, token by
+  // token from the staged k, v, w read in place; raw holds a ring of
+  // three tiles, two in flight
+  {
+    Copy cpa[NCP];
 #pragma unroll
-    for (int i = 0; i < RPG; ++i) {
-      kk[i] = ks[t * HD + i0 + i];
-      ww[i] = ws[t * HD + i0 + i];
+    for (int m = 0; m < NCP; ++m) cpa[m] = copy_of(m, false);
+    const int na = ntiles - 1;
+    float s[CPT] = {0.f, 0.f, 0.f, 0.f};
+    if (na > 0) stage(cpa, 0, raw);
+    cp_async_commit();
+    if (na > 1) stage(cpa, 1, raw + RAW);
+    cp_async_commit();
+    for (int it = 0; it < na; ++it) {
+      cp_async_wait<1>();
+      __syncthreads();                 // tile it landed; tile it - 1 read
+      if (it + 2 < na) stage(cpa, it + 2, raw + ((it + 2) % 3) * RAW);
+      cp_async_commit();
+      const unsigned char* kk = raw + (it % 3) * RAW + TH * 4;
+      const float* ws = reinterpret_cast<const float*>(kk + 2 * TH * 4);
+#pragma unroll
+      for (int t = 0; t < T; ++t)
+        advance(s, rkv_at<BF>(kk, t * HD + i), ws[t * HD + i],
+                rkv4_at<BF>(kk + TH * 4, t * HD + j0));
+      bnd[(size_t)it * NT + tid] = make_float4(s[0], s[1], s[2], s[3]);
     }
+    cp_async_wait<0>();
+  }
+
+  // Pass B: the tiles in reverse.  Tile it's r, k, v, w, dy are in
+  // raw[it % 3] (each [T][HD]), its starting state in sbnd[it % 3], its
+  // token sums in scal[it % 2], its output partials in part[it % 2].
+  Copy cpb[NCP];
 #pragma unroll
-    for (int j = 0; j < CPG; ++j) vv[j] = vs[t * HD + j0 + j];
-#pragma unroll
-    for (int i = 0; i < RPG; ++i)
-#pragma unroll
-      for (int j = 0; j < CPG; ++j)
-        st[i][j] = fmaf(ww[i], st[i][j], kk[i] * vv[j]);
+  for (int m = 0; m < NCP; ++m) cpb[m] = copy_of(m, true);
+  auto stage_b = [&](int it) {
+    stage(cpb, it, raw + (it % 3) * RAW);
+    if (it > 0)
+      cp_async16(sbnd + (it % 3) * NT + tid, bnd + (size_t)(it - 1) * NT + tid,
+                 16);
   };
-
-  // Pass A: the state at the start of tiles 1 .. ntiles - 1
-  float st[RPG][CPG];
+  // the token sums v.dy and sum_i u_i r_i k_i, a warp a token
+  const float u_lo = lane < HD ? a.u[(size_t)h * HD + lane] : 0.f;
+  const float u_hi = lane + 32 < HD ? a.u[(size_t)h * HD + lane + 32] : 0.f;
+  auto sums = [&](int it) {
+    const unsigned char* buf = raw + (it % 3) * RAW;
+    const float* dd = reinterpret_cast<const float*>(buf + 4 * TH * 4);
+    for (int t = (warp + NT / 32 - NT / 128) % (NT / 32); t < T; t += NT / 32) {
+      float vdy = 0.f, urk = 0.f;
 #pragma unroll
-  for (int i = 0; i < RPG; ++i)
-#pragma unroll
-    for (int j = 0; j < CPG; ++j) st[i][j] = 0.f;
-  for (int it = 0; it + 1 < ntiles; ++it) {
-    __syncthreads();
-    stage(it * T, T, false);
-    __syncthreads();
-    for (int t = 0; t < T; ++t) advance(st, t);
-    float* dst = bnd + (size_t)it * HH;
-#pragma unroll
-    for (int i = 0; i < RPG; ++i)
-#pragma unroll
-      for (int j = 0; j < CPG; ++j) dst[(i * CPG + j) * NT + tid] = st[i][j];
-  }
-
-  // Pass B: the tiles in reverse
-  float uu[RPG];
-#pragma unroll
-  for (int i = 0; i < RPG; ++i) uu[i] = a.u[(size_t)h * HD + i0 + i];
-  float gr[RPG][CPG], du_acc[RPG];
-#pragma unroll
-  for (int i = 0; i < RPG; ++i) {
-    du_acc[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < CPG; ++j) gr[i][j] = 0.f;
-  }
-  for (int it = ntiles - 1; it >= 0; --it) {
-    const int t0 = it * T, n = min(T, S - t0);
-    __syncthreads();                     // the last tile's reads are done
-    stage(t0, n, true);
-    // the tile's starting state (pass A wrote it with these threads)
-#pragma unroll
-    for (int i = 0; i < RPG; ++i)
-#pragma unroll
-      for (int j = 0; j < CPG; ++j)
-        st[i][j] = it == 0 ? 0.f
-                           : bnd[(size_t)(it - 1) * HH + (i * CPG + j) * NT +
-                                 tid];
-    __syncthreads();
-    for (int t = 0; t < n; ++t) {
-#pragma unroll
-      for (int i = 0; i < RPG; ++i)
-#pragma unroll
-        for (int j = 0; j < CPG; ++j)
-          stash[(t * 16 + i * CPG + j) * NT + tid] = st[i][j];
-      advance(st, t);
-    }
-    for (int t = n - 1; t >= 0; --t) {
-      float rr[RPG], kk[RPG], ww[RPG], vv[CPG], dd[CPG];
-#pragma unroll
-      for (int i = 0; i < RPG; ++i) {
-        rr[i] = rs[t * HD + i0 + i];
-        kk[i] = ks[t * HD + i0 + i];
-        ww[i] = ws[t * HD + i0 + i];
-      }
-#pragma unroll
-      for (int j = 0; j < CPG; ++j) {
-        vv[j] = vs[t * HD + j0 + j];
-        dd[j] = dys[t * HD + j0 + j];
-      }
-      float vdy = 0.f;
-#pragma unroll
-      for (int j = 0; j < CPG; ++j) vdy = fmaf(vv[j], dd[j], vdy);
-      float drp[RPG], dkp[RPG], dwp[RPG], dvq[CPG];
-#pragma unroll
-      for (int j = 0; j < CPG; ++j) dvq[j] = 0.f;
-#pragma unroll
-      for (int i = 0; i < RPG; ++i) {
-        const float uk = uu[i] * kk[i], ur = uu[i] * rr[i];
-        drp[i] = dkp[i] = dwp[i] = 0.f;
-#pragma unroll
-        for (int j = 0; j < CPG; ++j) {
-          const float sp = stash[(t * 16 + i * CPG + j) * NT + tid];
-          drp[i] = fmaf(fmaf(uk, vv[j], sp), dd[j], drp[i]);
-          const float ag = fmaf(ur, dd[j], gr[i][j]);
-          dkp[i] = fmaf(ag, vv[j], dkp[i]);
-          dvq[j] = fmaf(ag, kk[i], dvq[j]);
-          dwp[i] = fmaf(gr[i][j], sp, dwp[i]);
-          gr[i][j] = fmaf(ww[i], gr[i][j], rr[i] * dd[j]);
+      for (int x = 0; x < 2; ++x) {
+        const int e = lane + 32 * x, o = t * HD + e;
+        if (e < HD) {
+          vdy = fmaf(rkv_at<BF>(buf + 2 * TH * 4, o), dd[o], vdy);
+          urk = fmaf((x ? u_hi : u_lo) * rkv_at<BF>(buf, o),
+                     rkv_at<BF>(buf + TH * 4, o), urk);
         }
-        du_acc[i] = fmaf(rr[i] * kk[i], vdy, du_acc[i]);
       }
-      // row sums over the NQ lanes of the row group
-      float rsum[3 * RPG];
+      vdy = warp_sum(vdy);
+      urk = warp_sum(urk);
+      if (lane == 0) scal[(it & 1) * T + t] = make_float2(vdy, urk);
+    }
+  };
+  // tile it back from its starting state into part[it % 2]
+  float g[CPT] = {0.f, 0.f, 0.f, 0.f};
+  auto walk = [&](int it) {
+    const unsigned char* buf = raw + (it % 3) * RAW;
+    const unsigned char* rr = buf + i * ESZ;              // [T][HD] rows
+    const unsigned char* kk = buf + TH * 4 + i * ESZ;
+    const unsigned char* vv = buf + 2 * TH * 4 + j0 * ESZ;  // columns
+    const float* ws = reinterpret_cast<const float*>(buf + 3 * TH * 4) + i;
+    const float* dys = reinterpret_cast<const float*>(buf + 4 * TH * 4) + j0;
+    float* ps = part + (it & 1) * PART;
+    const int kind = ql == 0 ? 0 : ql == 2 ? 1 : 2;   // dr, dk, dw
+    float* rs = ps + (cb * HD + i) * 3 + kind;        // [T][NCB][HD][3]
+    const bool c1 = lane & 4, c0 = lane & 8;
+    float* cs = ps + 3 * T * NCB * HD + rb * HD + j0 + 2 * c1 + c0;
+    const bool l1 = lane & 2, l0 = lane & 1;
+    const float4 s0 = it > 0 ? sbnd[(it % 3) * NT + tid]
+                             : make_float4(0.f, 0.f, 0.f, 0.f);
+    auto fwd = [&](float (&s)[CPT], int t) {
+      advance(s, rkv_at<BF>(kk, t * HD), ws[t * HD], rkv4_at<BF>(vv, t * HD));
+    };
 #pragma unroll
-      for (int i = 0; i < RPG; ++i) {
-        rsum[i] = lane_sum<NQ>(drp[i], MASK);
-        rsum[RPG + i] = lane_sum<NQ>(dkp[i], MASK);
-        rsum[2 * RPG + i] = lane_sum<NQ>(dwp[i], MASK);
+    for (int sb = T / SUB - 1; sb >= 0; --sb) {
+      float st[SUB][CPT];
+      st[0][0] = s0.x;
+      st[0][1] = s0.y;
+      st[0][2] = s0.z;
+      st[0][3] = s0.w;
+#pragma unroll
+      for (int t = 0; t < sb * SUB; ++t) fwd(st[0], t);
+#pragma unroll
+      for (int x = 1; x < SUB; ++x) {
+#pragma unroll
+        for (int j = 0; j < CPT; ++j) st[x][j] = st[x - 1][j];
+        fwd(st[x], sb * SUB + x - 1);
       }
 #pragma unroll
-      for (int x = 0; x < 3 * RPG; ++x)
-        if (x % NQ == q)
-          rows[((x / RPG) * T + t) * HD + i0 + x % RPG] = rsum[x];
-      // column sums over the row groups of the warp, then per warp
+      for (int x = SUB - 1; x >= 0; --x) {
+        const int t = sb * SUB + x;
+        const float* sp = st[x];
+        const float kt = rkv_at<BF>(kk, t * HD), rt = rkv_at<BF>(rr, t * HD);
+        const float wt = ws[t * HD];
+        const float4 v = rkv4_at<BF>(vv, t * HD);
+        const float4 d = *reinterpret_cast<const float4*>(dys + t * HD);
+        const float vv4[CPT] = {v.x, v.y, v.z, v.w};
+        const float dd[CPT] = {d.x, d.y, d.z, d.w};
+        float pr = 0.f, pk = 0.f, pw = 0.f, pv[CPT];
 #pragma unroll
-      for (int j = 0; j < CPG; ++j) {
-#pragma unroll
-        for (int off = NQ; off < WL; off *= 2)
-          dvq[j] += __shfl_xor_sync(MASK, dvq[j], off);
-      }
-      if (lane < NQ) {
-#pragma unroll
-        for (int j = 0; j < CPG; ++j)
-          dvp[(t * NW + warp) * HD + j0 + j] = dvq[j];
+        for (int j = 0; j < CPT; ++j) {
+          pr = fmaf(sp[j], dd[j], pr);
+          pk = fmaf(g[j], vv4[j], pk);
+          pw = fmaf(g[j], sp[j], pw);
+          pv[j] = g[j] * kt;
+          g[j] = fmaf(wt, g[j], rt * dd[j]);
+        }
+        // row sums over the row's 4 lanes, transposed: lane 0 of the 4
+        // ends with dr, lane 2 with dk, lanes 1 and 3 with dw
+        float y = (l1 ? pk : pr) + __shfl_xor_sync(FULL, l1 ? pr : pk, 2);
+        const float z = pw + __shfl_xor_sync(FULL, pw, 2);
+        y = (l0 ? z : y) + __shfl_xor_sync(FULL, l0 ? y : z, 1);
+        if (ql != 3) rs[t * NCB * HD * 3] = y;
+        // dv's column sums over the warp's 8 rows, transposed: the lane
+        // ends with column j0 + 2 c1 + c0 (lanes 16 .. 31 repeat 0 .. 15)
+        const float e0 = (c1 ? pv[2] : pv[0]) +
+                         __shfl_xor_sync(FULL, c1 ? pv[0] : pv[2], 4);
+        const float e1 = (c1 ? pv[3] : pv[1]) +
+                         __shfl_xor_sync(FULL, c1 ? pv[1] : pv[3], 4);
+        float x2 = (c0 ? e1 : e0) + __shfl_xor_sync(FULL, c0 ? e0 : e1, 8);
+        x2 += __shfl_xor_sync(FULL, x2, 16);
+        if (lane < 16) cs[t * NRB * HD] = x2;
       }
     }
-    __syncthreads();
-    for (int o = tid; o < n * HD; o += NT) {
+  };
+  // tile it's outputs from part[it % 2] in fixed order, with the u terms;
+  // du's share of this thread's column (tid % hd: NT % hd == 0)
+  float du = 0.f;
+  const float uc = a.u[(size_t)h * HD + tid % HD];
+  auto epilogue = [&](int it) {
+    const int t0 = it * T, n = min(T, S - t0);
+    const unsigned char* buf = raw + (it % 3) * RAW;
+    const float* dys = reinterpret_cast<const float*>(buf + 4 * TH * 4);
+    const float2* sc = scal + (it & 1) * T;
+    const float* rs = part + (it & 1) * PART;
+    const float* cs = rs + 3 * T * NCB * HD;
+    for (int o = (tid + NT / 2) % NT; o < n * HD; o += NT) {
       const int t = o / HD, c = o - t * HD;
+      const float kt = rkv_at<BF>(buf + TH * 4, o), rt = rkv_at<BF>(buf, o);
+      const float2 tsum = sc[t];                   // v.dy, sum u r k
+      float out[3];
+#pragma unroll
+      for (int kind = 0; kind < 3; ++kind) {
+        float s = 0.f;
+#pragma unroll
+        for (int cbk = 0; cbk < NCB; ++cbk)
+          s += rs[((t * NCB + cbk) * HD + c) * 3 + kind];
+        out[kind] = s;
+      }
+      float sv = 0.f;
+#pragma unroll
+      for (int rbk = 0; rbk < NRB; ++rbk) sv += cs[(t * NRB + rbk) * HD + c];
       const size_t idx = base + (size_t)(t0 + t) * tok + c;
-      a.dr[idx] = rows[(0 * T + t) * HD + c];
-      a.dk[idx] = rows[(1 * T + t) * HD + c];
-      a.dw[idx] = rows[(2 * T + t) * HD + c];
-      float s = 0.f;
-#pragma unroll
-      for (int wp = 0; wp < NW; ++wp) s += dvp[(t * NW + wp) * HD + c];
-      a.dv[idx] = s;
+      a.dr[idx] = fmaf(uc * kt, tsum.x, out[0]);
+      a.dk[idx] = fmaf(uc * rt, tsum.x, out[1]);
+      a.dw[idx] = out[2];
+      a.dv[idx] = fmaf(tsum.y, dys[o], sv);
+      du = fmaf(rt * kt, tsum.x, du);
     }
+  };
+
+  __syncthreads();                       // pass A is done with the buffers
+  const int last = ntiles - 1;
+  stage_b(last);
+  cp_async_commit();
+  for (int it = last; it >= 0; --it) {
+    cp_async_wait<0>();
+    __syncthreads();       // tile it staged; tile it + 1's sums and
+                           // partials written; tile it + 2 summed out
+    if (it > 0) stage_b(it - 1);
+    cp_async_commit();
+    sums(it);
+    if (it < last) epilogue(it + 1);
+    walk(it);
   }
-  float dus[RPG];
-#pragma unroll
-  for (int i = 0; i < RPG; ++i) dus[i] = lane_sum<NQ>(du_acc[i], MASK);
-  if (q == 0) {
-#pragma unroll
-    for (int i = 0; i < RPG; ++i) a.du[(size_t)bh * HD + i0 + i] = dus[i];
+  __syncthreads();
+  epilogue(0);
+  // du: each column's partials in order
+  float* dup = reinterpret_cast<float*>(sbnd);
+  dup[tid] = du;
+  __syncthreads();
+  if (tid < HD) {
+    float s = 0.f;
+    for (int o = tid; o < NT; o += HD) s += dup[o];
+    a.du[(size_t)bh * HD + tid] = s;
   }
 }
 
 template <int HD, bool BF>
 cudaError_t launch(const Args& a, int B, cudaStream_t st) {
   auto kern = wkv6_bwd_kernel<HD, BF>;
-  const int smem = smem_floats(HD) * 4;
+  constexpr int smem = smem_bytes(HD);
   if (smem > (48 << 10)) {            // the attribute, once a device
     static int smem_set[MAX_DEVICES] = {};   // per instantiation
     int dev = 0;
@@ -337,15 +489,21 @@ cudaError_t by_type(const Args& a, int B, int bf, cudaStream_t st) {
 
 }  // namespace
 
-// Pointers as in the layout above, every tensor contiguous.  hd is 16, 32
-// or 64.  Returns the launch's cudaGetLastError(), or
-// cudaErrorInvalidValue for an hd or S it does not take.
+// Pointers as in the layout above, every tensor contiguous and 16-byte
+// aligned.  hd is 16, 32 or 64; threads, tile and smem are
+// kernels/wkv6.py::wkv6_bwd_plan's and must be this file's (hd * hd / 4,
+// T, smem_bytes(hd)).  Returns the launch's cudaGetLastError(), or
+// cudaErrorInvalidValue for a shape or plan it does not take.
 extern "C" int wkv6_bwd_launch(const void* r, const void* k, const void* v,
                                const void* w, const void* u, const void* dy,
                                void* dr, void* dk, void* dv, void* dw,
                                void* du, void* bounds, int B, int H, int S,
-                               int hd, int rkv_bf16, void* stream) {
+                               int hd, int rkv_bf16, int threads, int tile,
+                               int smem, void* stream) {
   if (S < 1 || B < 1 || H < 1) return (int)cudaErrorInvalidValue;
+  if ((hd != 16 && hd != 32 && hd != 64) || threads != n_threads(hd) ||
+      tile != T || smem != smem_bytes(hd))
+    return (int)cudaErrorInvalidValue;
   const Args a{r,
                k,
                v,
@@ -364,7 +522,6 @@ extern "C" int wkv6_bwd_launch(const void* r, const void* k, const void* v,
   switch (hd) {
     case 16: return (int)by_type<16>(a, B, rkv_bf16, st);
     case 32: return (int)by_type<32>(a, B, rkv_bf16, st);
-    case 64: return (int)by_type<64>(a, B, rkv_bf16, st);
-    default: return (int)cudaErrorInvalidValue;
+    default: return (int)by_type<64>(a, B, rkv_bf16, st);
   }
 }

@@ -52,6 +52,7 @@ _F32, _F64 = torch.float32, torch.float64
 TILE = 32                         # tokens staged a stage
 ROWS = 4                          # state rows a thread owns (csrc RPG)
 BWD_TILE = 8                      # csrc/wkv6_bwd.cu's tokens a tile
+BWD_COLS = 4                      # its state values a thread (one row)
 PLAIN_BWD_TILE = 32               # wkv6_bwd_plain's tokens a tile
 
 
@@ -82,6 +83,30 @@ def wkv6_plan(B: int, H: int, S: int, hd: int) -> WkvPlan:
     stages = 2 if S > tile else 1
     return WkvPlan(B * H * (hd // cols), cols, cv, hd // ROWS * cols // cv,
                    tile, stages)
+
+
+class WkvBwdPlan(NamedTuple):
+    grid: int       # blocks: one a (b, h)
+    threads: int    # hd * hd / cols: a state row's `cols` columns a thread
+    cols: int       # state values of S and of G a thread holds
+    tile: int       # tokens staged a tile (BWD_TILE)
+    smem: int       # bytes of shared memory a block
+
+
+def wkv6_bwd_plan(B: int, H: int, S: int, hd: int) -> WkvBwdPlan:
+    """The launch of csrc/wkv6_bwd.cu from (B, H, S, hd) alone.
+
+    One block a (b, h) of hd * hd / BWD_COLS threads (1024 at hd 64), a
+    warp 8 state rows x 16 columns; tiles of BWD_TILE tokens.  The shared
+    memory is the kernel's (csrc/wkv6_bwd.cu::smem_bytes): three staged
+    tiles of r, k, v, w, dy at 4 bytes a value, three tiles' starting
+    states, two tiles' token sums {v.dy, sum u r k} and two tiles of
+    output partials (3 a column block of 16, 1 a row block of 8): 158 KB
+    at hd 64."""
+    t = BWD_TILE
+    part = 3 * t * (hd // 16) * hd + t * (hd // 8) * hd
+    smem = 3 * 5 * t * hd * 4 + 3 * hd * hd * 4 + 2 * t * 8 + 2 * part * 4
+    return WkvBwdPlan(B * H, hd * hd // BWD_COLS, BWD_COLS, t, smem)
 
 
 def wkv6_plain(r, k, v, w, u, state0: Optional[torch.Tensor] = None):
@@ -288,7 +313,7 @@ def wkv6_bwd_plain(r, k, v, w, u, dy):
 
 def _bind_bwd(lib: ctypes.CDLL):
     fn = lib.wkv6_bwd_launch
-    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 5 \
+    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 8 \
         + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -312,8 +337,9 @@ def wkv6_bwd(r, k, v, w, u, dy):
     dL/dy.  r, k, v: (B, S, H, hd) bf16 or f32 (one type); w, dy: f32 of
     that shape; u: (H, hd) f32; all contiguous.  Returns (dr, dk, dv, dw)
     (B, S, H, hd) and du (H, hd), all f32.  CPU tensors take
-    :func:`wkv6_bwd_plain`; CUDA tensors launch ``csrc/wkv6_bwd.cu`` (one
-    block a (b, h); du's per-b partials then sum over b) or raise."""
+    :func:`wkv6_bwd_plain`; CUDA tensors launch ``csrc/wkv6_bwd.cu`` (laid
+    out by :func:`wkv6_bwd_plan`; du's per-b partials then sum over b) or
+    raise."""
     _check_bwd_operands(r, k, v, w, u, dy)
     if r.device.type == "cpu":
         return wkv6_bwd_plain(r, k, v, w, u, dy)
@@ -323,18 +349,22 @@ def wkv6_bwd(r, k, v, w, u, dy):
     if hd not in HEAD_DIMS:
         raise ValueError(f"wkv6_bwd kernel takes head_dim in {HEAD_DIMS}, "
                          f"got {hd}")
+    if any(t.data_ptr() % 16 for t in (r, k, v, w, u, dy)):
+        raise ValueError("wkv6_bwd kernel takes 16-byte aligned operands")
     dev = r.device
+    p = wkv6_bwd_plan(B, H, S, hd)
     dr, dk, dv, dw = (torch.empty(r.shape, dtype=_F32, device=dev)
                       for _ in range(4))
     du_b = torch.empty((B, H, hd), dtype=_F32, device=dev)
     # the state at every tile's start after the first, a (b, h)'s in a row
-    ntiles = -(-S // BWD_TILE)
+    ntiles = -(-S // p.tile)
     bounds = torch.empty((B * H, max(ntiles - 1, 1), hd * hd), dtype=_F32,
                          device=dev)
     err = _bind_bwd(build.load("wkv6_bwd"))(
         *(build.ptr(t) for t in (r, k, v, w, u, dy, dr, dk, dv, dw, du_b,
                                  bounds)),
-        B, H, S, hd, int(r.dtype == torch.bfloat16), build.stream_ptr(dev))
+        B, H, S, hd, int(r.dtype == torch.bfloat16), p.threads, p.tile,
+        p.smem, build.stream_ptr(dev))
     if err != 0:
         raise RuntimeError(f"wkv6_bwd kernel launch failed (cudaError {err})")
     BWD_COUNTER.n += 1

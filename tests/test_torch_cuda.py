@@ -544,6 +544,11 @@ WKV_BWD_CASES = [(4, 256, 32, 64, None), (4, 256, 128, 16, None),
                  (4, 256, 64, 32, None), (4, 1, 32, 64, None),
                  (4, 33, 32, 64, None), (2, 33, 4, 16, None),
                  (4, 256, 32, 64, 1e-6)]
+# (B, S, H, hd, decay) where the kernel's layout has edges of its own: S
+# shorter than a tile, S one past a tile boundary, and B * H = 21 heads
+# of 64 (a multiple of neither 132 SMs nor of any block group)
+WKV_BWD_EDGE_CASES = [(4, 5, 32, 64, None), (4, 9, 32, 64, None),
+                      (3, 40, 7, 64, None)]
 # the backward's sums (64-term f32 against the plain version's f64):
 # each output within this share of its own largest value
 WKV_BWD_REL = 1e-4
@@ -558,7 +563,7 @@ def _wkv_bwd_inputs(dev, B, S, H, hd, decay, rkv, seed):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("rkv", RKV_DTYPES)
-@pytest.mark.parametrize("case", WKV_BWD_CASES, ids=str)
+@pytest.mark.parametrize("case", WKV_BWD_CASES + WKV_BWD_EDGE_CASES, ids=str)
 def test_wkv6_bwd_kernel_matches_plain(dev, case, rkv):
     args = _wkv_bwd_inputs(dev, *case, rkv, 9)
     kwkv.BWD_COUNTER.reset()
@@ -578,6 +583,16 @@ def test_wkv6_bwd_kernel_matches_plain(dev, case, rkv):
 def test_wkv6_bwd_kernel_two_calls_bit_equal(dev, rkv):
     """No float atomics: the same inputs give the same bits."""
     args = _wkv_bwd_inputs(dev, 4, 256, 32, 64, None, rkv, 10)
+    a, b = kwkv.wkv6_bwd(*args), kwkv.wkv6_bwd(*args)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rkv", RKV_DTYPES)
+@pytest.mark.parametrize("case", WKV_BWD_EDGE_CASES, ids=str)
+def test_wkv6_bwd_kernel_edges_two_calls_bit_equal(dev, case, rkv):
+    args = _wkv_bwd_inputs(dev, *case, rkv, 13)
     a, b = kwkv.wkv6_bwd(*args), kwkv.wkv6_bwd(*args)
     torch.cuda.synchronize()
     assert all(torch.equal(x, y) for x, y in zip(a, b))

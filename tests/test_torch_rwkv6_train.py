@@ -214,6 +214,23 @@ def test_wkv6_bwd_checks_its_operands():
         kwkv.wkv6_bwd(r, k, v, w, u[None].expand(2, 2, 16).contiguous(), dy)
 
 
+@pytest.mark.parametrize("B,H,S", [(1, 1, 1), (4, 32, 256), (3, 7, 9),
+                                   (1, 128, 5), (8, 64, 4096)])
+@pytest.mark.parametrize("hd", kwkv.HEAD_DIMS)
+def test_wkv6_bwd_plan_covers_a_head_within_one_block(hd, B, H, S):
+    """csrc/wkv6_bwd.cu's launch: one block a (b, h) whose threads hold
+    the whole hd x hd state between them, four times the previous
+    design's (hd / 4)^2 threads, within the card's 1024 threads and 227
+    KB of shared memory a block, tiles of BWD_TILE tokens."""
+    p = kwkv.wkv6_bwd_plan(B, H, S, hd)
+    assert p.grid == B * H
+    assert p.threads * p.cols == hd * hd
+    assert p.threads >= 4 * (hd // 4) ** 2
+    assert p.threads <= 1024 and p.threads % 32 == 0
+    assert 0 < p.smem <= 232448
+    assert p.tile == kwkv.BWD_TILE
+
+
 # ---------------------------------------------------------------------------
 # rwkv_block
 # ---------------------------------------------------------------------------
