@@ -30,18 +30,20 @@
 // the gate holds every output within 1e-4 of its largest value, which
 // TF32 or bf16 products do not keep.  The work stays in f32 FMAs.
 //
-// What bounds this design: with 4 state values a thread, every thread
-// needs its row's r, k, w and its 4 columns' v, dy each token, and sends
-// 3 row sums and 4 column sums out, so a warp moves ~23 shared-memory
-// wavefronts or shuffles a token (the reverse step's 9 loads, 7 shuffles
-// and 2 stores, and 1.25 forward steps of 4 loads).  The SM's shared
-// memory pipe serves one a cycle: ~740 cycles a token for the 32 warps
-// of a head, ~0.1 ms at the training shape before pass A, against the
-// 14 hd^2 bound's 0.028.  The design trades registers and instruction
-// count for that pipe's traffic; latency is hidden by 32 warps.  (A
-// chunked form with explicit decay products within a chunk, which needs
-// no ratios of w, moves ~20% fewer wavefronts in its walk, but its chunk
-// sums and output assembly cost as much again at this thread count.)
+// What bounds this design: the SM's shared-memory pipe, which delivers
+// 128 bytes a cycle to the lanes of loads and shuffles alike (a warp's
+// 16-byte load is 512 bytes to its lanes, however few addresses they
+// share).  With 4 state values a thread, every thread needs its row's
+// r, k, w and its 4 columns' v, dy each token, and sends 3 row sums and
+// 4 column sums out: a warp's reverse step loads for 9 cycles, shuffles
+// 6 times and stores 1.5 times (its sums reduce with the next token's),
+// and 1.25 forward steps load for 4 cycles each, ~22 cycles a
+// warp-token, ~700 a token for the 32 warps of a head: ~0.09 ms at the
+// training shape for pass B's walk, against the 14 hd^2 bound's 0.028.
+// Latency is hidden by 32 warps.  (A chunked form with explicit decay products
+// within a chunk, which needs no ratios of w, moves ~20% fewer bytes in
+// its walk, but its chunk sums and output assembly cost as much again at
+// this thread count.)
 //
 // Design:
 //
@@ -53,24 +55,28 @@
 //    64 bytes a token, and what leaves it a token is 3 x 8 row sums and
 //    16 column sums.  At 1024 threads a thread has 64 registers, so a
 //    tile's states are recomputed 4 tokens at a time (SUB).
-// 2. Row sums (dr, dk, dw over j) reduce over the 4 lanes of a row in a
-//    transposed step pair (3 shuffles for the 3 values, where 3
-//    butterflies take 6), then over the hd / 16 column blocks in shared
-//    memory; dv's column sum reduces over the warp's 8 rows transposed
-//    (4 shuffles for 4 values), then over the hd / 8 row blocks.  Every
-//    order is fixed by hd: no atomics, two calls give the same bits.
+// 2. The sums of two tokens reduce together, transposed: the row sums
+//    (dr, dk, dw over j) of the pair over the 4 lanes of a row in 5
+//    shuffles (6 one token at a time), then over the hd / 16 column
+//    blocks in shared memory; dv's column sums of the pair over the
+//    warp's 8 rows in 7 shuffles (8), then over the hd / 8 row blocks.
+//    Every lane stores a pair's sums in 3 stores (4); a token's partials
+//    lie 16 banks off the next's, so the pair's stores do not conflict.
+//    Every order is fixed by hd: no atomics, two calls give the same
+//    bits.
 // 3. The u terms are rank-1 and stay out of the hd^2 loop: a warp a
 //    token sums v.dy and sum_i u_i r_i k_i, and the threads that write a
 //    tile's outputs add u_i k_i (v.dy), u_i r_i (v.dy) and (sum u r k)
 //    dy_j, and sum du, once an output.
 // 4. Staging by cp.async (16 bytes a copy; tokens past S zero-filled,
 //    which leaves G = 0 through them), waited on a phase after it was
-//    issued.  Pass A keeps two tiles in flight in a ring of three.  In
-//    pass B the staged tiles (r, k, v, w, dy as they come, three) and
-//    starting states (three) rotate with the token sums and output
-//    partials (two each), so a tile costs one block barrier: tile it
-//    walks back while tile it - 1 is copied in and tile it + 1's
-//    outputs are summed and written, on threads spread over the warps.
+//    issued.  Pass A keeps two tiles of TA = 4 T tokens in flight in a
+//    ring of three, one block barrier a TA tokens.  In pass B the staged
+//    tiles (r, k, v, w, dy as they come, three) and starting states
+//    (three) rotate with the token sums and output partials (two each),
+//    so a tile costs one block barrier: tile it walks back while tile
+//    it - 1 is copied in and tile it + 1's outputs are summed and
+//    written, on threads spread over the warps.
 // 5. Pass A runs the recurrence forward from the staged k, v, w read in
 //    place (bf16 converted on load) and writes the state at the start of
 //    every tile after the first to global scratch (thread-major float4s,
@@ -93,6 +99,8 @@ constexpr int WR = 8;             // state rows a warp
 constexpr int WC = 16;            // state columns a warp (4 lanes a row)
 constexpr int T = 8;              // tokens a tile (kernels/wkv6.py BWD_TILE)
 constexpr int SUB = 4;            // tokens of states a thread keeps
+constexpr int TA = 4 * T;         // tokens a pass-A tile
+static_assert(SUB % 2 == 0 && T % SUB == 0, "the walk goes in token pairs");
 constexpr int MAX_DEVICES = 16;
 
 struct Args {
@@ -113,19 +121,38 @@ struct Args {
 
 __host__ __device__ constexpr int n_threads(int hd) { return hd * hd / CPT; }
 
-// Shared memory, bytes (kernels/wkv6.py::wkv6_bwd_plan sizes it alike):
-// three staged tiles of r, k, v, w, dy at 4 bytes a value whatever r, k,
-// v's type (pass A's ring of k, v, w tiles lives there too); three
-// tiles' starting states; two tiles' token sums {v.dy, sum u r k}; two
-// tiles of output partials (dr, dk, dw a column block of 16, dv a row
-// block of 8).
+// Shared memory, bytes (kernels/wkv6.py::wkv6_bwd_plan sizes it alike),
+// the larger of the two passes'.  Pass B: three staged tiles of r, k, v,
+// w, dy at 4 bytes a value whatever r, k, v's type; three tiles' starting
+// states; two tiles' token sums {v.dy, sum u r k}; two tiles of output
+// partials.  Pass A, in the same memory before it: a ring of three
+// TA-token tiles of k, v, w (sized at 4 bytes a value).
 __host__ __device__ constexpr int raw_bytes(int hd) { return 5 * T * hd * 4; }
-__host__ __device__ constexpr int part_floats(int hd) {
-  return 3 * T * (hd / WC) * hd + T * (hd / WR) * hd;
+// a tile's partials: [T][RSTR] row sums {dr, dk, dw} a column block of 16,
+// then [T][CSTR] dv a row block of 8; a token's stride is 16 banks off a
+// multiple of 32, so a token pair's stores do not conflict
+__host__ __device__ constexpr int pad16(int n) {
+  return n + (48 - n % 32) % 32;
 }
-__host__ __device__ constexpr int smem_bytes(int hd) {
+__host__ __device__ constexpr int rstride(int hd) {
+  return pad16(3 * (hd / WC) * hd);
+}
+__host__ __device__ constexpr int cstride(int hd) {
+  return pad16((hd / WR) * hd);
+}
+__host__ __device__ constexpr int part_floats(int hd) {
+  return T * (rstride(hd) + cstride(hd));
+}
+__host__ __device__ constexpr int pass_a_bytes(int hd) {
+  return 3 * 3 * TA * hd * 4;
+}
+__host__ __device__ constexpr int pass_b_bytes(int hd) {
   return 3 * raw_bytes(hd) + 3 * hd * hd * 4 + 2 * T * 8 +
          2 * part_floats(hd) * 4;
+}
+__host__ __device__ constexpr int smem_bytes(int hd) {
+  return pass_a_bytes(hd) > pass_b_bytes(hd) ? pass_a_bytes(hd)
+                                             : pass_b_bytes(hd);
 }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -198,6 +225,7 @@ __global__ void __launch_bounds__(n_threads(HD), 1) wkv6_bwd_kernel(Args a) {
   constexpr int ESZ = BF ? 2 : 4;               // bytes of r, k, v
   constexpr int TH = T * HD;                    // values of a tile's array
   constexpr int RAW = raw_bytes(HD), PART = part_floats(HD);
+  constexpr int RSTR = rstride(HD), CSTR = cstride(HD);
   constexpr unsigned FULL = 0xffffffffu;
   extern __shared__ __align__(16) unsigned char smem[];
   unsigned char* raw = smem;                           // [3][RAW]
@@ -218,76 +246,90 @@ __global__ void __launch_bounds__(n_threads(HD), 1) wkv6_bwd_kernel(Args a) {
   float4* bnd = reinterpret_cast<float4*>(a.bounds) +
                 (size_t)bh * (ntiles > 1 ? ntiles - 1 : 1) * NT;
 
-  // Staging: a tile of the arrays r, k, v (ESZ bytes a value), w, dy (f32)
-  // is T * CR, T * CR, T * CR, T * CF, T * CF copies of 16 bytes, in that
-  // order, copy c on thread c % NT.  A thread's copies are fixed by tid
-  // and which arrays are staged (`all`: r and dy too), so their offsets
-  // are worked out once and a tile adds t0 tokens; tokens past S read as
-  // zero.
+  // Staging: tt tokens of the arrays `arrs` (ESZ bytes a value for r,
+  // k, v, 4 for w, dy) are copies of 16 bytes, array after array, copy c
+  // on thread c % NT, into [array][tt][HD x 4 B].  A thread's copies are
+  // fixed by tid, so their offsets are worked out once and a tile adds
+  // its first token; tokens past S read as zero.
   constexpr int CR = HD * ESZ / 16, CF = HD / 4;   // copies a token
-  constexpr int NCP = (3 * T * CR + 2 * T * CF + NT - 1) / NT;  // a thread's
   struct Copy {
     const char* src;   // the copy's source at token 0 (null: none)
-    int dst, t;        // its byte offset in a [5][T][HD x 4 B] buffer; token
+    int dst, t;        // its byte offset in a buffer; its token
   };
-  auto copy_of = [&](int m, bool all) {
-    const void* arrs[5] = {a.r, a.k, a.v, a.w, a.dy};
-    const int n[5] = {all ? T * CR : 0, T * CR, T * CR, T * CF,
-                      all ? T * CF : 0};
+  // copy m of this thread among a tile of tt tokens of the arrays
+  // arrs[x] (n[x] copies, esz[x] bytes a value; n[x] = 0: not staged)
+  auto copy_of = [&](int m, const void* const (&arrs)[5], const int (&n)[5],
+                     const int (&esz)[5], int tt) {
     Copy cp{nullptr, 0, 0};
     int c = tid + m * NT;
 #pragma unroll
     for (int x = 0; x < 5; ++x) {
       if (cp.src == nullptr && c >= 0 && c < n[x]) {
-        const int per = x < 3 ? CR : CF, esz = x < 3 ? ESZ : 4;
+        const int per = HD * esz[x] / 16;
         const int t = c / per, o = (c % per) * 16;
         cp.src = static_cast<const char*>(arrs[x]) +
-                 (base + (size_t)t * tok) * esz + o;
-        cp.dst = x * TH * 4 + t * HD * esz + o;
+                 (base + (size_t)t * tok) * esz[x] + o;
+        cp.dst = x * tt * HD * 4 + t * HD * esz[x] + o;
         cp.t = t;
       }
       c -= n[x];
     }
     return cp;
   };
-  auto stage = [&](const Copy (&cps)[NCP], int it, unsigned char* buf) {
-    const int t0 = it * T;
-#pragma unroll
-    for (int m = 0; m < NCP; ++m) {
-      const Copy& cp = cps[m];
-      if (cp.src == nullptr) continue;
-      const int esz = cp.dst < 3 * TH * 4 ? ESZ : 4;
-      const bool in = t0 + cp.t < S;
-      cp_async16(buf + cp.dst, in ? cp.src + (size_t)t0 * tok * esz : cp.src,
-                 in ? 16 : 0);
-    }
+  // (destinations below rkv_end hold r, k or v)
+  auto stage = [&](const Copy& cp, int t0, unsigned char* buf, int rkv_end) {
+    if (cp.src == nullptr) return;
+    const bool in = t0 + cp.t < S;
+    const int esz = cp.dst < rkv_end ? ESZ : 4;
+    cp_async16(buf + cp.dst, in ? cp.src + (size_t)t0 * tok * esz : cp.src,
+               in ? 16 : 0);
   };
 
   // Pass A: the state at the start of tiles 1 .. ntiles - 1, token by
-  // token from the staged k, v, w read in place; raw holds a ring of
-  // three tiles, two in flight
+  // token from the staged k, v, w read in place, in tiles of TA tokens
+  // (a ring of three, two in flight: one barrier a TA tokens)
   {
-    Copy cpa[NCP];
+    constexpr int NCA = (2 * TA * CR + TA * CF + NT - 1) / NT;
+    constexpr int ABUF = 3 * TA * HD * 4;
+    const void* arrs[5] = {a.k, a.v, a.w, nullptr, nullptr};
+    const int n[5] = {TA * CR, TA * CR, TA * CF, 0, 0};
+    const int esz[5] = {ESZ, ESZ, 4, 4, 4};
+    Copy cpa[NCA];
 #pragma unroll
-    for (int m = 0; m < NCP; ++m) cpa[m] = copy_of(m, false);
-    const int na = ntiles - 1;
+    for (int m = 0; m < NCA; ++m) cpa[m] = copy_of(m, arrs, n, esz, TA);
+    const int na = ntiles - 1;                     // states to write
+    const int nta = (na * T + TA - 1) / TA;        // pass-A tiles
     float s[CPT] = {0.f, 0.f, 0.f, 0.f};
-    if (na > 0) stage(cpa, 0, raw);
-    cp_async_commit();
-    if (na > 1) stage(cpa, 1, raw + RAW);
-    cp_async_commit();
-    for (int it = 0; it < na; ++it) {
-      cp_async_wait<1>();
-      __syncthreads();                 // tile it landed; tile it - 1 read
-      if (it + 2 < na) stage(cpa, it + 2, raw + ((it + 2) % 3) * RAW);
-      cp_async_commit();
-      const unsigned char* kk = raw + (it % 3) * RAW + TH * 4;
-      const float* ws = reinterpret_cast<const float*>(kk + 2 * TH * 4);
+    auto stage_a = [&](int ia) {
 #pragma unroll
-      for (int t = 0; t < T; ++t)
-        advance(s, rkv_at<BF>(kk, t * HD + i), ws[t * HD + i],
-                rkv4_at<BF>(kk + TH * 4, t * HD + j0));
-      bnd[(size_t)it * NT + tid] = make_float4(s[0], s[1], s[2], s[3]);
+      for (int m = 0; m < NCA; ++m)
+        stage(cpa[m], ia * TA, smem + (ia % 3) * ABUF, 2 * TA * HD * 4);
+    };
+    if (nta > 0) stage_a(0);
+    cp_async_commit();
+    if (nta > 1) stage_a(1);
+    cp_async_commit();
+    for (int ia = 0; ia < nta; ++ia) {
+      cp_async_wait<1>();
+      __syncthreads();                 // tile ia landed; tile ia - 1 read
+      if (ia + 2 < nta) stage_a(ia + 2);
+      cp_async_commit();
+      const unsigned char* kk = smem + (ia % 3) * ABUF;
+      const unsigned char* vv = kk + TA * HD * 4;
+      const float* ws = reinterpret_cast<const float*>(vv + TA * HD * 4);
+#pragma unroll
+      for (int g = 0; g < TA / T; ++g) {
+        const int it = ia * (TA / T) + g;
+        if (it < na) {
+#pragma unroll
+          for (int t = 0; t < T; ++t) {
+            const int o = (g * T + t) * HD;
+            advance(s, rkv_at<BF>(kk, o + i), ws[o + i],
+                    rkv4_at<BF>(vv, o + j0));
+          }
+          bnd[(size_t)it * NT + tid] = make_float4(s[0], s[1], s[2], s[3]);
+        }
+      }
     }
     cp_async_wait<0>();
   }
@@ -295,11 +337,19 @@ __global__ void __launch_bounds__(n_threads(HD), 1) wkv6_bwd_kernel(Args a) {
   // Pass B: the tiles in reverse.  Tile it's r, k, v, w, dy are in
   // raw[it % 3] (each [T][HD]), its starting state in sbnd[it % 3], its
   // token sums in scal[it % 2], its output partials in part[it % 2].
+  constexpr int NCP = (3 * T * CR + 2 * T * CF + NT - 1) / NT;
   Copy cpb[NCP];
+  {
+    const void* arrs[5] = {a.r, a.k, a.v, a.w, a.dy};
+    const int n[5] = {T * CR, T * CR, T * CR, T * CF, T * CF};
+    const int esz[5] = {ESZ, ESZ, ESZ, 4, 4};
 #pragma unroll
-  for (int m = 0; m < NCP; ++m) cpb[m] = copy_of(m, true);
+    for (int m = 0; m < NCP; ++m) cpb[m] = copy_of(m, arrs, n, esz, T);
+  }
   auto stage_b = [&](int it) {
-    stage(cpb, it, raw + (it % 3) * RAW);
+#pragma unroll
+    for (int m = 0; m < NCP; ++m)
+      stage(cpb[m], it * T, raw + (it % 3) * RAW, 3 * TH * 4);
     if (it > 0)
       cp_async16(sbnd + (it % 3) * NT + tid, bnd + (size_t)(it - 1) * NT + tid,
                  16);
@@ -336,11 +386,13 @@ __global__ void __launch_bounds__(n_threads(HD), 1) wkv6_bwd_kernel(Args a) {
     const float* ws = reinterpret_cast<const float*>(buf + 3 * TH * 4) + i;
     const float* dys = reinterpret_cast<const float*>(buf + 4 * TH * 4) + j0;
     float* ps = part + (it & 1) * PART;
-    const int kind = ql == 0 ? 0 : ql == 2 ? 1 : 2;   // dr, dk, dw
-    float* rs = ps + (cb * HD + i) * 3 + kind;        // [T][NCB][HD][3]
-    const bool c1 = lane & 4, c0 = lane & 8;
-    float* cs = ps + 3 * T * NCB * HD + rb * HD + j0 + 2 * c1 + c0;
-    const bool l1 = lane & 2, l0 = lane & 1;
+    const bool l1 = lane & 2, l0 = lane & 1;     // a row's 4 lanes
+    const bool c1 = lane & 4, c0 = lane & 8, c2 = lane & 16;
+    // a token pair's sums land as: row sums on lane (l1, l0) for the
+    // pair's token l1, dr (l0 = 0) or dk (l0 = 1), and dw (l0 = 0); dv on
+    // lane c1's token, column j0 + 2 c0 + c2
+    float* rs = ps + (cb * HD + i) * 3 + l0 - l1 * RSTR;  // [T][RSTR]
+    float* cs = ps + T * RSTR + rb * HD + j0 + 2 * c0 + c2 - c1 * CSTR;
     const float4 s0 = it > 0 ? sbnd[(it % 3) * NT + tid]
                              : make_float4(0.f, 0.f, 0.f, 0.f);
     auto fwd = [&](float (&s)[CPT], int t) {
@@ -361,40 +413,57 @@ __global__ void __launch_bounds__(n_threads(HD), 1) wkv6_bwd_kernel(Args a) {
         for (int j = 0; j < CPT; ++j) st[x][j] = st[x - 1][j];
         fwd(st[x], sb * SUB + x - 1);
       }
+      // tokens in pairs (t, t - 1), back: their sums reduce together
 #pragma unroll
-      for (int x = SUB - 1; x >= 0; --x) {
-        const int t = sb * SUB + x;
-        const float* sp = st[x];
-        const float kt = rkv_at<BF>(kk, t * HD), rt = rkv_at<BF>(rr, t * HD);
-        const float wt = ws[t * HD];
-        const float4 v = rkv4_at<BF>(vv, t * HD);
-        const float4 d = *reinterpret_cast<const float4*>(dys + t * HD);
-        const float vv4[CPT] = {v.x, v.y, v.z, v.w};
-        const float dd[CPT] = {d.x, d.y, d.z, d.w};
-        float pr = 0.f, pk = 0.f, pw = 0.f, pv[CPT];
+      for (int x = SUB - 1; x > 0; x -= 2) {
+        float pr[2], pk[2], pw[2], pv[2][CPT];
 #pragma unroll
-        for (int j = 0; j < CPT; ++j) {
-          pr = fmaf(sp[j], dd[j], pr);
-          pk = fmaf(g[j], vv4[j], pk);
-          pw = fmaf(g[j], sp[j], pw);
-          pv[j] = g[j] * kt;
-          g[j] = fmaf(wt, g[j], rt * dd[j]);
+        for (int y = 0; y < 2; ++y) {
+          const int t = sb * SUB + x - y;
+          const float* sp = st[x - y];
+          const float kt = rkv_at<BF>(kk, t * HD), rt = rkv_at<BF>(rr, t * HD);
+          const float wt = ws[t * HD];
+          const float4 v = rkv4_at<BF>(vv, t * HD);
+          const float4 d = *reinterpret_cast<const float4*>(dys + t * HD);
+          const float vv4[CPT] = {v.x, v.y, v.z, v.w};
+          const float dd[CPT] = {d.x, d.y, d.z, d.w};
+          pr[y] = pk[y] = pw[y] = 0.f;
+#pragma unroll
+          for (int j = 0; j < CPT; ++j) {
+            pr[y] = fmaf(sp[j], dd[j], pr[y]);
+            pk[y] = fmaf(g[j], vv4[j], pk[y]);
+            pw[y] = fmaf(g[j], sp[j], pw[y]);
+            pv[y][j] = g[j] * kt;
+            g[j] = fmaf(wt, g[j], rt * dd[j]);
+          }
         }
-        // row sums over the row's 4 lanes, transposed: lane 0 of the 4
-        // ends with dr, lane 2 with dk, lanes 1 and 3 with dw
-        float y = (l1 ? pk : pr) + __shfl_xor_sync(FULL, l1 ? pr : pk, 2);
-        const float z = pw + __shfl_xor_sync(FULL, pw, 2);
-        y = (l0 ? z : y) + __shfl_xor_sync(FULL, l0 ? y : z, 1);
-        if (ql != 3) rs[t * NCB * HD * 3] = y;
-        // dv's column sums over the warp's 8 rows, transposed: the lane
-        // ends with column j0 + 2 c1 + c0 (lanes 16 .. 31 repeat 0 .. 15)
-        const float e0 = (c1 ? pv[2] : pv[0]) +
-                         __shfl_xor_sync(FULL, c1 ? pv[0] : pv[2], 4);
-        const float e1 = (c1 ? pv[3] : pv[1]) +
-                         __shfl_xor_sync(FULL, c1 ? pv[1] : pv[3], 4);
-        float x2 = (c0 ? e1 : e0) + __shfl_xor_sync(FULL, c0 ? e0 : e1, 8);
-        x2 += __shfl_xor_sync(FULL, x2, 16);
-        if (lane < 16) cs[t * NRB * HD] = x2;
+        // row sums over the row's 4 lanes, transposed: lanes l1 keep
+        // token 1's, then lanes l0 keep dk, and both dw
+        const float r2 = (l1 ? pr[1] : pr[0]) +
+                         __shfl_xor_sync(FULL, l1 ? pr[0] : pr[1], 2);
+        const float k2 = (l1 ? pk[1] : pk[0]) +
+                         __shfl_xor_sync(FULL, l1 ? pk[0] : pk[1], 2);
+        const float w2 = (l1 ? pw[1] : pw[0]) +
+                         __shfl_xor_sync(FULL, l1 ? pw[0] : pw[1], 2);
+        const float rk =
+            (l0 ? k2 : r2) + __shfl_xor_sync(FULL, l0 ? r2 : k2, 1);
+        const float ww = w2 + __shfl_xor_sync(FULL, w2, 1);
+        const int t = sb * SUB + x;
+        rs[t * RSTR] = rk;
+        if (!l0) rs[t * RSTR + 2] = ww;
+        // dv's column sums over the warp's 8 rows, transposed: lanes c1
+        // keep token 1's, then c0 columns 2, 3, then c2 the odd column
+        float e[CPT];
+#pragma unroll
+        for (int j = 0; j < CPT; ++j)
+          e[j] = (c1 ? pv[1][j] : pv[0][j]) +
+                 __shfl_xor_sync(FULL, c1 ? pv[0][j] : pv[1][j], 4);
+        const float f0 = (c0 ? e[2] : e[0]) +
+                         __shfl_xor_sync(FULL, c0 ? e[0] : e[2], 8);
+        const float f1 = (c0 ? e[3] : e[1]) +
+                         __shfl_xor_sync(FULL, c0 ? e[1] : e[3], 8);
+        cs[t * CSTR] =
+            (c2 ? f1 : f0) + __shfl_xor_sync(FULL, c2 ? f0 : f1, 16);
       }
     }
   };
@@ -408,7 +477,7 @@ __global__ void __launch_bounds__(n_threads(HD), 1) wkv6_bwd_kernel(Args a) {
     const float* dys = reinterpret_cast<const float*>(buf + 4 * TH * 4);
     const float2* sc = scal + (it & 1) * T;
     const float* rs = part + (it & 1) * PART;
-    const float* cs = rs + 3 * T * NCB * HD;
+    const float* cs = rs + T * RSTR;
     for (int o = (tid + NT / 2) % NT; o < n * HD; o += NT) {
       const int t = o / HD, c = o - t * HD;
       const float kt = rkv_at<BF>(buf + TH * 4, o), rt = rkv_at<BF>(buf, o);
@@ -419,12 +488,12 @@ __global__ void __launch_bounds__(n_threads(HD), 1) wkv6_bwd_kernel(Args a) {
         float s = 0.f;
 #pragma unroll
         for (int cbk = 0; cbk < NCB; ++cbk)
-          s += rs[((t * NCB + cbk) * HD + c) * 3 + kind];
+          s += rs[t * RSTR + (cbk * HD + c) * 3 + kind];
         out[kind] = s;
       }
       float sv = 0.f;
 #pragma unroll
-      for (int rbk = 0; rbk < NRB; ++rbk) sv += cs[(t * NRB + rbk) * HD + c];
+      for (int rbk = 0; rbk < NRB; ++rbk) sv += cs[t * CSTR + rbk * HD + c];
       const size_t idx = base + (size_t)(t0 + t) * tok + c;
       a.dr[idx] = fmaf(uc * kt, tsum.x, out[0]);
       a.dk[idx] = fmaf(uc * rt, tsum.x, out[1]);

@@ -98,15 +98,20 @@ def wkv6_bwd_plan(B: int, H: int, S: int, hd: int) -> WkvBwdPlan:
 
     One block a (b, h) of hd * hd / BWD_COLS threads (1024 at hd 64), a
     warp 8 state rows x 16 columns; tiles of BWD_TILE tokens.  The shared
-    memory is the kernel's (csrc/wkv6_bwd.cu::smem_bytes): three staged
-    tiles of r, k, v, w, dy at 4 bytes a value, three tiles' starting
-    states, two tiles' token sums {v.dy, sum u r k} and two tiles of
-    output partials (3 a column block of 16, 1 a row block of 8): 158 KB
-    at hd 64."""
+    memory is the kernel's (csrc/wkv6_bwd.cu::smem_bytes), the larger of
+    its two passes': pass A's ring of three 4 * BWD_TILE-token tiles of
+    k, v, w; pass B's three staged tiles of r, k, v, w, dy, three tiles'
+    starting states, two tiles' token sums {v.dy, sum u r k} and
+    two tiles of output partials (3 a column block of 16, 1 a row block
+    of 8; a token's partials padded to 16 banks off a multiple of 32),
+    all at 4 bytes a value: 163968 B at hd 64."""
     t = BWD_TILE
-    part = 3 * t * (hd // 16) * hd + t * (hd // 8) * hd
-    smem = 3 * 5 * t * hd * 4 + 3 * hd * hd * 4 + 2 * t * 8 + 2 * part * 4
-    return WkvBwdPlan(B * H, hd * hd // BWD_COLS, BWD_COLS, t, smem)
+    pad16 = lambda n: n + (48 - n % 32) % 32     # noqa: E731
+    part = t * (pad16(3 * (hd // 16) * hd) + pad16((hd // 8) * hd))
+    pass_a = 3 * 3 * 4 * t * hd * 4
+    pass_b = 3 * 5 * t * hd * 4 + 3 * hd * hd * 4 + 2 * t * 8 + 2 * part * 4
+    return WkvBwdPlan(B * H, hd * hd // BWD_COLS, BWD_COLS, t,
+                      max(pass_a, pass_b))
 
 
 def wkv6_plain(r, k, v, w, u, state0: Optional[torch.Tensor] = None):

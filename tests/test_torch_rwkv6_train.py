@@ -231,6 +231,20 @@ def test_wkv6_bwd_plan_covers_a_head_within_one_block(hd, B, H, S):
     assert p.tile == kwkv.BWD_TILE
 
 
+def test_wkv6_bwd_ablation_edits_find_the_kernel():
+    """launch/ablate_wkv6_bwd.py leaves parts of csrc/wkv6_bwd.cu out by
+    editing a copy of its source: every edit's anchor is in the kernel
+    once, and every variant differs from the kernel."""
+    from repro_torch.kernels import build
+    from repro_torch.launch import ablate_wkv6_bwd as ablate
+    src = (build.CSRC / "wkv6_bwd.cu").read_text()
+    for name, edits in ablate.VARIANTS.items():
+        text = ablate.variant_source(src, edits)
+        assert (text == src) == (name == "full"), name
+    with pytest.raises(RuntimeError, match="occurs 0 times"):
+        ablate.variant_source(src, (("no such line\n", ""),))
+
+
 # ---------------------------------------------------------------------------
 # rwkv_block
 # ---------------------------------------------------------------------------

@@ -330,3 +330,22 @@ def test_serve_cli_on_cpu_and_without_cuda(monkeypatch, capsys):
     out = capsys.readouterr().out
     assert "throughput" in out and "sample (req-0000)" in out
     assert kmm.COUNTER.n == 0 and kdf.COUNTER.n == 0   # CPU: plain versions
+
+
+def test_bench_decode_traces_again_when_the_profiler_records_nothing(
+        monkeypatch):
+    """launch/bench_decode.py's per-launch split takes its trace again
+    when torch.profiler recorded no device kernel in it (the card's
+    profiler has been seen to), uses the first trace that has kernels,
+    and stops with an error after TRACES empty ones."""
+    from repro_torch.launch import bench_decode
+    kern = [(0.0, 2.0, "void rt::decode::gemm_kernel<64, 0>(Args)"),
+            (1.5, 3.0, "void rt::decode::attn_kernel(Args)")]
+    traces = iter([[], kern])
+    monkeypatch.setattr(bench_decode, "_graph", lambda fn, iters: None)
+    monkeypatch.setattr(bench_decode, "_trace", lambda graph: next(traces))
+    assert bench_decode.launch_ms(None, iters=1) == {
+        "qkv": (0.002, 1.0), "attention": (0.001, 1.0)}
+    monkeypatch.setattr(bench_decode, "_trace", lambda graph: [])
+    with pytest.raises(SystemExit, match="no device kernel in 3"):
+        bench_decode.launch_ms(None, iters=1)
