@@ -45,7 +45,18 @@ port (``src/repro_torch``), never JAX or the JAX package, and:
    recurrence through wkv6, each layer's FF half through fused_ffn) and
    per-op; the teacher-forced comparison; and, layer by layer, fused_ffn
    and the per-op FF against the f32 FF on the same input;
-5. trains: four full-width layers under ``fp32`` for two steps on the
+5. serves granite-moe-1b-a400m at full width (24 layers, 32 experts,
+   top-8): sr_matmul's batched mode — each expert table's PREFILL
+   product over all 32 experts in one launch — at layer 0's three tables
+   and C = 8, 32, 40 rows an expert against its plain version (two calls
+   bit-equal; at C = 32 event, CUDA-graph, plain and torch.bmm times
+   beside the bound), fused_attn_unit without its FF (five launches a
+   call) at granite's widths, the trace served fused and per-op with the
+   batched launches counted (the generic path's must stay 0), and one
+   chunk on the cuda backend beside the reference backend; then the
+   trace through olmo-1b and minitron-4b at full width on the dense
+   path, each with its chunk beside the reference backend;
+6. trains: four full-width layers under ``fp32`` for two steps on the
    cuda backend against the reference backend (TF32 off); all 24 layers
    under ``fp32`` (adamw, remat block, B=4, S=256) for 3 steps through
    ``launch.train``, every product on the f32 path (sgemm_sm90.cuh);
@@ -53,7 +64,7 @@ port (``src/repro_torch``), never JAX or the JAX package, and:
    through sr_matmul, UP through outer_accum, the optimizer's SR
    writeback through sr_round — counting each kernel's launches per
    step (every bf16 product on the sm90 path, none on the generic one);
-6. trains the paper's own networks at full width on the cuda backend
+7. trains the paper's own networks at full width on the cuda backend
    (``runtime/paper_step.py``): AlexNet at 227^2 (B=128), VGG-16 at
    224^2 (B=32), MLP0 (B=256), GRU0 (T=64, B=32) and the captioning
    CNN -> GRU (T=100, B=8), 4 SGD steps each — FC, MLP and GRU products
@@ -67,7 +78,7 @@ port (``src/repro_torch``), never JAX or the JAX package, and:
    resolution against autograd's conv dW; prints each net's step time,
    throughput, TFLOP/s and peak memory, and Fig 16's std/mean of
    TFLOP/s across the five;
-7. trains rwkv6-1.6b: holds wkv6_bwd (the recurrence's gradient,
+8. trains rwkv6-1.6b: holds wkv6_bwd (the recurrence's gradient,
    ``csrc/wkv6_bwd.cu``) against its plain version at the training shape
    (B=4, S=256, 32 heads of 64, bf16 r, k, v), at head_dim 16 and 32, at
    S = 1, 5, 9 and 33, at B=3 with 7 heads and under near-total decay,
@@ -88,6 +99,7 @@ checkout, it exits nonzero and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import itertools
 import json
@@ -124,6 +136,11 @@ TRAIN_RTOL = (1e-4, 1e-3)
 GRAD_REL, GNORM_RTOL = 1e-4, 1e-5
 # training runs: batch 4 x 256 tokens (T = 1024 rows per weight op)
 TRAIN_B, TRAIN_S = 4, 256
+
+
+# the served engine's arena: rows (slots) and positions a row; the fused
+# decode phases check fused_attn_unit at these shapes
+SERVE_SLOTS, SERVE_LEN = 32, 528
 
 
 class SmokeFailure(RuntimeError):
@@ -209,7 +226,7 @@ def errs(got, want) -> tuple:
 def ptxas_report(log: str) -> list:
     """(kernel, registers, spill bytes stored, spill bytes loaded) per
     entry function of an -Xptxas -v log; gemm_sm90.cuh's mainloop is
-    named by its template arguments <BN, A_MN, B_MN>, sgemm_sm90.cuh's
+    named by its template arguments <BN, A_MN, B_MN, BATCHED>, sgemm_sm90.cuh's
     by <A_MN, B_MN>, wkv6.cu's by <hd, columns a block, columns a
     thread, bf16 r/k/v>, wkv6_bwd.cu's by <hd, bf16 r/k/v>."""
     import re
@@ -219,9 +236,9 @@ def ptxas_report(log: str) -> list:
                       r"for) '?([A-Za-z0-9_]+)", line)
         if m:
             cur = m.group(1)
-            g = re.search(r"gemm_kernelILi(\d+)ELb(\d)ELb(\d)E", cur)
+            g = re.search(r"gemm_kernelILi(\d+)ELb(\d)ELb(\d)ELb(\d)E", cur)
             if g:
-                cur = f"gemm_kernel<{g.group(1)},{g.group(2)},{g.group(3)}>"
+                cur = f"gemm_kernel<{','.join(g.groups())}>"
             g = re.search(r"sgemm_kernelILb(\d)ELb(\d)E", cur)
             if g:
                 cur = f"sgemm_kernel<{g.group(1)},{g.group(2)}>"
@@ -590,17 +607,21 @@ def _check_fused_steps(w, cache, fill, kw, active, gen, label: str,
     from repro_torch.kernels import decode_fused as kdf
     from repro_torch.kernels.decode_fused import _vec
     B, d = cache[0].shape[0], w["o_w"].shape[1]
-    f = w["w_out"].shape[0]
+    with_ffn = "w_out" in w
+    f = w["w_out"].shape[0] if with_ffn else 0
     qn = w["qkv_w"].shape[1]
     kern = [c.clone() for c in cache]
     plain = [c.clone() for c in cache]
-    pkw = dict(n1s=_vec(w["norm1_scale"], d, 1.0, "cuda"),
-               n1b=_vec(None, d, 0.0, "cuda"), qkv_w=w["qkv_w"],
-               qkv_b=_vec(w["qkv_bias"], qn, 0.0, "cuda"), o_w=w["o_w"],
-               n2s=_vec(w["norm2_scale"], d, 1.0, "cuda"),
-               n2b=_vec(None, d, 0.0, "cuda"), w_in=w["w_in"],
-               w_out=w["w_out"], window=None, tn=kdf._clip_block_n(256, f),
-               with_ffn=True, active=active, **kw)
+    pkw = dict(n1s=_vec(w.get("norm1_scale"), d, 1.0, "cuda"),
+               n1b=_vec(w.get("norm1_bias"), d, 0.0, "cuda"),
+               qkv_w=w["qkv_w"],
+               qkv_b=_vec(w.get("qkv_bias"), qn, 0.0, "cuda"), o_w=w["o_w"],
+               n2s=_vec(w.get("norm2_scale"), d, 1.0, "cuda"),
+               n2b=_vec(w.get("norm2_bias"), d, 0.0, "cuda"),
+               w_in=w.get("w_in"), w_out=w.get("w_out"), window=None,
+               tn=kdf._clip_block_n(256, f) if with_ffn else 1,
+               with_ffn=with_ffn, active=active)
+    pkw.update((k, v) for k, v in kw.items() if k != "with_ffn")
     worst_abs = worst_rel = 0.0
     for t in range(steps):
         x = torch.randn((B, d), generator=gen, device="cuda").to(torch.bfloat16)
@@ -1268,21 +1289,369 @@ def phase_fused_ffn(cfg, params, peaks) -> dict:
             "shapes": f"rwkv6-1.6b, one layer's FF: B={B}, d={d}, f={f}"}
 
 
-def serve_counters(arch: str) -> dict:
-    """The launch counters of the kernels on `arch`'s serving path."""
+# granite-moe-1b-a400m's PREFILL expert products: C rows an expert for a
+# chunk of T tokens (C = T rounded up to 8: 32 for the served 32-token
+# chunk; 8 and 40 for a short tail and a ragged row tile)
+EXPERT_CS = (8, 32, 40)
+
+
+def _expert_plan_sweep(name: str, a, w, layers, want) -> dict:
+    """The batched product a @ w under 64- and 128-wide column tiles, each
+    with and without a split of K: each within MM_RTOL / MM_ATOL of
+    `want`, timed in a CUDA graph warm in L2 (w again and again) and cold
+    (`layers`' tables in turn); the tile width and split that plan()
+    picks for a MoE chunk rest on these times.  {"<bn>x<splits>":
+    {"warm": ms, "cold": ms}}."""
+    import torch
+    from repro_torch.kernels import sr_matmul as kmm
+    E, C, K = a.shape
+    N = w.shape[2]
+    chosen = kmm.plan(C, N, K, "k", "n", experts=E)
+    out = torch.empty((E, C, N), dtype=torch.float32, device="cuda")
+    res = {}
+    for bn, splits in itertools.product((64, 128), (1, 2)):
+        p = kmm.Plan("sm90", kmm.SM90_BM, bn, kmm.SM90_BK, splits)
+        kmm._batched_call(a, w, out, p, False)
+        torch.cuda.synchronize()
+        check(torch.allclose(out, want, rtol=MM_RTOL, atol=MM_ATOL),
+              f"sr_matmul:experts {bn}-wide, {splits} splits (K={K}, N={N}): "
+              f"max abs err {errs(out, want)[0]:.3g}")
+        warm = time_graph_ms(lambda: kmm._batched_call(a, w, out, p, False))
+        cold = time_graph_ms(lambda: [kmm._batched_call(a, wl, out, p, False)
+                                      for wl in layers],
+                             iters=2) / len(layers)
+        res[f"{bn}x{splits}"] = {"warm": warm, "cold": cold}
+    print(f"[sr_matmul:experts] {name:<12} K={K} N={N} plan sweep, graph "
+          f"ms warm / cold in L2 (planned {chosen.bn}x{chosen.splits}): "
+          + ", ".join(
+              f"{k} {v['warm']:.4f} / {v['cold']:.4f}"
+              for k, v in res.items()))
+    return res
+
+
+def phase_sr_matmul_experts(gcfg, gparams, peaks) -> dict:
+    """sr_matmul's batched mode at granite's full-width PREFILL shapes:
+    layer 0's three expert tables (32 experts; in and gate 1024 -> 512,
+    out 512 -> 1024) at C in EXPERT_CS rows an expert, each call one
+    launch on the sm90 path, within MM_RTOL / MM_ATOL of the plain
+    version and bit-equal over two calls; at the served C = 32 its
+    event, CUDA-graph, plain and torch.bmm times beside the bound, the
+    graph times also cold in L2 (each call on another layer's table, as
+    a chunk's 24 layers read them: 24 x 33.5 MB a table, the L2 50 MB)."""
+    import torch
+    from repro_torch.kernels import sr_matmul as kmm
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    moe = gparams["groups"]["u0"]["moe"]
+    tables = [(n, moe[n][0]) for n in ("experts_in", "experts_gate",
+                                       "experts_out")]
+    E = gcfg.moe.n_experts
+    worst_abs = worst_rel = 0.0
+    tot = {"ms": 0.0, "graph": 0.0, "plain": 0.0, "lib": 0.0,
+           "lib_graph": 0.0, "bound": 0.0, "cold": 0.0, "lib_cold": 0.0}
+    by_ms = {"bytes": 0.0, "operations": 0.0}
+    plans, sweep = {}, {}
+    for C in EXPERT_CS:
+        for name, w in tables:
+            _, K, N = w.shape
+            a = torch.randn((E, C, K), generator=gen,
+                            device="cuda").to(torch.bfloat16)
+            p = kmm.plan(C, N, K, "k", "n", experts=E)
+            check(p.path == "sm90", f"sr_matmul:experts {name} C={C}: "
+                  f"{plan_txt(p)}, want sm90")
+            before = {k: c.n for k, c in (("batched", kmm.BATCHED_COUNTER),
+                                          ("all", kmm.COUNTER),
+                                          *kmm.PATH_COUNTERS.items())}
+            got = kmm.sr_matmul_batched(a, w)
+            after = {k: c.n for k, c in (("batched", kmm.BATCHED_COUNTER),
+                                         ("all", kmm.COUNTER),
+                                         *kmm.PATH_COUNTERS.items())}
+            moved = {k: after[k] - before[k] for k in after}
+            check(moved == {"batched": 1, "all": 1, "sm90": 1, "generic": 0,
+                            "f32": 0},
+                  f"sr_matmul:experts {name} C={C}: counters moved {moved}, "
+                  f"want one sm90 launch")
+            want = kmm.sr_matmul_batched_plain(a, w)
+            again = kmm.sr_matmul_batched(a, w)
+            torch.cuda.synchronize()
+            ea, er = errs(got, want)
+            check(torch.allclose(got, want, rtol=MM_RTOL, atol=MM_ATOL),
+                  f"sr_matmul:experts {name} ({E}x{C}x{K}x{N}): max abs err "
+                  f"{ea:.3g}")
+            check(torch.equal(got, again),
+                  f"sr_matmul:experts {name} C={C}: two calls differ")
+            worst_abs, worst_rel = max(worst_abs, ea), max(worst_rel, er)
+            b_ms, by = bound(2 * E * (C * K + K * N) + 4 * E * C * N,
+                             2 * E * C * N * K, peaks)
+            if C != 32:
+                print(f"[sr_matmul:experts] {name:<12} E={E} C={C} K={K} "
+                      f"N={N} {plan_txt(p)}: max_abs_err {ea:.3g}; 2 calls "
+                      f"bit-equal")
+                continue
+            plans[name] = list(p)
+            ms = time_ms(lambda: kmm.sr_matmul_batched(a, w))
+            dev = time_graph_ms(lambda: kmm.sr_matmul_batched(a, w))
+            plain = time_ms(lambda: kmm.sr_matmul_batched_plain(a, w))
+            lib = time_ms(lambda: torch.bmm(a, w))
+            lib_dev = time_graph_ms(lambda: torch.bmm(a, w))
+            layers = moe[name].unbind(0)
+            cold = time_graph_ms(lambda: [kmm.sr_matmul_batched(a, wl)
+                                          for wl in layers],
+                                 iters=2) / len(layers)
+            lib_cold = time_graph_ms(lambda: [torch.bmm(a, wl)
+                                              for wl in layers],
+                                     iters=2) / len(layers)
+            sweep[name] = _expert_plan_sweep(name, a, w, layers, want)
+            by_ms[by] += b_ms
+            for k, v in (("ms", ms), ("graph", dev), ("plain", plain),
+                         ("lib", lib), ("lib_graph", lib_dev),
+                         ("bound", b_ms), ("cold", cold),
+                         ("lib_cold", lib_cold)):
+                tot[k] += v
+            print(f"[sr_matmul:experts] {name:<12} E={E} C={C} K={K} N={N} "
+                  f"{plan_txt(p)}: kernel {ms:.4f}ms plain {plain:.4f}ms "
+                  f"torch.bmm {lib:.4f}ms bound {b_ms:.4f}ms ({by}); in a "
+                  f"CUDA graph: kernel {dev:.4f}ms torch.bmm "
+                  f"{lib_dev:.4f}ms, cold in L2: kernel {cold:.4f}ms "
+                  f"torch.bmm {lib_cold:.4f}ms  max_abs_err {ea:.3g}; 2 "
+                  f"calls bit-equal; one launch")
+    print(f"[sr_matmul:experts] one layer's three tables at C=32: kernel "
+          f"{tot['ms']:.4f}ms plain {tot['plain']:.4f}ms torch.bmm "
+          f"{tot['lib']:.4f}ms bound {tot['bound']:.4f}ms; in a CUDA graph: "
+          f"kernel {tot['graph']:.4f}ms torch.bmm {tot['lib_graph']:.4f}ms; "
+          f"cold in L2: kernel {tot['cold']:.4f}ms torch.bmm "
+          f"{tot['lib_cold']:.4f}ms")
+    return {"name": "sr_matmul:experts", "counter": "sr_matmul:batched",
+            "route": "cuda", "source": "src/repro_torch/csrc/gemm_sm90.cuh",
+            "entry": "src/repro_torch/csrc/sr_matmul.cu",
+            "replaces": "src/repro/kernels/sr_matmul.py:96",
+            "tpu_kernel": "repro/kernels/sr_matmul.py::sr_matmul under "
+                          "jax.vmap (repro/engine/dispatch.py:198-199)",
+            "max_abs_err": worst_abs, "max_rel_err": worst_rel,
+            "ms": tot["ms"], "kernel_ms": tot["ms"], "plain_ms": tot["plain"],
+            "library_ms": tot["lib"], "library": "torch.bmm",
+            "bound_ms": tot["bound"], "bound_by": max(by_ms, key=by_ms.get),
+            "graph_ms": tot["graph"], "library_graph_ms": tot["lib_graph"],
+            "cold_graph_ms": tot["cold"],
+            "library_cold_graph_ms": tot["lib_cold"], "plans": plans,
+            "plan_sweep": sweep,
+            "shapes": f"granite-moe-1b-a400m layer 0, one 32-token PREFILL "
+                      f"chunk: experts_in, experts_gate, experts_out, E={E}, "
+                      f"C=32"}
+
+
+def _layer0(tree):
+    """Group 0's slice of every leaf of a stacked parameter tree."""
+    return {k: _layer0(v) if isinstance(v, dict) else v[0]
+            for k, v in tree.items()}
+
+
+def phase_fused_served(cfg, params, peaks, label: str) -> dict:
+    """fused_attn_unit as `cfg`'s served decode calls it, at full width:
+    layer 0's weights, its norm kind (olmo's non-parametric LN is a
+    layernorm with no affine operands) and activation, its FF (none on a
+    MoE unit), B=SERVE_SLOTS rows, S=SERVE_LEN, 3 steps against the plain
+    version; decode_plan's launches a call (7 with the FF, 5 without) as
+    the C entry counts them; its CUDA-graph time beside its bound."""
+    import torch
+    from repro_torch.kernels import decode_fused as kdf
+    from repro_torch.models import transformer as tfm
+    a = cfg.attention
+    B, S, d = SERVE_SLOTS, SERVE_LEN, cfg.d_model
+    H, K, hd = a.n_heads, a.n_kv_heads, a.head_dim
+    u = _layer0(params["groups"]["u0"])
+    dense = cfg.moe is None
+    n1, nk = tfm._fused_norm_args(cfg, u, "norm1")
+    n2, _ = tfm._fused_norm_args(cfg, u, "norm2")
+    w = dict(qkv_w=u["attn"]["qkv"], qkv_bias=u["attn"].get("qkv_bias"),
+             o_w=u["attn"]["o"], norm1_scale=(n1 or {}).get("scale"),
+             norm1_bias=(n1 or {}).get("bias"))
+    if dense:
+        w.update(w_in=u["ffn"]["ffn_in"], w_out=u["ffn"]["ffn_out"],
+                 norm2_scale=(n2 or {}).get("scale"),
+                 norm2_bias=(n2 or {}).get("bias"))
+    kw = dict(heads=H, kv_heads=K, head_dim=hd, rope_theta=a.rope_theta,
+              window=a.window, norm_kind=nk, act=cfg.act, with_ffn=dense)
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    _, cache, fill = _fused_case(B, S, d, H, K, hd, 8, gen, w)
+    active = torch.ones(B, dtype=torch.bool, device="cuda")
+    active[B // 3] = False
+    ea, er = _check_fused_steps(w, cache, fill, kw, active, gen, label)
+    planned = launches_per_call(cfg)["fused_attn_unit"]
+    x = torch.randn((B, d), generator=gen, device="cuda").to(torch.bfloat16)
+    pos = (fill + 3).to(torch.int32)
+    kern = [c.clone() for c in cache]
+    call = lambda: kdf.fused_attn_unit(x, *kern, pos, active=active, **w,
+                                       **kw)
+    l0 = kdf.LAUNCHES.n
+    call()
+    per_call = kdf.LAUNCHES.n - l0
+    check(per_call == planned == (7 if dense else 5),
+          f"{label}: {per_call} launches in a call, plan {planned}")
+    dev_ms = time_graph_ms(call)
+    qn = (H + 2 * K) * hd
+    ff = w["w_in"].numel() + w["w_out"].numel() if dense else 0
+    valid = int((fill + 4).sum())
+    nbytes = 2 * (d * qn + H * hd * d + ff) + valid * K * hd * 4 \
+        + B * S * 4 + 2 * 2 * B * d
+    b_ms, by = bound(nbytes, 2 * B * (d * qn + H * hd * d + ff)
+                     + 4 * H * hd * valid, peaks)
+    ffn = (f"d_ff {cfg.d_ff} {cfg.act}" if dense else "without the FF")
+    print(f"[{label}] {cfg.name} layer 0 (d {d}, {H} heads of {hd}, {K} KV "
+          f"heads, {cfg.norm}, {ffn}) B={B} S={S}: max_abs_err {ea:.3g} "
+          f"within Y_TOL/CACHE_TOL over 3 steps; {per_call} launches a "
+          f"call; in a CUDA graph {dev_ms:.4f}ms bound {b_ms:.4f}ms ({by})")
+    del cache, kern
+    torch.cuda.empty_cache()
+    return {"max_abs_err": ea, "max_rel_err": er, "graph_ms": dev_ms,
+            "bound_ms": b_ms, "bound_by": by, "launches_per_call": per_call}
+
+
+def init_served(arch: str, gen) -> tuple:
+    """(config, bf16 params) of `arch` at full width from `gen`, with
+    random norm scales and biases where the model has them (init makes
+    them 1 and 0)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tfm
+    from repro_torch.runtime import train_loop as tl
+    cfg = get_config(arch)
+    t0 = time.monotonic()
+    params = tl.cast_params(tfm.init(gen, cfg), torch.bfloat16)
+    norms = [u[k] for u in params["groups"].values()
+             for k in ("norm1", "norm2") if k in u]
+    norms += [params["final_norm"]] if "final_norm" in params else []
+    for norm in norms:
+        for key, base in (("scale", 1.0), ("bias", 0.0)):
+            if key in norm:
+                norm[key].copy_(base + 0.1 * torch.randn(
+                    norm[key].shape, generator=gen, device="cuda"))
+    print(f"[init] {arch} {cfg.param_count()} params in "
+          f"{time.monotonic() - t0:.1f}s")
+    return cfg, params
+
+
+@contextlib.contextmanager
+def _routing(record: list = None, replay: list = None):
+    """Within it, each MoE routing call (models/moe.py `_route`, once a
+    layer) appends its (combine weights, experts) to `record`, or returns
+    `replay`'s in call order: routing held fixed across two runs.  A
+    replayed call appends (tokens whose own top-k set differs from the
+    replayed one, tokens) to `record`.  Neither: free routing."""
+    from repro_torch.models import moe
+    if record is None:
+        yield
+        return
+    route, turns = moe._route, iter(replay or ())
+
+    def held(x, router_w, top_k, sh):
+        topv, topi, aux = route(x, router_w, top_k, sh)
+        if replay is None:
+            record.append((topv, topi))
+            return topv, topi, aux
+        fixed_v, fixed_i = next(turns)
+        record.append((int((topi.sort(-1)[0] != fixed_i.sort(-1)[0])
+                           .any(-1).sum()), topi.shape[0]))
+        return fixed_v, fixed_i, aux
+
+    moe._route = held
+    try:
+        yield
+    finally:
+        moe._route = route
+
+
+def _flips(record: list) -> str:
+    """'n of m' from a replaying _routing's record."""
+    return (f"{sum(n for n, _ in record)} of "
+            f"{sum(t for _, t in record)}")
+
+
+def phase_chunk_vs_reference(cfg, params, label: str) -> dict:
+    """One 32-token PREFILL chunk of 4 rows through chunk_step on the cuda
+    backend and on the reference backend (float64 products) on the card:
+    both finite, of shape (4, 32, V), max |dlogit| / std within
+    CHUNK_MAX.  On a MoE config the reference runs with the cuda run's
+    routing (experts and combine weights), so that a token whose top-k
+    set flips between bf16 and f64 products does not hide a fault in the
+    batched expert products; the free-routing distance is printed too."""
+    import torch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core.program import compile_program
+    from repro_torch.models import transformer as tfm
+    from repro_torch.runtime import train_loop as tl
+    B, C = 4, 32
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    toks = torch.randint(0, cfg.vocab_size, (B, C), generator=gen,
+                         device="cuda", dtype=torch.int32)
+    prog = compile_program(cfg, ShapeConfig("chunk", C, B, "decode"))
+    routes, flips = [], []
+
+    def chunk(backend, record=None, replay=None):
+        cache = tfm.init_cache(cfg, B, C, device="cuda")
+        step = tl.make_chunk_step(cfg, prog, kernel_backend=backend)
+        with torch.no_grad(), _routing(record, replay):
+            lg, _ = step(params, cache, toks,
+                         torch.zeros(B, dtype=torch.int32, device="cuda"))
+        return lg.float()
+
+    moe = cfg.moe is not None
+    a = chunk("cuda", record=routes if moe else None)
+    b = chunk("reference", record=flips if moe else None,
+              replay=routes if moe else None)
+    check(tuple(a.shape) == (B, C, cfg.vocab_size)
+          and bool(torch.isfinite(a).all() and torch.isfinite(b).all()),
+          f"{label}: chunk logits {tuple(a.shape)}, finite "
+          f"{bool(torch.isfinite(a).all())}")
+    d, agree = _gap(a, b)
+    held = ""
+    if moe:
+        free, _ = _gap(a, chunk("reference"))
+        held = (f" with the cuda run's routing (the reference's own top-k "
+                f"set differs on {_flips(flips)} token-layers; free "
+                f"routing: {free:.4f})")
+    print(f"[{label}] one {C}-token chunk of {B} rows, cuda vs reference "
+          f"backend (f64 products){held}: max |dlogit| / std {d:.4f}; "
+          f"argmax agree {agree}/{B * C}")
+    check(d <= CHUNK_MAX[cfg.name], f"{label}: chunk cuda vs reference max "
+          f"|dlogit| {d:.4f} std (gate {CHUNK_MAX[cfg.name]})")
+    return {"gap": d, "agree": agree,
+            "flips": _flips(flips) if moe else None}
+
+
+def serve_counters(cfg) -> dict:
+    """The launch counters of the kernels on `cfg`'s serving path."""
     from repro_torch.kernels import decode_fused as kdf
     from repro_torch.kernels import sr_matmul as kmm
     from repro_torch.kernels import wkv6 as kwkv
     paths = {f"sr_matmul:{p}": kmm.PATH_COUNTERS[p]
              for p in ("sm90", "generic")}
-    if arch == "rwkv6-1.6b":
+    if cfg.attention is None:
         return {"sr_matmul": kmm.COUNTER, **paths, "wkv6": kwkv.COUNTER,
                 **{f"wkv6:{k}": c for k, c in kwkv.SHAPE_COUNTERS.items()},
                 "fused_ffn": kdf.FFN_COUNTER,
                 "fused_ffn:launches": kdf.FFN_LAUNCHES}
+    if cfg.moe is not None:
+        paths["sr_matmul:batched"] = kmm.BATCHED_COUNTER
     return {"sr_matmul": kmm.COUNTER, **paths,
             "fused_attn_unit": kdf.COUNTER,
             "fused_attn_unit:launches": kdf.LAUNCHES}
+
+
+def launches_per_call(cfg) -> dict:
+    """{fused word: kernel launches a call} on `cfg`'s served decode
+    (SERVE_SLOTS rows, SERVE_LEN positions), from decode_plan:
+    fused_attn_unit 7 (5 without the FF, a MoE unit's), fused_ffn 3."""
+    from repro_torch.kernels import decode_fused as kdf
+    gated = cfg.act in ("swiglu", "geglu")
+    if cfg.attention is None:
+        return {"fused_ffn": kdf.decode_plan(
+            SERVE_SLOTS, cfg.d_model, f=cfg.d_ff, gated=gated,
+            attention=False).launches}
+    a, dense = cfg.attention, cfg.moe is None
+    return {"fused_attn_unit": kdf.decode_plan(
+        SERVE_SLOTS, cfg.d_model, f=cfg.d_ff if dense else 0, gated=gated,
+        heads=a.n_heads, kv_heads=a.n_kv_heads, head_dim=a.head_dim,
+        S=SERVE_LEN, with_ffn=dense).launches}
 
 
 def phase_serve(cfg, params, label: str) -> dict:
@@ -1293,12 +1662,12 @@ def phase_serve(cfg, params, label: str) -> dict:
     from repro_torch.serving import build_engine, latency_stats, poisson_trace
     trace = poisson_trace(16, vocab_size=cfg.vocab_size, prompt_lens=(16, 512),
                           gen_tokens=16, mean_interarrival_steps=2.0, seed=0)
-    counters = serve_counters(cfg.name)
+    counters = serve_counters(cfg)
     runs = {}
     for fused in (True, False):
-        eng = build_engine(cfg, n_slots=32, max_len=528, prefill_chunk=32,
-                           kernel_backend="cuda", fused_decode=fused,
-                           device="cuda", params=params)
+        eng = build_engine(cfg, n_slots=SERVE_SLOTS, max_len=SERVE_LEN,
+                           prefill_chunk=32, kernel_backend="cuda",
+                           fused_decode=fused, device="cuda", params=params)
         for c in counters.values():
             c.reset()
         t0 = time.monotonic()
@@ -1324,12 +1693,12 @@ def phase_serve(cfg, params, label: str) -> dict:
                         "fused_ffn", "fused_attn_unit")))
             check((n > 0) == want, f"{label}:{mode} launched {k} {n} times")
         # each fused word call made its plan's launches, as its C entry
-        # counted them (every served call runs the FF: 7 and 3)
-        for word, per in (("fused_attn_unit", 7), ("fused_ffn", 3)):
-            if word in counts:
-                check(counts[f"{word}:launches"] == per * counts[word],
-                      f"{label}:{mode}: {counts[f'{word}:launches']} "
-                      f"{word} kernel launches in {counts[word]} calls")
+        # counted them
+        for word, per in launches_per_call(cfg).items():
+            check(counts[f"{word}:launches"] == per * counts[word],
+                  f"{label}:{mode}: {counts[f'{word}:launches']} {word} "
+                  f"kernel launches in {counts[word]} calls, {per} a call "
+                  f"planned")
         runs[mode] = (res, counts)
         del eng
     a, b = runs["fused"][0], runs["per-op"][0]
@@ -1368,7 +1737,11 @@ def phase_fused_vs_perop(cfg, params, label: str, prompt: int = 32) -> dict:
     the per-op logits' std, and the argmax agreement (256 in all).  Each
     bf16 path is also held against an f32 truth: the per-op words with f32
     weights, activations and caches.  A fault in the fused word shows as
-    a fused path farther from the truth than the per-op path."""
+    a fused path farther from the truth than the per-op path.  A MoE
+    config has no such truth (the batched expert word takes bf16 only):
+    fused against per-op alone, the fused run with the per-op run's
+    routing (a token whose top-k set flips would hide the fused word's
+    error behind another expert's)."""
     import torch
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.core.program import compile_program
@@ -1397,16 +1770,27 @@ def phase_fused_vs_perop(cfg, params, label: str, prompt: int = 32) -> dict:
         return out
 
     cache = tfm.init_cache(cfg, B, P + N, device="cuda")
-    per_op = run(compile_program(cfg, shape), params, _clone_tree(cache),
-                 False)
-    fused = run(compile_program(cfg, shape, fused_decode=True), params,
-                _clone_tree(cache), True)
-    truth = run(compile_program(cfg, shape, precision="fp32"),
-                _f32_tree(params), _f32_tree(cache), False)
+    moe = cfg.moe is not None
+    routes, flips = [], []
+    with _routing(routes if moe else None):
+        per_op = run(compile_program(cfg, shape), params, _clone_tree(cache),
+                     False)
+    with _routing(flips if moe else None, routes if moe else None):
+        fused = run(compile_program(cfg, shape, fused_decode=True), params,
+                    _clone_tree(cache), True)
+    if moe:
+        print(f"[{label}] teacher-forced fused decode with the per-op run's "
+              f"routing: its own top-k set differs on {_flips(flips)} "
+              f"token-layers (prompt and 8 steps)")
+    pairs = [("fused-vs-per-op", fused, per_op)]
+    truth = []
+    if cfg.moe is None:
+        truth = run(compile_program(cfg, shape, precision="fp32"),
+                    _f32_tree(params), _f32_tree(cache), False)
+        pairs += [("per-op-vs-f32", per_op, truth),
+                  ("fused-vs-f32", fused, truth)]
     res = {}
-    for name, a, b in (("fused-vs-per-op", fused, per_op),
-                       ("per-op-vs-f32", per_op, truth),
-                       ("fused-vs-f32", fused, truth)):
+    for name, a, b in pairs:
         gaps = [_gap(x, y) for x, y in zip(a, b)]
         ds = sorted(g[0] for g in gaps)
         res[name] = {"median": ds[len(ds) // 2], "max": ds[-1],
@@ -1429,22 +1813,34 @@ def phase_fused_vs_perop(cfg, params, label: str, prompt: int = 32) -> dict:
 # kernel and torch call here is deterministic, so a run repeats them.
 ACCURACY_RATIO = 1.1
 FFN_LAYER_RATIO = 1.1
-TF_MAX = {"qwen2-0.5b": 0.1, "rwkv6-1.6b": 0.5, "rwkv6-1.6b:512": 0.6}
+# (granite's with routing held fixed; the three served configs' limits
+# are the card's gap x 1.1, rounded up to 0.01)
+TF_MAX = {"qwen2-0.5b": 0.1, "rwkv6-1.6b": 0.5, "rwkv6-1.6b:512": 0.6,
+          "granite-moe-1b-a400m": 0.06, "olmo-1b": 0.1, "minitron-4b": 0.13}
+# one PREFILL chunk, cuda against reference backend (granite: routing
+# held fixed), the card's gap x 1.1 rounded up to 0.01 (PERF.md)
+CHUNK_MAX = {"granite-moe-1b-a400m": 0.09, "olmo-1b": 0.1,
+             "minitron-4b": 0.14}
 
 
-def check_fused_vs_perop(tf: dict, worst_layer: float) -> None:
-    """tf: {arch: phase_fused_vs_perop's result}."""
+def check_fused_vs_perop(tf: dict, worst_layer: float = None) -> None:
+    """tf: {arch: phase_fused_vs_perop's result}; worst_layer:
+    phase_ffn_bisect's, where it ran."""
     for arch, res in tf.items():
-        fused, per_op = res["fused-vs-f32"]["max"], res["per-op-vs-f32"]["max"]
-        check(fused <= ACCURACY_RATIO * per_op,
-              f"{arch}: fused decode is {fused:.4f} std from the f32 truth, "
-              f"the per-op decode {per_op:.4f} (gate: {ACCURACY_RATIO}x)")
+        if "fused-vs-f32" in res:
+            fused = res["fused-vs-f32"]["max"]
+            per_op = res["per-op-vs-f32"]["max"]
+            check(fused <= ACCURACY_RATIO * per_op,
+                  f"{arch}: fused decode is {fused:.4f} std from the f32 "
+                  f"truth, the per-op decode {per_op:.4f} (gate: "
+                  f"{ACCURACY_RATIO}x)")
         gap = res["fused-vs-per-op"]["max"]
         check(gap <= TF_MAX[arch], f"{arch} fused vs per-op decode: max "
               f"|dlogit| {gap:.4f} std (gate {TF_MAX[arch]})")
-    check(worst_layer <= FFN_LAYER_RATIO,
-          f"fused_ffn's error against the f32 FF is {worst_layer:.4f}x the "
-          f"per-op FF's (gate {FFN_LAYER_RATIO}x)")
+    if worst_layer is not None:
+        check(worst_layer <= FFN_LAYER_RATIO,
+              f"fused_ffn's error against the f32 FF is {worst_layer:.4f}x "
+              f"the per-op FF's (gate {FFN_LAYER_RATIO}x)")
 
 
 def phase_ffn_bisect(cfg, params) -> float:
@@ -1520,6 +1916,7 @@ def _counters() -> dict:
     return {"sr_matmul": kmm.COUNTER, "outer_accum": koa.COUNTER,
             "sr_round": ksr.COUNTER, "fused_attn_unit": kdf.COUNTER,
             "wkv6": kwkv.COUNTER, "wkv6_bwd": kwkv.BWD_COUNTER,
+            "sr_matmul:batched": kmm.BATCHED_COUNTER,
             **{f"{mod}:{p}": c.PATH_COUNTERS[p]
                for mod, c in (("sr_matmul", kmm), ("outer_accum", koa))
                for p in kmm.PATHS}}
@@ -1690,9 +2087,10 @@ def phase_train(arch: str = "qwen2-0.5b", label: str = "train",
               f"a training step launched {k} other than {n} times: "
               f"{[p[k] for p in per_step]}")
     for k in ("sr_matmul:generic", "outer_accum:generic", "sr_matmul:f32",
-              "outer_accum:f32"):
+              "outer_accum:f32", "sr_matmul:batched"):
         check(totals[k] == 0, f"the training run launched {k} {totals[k]} "
-              f"times (every bf16 product belongs on the sm90 path)")
+              f"times (every bf16 product belongs on the sm90 path, and "
+              f"no dense model has an expert table)")
     return {"counts": totals, "per_step": per_step[-1],
             "ms_per_step": med * 1e3, "tokens_per_s": tok / med,
             "peak_gib": peak}
@@ -2531,6 +2929,29 @@ def main() -> int:
         del rparams
         torch.cuda.empty_cache()
 
+        # granite-moe-1b-a400m: the expert tables' batched PREFILL
+        # products, the attention half of its fused decode, its serving;
+        # then olmo-1b's and minitron-4b's fused decode and serving on the
+        # dense path
+        fused_row = next(r for r in rows if r["name"] == "fused_attn_unit")
+        tf_served = {}
+        for arch, tag in (("granite-moe-1b-a400m", "granite"),
+                          ("olmo-1b", "olmo"), ("minitron-4b", "minitron")):
+            scfg, sparams = init_served(arch, gen)
+            if scfg.moe is not None:
+                rows.append(phase_sr_matmul_experts(scfg, sparams, peaks))
+            fused_row[tag] = phase_fused_served(
+                scfg, sparams, peaks, f"fused_attn_unit:{tag}")
+            counts = phase_serve(scfg, sparams, f"serve:{tag}")
+            if scfg.moe is not None:
+                serve_counts["sr_matmul:experts"] = counts
+            phase_chunk_vs_reference(scfg, sparams, f"serve:{tag}")
+            tf_served[arch] = phase_fused_vs_perop(scfg, sparams,
+                                                   f"serve:{tag}")
+            del sparams
+            torch.cuda.empty_cache()
+        check_fused_vs_perop(tf_served)
+
         rows += [*phase_sr_matmul_train(cfg, peaks),
                  *phase_outer_accum(cfg, peaks),
                  phase_sr_round(cfg, peaks)]
@@ -2557,15 +2978,16 @@ def main() -> int:
         return 1
     # launches: each kernel's count in the main path that runs it — the
     # qwen2 serve run for its PREFILL sr_matmul and fused_attn_unit, the
-    # rwkv6 serve run for its sr_matmul, wkv6 and fused_ffn, the rwkv6
-    # training run for wkv6_bwd, the fp32 training run for the f32 rows,
-    # the paper_sr_bf16 training run for the rest (sr_matmul:train is
-    # sr_matmul's FF + BP count there)
+    # rwkv6 serve run for its sr_matmul, wkv6 and fused_ffn, the granite
+    # serve run for the batched expert products (its sr_matmul:batched
+    # count), the rwkv6 training run for wkv6_bwd, the fp32 training run
+    # for the f32 rows, the paper_sr_bf16 training run for the rest
+    # (sr_matmul:train is sr_matmul's FF + BP count there)
     for r in rows:
         kernel = r["name"].split(":")[0]
         counts = (fp32_full["counts"] if r["name"].endswith(":f32")
                   else serve_counts.get(r["name"], train["counts"]))
-        r["launches"] = counts[kernel]
+        r["launches"] = counts[r.get("counter", kernel)]
         if f"{kernel}:launches" in counts:
             r["kernel_launches"] = counts[f"{kernel}:launches"]
         paths = {p: counts[f"{kernel}:{p}"] for p in ("sm90", "generic",

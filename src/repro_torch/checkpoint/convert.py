@@ -5,7 +5,10 @@ The port keeps the reference's keys and layouts (``embed.table`` (V, d),
 ``groups.u0.attn.qkv`` (n_groups, d, (H+2K)*hd), ``qkv_bias``, ``o``,
 ``ffn.ffn_in`` (n_groups, d, 2f), ``ffn.ffn_out``, ``norm1/2.scale``
 and ``bias``, ``final_norm``, ``lm_head``, and rwkv6's
-``groups.u0.rwkv.{rkvg, decay, o, w0, u, mix}``, and the paper nets'
+``groups.u0.rwkv.{rkvg, decay, o, w0, u, mix}``, a MoE unit's
+``groups.u0.moe.{router, experts_in, experts_gate, experts_out}``
+((n_groups, d, E), (n_groups, E, d, f), (n_groups, E, d, f),
+(n_groups, E, f, d)), and the paper nets'
 ``convs`` / ``fcs`` / ``layers`` lists of layer dicts), so conversion is
 a walk over nested dicts and lists.  bf16 arrays
 (numpy has no bf16; they arrive as ml_dtypes' or as uint16 views) are

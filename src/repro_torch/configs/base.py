@@ -2,11 +2,13 @@
 
 The port's own copy of the reference's config types, holding only what
 the port's slices need: dense decoder-only models with GQA attention,
-and the attention-free RWKV6 family (``ssm``).
+the attention-free RWKV6 family (``ssm``) and mixture-of-experts models
+(``moe``: GQA attention with a routed expert FF).
 ``get_reduced`` gives the CPU-test variant of the same family (small
-widths, two layers, vocab 256) as the reference derives it for dense
-models; rwkv6 registers its own rule (d 128, head_dim 32), and a test
-builds the reference's config from the port's fields.
+widths, two layers, vocab 256; MoE: 4 experts, top-2, d_expert 32) as
+the reference derives it; rwkv6 registers its own rule (d 128,
+head_dim 32), and a test builds the reference's config from the port's
+fields.
 """
 from __future__ import annotations
 
@@ -26,6 +28,17 @@ class AttentionConfig:
 
 
 @dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int
+    top_k: int
+    d_expert: int                      # per-expert FFN hidden size
+    dense_residual: bool = False       # a dense FFN in parallel with MoE
+    moe_period: int = 1                # MoE FFN every `period` layers
+    router_jitter: float = 0.0
+    aux_loss_weight: float = 0.01
+
+
+@dataclass(frozen=True)
 class SSMConfig:
     kind: str = "rwkv6"                # the port runs 'rwkv6' only
     head_dim: int = 64                 # rwkv6 head size
@@ -34,18 +47,28 @@ class SSMConfig:
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                        # 'dense' | 'ssm'
+    family: str                        # 'dense' | 'ssm' | 'moe'
     n_layers: int
     d_model: int
     d_ff: int
     vocab_size: int
     attention: Optional[AttentionConfig] = None
+    moe: Optional[MoEConfig] = None
     ssm: Optional[SSMConfig] = None
     norm: str = "rmsnorm"              # rmsnorm|layernorm|nonparametric_ln
     act: str = "swiglu"                # swiglu|gelu|relu_sq|geglu
     tie_embeddings: bool = False
     max_seq_len: int = 1 << 20
     notes: str = ""
+
+    def is_moe_layer(self, i: int) -> bool:
+        if self.moe is None:
+            return False
+        return (i % self.moe.moe_period) == (self.moe.moe_period - 1)
+
+    def _ffn_params(self, hidden: int) -> int:
+        return (3 if self.act in ("swiglu", "geglu") else 2) \
+            * self.d_model * hidden
 
     def param_count(self) -> int:
         """Analytic parameter count (the reference's count: embeddings and
@@ -63,9 +86,26 @@ class ModelConfig:
                      + a.n_heads * a.head_dim * d)
             if a.qkv_bias:
                 mixer += (a.n_heads + 2 * a.n_kv_heads) * a.head_dim
-        ffn = (3 if self.act in ("swiglu", "geglu") else 2) * d * f
-        n += L * (mixer + ffn + 2 * n_norm)
+        for i in range(L):
+            n += mixer + 2 * n_norm
+            if self.is_moe_layer(i):
+                m = self.moe
+                n += m.n_experts * self._ffn_params(m.d_expert) \
+                    + d * m.n_experts
+                if m.dense_residual:
+                    n += self._ffn_params(f)
+            else:
+                n += self._ffn_params(f)
         return n
+
+    def active_param_count(self) -> int:
+        """Params touched per token (MoE: top_k of n_experts)."""
+        if self.moe is None:
+            return self.param_count()
+        m = self.moe
+        n_moe = sum(1 for i in range(self.n_layers) if self.is_moe_layer(i))
+        return self.param_count() - n_moe * (m.n_experts - m.top_k) \
+            * self._ffn_params(m.d_expert)
 
 
 @dataclass(frozen=True)
@@ -127,6 +167,9 @@ def _default_reduced(cfg: ModelConfig) -> ModelConfig:
             a, n_heads=4,
             n_kv_heads=min(a.n_kv_heads, 2) if a.n_kv_heads < a.n_heads else 4,
             head_dim=16)
+    if cfg.moe is not None:
+        kw["moe"] = replace(cfg.moe, n_experts=4, top_k=min(cfg.moe.top_k, 2),
+                            d_expert=32)
     return replace(cfg, **kw)
 
 

@@ -53,6 +53,34 @@ def _ffn_ops(cfg: ModelConfig, n_layers: int) -> list:
     ]
 
 
+def _moe_ops(cfg: ModelConfig, n_layers: int) -> list:
+    """The router (a 'state' op: VPU routing math, never a MAC kernel)
+    and the expert tables; gate and up are separate tables."""
+    m = cfg.moe
+    d, fe = cfg.d_model, m.d_expert
+    frac = m.top_k / m.n_experts
+    ops = [
+        OpSpec("moe_router", (d, m.n_experts), "state", n_layers=n_layers,
+               act_in_features=d, act_out_features=m.n_experts,
+               flops_per_token=2 * d * m.n_experts),
+        OpSpec("moe_experts_in", (m.n_experts, d, fe), "expert_in",
+               n_layers=n_layers, act_in_features=d, act_out_features=fe,
+               flops_per_token=2 * d * fe * m.n_experts * frac,
+               top_k=m.top_k),
+        OpSpec("moe_experts_out", (m.n_experts, fe, d), "expert_out",
+               n_layers=n_layers, act_in_features=fe, act_out_features=d,
+               flops_per_token=2 * fe * d * m.n_experts * frac,
+               top_k=m.top_k),
+    ]
+    if cfg.act in ("swiglu", "geglu"):
+        ops.append(OpSpec("moe_experts_gate", (m.n_experts, d, fe),
+                          "expert_in", n_layers=n_layers, act_in_features=d,
+                          act_out_features=fe,
+                          flops_per_token=2 * d * fe * m.n_experts * frac,
+                          top_k=m.top_k))
+    return ops
+
+
 def _ssm_ops(cfg: ModelConfig, n_layers: int) -> list:
     """The RWKV6 mixer's words: the fused r, k, v, g projection feeding
     the WKV6 recurrence, the data-dependent decay and the output."""
@@ -71,23 +99,30 @@ def _ssm_ops(cfg: ModelConfig, n_layers: int) -> list:
 
 
 def extract_ops(cfg: ModelConfig) -> list:
-    """Weight-bearing op list of a dense attention or an RWKV6 model."""
-    if cfg.family == "dense" and cfg.attention is not None:
+    """Weight-bearing op list of a dense attention, an RWKV6 or a MoE
+    model, in the reference's order: embed / head, mixer, MoE, dense FF."""
+    if cfg.family in ("dense", "moe") and cfg.attention is not None:
         mixer = _attn_ops(cfg, cfg.n_layers)
     elif cfg.family == "ssm" and cfg.ssm is not None \
             and cfg.ssm.kind == "rwkv6":
         mixer = _ssm_ops(cfg, cfg.n_layers)
     else:
         raise NotImplementedError(
-            f"{cfg.name}: the port runs dense attention and rwkv6 models "
-            f"only")
+            f"{cfg.name}: the port runs dense attention, rwkv6 and MoE "
+            f"models only")
     d, V = cfg.d_model, cfg.vocab_size
     ops = [OpSpec("embed", (V, d), "embed", act_in_features=0,
                   act_out_features=d, flops_per_token=0.0)]
     if not cfg.tie_embeddings:
         ops.append(OpSpec("lm_head", (d, V), "lm_head", act_in_features=d,
                           act_out_features=V, flops_per_token=2 * d * V))
-    return ops + mixer + _ffn_ops(cfg, cfg.n_layers)
+    ops += mixer
+    n_moe = sum(1 for i in range(cfg.n_layers) if cfg.is_moe_layer(i))
+    if n_moe:
+        ops += _moe_ops(cfg, n_moe)
+    if cfg.n_layers > n_moe:
+        ops += _ffn_ops(cfg, cfg.n_layers - n_moe)
+    return ops
 
 
 @dataclass(frozen=True)
@@ -155,7 +190,8 @@ class Program:
 
         fused_decode: the per-layer projections (proj_in / proj_out roles)
         run inside one fused-decode launch per layer, so their DECODE word
-        selects ``decode_fused``; embed and head stay ``matvec``.
+        selects ``decode_fused``; embed, head and the expert tables stay
+        ``matvec``.
         """
         spec = self.op_spec(op_name)
         strategy = (str(self.plan[op_name].strategy)

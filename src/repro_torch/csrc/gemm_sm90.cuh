@@ -6,6 +6,10 @@
 // It serves two TPU kernels: repro/kernels/sr_matmul.py::sr_matmul (the
 // MAC array: PREFILL, and FF / BP of training) and
 // repro/kernels/outer_accum.py::outer_accum (UP, dW = scale * X^T dY).
+// Its BATCHED form is the first's PREFILL word over a MoE layer's expert
+// table (the TPU runs sr_matmul under jax.vmap: one pallas_call with an
+// expert axis in its grid): out[e] = A[e] . B[e] for e < E in ONE launch,
+// the expert an outer coordinate of the persistent tile space.
 // Every role reads its operands where they lie, through the majorness
 // template parameters, with no transposed copy:
 //
@@ -33,6 +37,16 @@
 //   reading the 272 MB table; its 7 x 2 output tiles of 128 x 128 need
 //   18 splits to stream it from every SM.
 //
+// - A MoE PREFILL chunk (BATCHED: E = 32 experts, M = C = 32 rows, one
+//   table of 32 x 1024 x 512 bf16) is bound by streaming the 33.5 MB
+//   table.  Each expert's (M, N, K) takes the 2-D plan's rule over the
+//   tiles of all E experts (granite: 128-wide tiles, 4 or 8 an expert,
+//   128 or 256 in all; 64-wide ones measured slower cold in L2), so the
+//   persistent blocks walk one or two experts' tiles each.  A and B are
+//   read through 3-D tensor maps (expert, rows, cols): a box past an
+//   expert's rows or K reads the TMA's zeros, never the next expert's
+//   rows, and the epilogue clips each expert's stores to its M rows.
+//
 // Tiles: BM = 128 (two consumer warpgroups of 64 rows), BN = 64 or 128,
 // BK = 64 (one 128-byte swizzle row of bf16), a ring of STAGES = 5.
 // Every tile is 1024-byte aligned in shared memory with the 128-byte
@@ -45,7 +59,8 @@
 // 151936 terms in 18 splits of about 8.4k).
 //
 // Split-K: a plan with splits > 1 writes each split's f32 partial tile
-// to a workspace [splits, M, N]; splitk_reduce then sums the splits in
+// to a workspace [splits, E, M, N] (E = 1 unbatched); splitk_reduce then
+// sums the splits in
 // the fixed order 0..splits-1 and applies the scale and the SR
 // writeback.  No float atomics: two calls on the same input give the
 // same bits, and the split count depends on the plan (N, K, layout),
@@ -144,6 +159,29 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
       "r"(c1)
       : "memory");
+}
+
+// The same box of matrix c2 of a 3-D map (c2 outermost): the box is
+// clipped to that matrix, so it never reads across into the next one.
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// A box at (c0, c1) of matrix e: a 3-D load for a batched operand.
+template <bool BATCHED>
+__device__ __forceinline__ void tma_box(void* dst, const CUtensorMap* map,
+                                        uint64_t* bar, int c0, int c1, int e) {
+  if constexpr (BATCHED)
+    tma_load_3d(dst, map, bar, c0, c1, e);
+  else
+    tma_load(dst, map, bar, c0, c1);
 }
 
 __device__ __forceinline__ void tma_prefetch(const CUtensorMap* map) {
@@ -274,37 +312,52 @@ __device__ __forceinline__ void store_pair(void* out,
   if (pair) store_out(out, rbits, o + 1, v1, sr);
 }
 
-// Tile `tile` of the (grid_x, grid_y, splits) space as (column tile,
-// row tile, split).  Column tiles run fastest, so the blocks in flight
-// share A's rows; with m_fast the row tiles do (when all of A is small
-// enough to stay in L2, every B tile is then read from memory once).
+// Tile `tile` of the (grid_x, grid_y, splits, experts) space as (column
+// tile, row tile, split, expert).  Column tiles run fastest, so the
+// blocks in flight share A's rows; with m_fast the row tiles do (when
+// all of A is small enough to stay in L2, every B tile is then read from
+// memory once).  The expert is outermost: the blocks in flight walk one
+// expert's tiles, then the next expert's.  Unbatched, the expert is 0 at
+// compile time, so the 2-D kernel does no work for it.
 struct TileCoord {
-  int x, y, z;
+  int x, y, z, e;
 };
+template <bool BATCHED>
 __device__ __forceinline__ TileCoord tile_coord(int tile, int grid_x,
-                                                int grid_y, int m_fast) {
-  const int xy = tile % (grid_x * grid_y), z = tile / (grid_x * grid_y);
-  if (m_fast) return {xy / grid_y, xy % grid_y, z};
-  return {xy % grid_x, xy / grid_x, z};
+                                                int grid_y, int splits,
+                                                int m_fast) {
+  int e = 0, t = tile;
+  if constexpr (BATCHED) {
+    const int per_e = grid_x * grid_y * splits;
+    e = tile / per_e;
+    t = tile % per_e;
+  }
+  const int xy = t % (grid_x * grid_y), z = t / (grid_x * grid_y);
+  if (m_fast) return {xy / grid_y, xy % grid_y, z, e};
+  return {xy % grid_x, xy / grid_x, z, e};
 }
 
 // out(M, N) = scale * A . B, persistent: block b walks the output tiles
-// b, b + gridDim.x, ... of the (grid_x, grid_y, splits) tile space (the
-// caller's loop nest, in tile_coord's order), so the producer loads the
-// next tile while the consumers store this one.  a_rows (32, 64 or 128)
+// b, b + gridDim.x, ... of the (grid_x, grid_y, splits, experts) tile
+// space (the caller's loop nest, in tile_coord's order), so the producer
+// loads the next tile while the consumers store this one.  BATCHED: A,
+// B and out hold `experts` matrices each ((E, M, K), (E, K, N) or
+// (E, N, K), (E, M, N)) and A, B are 3-D tensor maps; otherwise
+// experts == 1.  a_rows (32, 64 or 128)
 // is how many rows of an A tile are loaded: a matrix of at most 32 or 64
 // rows loads only those (rows past M feed only output rows that are
 // never stored, and each output row depends on its own A row alone).
 // THREADS threads: warps 0-7 are the two consumer warpgroups, warp 8 the
 // producer.
-template <int BN, bool A_MN, bool B_MN>
+template <int BN, bool A_MN, bool B_MN, bool BATCHED>
 __global__ void __launch_bounds__(THREADS, 1)
     gemm_kernel(const __grid_constant__ CUtensorMap tma_a,
                 const __grid_constant__ CUtensorMap tma_b,
                 const uint32_t* __restrict__ rbits, void* __restrict__ out,
                 float* __restrict__ ws, int M, int N, int K, int grid_x,
-                int grid_y, int splits, int kb_per_split, int m_fast,
-                int a_rows, float scale, int sr, int vec) {
+                int grid_y, int splits, int experts, int kb_per_split,
+                int m_fast, int a_rows, float scale, int sr, int vec) {
+  static_assert(!(BATCHED && A_MN), "the batched form reads A K-major");
   constexpr int B_BYTES = b_bytes<BN>();
   constexpr int NACC = BN / 2;   // f32 accumulators per thread
   extern __shared__ uint8_t smem_raw[];
@@ -316,7 +369,7 @@ __global__ void __launch_bounds__(THREADS, 1)
   uint64_t* empty = full + STAGES;
 
   const int k_blocks = (K + BK - 1) / BK;
-  const int tiles = grid_x * grid_y * splits;
+  const int tiles = grid_x * grid_y * splits * (BATCHED ? experts : 1);
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < STAGES; ++s) {
@@ -337,7 +390,8 @@ __global__ void __launch_bounds__(THREADS, 1)
     tma_prefetch(&tma_b);
     int it = 0;
     for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-      const TileCoord tc = tile_coord(tile, grid_x, grid_y, m_fast);
+      const TileCoord tc = tile_coord<BATCHED>(tile, grid_x, grid_y, splits,
+                                               m_fast);
       const int n0 = tc.x * BN, m0 = tc.y * BM;
       const int kb0 = tc.z * kb_per_split;
       const int nk = min(kb_per_split, k_blocks - kb0);
@@ -352,14 +406,15 @@ __global__ void __launch_bounds__(THREADS, 1)
           for (int j = 0; j < a_rows / 64; ++j)
             tma_load(a_dst + j * MN_BLOCK, &tma_a, &full[s], m0 + 64 * j, k0);
         } else {
-          tma_load(a_dst, &tma_a, &full[s], k0, m0);
+          tma_box<BATCHED>(a_dst, &tma_a, &full[s], k0, m0, tc.e);
         }
         if constexpr (B_MN) {
 #pragma unroll
           for (int j = 0; j < BN / 64; ++j)
-            tma_load(b_dst + j * MN_BLOCK, &tma_b, &full[s], n0 + 64 * j, k0);
+            tma_box<BATCHED>(b_dst + j * MN_BLOCK, &tma_b, &full[s],
+                             n0 + 64 * j, k0, tc.e);
         } else {
-          tma_load(b_dst, &tma_b, &full[s], k0, n0);
+          tma_box<BATCHED>(b_dst, &tma_b, &full[s], k0, n0, tc.e);
         }
       }
     }
@@ -371,8 +426,11 @@ __global__ void __launch_bounds__(THREADS, 1)
   const int t = threadIdx.x % 128;
   int it = 0;
   for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-    const TileCoord tc = tile_coord(tile, grid_x, grid_y, m_fast);
+    const TileCoord tc = tile_coord<BATCHED>(tile, grid_x, grid_y, splits,
+                                               m_fast);
     const int n0 = tc.x * BN, m0 = tc.y * BM, z = tc.z;
+    // this expert's matrix of out (and of rbits, ws): rows clip to its M
+    const size_t eo = BATCHED ? (size_t)tc.e * M * N : 0;
     const int nk = min(kb_per_split, k_blocks - z * kb_per_split);
     const bool active = m0 + 64 * wg < M;
     float acc[NACC];
@@ -424,7 +482,8 @@ __global__ void __launch_bounds__(THREADS, 1)
     const int col0 = n0 + 2 * (t % 4);
     if (splits > 1) {
       // the raw partial of split z (splitk_reduce scales it)
-      float* part_out = ws + (size_t)z * M * N;
+      float* part_out =
+          ws + (BATCHED ? (size_t)z * experts + tc.e : (size_t)z) * M * N;
 #pragma unroll
       for (int j = 0; j < BN / 8; ++j) {
 #pragma unroll
@@ -448,7 +507,7 @@ __global__ void __launch_bounds__(THREADS, 1)
           const int r = row0 + 8 * h, c = col0 + 8 * j;
           rb[j][h] = (r < M && c < N)
                          ? __ldg(reinterpret_cast<const uint2*>(
-                               rbits + (size_t)r * N + c))
+                               rbits + eo + (size_t)r * N + c))
                          : make_uint2(0u, 0u);
         }
       }
@@ -462,7 +521,8 @@ __global__ void __launch_bounds__(THREADS, 1)
           const uint32_t lo = sr_bf16_bits(acc[e] * scale, rb[j][h].x);
           const uint32_t hi = sr_bf16_bits(acc[e + 1] * scale, rb[j][h].y);
           *reinterpret_cast<uint32_t*>(reinterpret_cast<uint16_t*>(out) +
-                                       (size_t)r * N + c) = lo | (hi << 16);
+                                       eo + (size_t)r * N + c) =
+              lo | (hi << 16);
         }
       }
     } else {
@@ -472,7 +532,7 @@ __global__ void __launch_bounds__(THREADS, 1)
         for (int h = 0; h < 2; ++h) {
           const int r = row0 + 8 * h, c = col0 + 8 * j;
           if (r < M && c < N)
-            store_pair(out, rbits, (size_t)r * N + c,
+            store_pair(out, rbits, eo + (size_t)r * N + c,
                        acc[4 * j + 2 * h] * scale,
                        acc[4 * j + 2 * h + 1] * scale, c + 1 < N, sr, vec);
         }
@@ -542,18 +602,23 @@ inline int sm_count(int dev) {
 
 // A TMA map of the row-major bf16 matrix at `base` (rows x cols, row
 // stride ld elements, a multiple of 8) with 64 x box_rows boxes and the
-// 128-byte swizzle; out-of-bounds elements read as zero.  Encoding is
-// pure host work of well under a microsecond (chip_smoke.py times it),
-// so every call encodes its maps afresh.
+// 128-byte swizzle; out-of-bounds elements read as zero.  depth > 0: a
+// 3-D map of `depth` such matrices, rows * ld elements apart (boxes of
+// one matrix each).  Encoding is pure host work of well under a
+// microsecond (chip_smoke.py times it), so every call encodes its maps
+// afresh.
 inline int make_map(CUtensorMap* map, const void* base, int rows, int cols,
-                    int ld, int box_rows) {
+                    int ld, int box_rows, int depth = 0) {
   EncodeTiled fn = encoder();
   if (fn == nullptr) return ERR_NO_ENCODER;
-  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)ld * 2};
-  const cuuint32_t box[2] = {(cuuint32_t)BK, (cuuint32_t)box_rows};
-  const cuuint32_t elem[2] = {1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+  const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows,
+                              (cuuint64_t)(depth > 0 ? depth : 1)};
+  const cuuint64_t strides[2] = {(cuuint64_t)ld * 2,
+                                 (cuuint64_t)rows * ld * 2};
+  const cuuint32_t box[3] = {(cuuint32_t)BK, (cuuint32_t)box_rows, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                        depth > 0 ? 3 : 2,
                         const_cast<void*>(base), dims, strides, box, elem,
                         CU_TENSOR_MAP_INTERLEAVE_NONE,
                         CU_TENSOR_MAP_SWIZZLE_128B,
@@ -568,16 +633,17 @@ inline int a_box_rows(int M) {
   return M <= 32 && !A_MN ? 32 : M <= 64 ? 64 : BM;
 }
 
-// The two TMA maps of one GEMM (operands as in run).  Returns 0 or an
-// ERR_ code.
+// The two TMA maps of one GEMM (operands as in run; depth > 0: 3-D maps
+// of `depth` matrices each).  Returns 0 or an ERR_ code.
 template <int BN, bool A_MN, bool B_MN>
 int make_maps(CUtensorMap* ma, CUtensorMap* mb, const void* a, const void* b,
-              int M, int N, int K, int lda, int ldb) {
-  const int err = A_MN ? make_map(ma, a, K, M, lda, 64)
-                       : make_map(ma, a, M, K, lda, a_box_rows<A_MN>(M));
+              int M, int N, int K, int lda, int ldb, int depth = 0) {
+  const int err = A_MN ? make_map(ma, a, K, M, lda, 64, depth)
+                       : make_map(ma, a, M, K, lda, a_box_rows<A_MN>(M),
+                                  depth);
   if (err != 0) return err;
-  return B_MN ? make_map(mb, b, K, N, ldb, 64)
-              : make_map(mb, b, N, K, ldb, BN);
+  return B_MN ? make_map(mb, b, K, N, ldb, 64, depth)
+              : make_map(mb, b, N, K, ldb, BN, depth);
 }
 
 // One GEMM through the mainloop.  A is (M, K) row-major with row stride
@@ -585,16 +651,20 @@ int make_maps(CUtensorMap* ma, CUtensorMap* mb, const void* a, const void* b,
 // stride ldb (B_MN) or (N, K) (K-major).  The tile space is
 // (grid_x, grid_y, splits) with kb_per_split k-blocks per split, walked
 // by min(tiles, SMs) persistent blocks; ws holds splits x M x N f32
-// when splits > 1.  Returns 0, a cudaError_t or one of the ERR_ codes.
-template <int BN, bool A_MN, bool B_MN>
+// when splits > 1.  BATCHED: `experts` such products, the operands and
+// out contiguous stacks of them (A (E, M, K), B (E, K, N) or (E, N, K),
+// out (E, M, N)), and ws splits x E x M x N.  Returns 0, a cudaError_t
+// or one of the ERR_ codes.
+template <int BN, bool A_MN, bool B_MN, bool BATCHED = false>
 int run(const void* a, const void* b, const void* rbits, void* out,
         float* ws, int M, int N, int K, int lda, int ldb, float scale,
         int sr, int splits, int kb_per_split, int grid_x, int grid_y,
-        cudaStream_t stream) {
+        cudaStream_t stream, int experts = 1) {
   CUtensorMap ma, mb;
-  int err = make_maps<BN, A_MN, B_MN>(&ma, &mb, a, b, M, N, K, lda, ldb);
+  int err = make_maps<BN, A_MN, B_MN>(&ma, &mb, a, b, M, N, K, lda, ldb,
+                                      BATCHED ? experts : 0);
   if (err != 0) return err;
-  auto kern = gemm_kernel<BN, A_MN, B_MN>;
+  auto kern = gemm_kernel<BN, A_MN, B_MN, BATCHED>;
   constexpr int smem = smem_bytes<BN>();
   // the shared-memory opt-in is a per-device property of the kernel
   int dev = 0;
@@ -610,19 +680,19 @@ int run(const void* a, const void* b, const void* rbits, void* out,
   }
   const uint32_t* R = static_cast<const uint32_t*>(rbits);
   const int vec = N % 2 == 0 && ((uintptr_t)rbits & 7u) == 0;
-  const int tiles = grid_x * grid_y * splits;
+  const int tiles = grid_x * grid_y * splits * experts;
   const int sms = sm_count(dev);
   const int a_rows = a_box_rows<A_MN>(M);
   const int blocks = tiles < sms ? tiles : sms;
   // row tiles fastest when all of A (at most 8 MB) stays in L2
   const int m_fast = grid_y > 1 && (size_t)M * K * 2 <= ((size_t)8 << 20);
   kern<<<blocks, THREADS, smem, stream>>>(ma, mb, R, out, ws, M, N, K,
-                                          grid_x, grid_y, splits,
+                                          grid_x, grid_y, splits, experts,
                                           kb_per_split, m_fast, a_rows,
                                           scale, sr, vec);
   err = static_cast<int>(cudaGetLastError());
   if (err != 0 || splits <= 1) return err;
-  const size_t mn = (size_t)M * N;
+  const size_t mn = (size_t)experts * M * N;
   const int rblocks = (int)((mn + 255) / 256 < 4096 ? (mn + 255) / 256 : 4096);
   splitk_reduce<A_MN><<<rblocks, 256, 0, stream>>>(ws, R, out, mn, splits,
                                                    scale, sr);

@@ -29,6 +29,10 @@
 // the f32 mainloop of sgemm_sm90.cuh (fmaf on the CUDA cores, no TF32,
 // deterministic split-K; its header says what bounds it and how it is
 // tiled) — the TPU kernel accepts f32 operands too.
+//
+// Serving a MoE model runs it BATCHED: each expert table's PREFILL
+// product over all E experts as one launch (sr_matmul_batched_bf16; the
+// TPU kernel under jax.vmap).
 #include "common.cuh"
 #include "gemm_sm90.cuh"
 #include "sgemm_sm90.cuh"
@@ -123,6 +127,36 @@ extern "C" int sr_matmul_bf16(const void* a, const void* b, const void* rbits,
     sr_matmul_kernel<false><<<grid, THREADS, 0, st>>>(
         A, B, R, out, M, N, K, lda, ldb, sr, vec_a, vec_b);
   return static_cast<int>(cudaGetLastError());
+}
+
+// out[e] = A[e] . B[e] for the E experts of a MoE table, in ONE launch
+// of the sm90 mainloop (gemm_sm90.cuh, BATCHED): A (E, M, K), B (E, K, N)
+// or (E, N, K) with trans_b, out (E, M, N) f32, each contiguous and
+// 16-byte aligned with K (and N for B (E, K, N)) a multiple of 8.  The
+// plan's bn, splits and kb_per_split and the grid (grid_x, grid_y) are
+// one expert's (M, N, K); ws holds splits x E x M x N f32 when
+// splits > 1.  No SR: no serving word rounds its output.  Returns
+// cudaGetLastError() or a gemm_sm90.cuh ERR_ code.
+extern "C" int sr_matmul_batched_bf16(const void* a, const void* b,
+                                      void* out, void* ws, int E, int M,
+                                      int N, int K, int trans_b, int bn,
+                                      int splits, int kb_per_split,
+                                      int grid_x, int grid_y, void* stream) {
+  using namespace rt;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* W = static_cast<float*>(ws);
+  const int ldb = trans_b ? K : N;
+#define RT_SM90_E(BN, B_MN)                                                 \
+  return sm90::run<BN, false, B_MN, true>(a, b, nullptr, out, W, M, N, K, K, \
+                                          ldb, 1.0f, 0, splits, kb_per_split, \
+                                          grid_x, grid_y, st, E)
+  if (bn == 128) {
+    if (trans_b) RT_SM90_E(128, false);
+    RT_SM90_E(128, true);
+  }
+  if (trans_b) RT_SM90_E(64, false);
+  RT_SM90_E(64, true);
+#undef RT_SM90_E
 }
 
 // The host's share of an sm90 call of sr_matmul_bf16 (same arguments):

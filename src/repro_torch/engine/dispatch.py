@@ -24,6 +24,13 @@ Serving phases dispatch forward-only words:
             token, f32 accumulation (``torch.matmul`` on f32 operands,
             as the reference leaves this product to XLA),
 
+A 3-D weight (E, K, N) is a batched expert table, with x of shape
+(E, C, K): one program word for all E experts.  PREFILL runs it as ONE
+``sr_matmul_batched`` launch (the reference runs its ``sr_matmul`` under
+``jax.vmap``: one ``pallas_call`` with an expert axis in its grid),
+DECODE as one batched f32 ``torch.matmul``; the training phases (FF, BP,
+UP) do not take it yet.
+
 plus :func:`pe_fused_attn_unit`, the ``decode_fused`` word that runs a
 whole attention unit as one fused kernel call, and :func:`pe_fused_ffn`,
 its FF half alone (norm2 + FF + residual) for units whose mixer stays
@@ -133,11 +140,17 @@ class _PEMatmul(torch.autograd.Function):
         return dx, dw, None, None, None, None
 
 
+def _wt(w: torch.Tensor, transpose_w: bool) -> torch.Tensor:
+    """w as (K, N), or (E, K, N) for an expert table: a view."""
+    return w.transpose(-1, -2) if transpose_w else w
+
+
 def _reference_dot(x: torch.Tensor, w: torch.Tensor,
                    transpose_w: bool) -> torch.Tensor:
-    wt = w.to(x.dtype)
-    y = torch.matmul(x.to(torch.float64),
-                     (wt.t() if transpose_w else wt).to(torch.float64))
+    """float64 products (per expert for a 3-D table), rounded to f32 and
+    then to x.dtype."""
+    wt = _wt(w.to(x.dtype), transpose_w)
+    y = torch.matmul(x.to(torch.float64), wt.to(torch.float64))
     return y.to(torch.float32).to(x.dtype)
 
 
@@ -145,15 +158,20 @@ def _matvec(x: torch.Tensor, w: torch.Tensor, word: PEWord,
             transpose_w: bool) -> torch.Tensor:
     """The DECODE word: operands at the FF dtype, f32 accumulation."""
     dt = dtype_from_name(word.ff_dtype)
-    wt = w.to(dt)
-    y = torch.matmul(x.to(dt).to(torch.float32),
-                     (wt.t() if transpose_w else wt).to(torch.float32))
+    wt = _wt(w.to(dt), transpose_w)
+    y = torch.matmul(x.to(dt).to(torch.float32), wt.to(torch.float32))
     return y.to(x.dtype)
 
 
 def _prefill(x: torch.Tensor, w: torch.Tensor, word: PEWord,
              transpose_w: bool) -> torch.Tensor:
-    """The PREFILL word: the sr_matmul kernel over the chunk's rows."""
+    """The PREFILL word: the sr_matmul kernel over the chunk's rows; for
+    an expert table, one batched launch over every expert's rows."""
+    if w.dim() == 3:
+        dt = dtype_from_name(word.ff_dtype)
+        y = kmm.sr_matmul_batched(x.to(dt).contiguous(),
+                                  w.to(dt).contiguous(), trans_b=transpose_w)
+        return y.to(x.dtype)
     y = _ff(x.reshape(-1, x.shape[-1]), w, word, transpose_w)
     return y.reshape(*x.shape[:-1], y.shape[-1])
 
@@ -165,8 +183,9 @@ def pe_dot(x: torch.Tensor, w: torch.Tensor, *,
            entropy: Optional[Callable] = None) -> torch.Tensor:
     """Dispatch one weight-bearing matmul through its PE program word.
 
-    x: (..., K); w: (K, N), or (N, K) with transpose_w.  Returns
-    (..., N) in x.dtype.  `phase` selects the word's column: FF (or BP /
+    x: (..., K); w: (K, N), or (N, K) with transpose_w, or an expert
+    table (E, K, N) / (E, N, K) with x (E, C, K).  Returns (..., N) in
+    x.dtype.  `phase` selects the word's column: FF (or BP /
     UP) runs the differentiable three-phase word, the serving phases the
     forward-only words.  `key` seeds the UP phase's SR entropy (the op's
     :func:`op_key`); `entropy(op, dY) -> rbits` replaces that draw.
@@ -179,6 +198,10 @@ def pe_dot(x: torch.Tensor, w: torch.Tensor, *,
     if backend == "reference" or kern == "vpu":
         return _reference_dot(x, w, transpose_w)
     if phase not in SERVING_PHASES:
+        if w.dim() == 3:
+            raise NotImplementedError(
+                f"{word.op}: the training words (FF, BP, UP) of an expert "
+                f"table are not ported yet; serving runs it")
         lead = x.shape[:-1]
         y2 = _PEMatmul.apply(x.reshape(-1, x.shape[-1]), w, word,
                              transpose_w, key, entropy)

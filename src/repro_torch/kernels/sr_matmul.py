@@ -17,6 +17,15 @@ base pointer that is not 16-byte aligned, or a row stride that is not a
 multiple of 16 bytes.  f32 operands take the ``f32`` path, planned by
 :func:`f32_plan` from (M, N, K) alone.  Each path has its own launch
 counter.
+
+:func:`sr_matmul_batched` is the kernel's batched mode, the TPU kernel
+under ``jax.vmap`` (one ``pallas_call`` with an expert axis in its
+grid): out[e] = a[e] @ b[e] for the E experts of a MoE table, bf16
+operands, f32 out, ONE launch of the sm90 path a call, with each
+expert's (M, N, K) planned by :func:`plan` over all E experts' tiles.
+It has its own counter (``sr_matmul:batched``) besides ``sr_matmul``
+and ``sr_matmul:sm90``; :func:`sr_matmul_batched_plain` is its plain
+version.
 """
 from __future__ import annotations
 
@@ -34,6 +43,7 @@ from repro_torch.kernels import build
 COUNTER = build.LaunchCounter("sr_matmul")     # every launch, any path
 PATHS = ("sm90", "generic", "f32")
 PATH_COUNTERS = {p: build.LaunchCounter(f"sr_matmul:{p}") for p in PATHS}
+BATCHED_COUNTER = build.LaunchCounter("sr_matmul:batched")
 # the generic kernels' block tile (tm, tn, tk): csrc/common.cuh
 TILE = (32, 32, 64)
 # the sm90 mainloop's block rows and depth (csrc/gemm_sm90.cuh BM, BK)
@@ -90,7 +100,7 @@ class Plan(NamedTuple):
 def plan(m: int, n: int, k: int, a_major: str = "k", b_major: str = "n",
          *, lda: Optional[int] = None, ldb: Optional[int] = None,
          aligned: bool = True, rows_invariant: bool = True,
-         f32: bool = False) -> Plan:
+         f32: bool = False, experts: int = 1) -> Plan:
     """The plan of out(m, n) = A(m, k) . B(k, n): f32 operands take
     :func:`f32_plan`, bf16 operands the sm90 or the generic path.
 
@@ -103,7 +113,12 @@ def plan(m: int, n: int, k: int, a_major: str = "k", b_major: str = "n",
     (n, k, layout) only, never on m, so a row's result does not depend
     on how many rows share the call (the engine's chunked PREFILL relies
     on that); without it (outer_accum, whose m is a weight dimension)
-    the m tiles count towards filling the card too.
+    the m tiles count towards filling the card too.  `experts` > 1 plans
+    one expert's product of :func:`sr_matmul_batched`: the column tiles
+    of every expert count towards filling the card (granite's tables
+    take 128-wide tiles, which chip_smoke.py's [sr_matmul:experts] sweep
+    measures faster than 64-wide ones, and than a split of K, warm and
+    cold in L2, on the H100).
     """
     if a_major not in ("k", "m") or b_major not in ("k", "n"):
         raise ValueError(f"plan: majorness {a_major!r}, {b_major!r}")
@@ -114,14 +129,14 @@ def plan(m: int, n: int, k: int, a_major: str = "k", b_major: str = "n",
     if not (aligned and lda % 8 == 0 and ldb % 8 == 0):
         return Plan("generic", *TILE, 1)
     k_blocks = max(1, math.ceil(k / SM90_BK))
-    n128 = math.ceil(n / 128)
+    n128 = math.ceil(n / 128) * experts
     if rows_invariant:
         wide = (n128 >= WIDE_N_TILES
                 or k_blocks // MIN_SPLIT_KB >= SMS // n128)
     else:
         wide = n128 * math.ceil(m / SM90_BM) >= SMS
     bn = 128 if wide else 64
-    tiles = math.ceil(n / bn)
+    tiles = math.ceil(n / bn) * experts
     if not rows_invariant:
         tiles *= math.ceil(m / SM90_BM)
     splits = max(1, min(SMS // tiles, k_blocks // MIN_SPLIT_KB))
@@ -211,12 +226,12 @@ def aligned16(*ts: torch.Tensor) -> bool:
 
 
 @functools.lru_cache(maxsize=None)
-def _bind(lib: ctypes.CDLL, f32: bool):
-    """The C entry point, without argtypes: every pointer is passed as a
-    ctypes.c_void_p (build.ptr) or None, every int as a Python int (C int),
-    which costs ctypes a third of the argtypes conversion on a call that
-    the host's time bounds."""
-    fn = lib.sr_matmul_f32 if f32 else lib.sr_matmul_bf16
+def _bind(lib: ctypes.CDLL, name: str):
+    """The C entry point `name`, without argtypes: every pointer is passed
+    as a ctypes.c_void_p (build.ptr) or None, every int as a Python int
+    (C int), which costs ctypes a third of the argtypes conversion on a
+    call that the host's time bounds."""
+    fn = getattr(lib, name)
     fn.restype = ctypes.c_int
     return fn
 
@@ -263,10 +278,12 @@ def operands_plan(a: torch.Tensor, b: torch.Tensor,
 @functools.lru_cache(maxsize=4096)
 def launch_geometry(m: int, n: int, k: int, a_major: str, b_major: str,
                     lda: int, ldb: int, aligned: bool,
-                    rows_invariant: bool = True, f32: bool = False) -> tuple:
-    """(plan, grid_x, grid_y, splits, kb_per_split) of one call."""
+                    rows_invariant: bool = True, f32: bool = False,
+                    experts: int = 1) -> tuple:
+    """(plan, grid_x, grid_y, splits, kb_per_split) of one call (of one
+    expert's product, for a batched call)."""
     p = plan(m, n, k, a_major, b_major, lda=lda, ldb=ldb, aligned=aligned,
-             rows_invariant=rows_invariant, f32=f32)
+             rows_invariant=rows_invariant, f32=f32, experts=experts)
     return (p, *p.grid(m, n, k), p.kb_per_split(k))
 
 
@@ -277,7 +294,7 @@ def _bf16_call(a, b, rbits, out, m: int, n: int, k: int, lda: int,
         m, n, k, "k", "k" if trans_b else "n", lda, ldb, aligned16(a, b))
     ws = (torch.empty((splits, m, n), dtype=torch.float32, device=a.device)
           if splits > 1 else None)
-    err = _bind(build.load("sr_matmul"), False)(
+    err = _bind(build.load("sr_matmul"), "sr_matmul_bf16")(
         build.ptr(a), build.ptr(b), build.ptr(rbits) if rbits is not None
         else None, build.ptr(out), build.ptr(ws) if ws is not None else None,
         m, n, k, lda, ldb, int(trans_b), int(rbits is not None),
@@ -336,7 +353,7 @@ def sr_matmul(a: torch.Tensor, b: torch.Tensor,
                                                 else "n", lda, ldb, True,
                                                 f32=True)
         ws = split_workspace(p, m, n, dev)
-        err = _bind(build.load("sr_matmul"), True)(
+        err = _bind(build.load("sr_matmul"), "sr_matmul_f32")(
             build.ptr(a), build.ptr(b), build.ptr(rbits) if sr else None,
             build.ptr(out), build.ptr(ws) if ws is not None else None, m, n,
             k, lda, ldb, int(trans_b), int(sr), splits, kb, gx, gy,
@@ -349,3 +366,84 @@ def sr_matmul(a: torch.Tensor, b: torch.Tensor,
     COUNTER.n += 1
     PATH_COUNTERS[path].n += 1
     return out
+
+
+def _batched_shapes(a: torch.Tensor, b: torch.Tensor, trans_b: bool) -> tuple:
+    if a.dim() != 3 or b.dim() != 3 or a.shape[0] != b.shape[0]:
+        raise ValueError(f"sr_matmul_batched takes (E, M, K) and (E, K, N) "
+                         f"operands, got {tuple(a.shape)} and "
+                         f"{tuple(b.shape)}")
+    e, m, k = a.shape
+    n, k2 = (b.shape[1:] if trans_b else (b.shape[2], b.shape[1]))
+    if k != k2:
+        raise ValueError(f"sr_matmul_batched: inner dims differ: "
+                         f"{tuple(a.shape)} x {tuple(b.shape)} "
+                         f"(trans_b={trans_b})")
+    return e, m, n, k
+
+
+def sr_matmul_batched_plain(a: torch.Tensor, b: torch.Tensor, *,
+                            trans_b: bool = False) -> torch.Tensor:
+    """a[e] @ b[e] (or a[e] @ b[e].T) for every e with f32 accumulation:
+    :func:`sr_matmul_plain` expert by expert.  Returns (E, M, N) f32."""
+    e, m, n, _ = _batched_shapes(a, b, trans_b)
+    if e == 0:
+        return torch.empty((0, m, n), dtype=torch.float32, device=a.device)
+    return torch.stack([sr_matmul_plain(a[i], b[i], trans_b=trans_b)
+                        for i in range(e)])
+
+
+def sr_matmul_batched(a: torch.Tensor, b: torch.Tensor, *,
+                      trans_b: bool = False) -> torch.Tensor:
+    """a (E, M, K) @ b (E, K, N) expert by expert — or a[e] @ b[e].T for
+    b (E, N, K) with trans_b — in ONE launch of the sm90 path.
+
+    bf16 operands, each contiguous and 16-byte aligned, with K (and N
+    when b is (E, K, N)) a multiple of 8, so that TMA describes them:
+    anything else raises, as do f32 operands.  Returns (E, M, N) f32.
+    CPU tensors take the plain version.
+    """
+    e, m, n, k = _batched_shapes(a, b, trans_b)
+    dev = a.device
+    if dev.type == "cpu" and b.device.type == "cpu":
+        return sr_matmul_batched_plain(a, b, trans_b=trans_b)
+    if dev.type != "cuda" or b.device != dev:
+        raise ValueError(f"sr_matmul_batched: operands on {dev} and "
+                         f"{b.device}")
+    if a.dtype != torch.bfloat16 or b.dtype != torch.bfloat16:
+        raise TypeError(f"sr_matmul_batched kernel takes two bf16 operands, "
+                        f"got {a.dtype}, {b.dtype}")
+    ldb = k if trans_b else n
+    if not (a.is_contiguous() and b.is_contiguous() and aligned16(a, b)
+            and k % 8 == 0 and ldb % 8 == 0):
+        raise ValueError(
+            "sr_matmul_batched kernel takes contiguous, 16-byte aligned "
+            "operands with 16-byte rows (K, and N for b (E, K, N), "
+            "multiples of 8): the TMA describes no other")
+    out = torch.empty((e, m, n), dtype=torch.float32, device=dev)
+    if out.numel() == 0:
+        return out
+    if k == 0:
+        return out.zero_()
+    p = launch_geometry(m, n, k, "k", "k" if trans_b else "n", k, ldb,
+                        True, experts=e)[0]
+    _batched_call(a, b, out, p, trans_b)
+    COUNTER.n += 1
+    PATH_COUNTERS["sm90"].n += 1
+    BATCHED_COUNTER.n += 1
+    return out
+
+
+def _batched_call(a, b, out, p: Plan, trans_b: bool) -> None:
+    """One launch of the batched C entry under plan `p` into `out`
+    (operands as :func:`sr_matmul_batched` checked them)."""
+    e, m, n, k = _batched_shapes(a, b, trans_b)
+    gx, gy, _ = p.grid(m, n, k)
+    ws = (torch.empty((p.splits, e, m, n), dtype=torch.float32,
+                      device=a.device) if p.splits > 1 else None)
+    err = _bind(build.load("sr_matmul"), "sr_matmul_batched_bf16")(
+        build.ptr(a), build.ptr(b), build.ptr(out),
+        build.ptr(ws) if ws is not None else None, e, m, n, k, int(trans_b),
+        p.bn, p.splits, p.kb_per_split(k), gx, gy, build.stream_ptr(a.device))
+    if err != 0:
+        raise launch_error("sr_matmul_batched", err)

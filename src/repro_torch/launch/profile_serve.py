@@ -4,11 +4,12 @@
         --arch rwkv6-1.6b --out profile_serve.txt
 
 Serves a seeded Poisson trace through one model at full width
-(qwen2-0.5b by default, or rwkv6-1.6b; random weights) on the cuda
-backend with fused decode, and profiles a window of engine steps in the
-middle of the run.  Prints the device time by kernel
-(sum and launch count), the window's wall time, the device's busy and
-idle share of it, each of the port's kernels' device time (PORT_KERNELS),
+(qwen2-0.5b by default; rwkv6-1.6b, granite-moe-1b-a400m, olmo-1b or
+minitron-4b; random weights) on the cuda backend with fused decode, and
+profiles a window of engine steps in the middle of the run.  Prints the
+device time by kernel (sum and launch count), the window's wall time,
+the device's busy and idle share of it, each of the port's kernels'
+device time (PORT_KERNELS),
 torch's copy kernels' time and launches (COPY_KERNELS), and the
 host-clock time of the window's PREFILL chunk calls and DECODE
 calls.  Needs a CUDA device.
@@ -21,19 +22,25 @@ import time
 
 # the port's hand-written kernels, by the names their launches carry:
 # gemm_sm90.cuh's mainloop and split reduction (bf16) and sgemm_sm90.cuh's
-# (f32) serve sr_matmul with A K-major (template argument A_MN false) and
+# (f32) serve sr_matmul with A K-major (template argument A_MN false;
+# BATCHED true is its batched expert mode, sr_matmul:batched) and
 # outer_accum with A = X^T (A_MN true); decode_fused.cu's kernels carry
 # their word as the first template argument (0 fused_attn_unit, 1
 # fused_ffn)
 PORT_KERNELS = {
-    "sr_matmul": r"rt::(sr_matmul_kernel|sm90::(gemm_kernel<\d+, false|"
-                 r"splitk_reduce<false>)|sgemm::sgemm_kernel<false)",
+    "sr_matmul": r"rt::(sr_matmul_kernel|sm90::(gemm_kernel<\d+, false, "
+                 r"\w+, false>|splitk_reduce<false>)|"
+                 r"sgemm::sgemm_kernel<false)",
+    "sr_matmul:batched": r"rt::sm90::gemm_kernel<\d+, false, \w+, true>",
     "outer_accum": r"rt::(outer_accum_kernel|sm90::(gemm_kernel<\d+, true|"
                    r"splitk_reduce<true>)|sgemm::sgemm_kernel<true)",
     "sr_round": r"rt::sr_round_kernel",
     "fused_attn_unit": r"rt::decode::((norm|gemm)_kernel<0\b|attn_kernel)",
     "fused_ffn": r"rt::decode::(norm|gemm)_kernel<1\b",
     "wkv6": r"\bwkv6_kernel<", "wkv6_bwd": r"\bwkv6_bwd_kernel<"}
+# the models the port serves
+SERVED = ("qwen2-0.5b", "rwkv6-1.6b", "granite-moe-1b-a400m", "olmo-1b",
+          "minitron-4b")
 # torch's copy and dtype-conversion kernel (.to, .contiguous, copy_:
 # direct_copy_kernel_cuda)
 COPY_KERNELS = r"copy_kernel"
@@ -49,8 +56,7 @@ def _device_us(evt) -> float:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--arch", default="qwen2-0.5b",
-                    choices=("qwen2-0.5b", "rwkv6-1.6b"))
+    ap.add_argument("--arch", default="qwen2-0.5b", choices=SERVED)
     ap.add_argument("--requests", type=int, default=16)
     ap.add_argument("--warmup-steps", type=int, default=20)
     ap.add_argument("--steps", type=int, default=10)

@@ -8,6 +8,13 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-1.6b \
         --kernel-backend cuda --fused-decode --requests 16 --slots 32
 
+    # granite-moe-1b-a400m: each expert table's PREFILL product as one
+    # sr_matmul_batched launch, the attention half of DECODE fused
+    # (olmo-1b and minitron-4b take the dense path)
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch granite-moe-1b-a400m --kernel-backend cuda --fused-decode \
+        --requests 16 --slots 32
+
     # on the CPU at the reduced size (the plain reference backend)
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b \
         --reduced --device cpu --requests 4 --prompt-lens 4,20 --gen 4

@@ -1,5 +1,6 @@
 """Decoder-only LM: dense attention units and RWKV6 units, each trained
-and served.
+and served; attention units with a mixture-of-experts FF (MoE models),
+served.
 
 Parameters keep the reference's pytree layout: per-unit leaves stacked
 over ``n_groups`` scan groups (``params["groups"]["u0"]["attn"]["qkv"]``
@@ -18,7 +19,11 @@ Entry points:
   chunk_step(...)  — T prompt tokens against the caches (PREFILL word)
   decode_step(...) — one token per arena row (DECODE word), per-op or
                      fused (one ``decode_fused`` word per layer; an rwkv6
-                     unit keeps its mixer per-op and fuses its FF half)
+                     unit keeps its mixer per-op and fuses its FF half, a
+                     MoE unit fuses its attention half and routes its FF
+                     per-op)
+
+Training a MoE model is not ported yet: ``forward`` raises on one.
 """
 from __future__ import annotations
 
@@ -38,6 +43,7 @@ from repro_torch.models.attention import (attention_block, attn_params,
 from repro_torch.models.layers import (apply_norm, apply_rope, embed,
                                        lm_logits, lm_loss_chunked, mlp,
                                        norm_params)
+from repro_torch.models.moe import moe_block, moe_params
 from repro_torch.models.ssm import (rwkv_block, rwkv_init_state,
                                     rwkv_params)
 
@@ -45,18 +51,24 @@ from repro_torch.models.ssm import (rwkv_block, rwkv_init_state,
 @dataclass(frozen=True)
 class UnitDesc:
     mixer: str            # 'attn' | 'rwkv6'
-    ffn: str              # 'dense'
+    ffn: str              # 'dense' | 'moe'
 
 
 def layer_pattern(cfg: ModelConfig) -> list:
-    """One scan group's units: a single layer for both families here."""
+    """One scan group's units: a single layer for every family here.  A
+    MoE model takes a MoE FF on every layer (``moe_period`` 1, as
+    granite's ``is_moe_layer`` picks), with no dense FF beside it."""
     if cfg.family == "dense" and cfg.attention is not None:
         return [UnitDesc("attn", "dense")]
     if cfg.family == "ssm" and cfg.ssm is not None \
             and cfg.ssm.kind == "rwkv6":
         return [UnitDesc("rwkv6", "dense")]
+    if cfg.family == "moe" and cfg.attention is not None \
+            and cfg.moe.moe_period == 1 and not cfg.moe.dense_residual:
+        return [UnitDesc("attn", "moe")]
     raise NotImplementedError(
-        f"{cfg.name}: the port runs dense attention and rwkv6 models only")
+        f"{cfg.name}: the port runs dense attention, rwkv6 and MoE models "
+        f"with a MoE FF on every layer and no dense residual only")
 
 
 def n_groups(cfg: ModelConfig) -> int:
@@ -111,12 +123,16 @@ def init(generator: Optional[torch.Generator], cfg: ModelConfig) -> dict:
         p = norm_params(cfg, device=dev, lead=(ng,))
         if p is not None:
             unit[key] = p
-    if layer_pattern(cfg)[0].mixer == "attn":
+    desc = layer_pattern(cfg)[0]
+    if desc.mixer == "attn":
         unit["attn"] = attn_params(cfg, generator, lead=(ng,))
     else:
         unit["rwkv"] = rwkv_params(cfg, generator, lead=(ng,))
-    unit["ffn"] = {"ffn_in": normal(ng, d, fin) * d ** -0.5,
-                   "ffn_out": normal(ng, f, d) * f ** -0.5}
+    if desc.ffn == "moe":
+        unit["moe"] = moe_params(cfg, generator, lead=(ng,))
+    else:
+        unit["ffn"] = {"ffn_in": normal(ng, d, fin) * d ** -0.5,
+                       "ffn_out": normal(ng, f, d) * f ** -0.5}
     params["groups"] = {"u0": unit}
     return params
 
@@ -198,6 +214,11 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
             return_hidden: bool = False) -> torch.Tensor:
     """tokens: (B, S).  Returns logits f32 (B, S, V), or the final-normed
     hidden states with return_hidden."""
+    if cfg.moe is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: training a MoE model is the port's next slice "
+            f"(the expert tables' batched BP and UP words and the aux "
+            f"loss); serving runs it")
     x, positions = prologue(cfg, params, tokens,
                             compute_dtype=compute_dtype)
     x = group_scan(cfg, x, params["groups"], sh, positions, remat=remat)
@@ -254,6 +275,15 @@ def _attn_decode(cfg: ModelConfig, h, up: dict, sh: PEContext, cache: dict,
     return sh.dot("attn_o", out.reshape(B, 1, -1), up["attn"]["o"])
 
 
+def _unit_ffn(cfg: ModelConfig, x, up: dict, unit: UnitDesc,
+              sh: PEContext):
+    """The unit's FF half: x + FF(norm2(x)), the FF dense or MoE."""
+    h2 = apply_norm(cfg, x, up.get("norm2"))
+    if unit.ffn == "moe":
+        return x + moe_block(cfg, h2, up["moe"], sh)[0]
+    return x + mlp(cfg, h2, up["ffn"]["ffn_in"], up["ffn"]["ffn_out"], sh)
+
+
 def _unit_decode(cfg: ModelConfig, x, up: dict, unit: UnitDesc,
                  sh: PEContext, cache: dict, pos: torch.Tensor,
                  active: Optional[torch.Tensor]):
@@ -263,8 +293,7 @@ def _unit_decode(cfg: ModelConfig, x, up: dict, unit: UnitDesc,
         x = x + _attn_decode(cfg, h, up, sh, cache, pos, active)
     else:
         x = x + rwkv_block(cfg, h, up["rwkv"], sh, cache["rwkv"], active)
-    h2 = apply_norm(cfg, x, up.get("norm2"))
-    return x + mlp(cfg, h2, up["ffn"]["ffn_in"], up["ffn"]["ffn_out"], sh)
+    return _unit_ffn(cfg, x, up, unit, sh)
 
 
 def _fused_norm_args(cfg: ModelConfig, up: dict, key: str):
@@ -283,7 +312,9 @@ def _unit_decode_fused(cfg: ModelConfig, x, up: dict, unit: UnitDesc,
     On the cuda backend an attention unit runs as one ``fused_attn_unit``
     call (kernels/decode_fused.py); an rwkv6 unit keeps its recurrence on
     its per-op path (a state word, as the reference keeps it) and runs
-    its FF half as one ``fused_ffn`` call.  On the reference backend the
+    its FF half as one ``fused_ffn`` call; a MoE unit runs its attention
+    half as one ``fused_attn_unit`` call without the FF (five launches)
+    and then norm2 and the MoE block per op.  On the reference backend the
     fused composition is the per-op primitive sequence itself, so fused
     decode is bit-identical per request to the per-op loop.
     """
@@ -299,15 +330,19 @@ def _unit_decode_fused(cfg: ModelConfig, x, up: dict, unit: UnitDesc,
                          norm_kind=nk, act=cfg.act, word=sh.word("ffn_in"))
         return y[:, None]
     a = cfg.attention
+    dense = unit.ffn == "dense"
     y = pe_fused_attn_unit(
         x[:, 0].contiguous(), cache["attn"], pos, norm1=n1,
         qkv_w=up["attn"]["qkv"], qkv_bias=up["attn"].get("qkv_bias"),
-        o_w=up["attn"]["o"], norm2=n2, w_in=up["ffn"]["ffn_in"],
-        w_out=up["ffn"]["ffn_out"], heads=a.n_heads, kv_heads=a.n_kv_heads,
-        head_dim=a.head_dim, rope_theta=a.rope_theta, window=a.window,
-        norm_kind=nk, act=cfg.act, with_ffn=True,
+        o_w=up["attn"]["o"], norm2=n2 if dense else None,
+        w_in=up["ffn"]["ffn_in"] if dense else None,
+        w_out=up["ffn"]["ffn_out"] if dense else None, heads=a.n_heads,
+        kv_heads=a.n_kv_heads, head_dim=a.head_dim, rope_theta=a.rope_theta,
+        window=a.window, norm_kind=nk, act=cfg.act, with_ffn=dense,
         word=sh.word("attn_qkv"), active=active)
-    return y[:, None]
+    if dense:
+        return y[:, None]
+    return _unit_ffn(cfg, y[:, None], up, unit, sh)
 
 
 def _unit_chunk(cfg: ModelConfig, x, up: dict, unit: UnitDesc,
@@ -319,8 +354,7 @@ def _unit_chunk(cfg: ModelConfig, x, up: dict, unit: UnitDesc,
         x = x + _attn_chunk(cfg, h, up, sh, cache, pos)
     else:
         x = x + rwkv_block(cfg, h, up["rwkv"], sh, cache["rwkv"])
-    h2 = apply_norm(cfg, x, up.get("norm2"))
-    return x + mlp(cfg, h2, up["ffn"]["ffn_in"], up["ffn"]["ffn_out"], sh)
+    return _unit_ffn(cfg, x, up, unit, sh)
 
 
 def _attn_chunk(cfg: ModelConfig, h, up: dict, sh: PEContext, cache: dict,

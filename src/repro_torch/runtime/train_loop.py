@@ -56,7 +56,8 @@ def split_microbatches(batch: dict, nm: int) -> dict:
 
 def make_train_step(cfg: ModelConfig, program: Program,
                     train_cfg: TrainConfig):
-    """(train_step, optimizer) of a dense attention or rwkv6 model.
+    """(train_step, optimizer) of a dense attention or rwkv6 model (a MoE
+    model raises in its loss: its training words are not ported yet).
     ``train_step(state, batch, key)`` takes
     the state {"params", "opt", "step"}, a batch of numpy arrays or
     tensors {"tokens", "labels"} and the step's integer key, and returns
@@ -170,8 +171,8 @@ def make_chunk_step(cfg: ModelConfig, program: Program,
 
 def make_decode_step(cfg: ModelConfig, program: Program,
                      kernel_backend: str = "reference"):
-    """One-token serve step under the per-op DECODE words (dense attention
-    and rwkv6 units)."""
+    """One-token serve step under the per-op DECODE words (dense attention,
+    rwkv6 and MoE units)."""
     sh = PEContext(program, backend=kernel_backend, phase=Phase.DECODE)
     dt = program.policy.ff_dtype
 
@@ -185,7 +186,8 @@ def make_decode_step(cfg: ModelConfig, program: Program,
 def make_fused_decode_step(cfg: ModelConfig, program: Program,
                            kernel_backend: str = "reference"):
     """One-token serve step with each layer as ONE fused-decode word (an
-    rwkv6 layer: its per-op mixer, then one fused FF word)."""
+    rwkv6 layer: its per-op mixer, then one fused FF word; a MoE layer:
+    one fused attention word, then its per-op MoE FF)."""
     sh = PEContext(program, backend=kernel_backend, phase=Phase.DECODE)
     dt = program.policy.ff_dtype
 

@@ -899,3 +899,164 @@ def test_conv_up_as_matmul_matches_autograd_conv_dw(dev, case):
     want = dw.permute(2, 3, 1, 0)
     err = float((got.double() - want).abs().max())
     assert err <= 1e-4 * float(want.abs().max())
+
+
+# ---------------------------------------------------------------------------
+# sr_matmul's batched mode: a MoE table's PREFILL product, one launch
+# ---------------------------------------------------------------------------
+
+
+def _batched_operands(dev, e, m, n, k, trans_b, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    a = torch.randn((e, m, k), generator=g, device=dev).bfloat16()
+    b = (torch.randn((e, n, k) if trans_b else (e, k, n), generator=g,
+                     device=dev) * k ** -0.5).bfloat16()
+    return a, b
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("trans_b", [False, True])
+@pytest.mark.parametrize("kn", [(1024, 512), (512, 1024), (64, 96)], ids=str)
+@pytest.mark.parametrize("m", [1, 8, 32, 40, 130])
+@pytest.mark.parametrize("e", [1, 4, 32])
+def test_sr_matmul_batched_kernel_matches_plain(dev, e, m, kn, trans_b):
+    """One launch a call, on the sm90 path, counted on sr_matmul,
+    sr_matmul:sm90 and sr_matmul:batched; each expert within the f32
+    path's tolerance of the plain version."""
+    k, n = kn
+    a, b = _batched_operands(dev, e, m, n, k, trans_b, seed=30)
+    before = {name: c.n for name, c in (("all", kmm.COUNTER),
+                                        ("batched", kmm.BATCHED_COUNTER),
+                                        *kmm.PATH_COUNTERS.items())}
+    got = kmm.sr_matmul_batched(a, b, trans_b=trans_b)
+    after = {name: c.n for name, c in (("all", kmm.COUNTER),
+                                       ("batched", kmm.BATCHED_COUNTER),
+                                       *kmm.PATH_COUNTERS.items())}
+    assert {k_: after[k_] - before[k_] for k_ in after} == {
+        "all": 1, "batched": 1, "sm90": 1, "generic": 0, "f32": 0}
+    assert got.dtype == torch.float32 and tuple(got.shape) == (e, m, n)
+    want = kmm.sr_matmul_batched_plain(a, b, trans_b=trans_b)
+    torch.testing.assert_close(got, want, rtol=MM_RTOL, atol=MM_ATOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("trans_b", [False, True])
+@pytest.mark.parametrize("emnk", [(32, 40, 512, 1024), (4, 130, 96, 64),
+                                  (2, 8, 64, 4096)], ids=str)
+def test_sr_matmul_batched_kernel_two_calls_bit_equal(dev, emnk, trans_b):
+    """Two calls give the same bits; (2, 8, 64, 4096) takes a split-K plan
+    (partials summed in split order), which must match the plain version
+    too."""
+    e, m, n, k = emnk
+    a, b = _batched_operands(dev, e, m, n, k, trans_b, seed=31)
+    p = kmm.plan(m, n, k, "k", "k" if trans_b else "n", experts=e)
+    assert p.path == "sm90" and (p.splits > 1) == (k == 4096)
+    first = kmm.sr_matmul_batched(a, b, trans_b=trans_b)
+    assert torch.equal(first, kmm.sr_matmul_batched(a, b, trans_b=trans_b))
+    torch.testing.assert_close(first, kmm.sr_matmul_batched_plain(
+        a, b, trans_b=trans_b), rtol=MM_RTOL, atol=MM_ATOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("trans_b", [False, True])
+def test_sr_matmul_batched_kernel_reads_no_other_expert(dev, trans_b):
+    """Expert 1's operands are all inf: a tile of expert 0 or 2 that read
+    across a boundary (a K tile past K = 72, rows past M = 40 or N = 72)
+    would turn its outputs inf or NaN.  Experts 0 and 2 stay finite and
+    match the plain version."""
+    e, m, n, k = 3, 40, 72, 72
+    a, b = _batched_operands(dev, e, m, n, k, trans_b, seed=32)
+    a[1] = float("inf")
+    b[1] = float("inf")
+    got = kmm.sr_matmul_batched(a, b, trans_b=trans_b)
+    want = kmm.sr_matmul_batched_plain(a, b, trans_b=trans_b)
+    for i in (0, 2):
+        assert torch.isfinite(got[i]).all()
+        torch.testing.assert_close(got[i], want[i], rtol=MM_RTOL,
+                                   atol=MM_ATOL)
+
+
+@pytest.mark.cuda
+def test_sr_matmul_batched_raises_on_what_the_tma_cannot_describe(dev):
+    a, b = _batched_operands(dev, 4, 8, 64, 64, False, seed=33)
+    flat = torch.empty(a.numel() + 1, dtype=torch.bfloat16, device=dev)
+    off = flat[1:].view(a.shape)                       # 2 bytes off 16
+    off.copy_(a)
+    assert off.is_contiguous() and off.data_ptr() % 16
+    n0 = kmm.COUNTER.n
+    with pytest.raises(ValueError, match="16-byte"):
+        kmm.sr_matmul_batched(off, b)
+    a12, b12 = _batched_operands(dev, 4, 8, 64, 12, False, seed=34)
+    with pytest.raises(ValueError, match="16-byte"):
+        kmm.sr_matmul_batched(a12, b12)                # K = 12: 24-byte rows
+    with pytest.raises(ValueError, match="16-byte"):
+        kmm.sr_matmul_batched(a.transpose(1, 2).contiguous().transpose(1, 2),
+                              b)
+    with pytest.raises(TypeError, match="bf16"):
+        kmm.sr_matmul_batched(a.float(), b.float())
+    assert kmm.COUNTER.n == n0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 32])
+def test_sr_matmul_trans_b_at_granite_odd_vocab(dev, m):
+    """granite's tied head: B (49155, 1024) read through trans_b, an f32
+    output with an odd row length (the epilogue's scalar stores, the TMA
+    box past the last of 49155 rows); and its SR form."""
+    g = torch.Generator(device=dev).manual_seed(35)
+    a = torch.randn((m, 1024), generator=g, device=dev).bfloat16()
+    w = (torch.randn((49155, 1024), generator=g, device=dev)
+         * 1024 ** -0.5).bfloat16()
+    assert kmm.operands_plan(a, w, True).path == "sm90"
+    got = kmm.sr_matmul(a, w, trans_b=True)
+    torch.testing.assert_close(got, kmm.sr_matmul_plain(a, w, trans_b=True),
+                               rtol=MM_RTOL, atol=MM_ATOL)
+    rb = torch.randint(-2**31, 2**31, (m, 49155), generator=g, device=dev,
+                       dtype=torch.int64).to(torch.int32)
+    got_sr = kmm.sr_matmul(a, w, rb, trans_b=True)
+    assert torch.equal(got_sr.view(torch.int16),
+                       sr_cast_bf16(got, rb).view(torch.int16))
+
+
+@pytest.mark.cuda
+def test_fused_attn_unit_without_ffn_at_granite_widths(dev):
+    """A MoE unit's fused attention half at granite's widths (d 1024, 16
+    heads of 64, 8 KV heads, B = 32, S = 528): five launches a call,
+    within the fused word's tolerances of the plain version."""
+    B, S, d, H, K, hd = 32, 528, 1024, 16, 8, 64
+    g = torch.Generator(device=dev).manual_seed(36)
+    rnd = lambda *s: torch.randn(s, generator=g, device=dev)
+    qn = (H + 2 * K) * hd
+    w = dict(qkv_w=(rnd(d, qn) * d ** -0.5).bfloat16(),
+             o_w=(rnd(H * hd, d) * (H * hd) ** -0.5).bfloat16(),
+             qkv_bias=None, norm1_scale=1 + 0.3 * rnd(d))
+    fill = torch.randint(0, S - 3, (B,), generator=g, device=dev)
+    sidx = torch.arange(S, device=dev)[None]
+    cache = [rnd(B, S, K, hd).bfloat16(), rnd(B, S, K, hd).bfloat16(),
+             torch.where(sidx < fill[:, None], sidx, -1).to(torch.int32)]
+    kern = [c.clone() for c in cache]
+    plain = [c.cpu() for c in cache]
+    active = torch.ones(B, dtype=torch.bool, device=dev)
+    active[7] = False
+    kw = dict(heads=H, kv_heads=K, head_dim=hd, rope_theta=1e4,
+              norm_kind="rmsnorm", act="swiglu", with_ffn=False)
+    assert kdf.decode_plan(B, d, heads=H, kv_heads=K, head_dim=hd, S=S,
+                           with_ffn=False).launches == 5
+    for t in range(2):
+        x = rnd(B, d).bfloat16()
+        pos = (fill + t).to(torch.int32)
+        l0 = kdf.LAUNCHES.n
+        y = kdf.fused_attn_unit(x, *kern, pos, active=active, **w, **kw)
+        assert kdf.LAUNCHES.n - l0 == 5
+        yp = kdf.fused_attn_unit(x.cpu(), *plain, pos.cpu(),
+                                 active=active.cpu(),
+                                 **{k: v if v is None else v.cpu()
+                                    for k, v in w.items()}, **kw)
+        torch.testing.assert_close(y.cpu().float(), yp.float(), atol=Y_TOL,
+                                   rtol=Y_TOL)
+    for a, b in zip(kern[:2], plain[:2]):
+        torch.testing.assert_close(a.cpu().float(), b.float(),
+                                   atol=CACHE_TOL, rtol=CACHE_TOL)
+    assert torch.equal(kern[2].cpu(), plain[2])
+    for a, b in zip(kern, cache):
+        assert torch.equal(a[7], b[7])

@@ -9,8 +9,10 @@
   backend and on its cuda backend (whose kernels run their plain
   versions on CPU tensors);
 - the engine's invariants on the port's reference backend: chunked
-  prefill == token-by-token decode, engine == each request served alone,
-  masked decode leaves inactive arena rows untouched;
+  prefill == token-by-token decode, engine == each request served alone
+  (also under eviction, for qwen2 and granite, and with a windowed ring
+  that wraps inside a chunk), masked decode leaves inactive arena rows
+  untouched;
 - entry points run on CUDA unless asked for the CPU, and never fall back.
 """
 import dataclasses
@@ -258,6 +260,45 @@ def test_fused_decode_bit_identical_on_reference(engine_reference_run):
     cfg, reqs, res, _ = engine_reference_run
     fused, eng = run(cfg, reqs, fused_decode=True)
     assert eng.program.fused_decode and fused == res
+
+
+@pytest.mark.parametrize("arch", [ARCH, "granite-moe-1b-a400m"])
+def test_eviction_under_arena_pressure(arch):
+    """tests/test_serving.py:203 on the port: a starved queue preempts
+    the newest resident (``plan_evictions``); evicted requests resume by
+    re-prefilling prompt + generated, and every output equals the
+    request served alone."""
+    cfg = get_reduced(arch)
+    reqs = [dataclasses.replace(r, arrival_step=0, max_new_tokens=10)
+            for r in mixed_requests(cfg, [13, 8, 11, 5], gen=10, seed=3)]
+    kw = dict(n_slots=2, max_len=32, prefill_chunk=4)
+    res, eng = run(cfg, reqs, evict_patience=3, **kw)
+    assert sum(st.evictions for st in eng.sched.finished.values()) > 0, \
+        "the pressure test never evicted"
+    for r in reqs:
+        alone, _ = run(cfg, [r], **kw)
+        assert alone[r.rid] == res[r.rid], r.rid
+
+
+def test_windowed_ring_wraps_inside_a_prefill_chunk():
+    """tests/test_serving.py:159 on the port: a sliding-window ring of 8
+    positions wraps inside 6-token chunks of 25- and 19-token prompts —
+    the case models/transformer.py's per-token insert and attend in
+    ``_attn_chunk`` exists for.  Chunked prefill equals token-by-token
+    decode and each request served alone."""
+    base = get_reduced(ARCH)
+    cfg = dataclasses.replace(
+        base, attention=dataclasses.replace(base.attention, window=8))
+    reqs = [dataclasses.replace(r, arrival_step=0)
+            for r in mixed_requests(cfg, [25, 19], gen=6, seed=4)]
+    kw = dict(n_slots=2, max_len=40)
+    res, eng = run(cfg, reqs, **kw)
+    assert eng.cache["u0"]["attn"]["k"].shape[2] == 8      # ring, not 40
+    tok_by_tok, _ = run(cfg, reqs, prefill_chunk=64, **kw)
+    assert res == tok_by_tok
+    for r in reqs:
+        alone, _ = run(cfg, [r], **kw)
+        assert alone[r.rid] == res[r.rid], r.rid
 
 
 @pytest.mark.parametrize("fused", [False, True])
