@@ -88,7 +88,26 @@ port (``src/repro_torch``), never JAX or the JAX package, and:
    ``paper_sr_bf16`` for 8 steps through ``launch.train`` — FF / BP / UP
    through sr_matmul and outer_accum, the recurrence through wkv6 and
    wkv6_bwd, the writeback through sr_round — counting each kernel's
-   launches per step.
+   launches per step;
+9. trains granite-moe-1b-a400m: outer_accum's batched mode (a MoE
+   table's UP over all 32 experts in one launch, each expert's SR bits
+   at its own offset) at layer 0's three tables and C = 8, 40, 2560 and
+   1024 rows an expert against its plain version (SR bit-equal to the plain
+   cast of its own f32 result, two calls bit-equal; at C = 1024 event,
+   CUDA-graph warm and cold in L2, plain, torch.bmm and bound times),
+   and sr_matmul's batched mode at the same tables' FF and BP (trans_b)
+   at C = 1024; four full-width layers under ``paper_sr_bf16``, step-0
+   loss and every gradient leaf on the cuda backend against the
+   reference backend with the expert selection held, then the same
+   step-0 gradients under remat none and remat block, bit-equal; the
+   same two checks on two layers at B=2, S=4096, whose 8192 tokens take
+   the MoE's capacity branch (C = 2560 rows an expert) rather than the
+   dropless one; then all 24 layers for 8 steps through ``launch.train``
+   (adamw, remat block, B=4, S=256) — each expert table's FF, remat FF
+   and BP one sr_matmul_batched launch each, its UP one
+   outer_accum_batched launch — holding the launches of each step to
+   exact counts; then the peak memory of that step's forward and
+   backward apart from its adamw update's.
 
 It prints the time targets of the sm90 redesign, of the fused decode
 words' redesign, of the f32 mainloop's, of wkv6's and of wkv6_bwd's (met
@@ -1425,7 +1444,8 @@ def phase_sr_matmul_experts(gcfg, gparams, peaks) -> dict:
             "entry": "src/repro_torch/csrc/sr_matmul.cu",
             "replaces": "src/repro/kernels/sr_matmul.py:96",
             "tpu_kernel": "repro/kernels/sr_matmul.py::sr_matmul under "
-                          "jax.vmap (repro/engine/dispatch.py:198-199)",
+                          "jax.vmap (repro/engine/dispatch.py:198-199, "
+                          "220-229)",
             "max_abs_err": worst_abs, "max_rel_err": worst_rel,
             "ms": tot["ms"], "kernel_ms": tot["ms"], "plain_ms": tot["plain"],
             "library_ms": tot["lib"], "library": "torch.bmm",
@@ -1531,12 +1551,16 @@ def init_served(arch: str, gen) -> tuple:
 
 
 @contextlib.contextmanager
-def _routing(record: list = None, replay: list = None):
+def _routing(record: list = None, replay: list = None,
+             own_weights: bool = False):
     """Within it, each MoE routing call (models/moe.py `_route`, once a
-    layer) appends its (combine weights, experts) to `record`, or returns
-    `replay`'s in call order: routing held fixed across two runs.  A
-    replayed call appends (tokens whose own top-k set differs from the
-    replayed one, tokens) to `record`.  Neither: free routing."""
+    layer, again in a remat recompute) appends its (combine weights,
+    experts) to `record`, or returns `replay`'s in call order: routing
+    held fixed across two runs.  With own_weights only the experts are
+    replayed, weighed by the call's own probabilities (training: the
+    router keeps its gradient).  A replayed call appends (tokens whose
+    own top-k set differs from the replayed one, tokens) to `record`.
+    Neither: free routing."""
     from repro_torch.models import moe
     if record is None:
         yield
@@ -1546,11 +1570,13 @@ def _routing(record: list = None, replay: list = None):
     def held(x, router_w, top_k, sh):
         topv, topi, aux = route(x, router_w, top_k, sh)
         if replay is None:
-            record.append((topv, topi))
+            record.append((topv.detach(), topi))
             return topv, topi, aux
         fixed_v, fixed_i = next(turns)
         record.append((int((topi.sort(-1)[0] != fixed_i.sort(-1)[0])
                            .any(-1).sum()), topi.shape[0]))
+        if own_weights:
+            return route(x, router_w, top_k, sh, experts=fixed_i)
         return fixed_v, fixed_i, aux
 
     moe._route = held
@@ -1917,15 +1943,17 @@ def _counters() -> dict:
             "sr_round": ksr.COUNTER, "fused_attn_unit": kdf.COUNTER,
             "wkv6": kwkv.COUNTER, "wkv6_bwd": kwkv.BWD_COUNTER,
             "sr_matmul:batched": kmm.BATCHED_COUNTER,
+            "outer_accum:batched": koa.BATCHED_COUNTER,
             **{f"{mod}:{p}": c.PATH_COUNTERS[p]
                for mod, c in (("sr_matmul", kmm), ("outer_accum", koa))
                for p in kmm.PATHS}}
 
 
-def _step0_grads(cfg, program, backend, params, batch, dtype) -> tuple:
+def _step0_grads(cfg, program, backend, params, batch, dtype,
+                 remat: str = "block") -> tuple:
     """(loss, {leaf path: f32 gradient}) of one forward and backward of
-    the training loss (remat block) on `backend`, as the training step
-    takes them."""
+    the training loss (remat block unless `remat` says) on `backend`, as
+    the training step takes them."""
     import torch
     from repro_torch.core.phases import Phase
     from repro_torch.core.rounding import fold_key
@@ -1939,7 +1967,7 @@ def _step0_grads(cfg, program, backend, params, batch, dtype) -> tuple:
     leaves = tree_leaves(req)
     with torch.enable_grad():
         loss = tfm.loss_fn(cfg, req, batch, sh, compute_dtype=dtype,
-                           remat="block")
+                           remat=remat)
         grads = torch.autograd.grad(loss, [p for _, p in leaves])
     return float(loss.detach()), {
         path: g.float() for (path, _), g in zip(leaves, grads)}
@@ -2052,6 +2080,8 @@ def phase_train(arch: str = "qwen2-0.5b", label: str = "train",
         per_step.append({k: now[k] - last.get(k, 0) for k in now})
         last.update(now)
 
+    torch.cuda.synchronize()
+    held0 = torch.cuda.memory_allocated() / 2**30
     torch.cuda.reset_peak_memory_stats()
     for c in counters.values():
         c.reset()
@@ -2072,7 +2102,8 @@ def phase_train(arch: str = "qwen2-0.5b", label: str = "train",
     print(f"[{label}] ms/step {[round(x * 1e3, 1) for x in secs]} median "
           f"(steps 1-7) {med * 1e3:.1f}ms, {tok / med:.1f} tokens/s; "
           f"wall {wall:.1f}s incl. init and final checkpoint; peak memory "
-          f"{peak:.2f} GiB")
+          f"{peak:.2f} GiB, {peak - held0:.2f} above the {held0:.2f} GiB "
+          f"that earlier phases still held")
     print(f"[{label}] launches per step {per_step[-1]}; in the run {totals}")
     check(all(math.isfinite(x) for x in losses), f"non-finite loss {losses}")
     check(len(losses) == 8, f"{len(losses)} training steps, want 8")
@@ -2086,8 +2117,11 @@ def phase_train(arch: str = "qwen2-0.5b", label: str = "train",
         check(all(p[k] == n for p in per_step),
               f"a training step launched {k} other than {n} times: "
               f"{[p[k] for p in per_step]}")
-    for k in ("sr_matmul:generic", "outer_accum:generic", "sr_matmul:f32",
-              "outer_accum:f32", "sr_matmul:batched"):
+    zero = ("sr_matmul:generic", "outer_accum:generic", "sr_matmul:f32",
+            "outer_accum:f32")
+    if not any(k.endswith(":batched") for k in per_step_exact):
+        zero += ("sr_matmul:batched", "outer_accum:batched")
+    for k in zero:
         check(totals[k] == 0, f"the training run launched {k} {totals[k]} "
               f"times (every bf16 product belongs on the sm90 path, and "
               f"no dense model has an expert table)")
@@ -2799,6 +2833,368 @@ def phase_train_rwkv6() -> dict:
                        {"wkv6": 2 * RWKV_LAYERS, "wkv6_bwd": RWKV_LAYERS})
 
 
+# ---------------------------------------------------------------------------
+# granite-moe-1b-a400m training: the expert tables' batched FF / BP / UP
+# ---------------------------------------------------------------------------
+
+GRANITE = "granite-moe-1b-a400m"
+GRANITE_LAYERS = 24
+# [train:granite:capacity]: a batch of more than 4096 tokens, which
+# takes _moe_single's capacity branch (B x S = 8192 tokens, C =
+# _capacity(8192, 8, 32) = 2560 rows an expert, some entries dropped)
+# rather than the dropless one (C = T) that TRAIN_B x TRAIN_S takes
+CAP_B, CAP_S, CAP_C = 2, 4096, 2560
+# [outer_accum:experts]: the batched UP at these C (rows an expert; a
+# training step's is T = B x S = 1024, dropless, the last and timed one)
+EXPERT_UP_CS = (8, 40, CAP_C, TRAIN_B * TRAIN_S)
+# [train:granite] step 0, cuda (bf16 products with f32 accumulation, SR
+# UP from the port's bits) against the reference backend (f64 products,
+# nearest UP) under paper_sr_bf16, expert selection held: the loss within
+# GRANITE_LOSS_RTOL, each gradient leaf's L2 distance within
+# GRANITE_GRAD_L2 of its L2 norm (bf16 activations round at other
+# places on the two backends; SR adds unbiased noise of a bf16 step)
+GRANITE_LOSS_RTOL = 1e-3
+GRANITE_GRAD_L2 = 0.05
+
+
+def _granite_tables(gcfg) -> list:
+    """(name, K, N) of a MoE layer's three expert tables (E, K, N)."""
+    d, fe = gcfg.d_model, gcfg.moe.d_expert
+    return [("experts_in", d, fe), ("experts_gate", d, fe),
+            ("experts_out", fe, d)]
+
+
+def phase_expert_training_products(gcfg, peaks) -> tuple:
+    """A MoE training step's expert products at granite's full width, with
+    random operands: outer_accum's batched mode (UP, dW (E, K, N) = X^T
+    dY) at layer 0's three tables and C in EXPERT_UP_CS rows an expert,
+    one launch on the sm90 path each, within MM_RTOL / MM_ATOL of the
+    plain version in f32, its SR result bit-equal to the plain SR cast
+    of its own f32 result and over two calls; at C = 1024 its event,
+    CUDA-graph (warm in L2, and cold: three operand sets in turn, each
+    larger than the L2), plain, torch.bmm and bound times.  Then
+    sr_matmul's batched mode at the same tables' FF (X . W) and BP (dY .
+    W^T, trans_b) at C = 1024, against the plain version and timed.
+    Returns (the kernels-line row of the batched UP, the FF / BP
+    numbers)."""
+    import torch
+    from repro_torch.core.rounding import sr_cast_bf16
+    from repro_torch.kernels import outer_accum as koa
+    from repro_torch.kernels import sr_matmul as kmm
+    gen = torch.Generator(device="cuda").manual_seed(24)
+    E = gcfg.moe.n_experts
+    worst_abs = 0.0
+    tot = {k: 0.0 for k in ("ms", "graph", "cold", "plain", "lib",
+                            "lib_graph", "lib_cold", "bound")}
+    by_ms = {"bytes": 0.0, "operations": 0.0}
+    mm = {r: {k: 0.0 for k in ("ms", "graph", "plain", "lib", "lib_graph",
+                               "bound")} for r in ("ff", "bp")}
+    mm_abs = 0.0
+
+    def operands(C, K, N):
+        x = torch.randn((E, C, K), generator=gen, device="cuda").bfloat16()
+        dy = (torch.randn((E, C, N), generator=gen, device="cuda")
+              * C ** -0.5).bfloat16()
+        return x, dy, _rbits(gen, (E, K, N))
+
+    for C in EXPERT_UP_CS:
+        for name, K, N in _granite_tables(gcfg):
+            x, dy, rb = operands(C, K, N)
+            p = koa.batched_plan(E, C, K, N)
+            check(p.path == "sm90", f"outer_accum:experts {name} C={C}: "
+                  f"{plan_txt(p)}, want sm90")
+            before = {k: c.n for k, c in (("batched", koa.BATCHED_COUNTER),
+                                          ("all", koa.COUNTER),
+                                          *koa.PATH_COUNTERS.items())}
+            got = koa.outer_accum_batched(x, dy)
+            moved = {k: c.n - before[k] for k, c in (
+                ("batched", koa.BATCHED_COUNTER), ("all", koa.COUNTER),
+                *koa.PATH_COUNTERS.items())}
+            check(moved == {"batched": 1, "all": 1, "sm90": 1, "generic": 0,
+                            "f32": 0},
+                  f"outer_accum:experts {name} C={C}: counters moved "
+                  f"{moved}, want one sm90 launch")
+            want = koa.outer_accum_batched_plain(x, dy)
+            got_sr = koa.outer_accum_batched(x, dy, rbits=rb)
+            again = koa.outer_accum_batched(x, dy, rbits=rb)
+            torch.cuda.synchronize()
+            ea, _ = errs(got, want)
+            worst_abs = max(worst_abs, ea)
+            check(torch.allclose(got, want, rtol=MM_RTOL, atol=MM_ATOL),
+                  f"outer_accum:experts {name} ({E}x{C}x{K}x{N}): max abs "
+                  f"err {ea:.3g}")
+            check(torch.equal(got_sr.view(torch.int16),
+                              sr_cast_bf16(got, rb).view(torch.int16)),
+                  f"outer_accum:experts {name} C={C}: the SR epilogue is "
+                  f"not the plain SR cast of the kernel's own f32 product")
+            check(torch.equal(got_sr.view(torch.int16),
+                              again.view(torch.int16)),
+                  f"outer_accum:experts {name} C={C}: two calls differ")
+            del got, want, again, got_sr
+            b_ms, by = bound(2 * E * C * (K + N) + (4 + 2) * E * K * N,
+                             2 * E * C * K * N, peaks)
+            if C != EXPERT_UP_CS[-1]:
+                print(f"[outer_accum:experts] {name:<12} E={E} C={C} K={K} "
+                      f"N={N} {plan_txt(p)}: max_abs_err {ea:.3g}; SR "
+                      f"bit-equal to the plain cast; 2 calls bit-equal")
+                continue
+            call = lambda: koa.outer_accum_batched(x, dy, rbits=rb)
+            ms = time_ms(call)
+            dev = time_graph_ms(call)
+            sets = [(x, dy, rb)] + [operands(C, K, N) for _ in range(2)]
+            cold = time_graph_ms(lambda: [koa.outer_accum_batched(
+                a, b, rbits=r) for a, b, r in sets], iters=2) / len(sets)
+            plain = time_ms(lambda: koa.outer_accum_batched_plain(
+                x, dy, rbits=rb), iters=3, warmup=1)
+            xt = x.transpose(1, 2)
+            lib = time_ms(lambda: torch.bmm(xt, dy))
+            lib_dev = time_graph_ms(lambda: torch.bmm(xt, dy))
+            lib_cold = time_graph_ms(lambda: [torch.bmm(a.transpose(1, 2), b)
+                                              for a, b, _ in sets],
+                                     iters=2) / len(sets)
+            by_ms[by] += b_ms
+            for k, v in (("ms", ms), ("graph", dev), ("cold", cold),
+                         ("plain", plain), ("lib", lib), ("lib_graph",
+                                                          lib_dev),
+                         ("lib_cold", lib_cold), ("bound", b_ms)):
+                tot[k] += v
+            print(f"[outer_accum:experts] {name:<12} E={E} C={C} K={K} N={N} "
+                  f"(SR) {plan_txt(p)}: kernel {ms:.4f}ms plain "
+                  f"{plain:.4f}ms torch.bmm (bf16 out, no SR) {lib:.4f}ms "
+                  f"bound {b_ms:.4f}ms ({by}); in a CUDA graph: kernel "
+                  f"{dev:.4f}ms torch.bmm {lib_dev:.4f}ms, cold in L2: "
+                  f"kernel {cold:.4f}ms torch.bmm {lib_cold:.4f}ms  "
+                  f"max_abs_err {ea:.3g}; 2 calls bit-equal; one launch")
+            del sets
+            # the same table's FF and BP through sr_matmul's batched mode
+            w = (torch.randn((E, K, N), generator=gen, device="cuda")
+                 * K ** -0.5).bfloat16()
+            for role, a, trans_b in (("ff", x, False), ("bp", dy, True)):
+                pm = kmm.plan(C, K if trans_b else N, N if trans_b else K,
+                              "k", "k" if trans_b else "n", experts=E)
+                out = kmm.sr_matmul_batched(a, w, trans_b=trans_b)
+                want = kmm.sr_matmul_batched_plain(a, w, trans_b=trans_b)
+                torch.cuda.synchronize()
+                ea2, _ = errs(out, want)
+                mm_abs = max(mm_abs, ea2)
+                check(torch.allclose(out, want, rtol=MM_RTOL, atol=MM_ATOL),
+                      f"sr_matmul:experts {role} {name} C={C}: max abs err "
+                      f"{ea2:.3g}")
+                check(torch.equal(out, kmm.sr_matmul_batched(
+                    a, w, trans_b=trans_b)),
+                    f"sr_matmul:experts {role} {name}: two calls differ")
+                del out, want
+                f = lambda: kmm.sr_matmul_batched(a, w, trans_b=trans_b)
+                wl = w.transpose(1, 2) if trans_b else w
+                g = lambda: torch.bmm(a, wl)
+                t = {"ms": time_ms(f), "graph": time_graph_ms(f),
+                     "plain": time_ms(lambda: kmm.sr_matmul_batched_plain(
+                         a, w, trans_b=trans_b), iters=3, warmup=1),
+                     "lib": time_ms(g), "lib_graph": time_graph_ms(g)}
+                n_out = K if trans_b else N
+                t["bound"], mby = bound(
+                    2 * E * (C * a.shape[2] + K * N) + 4 * E * C * n_out,
+                    2 * E * C * K * N, peaks)
+                for k, v in t.items():
+                    mm[role][k] += v
+                print(f"[sr_matmul:experts:train] {role} {name:<12} E={E} "
+                      f"C={C} ({a.shape[2]} -> {n_out}) {plan_txt(pm)}: "
+                      f"kernel {t['ms']:.4f}ms plain {t['plain']:.4f}ms "
+                      f"torch.bmm {t['lib']:.4f}ms bound {t['bound']:.4f}ms "
+                      f"({mby}); in a CUDA graph: kernel {t['graph']:.4f}ms "
+                      f"torch.bmm {t['lib_graph']:.4f}ms  max_abs_err "
+                      f"{ea2:.3g}; 2 calls bit-equal")
+            del x, dy, rb, w
+            torch.cuda.empty_cache()
+    print(f"[outer_accum:experts] one layer's three tables at C="
+          f"{EXPERT_UP_CS[-1]} (SR): kernel {tot['ms']:.4f}ms plain "
+          f"{tot['plain']:.4f}ms torch.bmm {tot['lib']:.4f}ms bound "
+          f"{tot['bound']:.4f}ms; in a CUDA graph: kernel {tot['graph']:.4f}ms"
+          f" torch.bmm {tot['lib_graph']:.4f}ms; cold in L2: kernel "
+          f"{tot['cold']:.4f}ms torch.bmm {tot['lib_cold']:.4f}ms")
+    for role in ("ff", "bp"):
+        r = mm[role]
+        print(f"[sr_matmul:experts:train] {role}, one layer's three tables "
+              f"at C={EXPERT_UP_CS[-1]}: kernel {r['ms']:.4f}ms plain "
+              f"{r['plain']:.4f}ms torch.bmm {r['lib']:.4f}ms bound "
+              f"{r['bound']:.4f}ms; in a CUDA graph: kernel "
+              f"{r['graph']:.4f}ms torch.bmm {r['lib_graph']:.4f}ms")
+    row = {"name": "outer_accum:experts", "counter": "outer_accum:batched",
+           "route": "cuda", "source": "src/repro_torch/csrc/gemm_sm90.cuh",
+           "entry": "src/repro_torch/csrc/outer_accum.cu",
+           "replaces": "src/repro/kernels/outer_accum.py:80",
+           "tpu_kernel": "repro/kernels/outer_accum.py::outer_accum under "
+                         "jax.vmap (repro/engine/dispatch.py:220-229)",
+           "max_abs_err": worst_abs, "ms": tot["ms"], "kernel_ms": tot["ms"],
+           "plain_ms": tot["plain"], "library_ms": tot["lib"],
+           "library": "torch.bmm (bf16 out, no SR)",
+           "bound_ms": tot["bound"], "bound_by": max(by_ms, key=by_ms.get),
+           "graph_ms": tot["graph"], "cold_graph_ms": tot["cold"],
+           "library_graph_ms": tot["lib_graph"],
+           "library_cold_graph_ms": tot["lib_cold"],
+           "shapes": f"granite-moe-1b-a400m, one layer's three expert "
+                     f"tables' UP with SR, E={E}, C={EXPERT_UP_CS[-1]}"}
+    return row, {"max_abs_err": mm_abs, **mm}
+
+
+def phase_train_granite_step0(gcfg, n: int = 4, B: int = TRAIN_B,
+                              S: int = TRAIN_S,
+                              label: str = "train:granite") -> None:
+    """n full-width granite-moe-1b-a400m layers under paper_sr_bf16
+    (remat block, B x S tokens, random RMSNorm scales): step-0 loss and
+    every gradient leaf on the cuda backend against the reference
+    backend, the reference run held to the cuda run's expert selection
+    (each call's own probabilities weigh it), within GRANITE_LOSS_RTOL
+    and GRANITE_GRAD_L2; the cuda step launching each layer's three
+    tables' FF, remat FF and BP on sr_matmul_batched and their UP on
+    outer_accum_batched, none on :generic.  Then the cuda step-0
+    gradients under remat none, free routing: bit-equal to remat
+    block's (the recompute picks the same top-k)."""
+    import dataclasses
+    import torch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core.program import compile_program
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as tfm
+    from repro_torch.runtime import train_loop as tl
+    cfg4 = dataclasses.replace(gcfg, n_layers=n)
+    T = B * S
+    C = T if T <= 4096 else moe._capacity(T, gcfg.moe.top_k,
+                                          gcfg.moe.n_experts)
+    check(T <= 4096 or C == CAP_C, f"{label}: C={C} rows an expert, but "
+          f"[outer_accum:experts] holds the UP at C={CAP_C}")
+    shape = ShapeConfig("smoke", S, B, "train")
+    program = compile_program(cfg4, shape, precision="paper_sr_bf16")
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    params = tl.cast_params(tfm.init(gen, cfg4), torch.bfloat16)
+    for norm in (params["groups"]["u0"]["norm1"],
+                 params["groups"]["u0"]["norm2"], params["final_norm"]):
+        norm["scale"].copy_(1.0 + 0.1 * torch.randn(
+            norm["scale"].shape, generator=gen, device="cuda"))
+    batch0 = {k: torch.as_tensor(v, device="cuda")
+              for k, v in SyntheticLM(cfg4, shape).batch_at(0).items()}
+    counters = _counters()
+    for c in counters.values():
+        c.reset()
+    t0 = time.monotonic()
+    chosen, flips = [], []
+    with _routing(record=chosen):
+        lc, gc = _step0_grads(cfg4, program, "cuda", params, batch0,
+                              torch.bfloat16)
+    torch.cuda.synchronize()
+    cc = {k: c.n for k, c in counters.items()}
+    t1 = time.monotonic()
+    with _routing(record=flips, replay=chosen, own_weights=True):
+        lr, gr = _step0_grads(cfg4, program, "reference", params, batch0,
+                              torch.bfloat16)
+    torch.cuda.synchronize()
+    t2 = time.monotonic()
+    l2 = {k: float((gc[k] - gr[k]).norm() / gr[k].norm().clamp_min(1e-30))
+          for k in gr}
+    worst = max(l2, key=l2.get)
+    l_rel = abs(lc / lr - 1)
+    print(f"[{label}] {n} layers paper_sr_bf16 remat=block B={B} S={S} "
+          f"(T={T} tokens, C={C} rows an expert{', dropless' if C == T else ''}"
+          f") step 0: cuda loss {lc!r} ({t1 - t0:.1f}s), reference "
+          f"loss {lr!r} ({t2 - t1:.1f}s) with the cuda run's expert "
+          f"selection (its own top-k set differs on {_flips(flips)} "
+          f"token routings, each layer's forward and remat recompute); "
+          f"loss rel {l_rel:.3g}; worst leaf gradient "
+          f"L2 rel {l2[worst]:.4f} ({worst}); per leaf "
+          + ", ".join(f"{k} {v:.4f}" for k, v in sorted(l2.items())))
+    print(f"[{label}] the cuda step's launches "
+          f"{ {k: v for k, v in cc.items() if v} }")
+    check(math.isfinite(lc) and l_rel <= GRANITE_LOSS_RTOL,
+          f"{label} step-0 loss: cuda {lc} vs reference {lr} (rtol "
+          f"{GRANITE_LOSS_RTOL})")
+    check(l2[worst] <= GRANITE_GRAD_L2, f"{label} step-0 gradient of "
+          f"{worst}: L2 rel {l2[worst]:.4f} (gate {GRANITE_GRAD_L2})")
+    want = {"sr_matmul:batched": 3 * 3 * n, "outer_accum:batched": 3 * n,
+            "sr_matmul:generic": 0, "outer_accum:generic": 0,
+            "sr_matmul:f32": 0, "outer_accum:f32": 0}
+    check(all(cc[k] == v for k, v in want.items()),
+          f"{label} step 0 launched {cc}, want {want}")
+    del gr
+    torch.cuda.empty_cache()
+    ln, gn = _step0_grads(cfg4, program, "cuda", params, batch0,
+                          torch.bfloat16, remat="none")
+    same = [k for k in gc if torch.equal(gc[k], gn[k])]
+    print(f"[{label}] remat none vs block, cuda, free routing: loss "
+          f"{ln!r} vs {lc!r}; {len(same)} of {len(gc)} gradient leaves "
+          f"bit-equal")
+    check(ln == lc and len(same) == len(gc),
+          f"{label} remat none vs block: loss {ln} vs {lc}, leaves that "
+          f"differ: {sorted(set(gc) - set(same))}")
+
+
+def phase_train_granite_memory(gcfg) -> None:
+    """Where granite training's peak memory lies, at the main path's
+    settings (24 layers, paper_sr_bf16, adamw, B=4, S=256): the state as
+    init_state makes it; one forward and backward as the training step
+    runs them (remat block, the gradients cast to f32); then adamw's
+    update of every leaf (the sr_round writeback), the peak reset before
+    each part.  Every size is above what was allocated before the
+    state (earlier phases' leftovers, printed)."""
+    import torch
+    from repro_torch.configs.base import ShapeConfig, TrainConfig
+    from repro_torch.core.program import compile_program
+    from repro_torch.core.tree import tree_leaves, tree_set
+    from repro_torch.data import SyntheticLM
+    from repro_torch.runtime import train_loop as tl
+    gib = lambda b: b / 2**30
+    shape = ShapeConfig("smoke", TRAIN_S, TRAIN_B, "train")
+    program = compile_program(gcfg, shape, precision="paper_sr_bf16")
+    train_cfg = TrainConfig(kernel_backend="cuda", remat="block")
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    _, opt = tl.make_train_step(gcfg, program, train_cfg)
+    state = tl.init_state(gcfg, program, train_cfg, gen, opt)
+    batch = {k: torch.as_tensor(v, device="cuda")
+             for k, v in SyntheticLM(gcfg, shape).batch_at(0).items()}
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated() - base
+    torch.cuda.reset_peak_memory_stats()
+    loss, grads = _step0_grads(gcfg, program, "cuda", state["params"],
+                               batch, torch.bfloat16)
+    torch.cuda.synchronize()
+    fb_peak = torch.cuda.max_memory_allocated() - base
+    held = torch.cuda.memory_allocated() - base
+    gtree: dict = {}
+    for path, g in grads.items():
+        tree_set(gtree, path, g)
+    del grads
+    torch.cuda.reset_peak_memory_stats()
+    new_p, new_s = opt.update(gtree, state["opt"], state["params"], 0, 1)
+    torch.cuda.synchronize()
+    up_peak = torch.cuda.max_memory_allocated() - base
+    path, big = max(tree_leaves(state["params"]), key=lambda kv:
+                    kv[1].numel())
+    print(f"[train:granite:memory] 24 layers paper_sr_bf16 adamw "
+          f"remat=block B={TRAIN_B} S={TRAIN_S}, above the {gib(base):.2f} "
+          f"GiB held before: state {gib(resident):.2f} "
+          f"GiB (params and both moments); forward + backward peak "
+          f"{gib(fb_peak):.2f} GiB, {gib(held):.2f} GiB held after it (the "
+          f"state and the f32 gradients); adamw update peak "
+          f"{gib(up_peak):.2f} GiB; largest leaf {path} "
+          f"{tuple(big.shape)} ({big.numel()} elements, "
+          f"{gib(4 * big.numel()):.2f} GiB in f32); step-0 loss {loss!r}")
+    check(math.isfinite(loss), f"granite memory step: loss {loss}")
+    del new_p, new_s, gtree, state, opt
+
+
+def phase_train_granite() -> dict:
+    """granite-moe-1b-a400m's training main path: launch.train at full
+    width (24 layers, B=4, S=256, paper_sr_bf16, adamw, remat block), 8
+    steps; every step launches each layer's three expert tables' FF,
+    remat FF and BP on sr_matmul_batched (216) and their UP on
+    outer_accum_batched (72)."""
+    return phase_train(GRANITE, "train:granite",
+                       {"sr_matmul:batched": 3 * 3 * GRANITE_LAYERS,
+                        "outer_accum:batched": 3 * GRANITE_LAYERS})
+
+
 def print_targets(rows: dict) -> None:
     """The redesign's time targets against this run's yardsticks: met or
     missed (a missed target is reported, not failed)."""
@@ -2973,6 +3369,30 @@ def main() -> int:
         serve_counts["wkv6_bwd"] = rwkv_train["counts"]
         rows[-1]["launches_per_step"] = rwkv_train["per_step"]["wkv6_bwd"]
         print(f"[train:rwkv6] on {smi}")
+        torch.cuda.empty_cache()
+
+        # granite-moe-1b-a400m training: the expert tables' batched UP,
+        # FF and BP; four layers against the reference backend and under
+        # both remat modes; then the full-width main path
+        gcfg = get_config(GRANITE)
+        up_row, mm_train = phase_expert_training_products(gcfg, peaks)
+        rows.append(up_row)
+        torch.cuda.empty_cache()
+        phase_train_granite_step0(gcfg)
+        torch.cuda.empty_cache()
+        phase_train_granite_step0(gcfg, n=2, B=CAP_B, S=CAP_S,
+                                  label="train:granite:capacity")
+        torch.cuda.empty_cache()
+        granite_train = phase_train_granite()
+        torch.cuda.empty_cache()
+        phase_train_granite_memory(gcfg)
+        serve_counts["outer_accum:experts"] = granite_train["counts"]
+        up_row["launches_per_step"] = \
+            granite_train["per_step"]["outer_accum:batched"]
+        mm_row = next(r for r in rows if r["name"] == "sr_matmul:experts")
+        mm_row["train"] = dict(mm_train, launches_per_step=granite_train[
+            "per_step"]["sr_matmul:batched"])
+        print(f"[train:granite] on {smi}")
     except SmokeFailure as e:
         print(f"[chip_smoke] FAIL: {e}", file=sys.stderr)
         return 1
@@ -2980,7 +3400,9 @@ def main() -> int:
     # qwen2 serve run for its PREFILL sr_matmul and fused_attn_unit, the
     # rwkv6 serve run for its sr_matmul, wkv6 and fused_ffn, the granite
     # serve run for the batched expert products (its sr_matmul:batched
-    # count), the rwkv6 training run for wkv6_bwd, the fp32 training run
+    # count; the granite training run's a step ride along as "train"),
+    # the granite training run for the batched UP (outer_accum:batched),
+    # the rwkv6 training run for wkv6_bwd, the fp32 training run
     # for the f32 rows, the paper_sr_bf16 training run for the rest
     # (sr_matmul:train is sr_matmul's FF + BP count there)
     for r in rows:

@@ -6,10 +6,11 @@
 // It serves two TPU kernels: repro/kernels/sr_matmul.py::sr_matmul (the
 // MAC array: PREFILL, and FF / BP of training) and
 // repro/kernels/outer_accum.py::outer_accum (UP, dW = scale * X^T dY).
-// Its BATCHED form is the first's PREFILL word over a MoE layer's expert
-// table (the TPU runs sr_matmul under jax.vmap: one pallas_call with an
+// Its BATCHED form is both over a MoE layer's expert table (the TPU runs
+// sr_matmul and outer_accum under jax.vmap: one pallas_call with an
 // expert axis in its grid): out[e] = A[e] . B[e] for e < E in ONE launch,
-// the expert an outer coordinate of the persistent tile space.
+// the expert an outer coordinate of the persistent tile space — PREFILL,
+// FF and BP with A K-major, UP (dW[e] = X[e]^T dY[e]) with A M-major.
 // Every role reads its operands where they lie, through the majorness
 // template parameters, with no transposed copy:
 //
@@ -46,6 +47,13 @@
 //   read through 3-D tensor maps (expert, rows, cols): a box past an
 //   expert's rows or K reads the TMA's zeros, never the next expert's
 //   rows, and the epilogue clips each expert's stores to its M rows.
+// - A MoE training step's expert products (BATCHED, C = T = 1024 rows an
+//   expert, a quarter of them real: dropless) are bound by the tensor
+//   cores in FF and BP.  Their UP (A = X[e]^T M-major: X (E, T, D) is a
+//   3-D map of (T, D) matrices, the TMA box 64 tokens x 64 of D) is bound
+//   by bytes: X, dY, the SR bits and the bf16 dW (granite: 192 MB a
+//   table); the split-K workspace, the SR bits and dW are indexed at each
+//   expert's offset, E x M x N flat.
 //
 // Tiles: BM = 128 (two consumer warpgroups of 64 rows), BN = 64 or 128,
 // BK = 64 (one 128-byte swizzle row of bf16), a ring of STAGES = 5.
@@ -341,9 +349,9 @@ __device__ __forceinline__ TileCoord tile_coord(int tile, int grid_x,
 // b, b + gridDim.x, ... of the (grid_x, grid_y, splits, experts) tile
 // space (the caller's loop nest, in tile_coord's order), so the producer
 // loads the next tile while the consumers store this one.  BATCHED: A,
-// B and out hold `experts` matrices each ((E, M, K), (E, K, N) or
-// (E, N, K), (E, M, N)) and A, B are 3-D tensor maps; otherwise
-// experts == 1.  a_rows (32, 64 or 128)
+// B and out hold `experts` matrices each ((E, M, K) or, A_MN, X (E, K,
+// M); (E, K, N) or (E, N, K); (E, M, N), and rbits too) and A, B are
+// 3-D tensor maps; otherwise experts == 1.  a_rows (32, 64 or 128)
 // is how many rows of an A tile are loaded: a matrix of at most 32 or 64
 // rows loads only those (rows past M feed only output rows that are
 // never stored, and each output row depends on its own A row alone).
@@ -357,7 +365,6 @@ __global__ void __launch_bounds__(THREADS, 1)
                 float* __restrict__ ws, int M, int N, int K, int grid_x,
                 int grid_y, int splits, int experts, int kb_per_split,
                 int m_fast, int a_rows, float scale, int sr, int vec) {
-  static_assert(!(BATCHED && A_MN), "the batched form reads A K-major");
   constexpr int B_BYTES = b_bytes<BN>();
   constexpr int NACC = BN / 2;   // f32 accumulators per thread
   extern __shared__ uint8_t smem_raw[];
@@ -404,7 +411,8 @@ __global__ void __launch_bounds__(THREADS, 1)
         mbar_expect_tx(&full[s], a_rows * BK * 2 + B_BYTES);
         if constexpr (A_MN) {
           for (int j = 0; j < a_rows / 64; ++j)
-            tma_load(a_dst + j * MN_BLOCK, &tma_a, &full[s], m0 + 64 * j, k0);
+            tma_box<BATCHED>(a_dst + j * MN_BLOCK, &tma_a, &full[s],
+                             m0 + 64 * j, k0, tc.e);
         } else {
           tma_box<BATCHED>(a_dst, &tma_a, &full[s], k0, m0, tc.e);
         }
@@ -600,6 +608,31 @@ inline int sm_count(int dev) {
   return c;
 }
 
+// cuTensorMapEncodeTiled needs a current context on the calling thread.
+// The runtime makes the primary context current lazily, at a thread's
+// first call that needs it; a thread whose first CUDA work is an encode
+// has none, and the encode is refused.  PyTorch's autograd worker is
+// such a thread when a backward begins with one of these products and
+// the caching allocator serves its output without a cudaMalloc (seen on
+// the H100: a MoE table's BP refused, the same call on the main thread
+// taken).  The device is the one that holds the operand at `base`, not
+// the thread's current one (device 0 on a fresh thread): cudaSetDevice
+// makes its primary context current whenever this thread has not made
+// it current yet or another device is current now.
+inline int ensure_context(const void* base) {
+  thread_local int made = -1;
+  cudaPointerAttributes attr;
+  int err = static_cast<int>(cudaPointerGetAttributes(&attr, base));
+  if (err != 0) return err;
+  int cur = -1;
+  err = static_cast<int>(cudaGetDevice(&cur));
+  if (err != 0) return err;
+  if (made == attr.device && cur == attr.device) return 0;
+  err = static_cast<int>(cudaSetDevice(attr.device));
+  made = err == 0 ? attr.device : -1;
+  return err;
+}
+
 // A TMA map of the row-major bf16 matrix at `base` (rows x cols, row
 // stride ld elements, a multiple of 8) with 64 x box_rows boxes and the
 // 128-byte swizzle; out-of-bounds elements read as zero.  depth > 0: a
@@ -611,6 +644,7 @@ inline int make_map(CUtensorMap* map, const void* base, int rows, int cols,
                     int ld, int box_rows, int depth = 0) {
   EncodeTiled fn = encoder();
   if (fn == nullptr) return ERR_NO_ENCODER;
+  if (const int err = ensure_context(base)) return err;
   const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows,
                               (cuuint64_t)(depth > 0 ? depth : 1)};
   const cuuint64_t strides[2] = {(cuuint64_t)ld * 2,
@@ -652,8 +686,9 @@ int make_maps(CUtensorMap* ma, CUtensorMap* mb, const void* a, const void* b,
 // (grid_x, grid_y, splits) with kb_per_split k-blocks per split, walked
 // by min(tiles, SMs) persistent blocks; ws holds splits x M x N f32
 // when splits > 1.  BATCHED: `experts` such products, the operands and
-// out contiguous stacks of them (A (E, M, K), B (E, K, N) or (E, N, K),
-// out (E, M, N)), and ws splits x E x M x N.  Returns 0, a cudaError_t
+// out contiguous stacks of them (A (E, M, K) or, A_MN, X (E, K, M); B
+// (E, K, N) or (E, N, K); out and rbits (E, M, N)), and ws splits x E x
+// M x N.  Returns 0, a cudaError_t
 // or one of the ERR_ codes.
 template <int BN, bool A_MN, bool B_MN, bool BATCHED = false>
 int run(const void* a, const void* b, const void* rbits, void* out,
@@ -684,7 +719,8 @@ int run(const void* a, const void* b, const void* rbits, void* out,
   const int sms = sm_count(dev);
   const int a_rows = a_box_rows<A_MN>(M);
   const int blocks = tiles < sms ? tiles : sms;
-  // row tiles fastest when all of A (at most 8 MB) stays in L2
+  // row tiles fastest when all of A (at most 8 MB; one expert's, as the
+  // blocks in flight walk one expert's tiles before the next) stays in L2
   const int m_fast = grid_y > 1 && (size_t)M * K * 2 <= ((size_t)8 << 20);
   kern<<<blocks, THREADS, smem, stream>>>(ma, mb, R, out, ws, M, N, K,
                                           grid_x, grid_y, splits, experts,

@@ -25,11 +25,18 @@ Serving phases dispatch forward-only words:
             as the reference leaves this product to XLA),
 
 A 3-D weight (E, K, N) is a batched expert table, with x of shape
-(E, C, K): one program word for all E experts.  PREFILL runs it as ONE
-``sr_matmul_batched`` launch (the reference runs its ``sr_matmul`` under
-``jax.vmap``: one ``pallas_call`` with an expert axis in its grid),
-DECODE as one batched f32 ``torch.matmul``; the training phases (FF, BP,
-UP) do not take it yet.
+(E, C, K): one program word for all E experts (the reference runs its
+kernels under ``jax.vmap``: one ``pallas_call`` with an expert axis in
+its grid).  PREFILL runs it as ONE ``sr_matmul_batched`` launch, DECODE
+as one batched f32 ``torch.matmul``, and training through the same
+``_PEMatmul`` Function as a 2-D weight: FF and BP one
+``sr_matmul_batched`` launch each, UP one ``outer_accum_batched``
+launch whose SR bits are one (E, D, F) draw from one generator seeded
+by :func:`up_key` of the table's whole dY (the reference splits the key
+per expert instead; each expert here reads its own part of the one
+stream).  Its operands are bf16: on a CUDA device an f32 word (the
+``fp32`` preset) raises NotImplementedError in every phase, since the
+f32 batched form is not ported.
 
 plus :func:`pe_fused_attn_unit`, the ``decode_fused`` word that runs a
 whole attention unit as one fused kernel call, and :func:`pe_fused_ffn`,
@@ -97,46 +104,78 @@ def _up_rbits(word: PEWord, dyt: torch.Tensor, shape: tuple,
                       lo=word.update_rounding == "sr_lo")
 
 
-def _ff(x2: torch.Tensor, w: torch.Tensor, word: PEWord,
+def _operand(t: torch.Tensor, dt_name: str, word: PEWord,
+             batched: bool) -> torch.Tensor:
+    """t at the word's dtype `dt_name`, as the kernels take it.  A 2-D
+    weight's operands go through ``kmm.operand`` (a column slice, such as
+    rwkv6's rkvg quarters, is read in place, with no contiguous copy); an
+    expert table's are contiguous, and f32 ones on a CUDA device raise
+    (the f32 batched form, the fp32 preset on a MoE table, is not
+    ported)."""
+    dt = dtype_from_name(dt_name)
+    if not batched:
+        return kmm.operand(t.to(dt))
+    if dt != torch.bfloat16 and t.device.type == "cuda":
+        raise NotImplementedError(
+            f"{word.op}: an expert table's words run bf16 operands on the "
+            f"card; the {dt_name} batched form (the fp32 preset on a MoE "
+            f"table) is not ported")
+    return t.to(dt).contiguous()
+
+
+def _matmul(a: torch.Tensor, b: torch.Tensor, trans_b: bool
+            ) -> torch.Tensor:
+    """a @ b (or a @ b.T) with f32 accumulation, f32 out: ``sr_matmul``
+    for a 2-D weight, ONE ``sr_matmul_batched`` launch over all experts
+    for an expert table."""
+    if b.dim() == 3:
+        return kmm.sr_matmul_batched(a, b, trans_b=trans_b)
+    return kmm.sr_matmul(a, b, None, trans_b=trans_b)
+
+
+def _ff(x: torch.Tensor, w: torch.Tensor, word: PEWord,
         transpose_w: bool) -> torch.Tensor:
-    dt = dtype_from_name(word.ff_dtype)
-    # kmm.operand: a column slice (rwkv6's rkvg quarters) is read in
-    # place, with no contiguous copy
-    y = kmm.sr_matmul(kmm.operand(x2.to(dt)), kmm.operand(w.to(dt)), None,
-                      trans_b=transpose_w)
-    return y.to(x2.dtype)
+    batched = w.dim() == 3
+    y = _matmul(_operand(x, word.ff_dtype, word, batched),
+                _operand(w, word.ff_dtype, word, batched), transpose_w)
+    return y.to(x.dtype)
 
 
 class _PEMatmul(torch.autograd.Function):
-    """The FF / BP / UP program word of one 2-D weight matmul."""
+    """The FF / BP / UP program word of one weight matmul: x (M, K) with
+    a 2-D weight, or x (E, C, K) with an expert table (E, K, N) (or
+    (E, N, K) with transpose_w), each phase then ONE launch over all E
+    experts."""
 
     @staticmethod
-    def forward(ctx, x2, w, word: PEWord, transpose_w: bool,
+    def forward(ctx, x, w, word: PEWord, transpose_w: bool,
                 key: Optional[int], entropy: Optional[Callable]):
-        ctx.save_for_backward(x2, w)
+        ctx.save_for_backward(x, w)
         ctx.cfg = (word, transpose_w, key, entropy)
-        return _ff(x2, w, word, transpose_w)
+        return _ff(x, w, word, transpose_w)
 
     @staticmethod
     def backward(ctx, g):
-        x2, w = ctx.saved_tensors
+        x, w = ctx.saved_tensors
         word, transpose_w, key, entropy = ctx.cfg
-        bp = dtype_from_name(word.bp_dtype)
-        gb = kmm.operand(g.to(bp))
+        batched = w.dim() == 3
+        gb = _operand(g, word.bp_dtype, word, batched)
         dx = dw = None
         if ctx.needs_input_grad[0]:
             # BP: f32 accumulation, no SR (the gradient signal is
             # transient, not persistent state)
-            dx = kmm.sr_matmul(gb, kmm.operand(w.to(bp)), None,
-                               trans_b=not transpose_w).to(x2.dtype)
+            dx = _matmul(gb, _operand(w, word.bp_dtype, word, batched),
+                         not transpose_w).to(x.dtype)
         if ctx.needs_input_grad[1]:
-            xb = kmm.operand(x2.to(bp))
+            xb = _operand(x, word.bp_dtype, word, batched)
             xt, dyt = (gb, xb) if transpose_w else (xb, gb)
             sr = (word.update_rounding in ("sr", "sr_lo")
                   and w.dtype == torch.bfloat16)
-            rbits = (_up_rbits(word, dyt, (xt.shape[1], dyt.shape[1]), key,
-                               entropy) if sr else None)
-            dw = koa.outer_accum(xt, dyt, rbits=rbits).to(w.dtype)
+            shape = (*xt.shape[:-2], xt.shape[-1], dyt.shape[-1])
+            rbits = (_up_rbits(word, dyt, shape, key, entropy) if sr
+                     else None)
+            up = koa.outer_accum_batched if batched else koa.outer_accum
+            dw = up(xt, dyt, rbits=rbits).to(w.dtype)
         return dx, dw, None, None, None, None
 
 
@@ -168,10 +207,7 @@ def _prefill(x: torch.Tensor, w: torch.Tensor, word: PEWord,
     """The PREFILL word: the sr_matmul kernel over the chunk's rows; for
     an expert table, one batched launch over every expert's rows."""
     if w.dim() == 3:
-        dt = dtype_from_name(word.ff_dtype)
-        y = kmm.sr_matmul_batched(x.to(dt).contiguous(),
-                                  w.to(dt).contiguous(), trans_b=transpose_w)
-        return y.to(x.dtype)
+        return _ff(x, w, word, transpose_w)
     y = _ff(x.reshape(-1, x.shape[-1]), w, word, transpose_w)
     return y.reshape(*x.shape[:-1], y.shape[-1])
 
@@ -188,7 +224,8 @@ def pe_dot(x: torch.Tensor, w: torch.Tensor, *,
     x.dtype.  `phase` selects the word's column: FF (or BP /
     UP) runs the differentiable three-phase word, the serving phases the
     forward-only words.  `key` seeds the UP phase's SR entropy (the op's
-    :func:`op_key`); `entropy(op, dY) -> rbits` replaces that draw.
+    :func:`op_key`); `entropy(op, dY) -> rbits` replaces that draw (for
+    an expert table dY is (E, C, F) and rbits (E, D, F)).
     """
     word = word or DEFAULT_WORD
     if backend not in BACKENDS:
@@ -199,9 +236,7 @@ def pe_dot(x: torch.Tensor, w: torch.Tensor, *,
         return _reference_dot(x, w, transpose_w)
     if phase not in SERVING_PHASES:
         if w.dim() == 3:
-            raise NotImplementedError(
-                f"{word.op}: the training words (FF, BP, UP) of an expert "
-                f"table are not ported yet; serving runs it")
+            return _PEMatmul.apply(x, w, word, transpose_w, key, entropy)
         lead = x.shape[:-1]
         y2 = _PEMatmul.apply(x.reshape(-1, x.shape[-1]), w, word,
                              transpose_w, key, entropy)

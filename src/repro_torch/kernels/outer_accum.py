@@ -11,6 +11,16 @@ bf16 (tensor cores) or both f32 (the fp32 preset, f32 FMA).  bf16
 operands take the ``sm90`` or the ``generic`` path by
 :func:`repro_torch.kernels.sr_matmul.plan`, each with its own launch
 counter.
+
+:func:`outer_accum_batched` is the kernel's batched mode, the TPU kernel
+under ``jax.vmap`` (``repro/engine/dispatch.py:220-229``: one
+``pallas_call`` with an expert axis in its grid): dW[e] = scale *
+X[e]^T dY[e] for the E experts of a MoE table, bf16 operands, f32 or
+SR-bf16 out with each expert's bits at its own offset, ONE launch of the
+sm90 path a call, planned by :func:`plan` over all E experts' tiles.  It
+has its own counter (``outer_accum:batched``) besides ``outer_accum``
+and ``outer_accum:sm90``; :func:`outer_accum_batched_plain` is its plain
+version.
 """
 from __future__ import annotations
 
@@ -29,14 +39,15 @@ from repro_torch.kernels.sr_matmul import (PATHS, Plan, aligned16,
 
 COUNTER = build.LaunchCounter("outer_accum")   # every launch, any path
 PATH_COUNTERS = {p: build.LaunchCounter(f"outer_accum:{p}") for p in PATHS}
+BATCHED_COUNTER = build.LaunchCounter("outer_accum:batched")
 
 
 @functools.lru_cache(maxsize=None)
-def _bind(lib: ctypes.CDLL):
-    """The C entry point, without argtypes (sr_matmul._bind): pointers
-    as ctypes.c_void_p or None, ints as Python ints, the scale as a
-    ctypes.c_float."""
-    fn = lib.outer_accum
+def _bind(lib: ctypes.CDLL, name: str = "outer_accum"):
+    """The C entry point `name`, without argtypes (sr_matmul._bind):
+    pointers as ctypes.c_void_p or None, ints as Python ints, the scale
+    as a ctypes.c_float."""
+    fn = getattr(lib, name)
     fn.restype = ctypes.c_int
     return fn
 
@@ -124,4 +135,92 @@ def outer_accum(x: torch.Tensor, dy: torch.Tensor, *, scale: float = 1.0,
         raise launch_error("outer_accum", err)
     COUNTER.n += 1
     PATH_COUNTERS[p.path].n += 1
+    return out
+
+
+def _batched_shapes(x: torch.Tensor, dy: torch.Tensor) -> tuple:
+    if (x.dim() != 3 or dy.dim() != 3 or x.shape[0] != dy.shape[0]
+            or x.shape[1] != dy.shape[1]):
+        raise ValueError(f"outer_accum_batched takes x (E, T, D) and dy "
+                         f"(E, T, F), got {tuple(x.shape)} and "
+                         f"{tuple(dy.shape)}")
+    return tuple(x.shape) + (dy.shape[2],)
+
+
+def batched_plan(e: int, t: int, d: int, f: int) -> Plan:
+    """The plan of one expert's dW (D, F) = X^T dY in a batched call: A =
+    X^T M-major, dY N-major, every expert's row and column tiles counted
+    once towards filling the card (sr_matmul.plan, experts=E)."""
+    return plan(d, f, t, "m", "n", rows_invariant=False, experts=e)
+
+
+def outer_accum_batched_plain(x: torch.Tensor, dy: torch.Tensor, *,
+                              scale: float = 1.0,
+                              rbits: Optional[torch.Tensor] = None
+                              ) -> torch.Tensor:
+    """:func:`outer_accum_plain` expert by expert: (E, D, F), f32, or
+    SR-bf16 from rbits (E, D, F)."""
+    e, _, d, f = _batched_shapes(x, dy)
+    if e == 0:
+        return torch.empty((0, d, f), device=x.device,
+                           dtype=torch.float32 if rbits is None
+                           else torch.bfloat16)
+    return torch.stack([outer_accum_plain(
+        x[i], dy[i], scale=scale, rbits=None if rbits is None else rbits[i])
+        for i in range(e)])
+
+
+def outer_accum_batched(x: torch.Tensor, dy: torch.Tensor, *,
+                        scale: float = 1.0,
+                        rbits: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """x (E, T, D), dy (E, T, F) -> dW (E, D, F) = scale * x[e]^T dy[e]
+    for every expert e, in ONE launch of the sm90 path.
+
+    bf16 operands, each contiguous and 16-byte aligned, with D and F
+    multiples of 8, so that TMA describes them: anything else raises, as
+    do f32 operands (there is no generic fallback).  Returns f32 without
+    rbits, SR-bf16 with rbits (32-bit patterns, (E, D, F), contiguous).
+    CPU tensors take the plain version.
+    """
+    e, t, d, f = _batched_shapes(x, dy)
+    if x.device.type == "cpu" and dy.device.type == "cpu":
+        return outer_accum_batched_plain(x, dy, scale=scale, rbits=rbits)
+    if x.device.type != "cuda" or dy.device != x.device:
+        raise ValueError(f"outer_accum_batched: operands on {x.device} and "
+                         f"{dy.device}")
+    if x.dtype != torch.bfloat16 or dy.dtype != torch.bfloat16:
+        raise TypeError(f"outer_accum_batched kernel takes two bf16 "
+                        f"operands, got {x.dtype}, {dy.dtype}")
+    if not (x.is_contiguous() and dy.is_contiguous() and aligned16(x, dy)
+            and d % 8 == 0 and f % 8 == 0):
+        raise ValueError(
+            "outer_accum_batched kernel takes contiguous, 16-byte aligned "
+            "operands with 16-byte rows (D and F multiples of 8): the TMA "
+            "describes no other")
+    sr = rbits is not None
+    if sr and (rbits.shape != (e, d, f) or rbits.device != x.device
+               or rbits.dtype not in (torch.int32, torch.uint32)
+               or not rbits.is_contiguous()):
+        raise ValueError("outer_accum_batched: rbits must be contiguous "
+                         "32-bit (E, D, F) on the operands' device")
+    out = torch.empty((e, d, f), dtype=torch.bfloat16 if sr else
+                      torch.float32, device=x.device)
+    if out.numel() == 0:
+        return out
+    if t == 0:
+        return out.zero_()
+    p = batched_plan(e, t, d, f)
+    gx, gy, _ = p.grid(d, f, t)
+    ws = (torch.empty((p.splits, e, d, f), dtype=torch.float32,
+                      device=x.device) if p.splits > 1 else None)
+    err = _bind(build.load("outer_accum"), "outer_accum_batched_bf16")(
+        build.ptr(x), build.ptr(dy), build.ptr(rbits) if sr else None,
+        build.ptr(out), build.ptr(ws) if ws is not None else None, e, t, d,
+        f, ctypes.c_float(scale), int(sr), p.bn, p.splits,
+        p.kb_per_split(t), gx, gy, build.stream_ptr(x.device))
+    if err != 0:
+        raise launch_error("outer_accum_batched", err)
+    COUNTER.n += 1
+    PATH_COUNTERS["sm90"].n += 1
+    BATCHED_COUNTER.n += 1
     return out

@@ -214,11 +214,21 @@ def takes_view(t: torch.Tensor) -> bool:
 
 
 def operand(t: torch.Tensor) -> torch.Tensor:
-    """`t` itself where the bf16 paths take it as a view, else a
-    contiguous copy."""
-    if t.dtype == torch.bfloat16 and takes_view(t):
+    """`t` itself where the sm90 path reads it as it lies (a bf16 view
+    with 16-byte rows and base); a bf16 matrix with other rows (granite's
+    49155-wide logits and their gradient) copied into rows padded to a
+    multiple of 8 elements, as a view of its columns, so that the sm90
+    path reads it too; anything else as a contiguous copy."""
+    if t.dtype != torch.bfloat16 or not takes_view(t):
+        return t.contiguous()
+    if row_stride(t) % 8 == 0 and aligned16(t):
         return t
-    return t.contiguous()
+    rows, cols = t.shape
+    padded = torch.empty((rows, -(-cols // 8) * 8), dtype=t.dtype,
+                         device=t.device)
+    view = padded[:, :cols]
+    view.copy_(t)
+    return view
 
 
 def aligned16(*ts: torch.Tensor) -> bool:

@@ -24,7 +24,8 @@ import time
 # gemm_sm90.cuh's mainloop and split reduction (bf16) and sgemm_sm90.cuh's
 # (f32) serve sr_matmul with A K-major (template argument A_MN false;
 # BATCHED true is its batched expert mode, sr_matmul:batched) and
-# outer_accum with A = X^T (A_MN true); decode_fused.cu's kernels carry
+# outer_accum with A = X^T (A_MN true; BATCHED true, outer_accum:batched,
+# a MoE table's UP); decode_fused.cu's kernels carry
 # their word as the first template argument (0 fused_attn_unit, 1
 # fused_ffn)
 PORT_KERNELS = {
@@ -32,8 +33,10 @@ PORT_KERNELS = {
                  r"\w+, false>|splitk_reduce<false>)|"
                  r"sgemm::sgemm_kernel<false)",
     "sr_matmul:batched": r"rt::sm90::gemm_kernel<\d+, false, \w+, true>",
-    "outer_accum": r"rt::(outer_accum_kernel|sm90::(gemm_kernel<\d+, true|"
-                   r"splitk_reduce<true>)|sgemm::sgemm_kernel<true)",
+    "outer_accum": r"rt::(outer_accum_kernel|sm90::(gemm_kernel<\d+, true, "
+                   r"\w+, false>|splitk_reduce<true>)|"
+                   r"sgemm::sgemm_kernel<true)",
+    "outer_accum:batched": r"rt::sm90::gemm_kernel<\d+, true, \w+, true>",
     "sr_round": r"rt::sr_round_kernel",
     "fused_attn_unit": r"rt::decode::((norm|gemm)_kernel<0\b|attn_kernel)",
     "fused_ffn": r"rt::decode::(norm|gemm)_kernel<1\b",

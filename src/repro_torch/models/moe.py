@@ -77,15 +77,24 @@ def _capacity(tokens: int, top_k: int, n_experts: int) -> int:
 
 
 def _route(x: torch.Tensor, router_w: torch.Tensor, top_k: int,
-           sh: PEContext):
+           sh: PEContext, experts: Optional[torch.Tensor] = None):
     """x: (T, d).  Returns (combine weights (T, k) f32, experts (T, k)
     int64, aux f32 scalar).  Ties in the top k take the lower expert
-    first (a stable descending sort), as ``lax.top_k`` does."""
+    first (a stable descending sort), as ``lax.top_k`` does.  `experts`
+    (T, k) holds the selection fixed instead (a comparison of two runs
+    with routing held): the combine weights and aux then come from this
+    call's own probabilities at those experts.  The router's gradient
+    flows through the combine weights and aux's mean probabilities; the
+    selection and aux's token shares carry none."""
     logits = pe_dot(x.to(_F32), router_w.to(_F32), word=_ROUTER_WORD,
                     backend=sh.backend, phase=sh.phase)
     probs = torch.softmax(logits.to(_F64), dim=-1).to(_F32)      # (T, E)
-    srt, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
-    topv, topi = srt[:, :top_k], idx[:, :top_k]
+    if experts is None:
+        srt, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+        topv, topi = srt[:, :top_k], idx[:, :top_k]
+    else:
+        topi = experts.to(device=x.device, dtype=torch.int64)
+        topv = probs.gather(1, topi)
     topv = topv / topv.to(_F64).sum(dim=-1, keepdim=True).to(_F32)
     E = router_w.shape[1]
     # the share of tokens whose first choice is each expert (a scatter:

@@ -1,6 +1,5 @@
-"""Decoder-only LM: dense attention units and RWKV6 units, each trained
-and served; attention units with a mixture-of-experts FF (MoE models),
-served.
+"""Decoder-only LM: dense attention units, RWKV6 units and attention
+units with a mixture-of-experts FF (MoE models), each trained and served.
 
 Parameters keep the reference's pytree layout: per-unit leaves stacked
 over ``n_groups`` scan groups (``params["groups"]["u0"]["attn"]["qkv"]``
@@ -15,15 +14,14 @@ leaf per group).
 Entry points:
   init(generator, cfg) / init_cache(cfg, batch, max_len)
   forward(...) / loss_fn(...) — training (full sequence, FF word;
-                     autograd runs BP and UP), remat per scan group
+                     autograd runs BP and UP), remat per scan group; a
+                     MoE unit's load-balancing value rides along (aux)
   chunk_step(...)  — T prompt tokens against the caches (PREFILL word)
   decode_step(...) — one token per arena row (DECODE word), per-op or
                      fused (one ``decode_fused`` word per layer; an rwkv6
                      unit keeps its mixer per-op and fuses its FF half, a
                      MoE unit fuses its attention half and routes its FF
                      per-op)
-
-Training a MoE model is not ported yet: ``forward`` raises on one.
 """
 from __future__ import annotations
 
@@ -156,14 +154,20 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
 
 def _unit_forward(cfg: ModelConfig, x, up: dict, unit: UnitDesc,
                   sh: PEContext, positions):
-    """One unit over the full sequence from no state.  x: (B, S, d)."""
+    """One unit over the full sequence from no state.  x: (B, S, d).
+    Returns (x, aux): aux is the MoE FF's load-balancing value, None for
+    a dense FF."""
     h = apply_norm(cfg, x, up.get("norm1"))
     if unit.mixer == "attn":
         x = x + attention_block(cfg, h, up["attn"], sh, positions=positions)
     else:
         x = x + rwkv_block(cfg, h, up["rwkv"], sh)
     h2 = apply_norm(cfg, x, up.get("norm2"))
-    return x + mlp(cfg, h2, up["ffn"]["ffn_in"], up["ffn"]["ffn_out"], sh)
+    if unit.ffn == "moe":
+        y, aux = moe_block(cfg, h2, up["moe"], sh)
+        return x + y, aux
+    return x + mlp(cfg, h2, up["ffn"]["ffn_in"], up["ffn"]["ffn_out"],
+                   sh), None
 
 
 def prologue(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
@@ -176,10 +180,12 @@ def prologue(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
     return x, positions
 
 
-def group_scan(cfg: ModelConfig, x: torch.Tensor, groups: dict,
-               sh: PEContext, positions: torch.Tensor, *, remat="none"
-               ) -> torch.Tensor:
+def group_scan(cfg: ModelConfig, x: torch.Tensor, aux: torch.Tensor,
+               groups: dict, sh: PEContext, positions: torch.Tensor, *,
+               remat="none") -> tuple:
     """Run the scan groups in order: the body of :func:`forward`.
+    Returns (x, aux), aux the carried sum of the MoE units' values (the
+    reference's scan carry (x, aux)).
 
     remat: 'none' | 'block' | 'full', or one mode per group.  'block'
     and 'full' run the group under ``torch.utils.checkpoint`` (the
@@ -194,53 +200,58 @@ def group_scan(cfg: ModelConfig, x: torch.Tensor, groups: dict,
         raise ValueError(f"per-group remat has {len(modes)} entries for "
                          f"{ng} scan groups")
 
-    def group_step(x, gp):
+    def group_step(x, aux, gp):
         for i, unit in enumerate(pattern):
-            x = _unit_forward(cfg, x, gp[f"u{i}"], unit, sh, positions)
-        return x
+            x, a = _unit_forward(cfg, x, gp[f"u{i}"], unit, sh, positions)
+            if a is not None:
+                aux = aux + a
+        return x, aux
 
     for gp, mode in zip(_group_slices(groups, ng), modes):
         if mode in ("block", "full"):
-            x = checkpoint(group_step, x, gp, use_reentrant=False)
+            x, aux = checkpoint(group_step, x, aux, gp, use_reentrant=False)
         elif mode == "none":
-            x = group_step(x, gp)
+            x, aux = group_step(x, aux, gp)
         else:
             raise ValueError(f"unknown remat mode {mode!r}")
-    return x
+    return x, aux
 
 
 def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
             sh: PEContext, *, compute_dtype=torch.bfloat16, remat="none",
-            return_hidden: bool = False) -> torch.Tensor:
-    """tokens: (B, S).  Returns logits f32 (B, S, V), or the final-normed
-    hidden states with return_hidden."""
-    if cfg.moe is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: training a MoE model is the port's next slice "
-            f"(the expert tables' batched BP and UP words and the aux "
-            f"loss); serving runs it")
+            return_hidden: bool = False) -> tuple:
+    """tokens: (B, S).  Returns (logits f32 (B, S, V), or the final-normed
+    hidden states with return_hidden; aux f32 scalar, the sum of the MoE
+    units' load-balancing values, 0 without MoE units)."""
     x, positions = prologue(cfg, params, tokens,
                             compute_dtype=compute_dtype)
-    x = group_scan(cfg, x, params["groups"], sh, positions, remat=remat)
+    x, aux = group_scan(cfg, x, torch.zeros((), dtype=torch.float32,
+                                            device=x.device),
+                        params["groups"], sh, positions, remat=remat)
     x = apply_norm(cfg, x, params.get("final_norm"))
     if return_hidden:
-        return x
-    return lm_logits(x, cfg, params, sh)
+        return x, aux
+    return lm_logits(x, cfg, params, sh), aux
 
 
 def head_loss(cfg: ModelConfig, params: dict, hidden: torch.Tensor,
-              labels: torch.Tensor, sh: PEContext) -> torch.Tensor:
-    """The loss head on the final-normed hidden states (no unit adds an
-    auxiliary loss)."""
-    return lm_loss_chunked(cfg, hidden, params, labels, sh)
+              aux: torch.Tensor, labels: torch.Tensor, sh: PEContext
+              ) -> torch.Tensor:
+    """The loss head on the final-normed hidden states; a MoE model adds
+    ``cfg.moe.aux_loss_weight`` (0.01, the weight the reference's loss_fn
+    applies) x the units' load-balancing value."""
+    loss = lm_loss_chunked(cfg, hidden, params, labels, sh)
+    if cfg.moe is None:
+        return loss
+    return loss + cfg.moe.aux_loss_weight * aux
 
 
 def loss_fn(cfg: ModelConfig, params: dict, batch: dict, sh: PEContext, *,
             compute_dtype=torch.bfloat16, remat="none") -> torch.Tensor:
-    hidden = forward(cfg, params, batch["tokens"], sh,
-                     compute_dtype=compute_dtype, remat=remat,
-                     return_hidden=True)
-    return head_loss(cfg, params, hidden, batch["labels"], sh)
+    hidden, aux = forward(cfg, params, batch["tokens"], sh,
+                          compute_dtype=compute_dtype, remat=remat,
+                          return_hidden=True)
+    return head_loss(cfg, params, hidden, aux, batch["labels"], sh)
 
 
 # ---------------------------------------------------------------------------

@@ -56,8 +56,9 @@ def split_microbatches(batch: dict, nm: int) -> dict:
 
 def make_train_step(cfg: ModelConfig, program: Program,
                     train_cfg: TrainConfig):
-    """(train_step, optimizer) of a dense attention or rwkv6 model (a MoE
-    model raises in its loss: its training words are not ported yet).
+    """(train_step, optimizer) of a dense attention, rwkv6 or MoE model
+    (a MoE table's FF / BP / UP words run batched over its experts; its
+    loss carries the load-balancing term).
     ``train_step(state, batch, key)`` takes
     the state {"params", "opt", "step"}, a batch of numpy arrays or
     tensors {"tokens", "labels"} and the step's integer key, and returns

@@ -440,6 +440,24 @@ def test_sr_round_kernel_bit_exact(dev, n, offset):
     assert torch.equal(got.cpu().view(torch.int16), want.view(torch.int16))
 
 
+@pytest.mark.cuda
+def test_sr_round_kernel_at_granite_expert_leaf(dev):
+    """The optimizer's writeback of granite's stacked expert table, (24,
+    32, 1024, 512): 402,653,184 elements, 1.6 GB of f32, past 2^31 bytes
+    of offset.  Elementwise, so the kernel's result is held bit for bit
+    against the plain version on slices: the first and last 2^20
+    elements and 2^20 around the 2^31-byte mark."""
+    g = torch.Generator(device=dev).manual_seed(6)
+    x = torch.randn((24, 32, 1024, 512), generator=g, device=dev) * 0.03
+    rb = _rbits(g, x.shape, dev)
+    got = ksr.sr_round(x, rb).view(-1).view(torch.int16)
+    xf, rf, n = x.view(-1), rb.view(-1), x.numel()
+    for lo in (0, (1 << 29) - (1 << 19), n - (1 << 20)):
+        sl = slice(lo, lo + (1 << 20))
+        want = ksr.sr_round_plain(xf[sl], rf[sl]).view(torch.int16)
+        assert torch.equal(got[sl], want), lo
+
+
 # (B, S, H, hd, decay): a 32-token PREFILL chunk of one rwkv6-1.6b slot,
 # a DECODE step of 32 slots, a ragged chunk, near-total decay, the
 # reduced head sizes, and chunks of several token tiles (a prompt's
@@ -1060,3 +1078,271 @@ def test_fused_attn_unit_without_ffn_at_granite_widths(dev):
     assert torch.equal(kern[2].cpu(), plain[2])
     for a, b in zip(kern, cache):
         assert torch.equal(a[7], b[7])
+
+
+# ---------------------------------------------------------------------------
+# A MoE table's training words: outer_accum's batched mode (UP), and
+# sr_matmul's batched mode at the FF / BP shapes, behind dispatch._PEMatmul
+# ---------------------------------------------------------------------------
+
+
+def _up_operands(dev, e, t, d, f, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((e, t, d), generator=g, device=dev).bfloat16()
+    dy = (torch.randn((e, t, f), generator=g, device=dev)
+          * max(t, 1) ** -0.5).bfloat16()
+    return x, dy, g
+
+
+def _up_bits(g, dev, shape, mode):
+    from repro_torch.core.rounding import make_rbits
+    return make_rbits(shape, g, device=dev, lo=mode == "sr_lo")
+
+
+def _oa_counts():
+    return {name: c.n for name, c in (("all", koa.COUNTER),
+                                      ("batched", koa.BATCHED_COUNTER),
+                                      *koa.PATH_COUNTERS.items())}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["f32", "sr", "sr_lo"])
+@pytest.mark.parametrize("df", [(1024, 512), (512, 1024)], ids=str)
+@pytest.mark.parametrize("t", [1, 8, 40, 1024])
+@pytest.mark.parametrize("e", [1, 4, 32])
+def test_outer_accum_batched_kernel_matches_plain(dev, e, t, df, mode):
+    """One launch a call on the sm90 path, counted on outer_accum,
+    outer_accum:sm90 and outer_accum:batched; the f32 result within the
+    f32 path's tolerance of the plain version, the SR result (full or
+    LO bits, each expert's its own) bit-equal to the plain SR cast of
+    the kernel's own f32 result."""
+    d, f = df
+    x, dy, g = _up_operands(dev, e, t, d, f, seed=50)
+    before = _oa_counts()
+    got = koa.outer_accum_batched(x, dy)
+    moved = {k: v - before[k] for k, v in _oa_counts().items()}
+    assert moved == {"all": 1, "batched": 1, "sm90": 1, "generic": 0,
+                     "f32": 0}
+    assert got.dtype == torch.float32 and tuple(got.shape) == (e, d, f)
+    if mode == "f32":
+        torch.testing.assert_close(got, koa.outer_accum_batched_plain(x, dy),
+                                   rtol=MM_RTOL, atol=MM_ATOL)
+        return
+    rb = _up_bits(g, dev, (e, d, f), mode)
+    got_sr = koa.outer_accum_batched(x, dy, rbits=rb)
+    assert got_sr.dtype == torch.bfloat16
+    assert torch.equal(got_sr.view(torch.int16),
+                       sr_cast_bf16(got, rb).view(torch.int16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sr", [False, True])
+@pytest.mark.parametrize("etdf", [(32, 1024, 1024, 512), (32, 1024, 512, 1024),
+                                  (2, 4096, 64, 64)], ids=str)
+def test_outer_accum_batched_kernel_two_calls_bit_equal(dev, etdf, sr):
+    """Two calls give the same bits; (2, 4096, 64, 64) takes a split
+    plan (partials summed in split order, then the scale and SR once),
+    which must match the plain version too."""
+    e, t, d, f = etdf
+    x, dy, g = _up_operands(dev, e, t, d, f, seed=51)
+    p = koa.batched_plan(e, t, d, f)
+    assert p.path == "sm90" and (p.splits > 1) == (t == 4096)
+    rb = _up_bits(g, dev, (e, d, f), "sr") if sr else None
+    first = koa.outer_accum_batched(x, dy, rbits=rb)
+    again = koa.outer_accum_batched(x, dy, rbits=rb)
+    assert torch.equal(first.view(torch.int16 if sr else torch.int32),
+                       again.view(torch.int16 if sr else torch.int32))
+    f32 = koa.outer_accum_batched(x, dy)
+    torch.testing.assert_close(f32, koa.outer_accum_batched_plain(x, dy),
+                               rtol=MM_RTOL, atol=MM_ATOL)
+    if sr:
+        assert torch.equal(first.view(torch.int16),
+                           sr_cast_bf16(f32, rb).view(torch.int16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [40, 100])
+def test_outer_accum_batched_kernel_reads_no_other_expert(dev, t):
+    """Expert 1's X and dY are all inf: a token box of expert 0 past its
+    T (40 or 100 tokens: a 64-token box crosses) that read expert 1's
+    rows would turn its dW inf or NaN.  Experts 0 and 2 stay finite and
+    match the plain version."""
+    e, d, f = 3, 72, 72
+    x, dy, _ = _up_operands(dev, e, t, d, f, seed=52)
+    x[1] = float("inf")
+    dy[1] = float("inf")
+    got = koa.outer_accum_batched(x, dy)
+    want = koa.outer_accum_batched_plain(x, dy)
+    for i in (0, 2):
+        assert torch.isfinite(got[i]).all()
+        torch.testing.assert_close(got[i], want[i], rtol=MM_RTOL,
+                                   atol=MM_ATOL)
+
+
+@pytest.mark.cuda
+def test_outer_accum_batched_kernel_puts_each_experts_bits_on_its_dw(dev):
+    """Each expert gets its own bits: all-zero low halves (SR truncates)
+    on even experts, all-ones (SR rounds every inexact value up) on odd
+    ones.  Each expert's dW equals the plain SR cast of the kernel's own
+    f32 result with its bits, and not with its neighbour's."""
+    e, t, d, f = 4, 1024, 512, 1024
+    x, dy, _ = _up_operands(dev, e, t, d, f, seed=53)
+    rb = torch.zeros((e, d, f), dtype=torch.int32, device=dev)
+    rb[1::2] = 0xFFFF
+    got = koa.outer_accum_batched(x, dy, rbits=rb)
+    f32 = koa.outer_accum_batched(x, dy)
+    for i in range(e):
+        own = sr_cast_bf16(f32[i], rb[i]).view(torch.int16)
+        other = sr_cast_bf16(f32[i], rb[i ^ 1]).view(torch.int16)
+        assert torch.equal(got[i].view(torch.int16), own)
+        assert not torch.equal(got[i].view(torch.int16), other)
+
+
+@pytest.mark.cuda
+def test_outer_accum_batched_raises_on_what_the_tma_cannot_describe(dev):
+    x, dy, g = _up_operands(dev, 4, 40, 64, 32, seed=54)
+    flat = torch.empty(x.numel() + 1, dtype=torch.bfloat16, device=dev)
+    off = flat[1:].view(x.shape)                       # 2 bytes off 16
+    off.copy_(x)
+    assert off.is_contiguous() and off.data_ptr() % 16
+    n0 = koa.COUNTER.n
+    with pytest.raises(ValueError, match="16-byte"):
+        koa.outer_accum_batched(off, dy)
+    with pytest.raises(ValueError, match="16-byte"):
+        koa.outer_accum_batched(x.transpose(0, 1).contiguous()
+                                .transpose(0, 1), dy)  # not contiguous
+    x12, dy12, _ = _up_operands(dev, 4, 40, 12, 32, seed=55)
+    with pytest.raises(ValueError, match="16-byte"):
+        koa.outer_accum_batched(x12, dy12)             # D = 12: 24-byte rows
+    with pytest.raises(TypeError, match="bf16"):
+        koa.outer_accum_batched(x.float(), dy.float())
+    with pytest.raises(ValueError, match="rbits"):
+        koa.outer_accum_batched(x, dy, rbits=torch.zeros(
+            (4, 32, 64), dtype=torch.int32, device=dev))
+    assert koa.COUNTER.n == n0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("role", ["ff", "bp"])
+@pytest.mark.parametrize("kn", [(1024, 512), (512, 1024)], ids=str)
+def test_sr_matmul_batched_at_granite_training_shapes(dev, kn, role):
+    """A MoE training step's FF (x (32, 1024, K) . w (32, K, N)) and BP
+    (g (32, 1024, N) . w^T, trans_b) at C = 1024 rows an expert: within
+    the f32 path's tolerance of the plain version, two calls bit-equal,
+    one launch each."""
+    k, n = kn
+    g = torch.Generator(device=dev).manual_seed(56)
+    w = (torch.randn((32, k, n), generator=g, device=dev)
+         * k ** -0.5).bfloat16()
+    a = torch.randn((32, 1024, k if role == "ff" else n), generator=g,
+                    device=dev).bfloat16()
+    trans_b = role == "bp"
+    if trans_b:
+        w = w * (k / n) ** 0.5                    # dX sums n terms
+    b0 = kmm.BATCHED_COUNTER.n
+    got = kmm.sr_matmul_batched(a, w, trans_b=trans_b)
+    assert kmm.BATCHED_COUNTER.n == b0 + 1
+    assert torch.equal(got, kmm.sr_matmul_batched(a, w, trans_b=trans_b))
+    torch.testing.assert_close(got, kmm.sr_matmul_batched_plain(
+        a, w, trans_b=trans_b), rtol=MM_RTOL, atol=MM_ATOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("transpose_w", [False, True])
+@pytest.mark.parametrize("ecdf", [(32, 1024, 1024, 512), (4, 40, 64, 32)],
+                         ids=str)
+def test_pe_batched_matmul_function_runs_the_kernels(dev, ecdf, transpose_w):
+    """pe_dot of a 3-D table under an SR word on the cuda backend: FF one
+    sr_matmul_batched launch, BP one with trans_b flipped, UP one
+    outer_accum_batched launch with the bits the entropy hook gives;
+    y, dX within the f32 path's tolerance of the plain versions, dW
+    bit-equal to the plain SR cast of the batched kernel's own f32 dW."""
+    from repro_torch.core.phases import Phase
+    from repro_torch.core.program import PEWord
+    from repro_torch.engine.dispatch import pe_dot
+    e, c, d, f = ecdf
+    g = torch.Generator(device=dev).manual_seed(57)
+    x = torch.randn((e, c, d), generator=g, device=dev).bfloat16()
+    w = (torch.randn((e, f, d) if transpose_w else (e, d, f), generator=g,
+                     device=dev) * d ** -0.5).bfloat16()
+    ct = (torch.randn((e, c, f), generator=g, device=dev)
+          * c ** -0.5).bfloat16()
+    rb = _up_bits(g, dev, tuple(w.shape), "sr")
+    seen = []
+
+    def entropy(op, dyt):
+        seen.append(tuple(dyt.shape))
+        return rb
+
+    before = {"mm": kmm.BATCHED_COUNTER.n, "up": koa.BATCHED_COUNTER.n,
+              "generic": kmm.PATH_COUNTERS["generic"].n}
+    xr, wr = x.clone().requires_grad_(), w.clone().requires_grad_()
+    y = pe_dot(xr, wr, word=PEWord(op="moe_experts_in",
+                                   update_rounding="sr"),
+               backend="cuda", transpose_w=transpose_w, phase=Phase.FF,
+               entropy=entropy)
+    dx, dw = torch.autograd.grad(y, (xr, wr), grad_outputs=ct)
+    torch.cuda.synchronize()
+    assert kmm.BATCHED_COUNTER.n - before["mm"] == 2
+    assert koa.BATCHED_COUNTER.n - before["up"] == 1
+    assert kmm.PATH_COUNTERS["generic"].n == before["generic"]
+    assert seen == [(e, c, d) if transpose_w else (e, c, f)]
+    assert y.dtype == dx.dtype == dw.dtype == torch.bfloat16
+    torch.testing.assert_close(y.float(), kmm.sr_matmul_batched_plain(
+        x, w, trans_b=transpose_w).bfloat16().float(), rtol=2e-2, atol=2e-3)
+    torch.testing.assert_close(dx.float(), kmm.sr_matmul_batched_plain(
+        ct, w, trans_b=not transpose_w).bfloat16().float(), rtol=2e-2,
+        atol=2e-3)
+    xt, dyt = (ct, x) if transpose_w else (x, ct)
+    assert torch.equal(dw.view(torch.int16), sr_cast_bf16(
+        koa.outer_accum_batched(xt, dyt), rb).view(torch.int16))
+
+
+@pytest.mark.cuda
+def test_pe_batched_matmul_raises_for_an_f32_word_on_the_card(dev):
+    """The fp32 preset's f32 batched form is not ported: an f32 word on
+    an expert table raises on the card (its plain versions run on the
+    CPU)."""
+    from repro_torch.core.phases import Phase
+    from repro_torch.core.program import PEWord
+    from repro_torch.engine.dispatch import pe_dot
+    x = torch.randn((4, 8, 64), device=dev)
+    w = torch.randn((4, 64, 32), device=dev, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="not ported"):
+        pe_dot(x, w, word=PEWord(op="moe_experts_in", ff_dtype="float32",
+                                 bp_dtype="float32"), backend="cuda",
+               phase=Phase.FF)
+
+
+@pytest.mark.cuda
+def test_tied_head_at_granite_vocab_trains_on_the_sm90_path(dev):
+    """granite's tied head (V = 49155, odd) in a training word: FF reads
+    the table K-major, BP and UP read the (T, V) logits' gradient, whose
+    rows no TMA map describes until kmm.operand pads them to 49160; all
+    three run on sm90, none on generic, and dX / dW (SR from the hook's
+    bits) match the plain versions."""
+    from repro_torch.core.phases import Phase
+    from repro_torch.core.program import PEWord
+    from repro_torch.engine.dispatch import pe_dot
+    V, d, T = 49155, 1024, 256
+    g = torch.Generator(device=dev).manual_seed(58)
+    x = torch.randn((T, d), generator=g, device=dev).bfloat16()
+    table = (torch.randn((V, d), generator=g, device=dev) * 0.02).bfloat16()
+    ct = (torch.randn((T, V), generator=g, device=dev) * V ** -0.5).bfloat16()
+    rb = _up_bits(g, dev, (V, d), "sr")
+    before = {**{f"mm:{k}": c.n for k, c in kmm.PATH_COUNTERS.items()},
+              **{f"up:{k}": c.n for k, c in koa.PATH_COUNTERS.items()}}
+    xr, tr = x.clone().requires_grad_(), table.clone().requires_grad_()
+    y = pe_dot(xr, tr, word=PEWord(op="lm_head", update_rounding="sr"),
+               backend="cuda", transpose_w=True, phase=Phase.FF,
+               entropy=lambda op, dyt: rb)
+    dx, dw = torch.autograd.grad(y, (xr, tr), grad_outputs=ct)
+    torch.cuda.synchronize()
+    moved = {k: c.n - before[f"mm:{k}"] for k, c in kmm.PATH_COUNTERS.items()}
+    assert moved == {"sm90": 2, "generic": 0, "f32": 0}
+    moved = {k: c.n - before[f"up:{k}"] for k, c in koa.PATH_COUNTERS.items()}
+    assert moved == {"sm90": 1, "generic": 0, "f32": 0}
+    torch.testing.assert_close(dx.float(), kmm.sr_matmul_plain(
+        ct, table).bfloat16().float(), rtol=2e-2, atol=2e-3)
+    assert torch.equal(dw.view(torch.int16), sr_cast_bf16(
+        koa.outer_accum(kmm.operand(ct), x), rb).view(torch.int16))
