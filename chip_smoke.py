@@ -106,8 +106,20 @@ port (``src/repro_torch``), never JAX or the JAX package, and:
    (adamw, remat block, B=4, S=256) — each expert table's FF, remat FF
    and BP one sr_matmul_batched launch each, its UP one
    outer_accum_batched launch — holding the launches of each step to
-   exact counts; then the peak memory of that step's forward and
-   backward apart from its adamw update's.
+   exact counts and the run's peak memory to a gate; then the peak
+   memory of that step's forward and backward apart from its adamw
+   update's (gated), and the same split for rwkv6-1.6b;
+10. trains granite-moe-1b-a400m under ``fp32``: the f32 batched mode
+   of sr_matmul (FF, BP) and outer_accum (UP, with a scale) at layer
+   0's three tables and C = 8, 40 and 1024 rows an expert against the
+   plain versions (two calls bit-equal, split-K plans included; at
+   C = 1024 event, CUDA-graph, plain and torch.bmm times beside the
+   bound); four full-width layers, step-0 loss and every gradient leaf
+   on the cuda backend against the reference backend with the expert
+   selection held; then all 24 layers for 3 steps through
+   ``launch.train`` — every expert table's FF, remat FF and BP one f32
+   sr_matmul_batched launch each, its UP one f32 outer_accum_batched
+   launch — holding each step's launches to exact counts.
 
 It prints the time targets of the sm90 redesign, of the fused decode
 words' redesign, of the f32 mainloop's, of wkv6's and of wkv6_bwd's (met
@@ -246,7 +258,7 @@ def ptxas_report(log: str) -> list:
     """(kernel, registers, spill bytes stored, spill bytes loaded) per
     entry function of an -Xptxas -v log; gemm_sm90.cuh's mainloop is
     named by its template arguments <BN, A_MN, B_MN, BATCHED>, sgemm_sm90.cuh's
-    by <A_MN, B_MN>, wkv6.cu's by <hd, columns a block, columns a
+    by <A_MN, B_MN, BATCHED>, wkv6.cu's by <hd, columns a block, columns a
     thread, bf16 r/k/v>, wkv6_bwd.cu's by <hd, bf16 r/k/v>."""
     import re
     rows, cur, spill = [], None, (0, 0)
@@ -258,9 +270,9 @@ def ptxas_report(log: str) -> list:
             g = re.search(r"gemm_kernelILi(\d+)ELb(\d)ELb(\d)ELb(\d)E", cur)
             if g:
                 cur = f"gemm_kernel<{','.join(g.groups())}>"
-            g = re.search(r"sgemm_kernelILb(\d)ELb(\d)E", cur)
+            g = re.search(r"sgemm_kernelILb(\d)ELb(\d)ELb(\d)E", cur)
             if g:
-                cur = f"sgemm_kernel<{g.group(1)},{g.group(2)}>"
+                cur = f"sgemm_kernel<{','.join(g.groups())}>"
             g = re.search(r"wkv6_kernelILi(\d+)ELi(\d+)ELi(\d+)ELb(\d)E",
                           cur)
             if g:
@@ -1552,7 +1564,7 @@ def init_served(arch: str, gen) -> tuple:
 
 @contextlib.contextmanager
 def _routing(record: list = None, replay: list = None,
-             own_weights: bool = False):
+             own_weights: bool = False, near_ties: list = None):
     """Within it, each MoE routing call (models/moe.py `_route`, once a
     layer, again in a remat recompute) appends its (combine weights,
     experts) to `record`, or returns `replay`'s in call order: routing
@@ -1560,7 +1572,10 @@ def _routing(record: list = None, replay: list = None,
     replayed, weighed by the call's own probabilities (training: the
     router keeps its gradient).  A replayed call appends (tokens whose
     own top-k set differs from the replayed one, tokens) to `record`.
-    Neither: free routing."""
+    `near_ties` gets (tokens whose k + 1 largest router probabilities,
+    in f64, lie nearer than TIE_GAP, tokens) from each call.  Neither
+    record nor replay: free routing."""
+    import torch
     from repro_torch.models import moe
     if record is None:
         yield
@@ -1568,6 +1583,13 @@ def _routing(record: list = None, replay: list = None,
     route, turns = moe._route, iter(replay or ())
 
     def held(x, router_w, top_k, sh):
+        if near_ties is not None:
+            with torch.no_grad():
+                p = torch.softmax(x.detach().double()
+                                  @ router_w.detach().double(), dim=-1)
+                top = p.sort(dim=-1, descending=True)[0][:, :top_k + 1]
+                gap = (top[:, :-1] - top[:, 1:]).min(dim=-1)[0]
+                near_ties.append((int((gap < TIE_GAP).sum()), x.shape[0]))
         topv, topi, aux = route(x, router_w, top_k, sh)
         if replay is None:
             record.append((topv.detach(), topi))
@@ -1950,10 +1972,11 @@ def _counters() -> dict:
 
 
 def _step0_grads(cfg, program, backend, params, batch, dtype,
-                 remat: str = "block") -> tuple:
-    """(loss, {leaf path: f32 gradient}) of one forward and backward of
-    the training loss (remat block unless `remat` says) on `backend`, as
-    the training step takes them."""
+                 remat: str = "block", f32: bool = True) -> tuple:
+    """(loss, {leaf path: gradient}) of one forward and backward of the
+    training loss (remat block unless `remat` says) on `backend`, as the
+    training step takes them; each gradient cast to f32 unless `f32` is
+    False (the training step hands the optimizer the params' dtype)."""
     import torch
     from repro_torch.core.phases import Phase
     from repro_torch.core.rounding import fold_key
@@ -1970,7 +1993,7 @@ def _step0_grads(cfg, program, backend, params, batch, dtype,
                            remat=remat)
         grads = torch.autograd.grad(loss, [p for _, p in leaves])
     return float(loss.detach()), {
-        path: g.float() for (path, _), g in zip(leaves, grads)}
+        path: g.float() if f32 else g for (path, _), g in zip(leaves, grads)}
 
 
 def _grad_rel(got: dict, want: dict) -> tuple:
@@ -2127,33 +2150,46 @@ def phase_train(arch: str = "qwen2-0.5b", label: str = "train",
               f"no dense model has an expert table)")
     return {"counts": totals, "per_step": per_step[-1],
             "ms_per_step": med * 1e3, "tokens_per_s": tok / med,
-            "peak_gib": peak}
+            "peak_gib": peak, "held_gib": held0}
 
 
-def phase_train_fp32_full() -> dict:
+def phase_train_fp32_full(arch: str = "qwen2-0.5b",
+                          label: str = "train:fp32:full",
+                          per_step_exact: dict = None) -> dict:
     """The fp32 preset's main path at full width: launch.train, all 24
-    layers of qwen2-0.5b, adamw, remat block, B=4, S=256, 3 steps on the
-    cuda backend — every FF and BP through sr_matmul's f32 path, every UP
-    through outer_accum's, none on a bf16 path.  ms/step is the median
-    of steps 2-3."""
+    layers of `arch`, adamw, remat block, B=4, S=256, 3 steps on the
+    cuda backend — every FF and BP through sr_matmul's f32 path, every
+    UP through outer_accum's, none on a bf16 path; ``per_step_exact``
+    {kernel: launches} also holds those kernels to exact counts in every
+    step.  ms/step is the median of steps 2-3."""
     import shutil
     import tempfile
     import torch
     from repro_torch.launch import train as launch_train
+    per_step_exact = per_step_exact or {}
     ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_fp32_")
     args = launch_train.parser().parse_args([
-        "--arch", "qwen2-0.5b", "--kernel-backend", "cuda", "--device",
+        "--arch", arch, "--kernel-backend", "cuda", "--device",
         "cuda", "--precision", "fp32", "--optimizer", "adamw", "--remat",
         "block", "--batch", str(TRAIN_B), "--seq", str(TRAIN_S), "--steps",
         "3", "--log-every", "1", "--ckpt-every", "1000", "--ckpt-dir",
         ckpt_dir])
     counters = _counters()
+    per_step, last = [], {}
+
+    def on_step(step, metrics, dt):
+        now = {k: c.n for k, c in counters.items()}
+        per_step.append({k: now[k] - last.get(k, 0) for k in now})
+        last.update(now)
+
+    torch.cuda.synchronize()
+    held0 = torch.cuda.memory_allocated() / 2**30
     torch.cuda.reset_peak_memory_stats()
     for c in counters.values():
         c.reset()
     t0 = time.monotonic()
     try:
-        res = launch_train.run(args)
+        res = launch_train.run(args, on_step=on_step)
     finally:
         shutil.rmtree(ckpt_dir, ignore_errors=True)
     wall = time.monotonic() - t0
@@ -2162,26 +2198,36 @@ def phase_train_fp32_full() -> dict:
     check(len(losses) == 3, f"{len(losses)} fp32 training steps, want 3")
     med = (secs[1] + secs[2]) / 2       # the median of steps 2 and 3
     tok = TRAIN_B * TRAIN_S
-    print(f"[train:fp32:full] qwen2-0.5b 24 layers fp32 adamw remat=block "
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"[{label}] {arch} 24 layers fp32 adamw remat=block "
           f"B={TRAIN_B} S={TRAIN_S}: losses {losses}")
-    print(f"[train:fp32:full] ms/step {[round(x * 1e3, 1) for x in secs]} "
+    print(f"[{label}] ms/step {[round(x * 1e3, 1) for x in secs]} "
           f"median (steps 2-3) {med * 1e3:.1f}ms, {tok / med:.1f} tokens/s; "
           f"wall {wall:.1f}s incl. init and final checkpoint; peak memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    print(f"[train:fp32:full] launches in the run {counts}")
+          f"{peak:.2f} GiB, {peak - held0:.2f} above the {held0:.2f} GiB "
+          f"that earlier phases still held")
+    if per_step_exact:
+        print(f"[{label}] launches per step "
+              f"{ {k: v for k, v in per_step[-1].items() if v} }")
+    print(f"[{label}] launches in the run {counts}")
     check(all(math.isfinite(x) for x in losses),
-          f"fp32: non-finite loss {losses}")
+          f"{label}: non-finite loss {losses}")
     check(losses[2] < losses[0],
-          f"fp32: loss did not fall: {losses[0]} -> {losses[2]}")
+          f"{label}: loss did not fall: {losses[0]} -> {losses[2]}")
     for k in ("sr_matmul", "outer_accum", "sr_matmul:f32",
               "outer_accum:f32"):
-        check(counts[k] > 0, f"the fp32 run launched {k} no time")
+        check(counts[k] > 0, f"the {label} run launched {k} no time")
     for k in ("sr_matmul", "outer_accum"):
         check(counts[f"{k}:f32"] == counts[k] and counts[f"{k}:sm90"] == 0
               and counts[f"{k}:generic"] == 0,
-              f"the fp32 run launched {k} off the f32 path: {counts}")
-    return {"counts": counts, "ms_per_step": med * 1e3,
-            "tokens_per_s": tok / med}
+              f"the {label} run launched {k} off the f32 path: {counts}")
+    for k, n in per_step_exact.items():
+        check(len(per_step) == 3 and all(p[k] == n for p in per_step),
+              f"a {label} step launched {k} other than {n} times: "
+              f"{[p[k] for p in per_step]}")
+    return {"counts": counts, "per_step": per_step[-1],
+            "ms_per_step": med * 1e3, "tokens_per_s": tok / med,
+            "peak_gib": peak}
 
 
 # ---------------------------------------------------------------------------
@@ -2855,6 +2901,19 @@ EXPERT_UP_CS = (8, 40, CAP_C, TRAIN_B * TRAIN_S)
 # places on the two backends; SR adds unbiased noise of a bf16 step)
 GRANITE_LOSS_RTOL = 1e-3
 GRANITE_GRAD_L2 = 0.05
+# [sr_matmul:experts:f32] / [outer_accum:batched:f32]: the f32 batched
+# mode (the fp32 preset on a MoE table) at these C: a PREFILL chunk, a
+# ragged one (its UP with scale 1/C), and a training step's dropless
+# T = B x S (the timed one)
+EXPERT_F32_CS = (8, 40, TRAIN_B * TRAIN_S)
+# router probabilities nearer than this may swap between two backends
+# (tests/test_torch_moe.py's TIE_GAP)
+TIE_GAP = 1e-5
+# [train:granite:memory] and [train:granite], GiB above what earlier
+# phases hold: adamw's update at 24 layers (the old and the new state,
+# 7.46 GiB each, the bf16 gradients 2.49 and one leaf's f32
+# temporaries), and the 8-step run's peak
+GRANITE_UPDATE_GIB, GRANITE_RUN_GIB = 21.0, 22.0
 
 
 def _granite_tables(gcfg) -> list:
@@ -3128,36 +3187,43 @@ def phase_train_granite_step0(gcfg, n: int = 4, B: int = TRAIN_B,
           f"differ: {sorted(set(gc) - set(same))}")
 
 
-def phase_train_granite_memory(gcfg) -> None:
-    """Where granite training's peak memory lies, at the main path's
+def phase_train_memory(arch: str, label: str,
+                       update_gate: float = None) -> None:
+    """Where `arch`'s training peak memory lies, at the main path's
     settings (24 layers, paper_sr_bf16, adamw, B=4, S=256): the state as
     init_state makes it; one forward and backward as the training step
-    runs them (remat block, the gradients cast to f32); then adamw's
-    update of every leaf (the sr_round writeback), the peak reset before
-    each part.  Every size is above what was allocated before the
-    state (earlier phases' leftovers, printed)."""
+    runs them (remat block, the gradients at the params' dtype); then
+    adamw's update of every leaf as the step hands it those gradients
+    (a stacked leaf above 128 MB layer by layer, the sr_round
+    writeback), the peak reset before each part.  Every size is GiB
+    above what was allocated before the state (earlier phases'
+    leftovers, printed).  `update_gate` fails the run where the update's
+    peak exceeds it."""
     import torch
+    from repro_torch.configs import get_config
     from repro_torch.configs.base import ShapeConfig, TrainConfig
     from repro_torch.core.program import compile_program
     from repro_torch.core.tree import tree_leaves, tree_set
     from repro_torch.data import SyntheticLM
+    from repro_torch.optim import optimizers
     from repro_torch.runtime import train_loop as tl
     gib = lambda b: b / 2**30
+    cfg = get_config(arch)
     shape = ShapeConfig("smoke", TRAIN_S, TRAIN_B, "train")
-    program = compile_program(gcfg, shape, precision="paper_sr_bf16")
+    program = compile_program(cfg, shape, precision="paper_sr_bf16")
     train_cfg = TrainConfig(kernel_backend="cuda", remat="block")
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     gen = torch.Generator(device="cuda").manual_seed(0)
-    _, opt = tl.make_train_step(gcfg, program, train_cfg)
-    state = tl.init_state(gcfg, program, train_cfg, gen, opt)
+    _, opt = tl.make_train_step(cfg, program, train_cfg)
+    state = tl.init_state(cfg, program, train_cfg, gen, opt)
     batch = {k: torch.as_tensor(v, device="cuda")
-             for k, v in SyntheticLM(gcfg, shape).batch_at(0).items()}
+             for k, v in SyntheticLM(cfg, shape).batch_at(0).items()}
     torch.cuda.synchronize()
     resident = torch.cuda.memory_allocated() - base
     torch.cuda.reset_peak_memory_stats()
-    loss, grads = _step0_grads(gcfg, program, "cuda", state["params"],
-                               batch, torch.bfloat16)
+    loss, grads = _step0_grads(cfg, program, "cuda", state["params"],
+                               batch, torch.bfloat16, f32=False)
     torch.cuda.synchronize()
     fb_peak = torch.cuda.max_memory_allocated() - base
     held = torch.cuda.memory_allocated() - base
@@ -3169,18 +3235,27 @@ def phase_train_granite_memory(gcfg) -> None:
     new_p, new_s = opt.update(gtree, state["opt"], state["params"], 0, 1)
     torch.cuda.synchronize()
     up_peak = torch.cuda.max_memory_allocated() - base
-    path, big = max(tree_leaves(state["params"]), key=lambda kv:
-                    kv[1].numel())
-    print(f"[train:granite:memory] 24 layers paper_sr_bf16 adamw "
+    leaves = tree_leaves(state["params"])
+    path, big = max(leaves, key=lambda kv: kv[1].numel())
+    whole = [(p, t) for p, t in leaves if not optimizers.chunked(t)]
+    wpath, wbig = max(whole, key=lambda kv: kv[1].numel())
+    n_chunked = len(leaves) - len(whole)
+    print(f"[{label}] 24 layers paper_sr_bf16 adamw "
           f"remat=block B={TRAIN_B} S={TRAIN_S}, above the {gib(base):.2f} "
           f"GiB held before: state {gib(resident):.2f} "
           f"GiB (params and both moments); forward + backward peak "
           f"{gib(fb_peak):.2f} GiB, {gib(held):.2f} GiB held after it (the "
-          f"state and the f32 gradients); adamw update peak "
-          f"{gib(up_peak):.2f} GiB; largest leaf {path} "
-          f"{tuple(big.shape)} ({big.numel()} elements, "
-          f"{gib(4 * big.numel()):.2f} GiB in f32); step-0 loss {loss!r}")
-    check(math.isfinite(loss), f"granite memory step: loss {loss}")
+          f"state and the gradients at the params' dtype); adamw update "
+          f"peak {gib(up_peak):.2f} GiB; {n_chunked} of {len(leaves)} leaves "
+          f"updated layer by layer, the largest {path} "
+          f"{tuple(big.shape)} ({gib(4 * big.numel()):.2f} GiB in f32, "
+          f"{gib(4 * big[0].numel()):.4f} a layer); the largest taken whole "
+          f"{wpath} {tuple(wbig.shape)} ({gib(4 * wbig.numel()):.4f} GiB in "
+          f"f32); step-0 loss {loss!r}")
+    check(math.isfinite(loss), f"{label} step: loss {loss}")
+    if update_gate is not None:
+        check(gib(up_peak) <= update_gate, f"{label}: the adamw update's "
+              f"peak {gib(up_peak):.2f} GiB exceeds {update_gate} GiB")
     del new_p, new_s, gtree, state, opt
 
 
@@ -3189,10 +3264,242 @@ def phase_train_granite() -> dict:
     width (24 layers, B=4, S=256, paper_sr_bf16, adamw, remat block), 8
     steps; every step launches each layer's three expert tables' FF,
     remat FF and BP on sr_matmul_batched (216) and their UP on
-    outer_accum_batched (72)."""
-    return phase_train(GRANITE, "train:granite",
-                       {"sr_matmul:batched": 3 * 3 * GRANITE_LAYERS,
-                        "outer_accum:batched": 3 * GRANITE_LAYERS})
+    outer_accum_batched (72); the run's peak stays within
+    GRANITE_RUN_GIB of what earlier phases held."""
+    res = phase_train(GRANITE, "train:granite",
+                      {"sr_matmul:batched": 3 * 3 * GRANITE_LAYERS,
+                       "outer_accum:batched": 3 * GRANITE_LAYERS})
+    added = res["peak_gib"] - res["held_gib"]
+    check(added <= GRANITE_RUN_GIB, f"train:granite: the run's peak is "
+          f"{added:.2f} GiB above what earlier phases held, more than "
+          f"{GRANITE_RUN_GIB}")
+    return res
+
+
+def phase_expert_f32_products(gcfg, peaks) -> tuple:
+    """The f32 batched mode (the fp32 preset on a MoE table) at granite's
+    full width, random f32 operands: at layer 0's three tables and C in
+    EXPERT_F32_CS rows an expert, sr_matmul_batched's FF (x . W) and BP
+    (dY . W^T, trans_b) and outer_accum_batched's UP (scale X^T dY,
+    scale 1/C at C = 40), each one launch on the f32 path, within
+    MM_RTOL / MM_ATOL of its plain version and bit-equal over two calls
+    (the C = 8 and 40 products whose blocks fill less than a wave split
+    K); at C = 1024 each product's event, CUDA-graph, plain and torch.bmm
+    (TF32 off) times beside its bound (the product's f32 operations at
+    the card's f32 peak; granite's shapes need no padding to the
+    kernel's 128 x 128 x 16 tiles).  Returns the kernels-line rows of
+    sr_matmul's and outer_accum's f32 batched modes."""
+    import torch
+    from repro_torch.kernels import outer_accum as koa
+    from repro_torch.kernels import sr_matmul as kmm
+    gen = torch.Generator(device="cuda").manual_seed(26)
+    E, T = gcfg.moe.n_experts, EXPERT_F32_CS[-1]
+    keys = ("ms", "graph", "plain", "lib", "lib_graph", "bound")
+    tot = {r: {k: 0.0 for k in keys} for r in ("ff", "bp", "up")}
+    worst = {"ff": 0.0, "bp": 0.0, "up": 0.0}
+    splits_seen = set()
+
+    def rnd(shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device="cuda") * scale
+
+    def one_launch(fn, mod) -> tuple:
+        cs = (("batched", mod.BATCHED_COUNTER), ("all", mod.COUNTER),
+              *mod.PATH_COUNTERS.items())
+        before = {k: c.n for k, c in cs}
+        out = fn()
+        return out, {k: c.n - before[k] for k, c in cs}
+
+    for C in EXPERT_F32_CS:
+        for name, K, N in _granite_tables(gcfg):
+            x, w, dy = rnd((E, C, K)), rnd((E, K, N), K ** -0.5), \
+                rnd((E, C, N), C ** -0.5)
+            scale = 1.0 / C if C == 40 else 1.0
+            wt = w.transpose(1, 2)
+            xt = x.transpose(1, 2)
+            roles = (
+                ("ff", kmm, (C, N, K), kmm.f32_plan(C, N, K, experts=E),
+                 lambda: kmm.sr_matmul_batched(x, w),
+                 lambda: kmm.sr_matmul_batched_plain(x, w),
+                 lambda: torch.bmm(x, w)),
+                ("bp", kmm, (C, K, N), kmm.f32_plan(C, K, N, experts=E),
+                 lambda: kmm.sr_matmul_batched(dy, w, trans_b=True),
+                 lambda: kmm.sr_matmul_batched_plain(dy, w, trans_b=True),
+                 lambda: torch.bmm(dy, wt)),
+                ("up", koa, (K, N, C), koa.batched_f32_plan(E, C, K, N),
+                 lambda: koa.outer_accum_batched(x, dy, scale=scale),
+                 lambda: koa.outer_accum_batched_plain(x, dy, scale=scale),
+                 lambda: torch.bmm(xt, dy)))       # timed at scale 1 only
+            for role, mod, (m, n, k), p, call, plain, lib in roles:
+                tag = ("outer_accum:batched:f32" if role == "up"
+                       else "sr_matmul:experts:f32")
+                got, moved = one_launch(call, mod)
+                check(moved == {"batched": 1, "all": 1, "f32": 1,
+                                "sm90": 0, "generic": 0},
+                      f"{tag} {role} {name} C={C}: counters moved {moved}, "
+                      f"want one f32 launch")
+                again = call()
+                want = plain()
+                torch.cuda.synchronize()
+                ea, _ = errs(got, want)
+                worst[role] = max(worst[role], ea)
+                check(torch.allclose(got, want, rtol=MM_RTOL, atol=MM_ATOL),
+                      f"{tag} {role} {name} ({E}x{m}x{n}x{k}): max abs err "
+                      f"{ea:.3g}")
+                check(torch.equal(got.view(torch.int32),
+                                  again.view(torch.int32)),
+                      f"{tag} {role} {name} C={C}: two calls differ")
+                if p.splits > 1:
+                    splits_seen.add((role, name, C, p.splits))
+                del got, again, want
+                note = ", scale 1/C" if role == "up" and scale != 1 else ""
+                what = (f"[{tag}] {role} {name:<12} E={E} C={C} "
+                        f"({m}x{n}x{k}{note}) {plan_txt(p)}")
+                if C != T:
+                    print(f"{what}: max_abs_err {ea:.3g}; 2 calls "
+                          f"bit-equal; one launch")
+                    continue
+                b_ms, by = bound(4 * E * (m * k + k * n + m * n),
+                                 2 * E * m * n * k, peaks, f32=True)
+                t = {"ms": time_ms(call), "graph": time_graph_ms(call),
+                     "plain": time_ms(plain, iters=3, warmup=1),
+                     "lib": time_ms(lib), "lib_graph": time_graph_ms(lib),
+                     "bound": b_ms}
+                for kk, v in t.items():
+                    tot[role][kk] += v
+                print(f"{what}: kernel {t['ms']:.4f}ms plain "
+                      f"{t['plain']:.4f}ms torch.bmm (f32, TF32 off) "
+                      f"{t['lib']:.4f}ms bound {b_ms:.4f}ms ({by}, "
+                      f"{2 * E * m * n * k / 1e9:.1f} GFLOP); in a CUDA "
+                      f"graph: kernel {t['graph']:.4f}ms torch.bmm "
+                      f"{t['lib_graph']:.4f}ms, {b_ms / t['graph']:.2f} of "
+                      f"the f32 peak  max_abs_err {ea:.3g}; 2 calls "
+                      f"bit-equal; one launch")
+            del x, w, dy, wt, xt
+            torch.cuda.empty_cache()
+    check(any(C < T for _, _, C, _ in splits_seen),
+          f"no f32 batched product below C={T} split K: {splits_seen}")
+    print(f"[sr_matmul:experts:f32] split-K plans held bit-equal: "
+          f"{sorted(splits_seen)}")
+    for role, tag in (("ff", "sr_matmul:experts:f32"),
+                      ("bp", "sr_matmul:experts:f32"),
+                      ("up", "outer_accum:batched:f32")):
+        r = tot[role]
+        print(f"[{tag}] {role}, one layer's three tables at C={T}: kernel "
+              f"{r['ms']:.4f}ms plain {r['plain']:.4f}ms torch.bmm "
+              f"{r['lib']:.4f}ms bound {r['bound']:.4f}ms; in a CUDA graph: "
+              f"kernel {r['graph']:.4f}ms torch.bmm {r['lib_graph']:.4f}ms")
+
+    def row(name, counter, entry, roles, tpu, what):
+        t = {k: sum(tot[r][k] for r in roles) for k in keys}
+        return {"name": name, "counter": counter, "route": "cuda",
+                "source": "src/repro_torch/csrc/sgemm_sm90.cuh",
+                "entry": entry, "replaces": tpu[0], "tpu_kernel": tpu[1],
+                "max_abs_err": max(worst[r] for r in roles),
+                "ms": t["ms"], "kernel_ms": t["ms"],
+                "plain_ms": t["plain"], "library_ms": t["lib"],
+                "library": "torch.bmm (f32, TF32 off)",
+                "bound_ms": t["bound"], "bound_by": "operations",
+                "graph_ms": t["graph"], "library_graph_ms": t["lib_graph"],
+                **{r: tot[r] for r in roles},
+                "shapes": f"granite-moe-1b-a400m, one layer's three expert "
+                          f"tables' {what}, f32, E={E}, C={T}"}
+
+    return (row("sr_matmul:experts:f32", "sr_matmul:batched",
+                "src/repro_torch/csrc/sr_matmul.cu", ("ff", "bp"),
+                ("src/repro/kernels/sr_matmul.py:96",
+                 "repro/kernels/sr_matmul.py::sr_matmul under jax.vmap "
+                 "(repro/engine/dispatch.py:199, :220-225)"), "FF and BP"),
+            row("outer_accum:experts:f32", "outer_accum:batched",
+                "src/repro_torch/csrc/outer_accum.cu", ("up",),
+                ("src/repro/kernels/outer_accum.py:80",
+                 "repro/kernels/outer_accum.py::outer_accum under jax.vmap "
+                 "(repro/engine/dispatch.py:220-225)"), "UP"))
+
+
+def phase_train_granite_fp32(gcfg, n: int = 4) -> None:
+    """n full-width granite-moe-1b-a400m layers under fp32 (remat block,
+    B=4, S=256, random RMSNorm scales, TF32 off): step-0 loss and every
+    gradient leaf on the cuda backend (the f32 batched kernels for the
+    expert tables, the f32 path for the rest) against the reference
+    backend (f64-accumulated products), the reference run held to the
+    cuda run's expert selection (each call's own probabilities weigh
+    it): the loss within TRAIN_RTOL's step-1 bound and each leaf's
+    largest difference within GRAD_REL of its largest value.  The cuda
+    step launches, a layer, 9 sr_matmul:batched (three tables' FF, remat
+    FF and BP) and 3 outer_accum:batched, every product on the f32 path.
+    Printed beside it: the tokens whose k + 1 largest router
+    probabilities lie nearer than TIE_GAP, and how many routings the
+    reference's own top-k would have chosen otherwise."""
+    import dataclasses
+    import torch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core.program import compile_program
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import transformer as tfm
+    from repro_torch.runtime import train_loop as tl
+    label = "train:granite:fp32"
+    cfg4 = dataclasses.replace(gcfg, n_layers=n)
+    shape = ShapeConfig("smoke", TRAIN_S, TRAIN_B, "train")
+    program = compile_program(cfg4, shape, precision="fp32")
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    params = tfm.init(gen, cfg4)
+    for norm in (params["groups"]["u0"]["norm1"],
+                 params["groups"]["u0"]["norm2"], params["final_norm"]):
+        norm["scale"].copy_(1.0 + 0.1 * torch.randn(
+            norm["scale"].shape, generator=gen, device="cuda"))
+    batch0 = {k: torch.as_tensor(v, device="cuda")
+              for k, v in SyntheticLM(cfg4, shape).batch_at(0).items()}
+    counters = _counters()
+    for c in counters.values():
+        c.reset()
+    chosen, flips, near = [], [], []
+    t0 = time.monotonic()
+    with _routing(record=chosen, near_ties=near):
+        lc, gc = _step0_grads(cfg4, program, "cuda", params, batch0,
+                              torch.float32)
+    torch.cuda.synchronize()
+    cc = {k: c.n for k, c in counters.items()}
+    t1 = time.monotonic()
+    with _routing(record=flips, replay=chosen, own_weights=True):
+        lr, gr = _step0_grads(cfg4, program, "reference", params, batch0,
+                              torch.float32)
+    torch.cuda.synchronize()
+    t2 = time.monotonic()
+    leaf, rel = _grad_rel(gc, gr)
+    l_rel = abs(lc / lr - 1)
+    print(f"[{label}] {n} layers fp32 remat=block B={TRAIN_B} S={TRAIN_S} "
+          f"step 0: cuda loss {lc!r} ({t1 - t0:.1f}s), reference loss "
+          f"{lr!r} ({t2 - t1:.1f}s) with the cuda run's expert selection "
+          f"(its own top-k set differs on {_flips(flips)} token routings; "
+          f"{sum(a for a, _ in near)} of {sum(b for _, b in near)} have "
+          f"their k + 1 largest probabilities nearer than {TIE_GAP}); loss "
+          f"rel {l_rel:.3g}; worst leaf gradient rel {rel:.3g} ({leaf})")
+    print(f"[{label}] the cuda step's launches "
+          f"{ {k: v for k, v in cc.items() if v} }")
+    check(math.isfinite(lc) and l_rel <= TRAIN_RTOL[0],
+          f"{label} step-0 loss: cuda {lc} vs reference {lr} (rtol "
+          f"{TRAIN_RTOL[0]})")
+    check(rel < GRAD_REL, f"{label} step-0 gradient of {leaf}: rel "
+          f"{rel:.3g} (gate {GRAD_REL})")
+    want = {"sr_matmul:batched": 3 * 3 * n, "outer_accum:batched": 3 * n,
+            "sr_matmul:sm90": 0, "outer_accum:sm90": 0,
+            "sr_matmul:generic": 0, "outer_accum:generic": 0}
+    check(all(cc[k] == v for k, v in want.items())
+          and cc["sr_matmul:f32"] == cc["sr_matmul"]
+          and cc["outer_accum:f32"] == cc["outer_accum"],
+          f"{label} step 0 launched {cc}, want {want}, every product f32")
+    del gc, gr, params
+
+
+def phase_train_granite_fp32_full() -> dict:
+    """granite-moe-1b-a400m under fp32 at full width through launch.train
+    (24 layers, B=4, S=256, adamw, remat block), 3 steps: every step
+    launches 216 sr_matmul:batched and 72 outer_accum:batched, all on
+    the f32 path, none on sm90 or generic."""
+    return phase_train_fp32_full(
+        GRANITE, "train:granite:fp32:full",
+        {"sr_matmul:batched": 3 * 3 * GRANITE_LAYERS,
+         "outer_accum:batched": 3 * GRANITE_LAYERS})
 
 
 def print_targets(rows: dict) -> None:
@@ -3370,6 +3677,8 @@ def main() -> int:
         rows[-1]["launches_per_step"] = rwkv_train["per_step"]["wkv6_bwd"]
         print(f"[train:rwkv6] on {smi}")
         torch.cuda.empty_cache()
+        phase_train_memory("rwkv6-1.6b", "train:rwkv6:memory")
+        torch.cuda.empty_cache()
 
         # granite-moe-1b-a400m training: the expert tables' batched UP,
         # FF and BP; four layers against the reference backend and under
@@ -3385,7 +3694,8 @@ def main() -> int:
         torch.cuda.empty_cache()
         granite_train = phase_train_granite()
         torch.cuda.empty_cache()
-        phase_train_granite_memory(gcfg)
+        phase_train_memory(GRANITE, "train:granite:memory",
+                           GRANITE_UPDATE_GIB)
         serve_counts["outer_accum:experts"] = granite_train["counts"]
         up_row["launches_per_step"] = \
             granite_train["per_step"]["outer_accum:batched"]
@@ -3393,6 +3703,20 @@ def main() -> int:
         mm_row["train"] = dict(mm_train, launches_per_step=granite_train[
             "per_step"]["sr_matmul:batched"])
         print(f"[train:granite] on {smi}")
+        torch.cuda.empty_cache()
+
+        # the fp32 preset on granite: the f32 batched products, four
+        # layers against the reference backend, then the full-width path
+        f32_rows = phase_expert_f32_products(gcfg, peaks)
+        rows += f32_rows
+        torch.cuda.empty_cache()
+        phase_train_granite_fp32(gcfg)
+        torch.cuda.empty_cache()
+        granite_fp32 = phase_train_granite_fp32_full()
+        for r in f32_rows:
+            serve_counts[r["name"]] = granite_fp32["counts"]
+            r["launches_per_step"] = granite_fp32["per_step"][r["counter"]]
+        print(f"[train:granite:fp32:full] on {smi}")
     except SmokeFailure as e:
         print(f"[chip_smoke] FAIL: {e}", file=sys.stderr)
         return 1
@@ -3402,13 +3726,15 @@ def main() -> int:
     # serve run for the batched expert products (its sr_matmul:batched
     # count; the granite training run's a step ride along as "train"),
     # the granite training run for the batched UP (outer_accum:batched),
-    # the rwkv6 training run for wkv6_bwd, the fp32 training run
-    # for the f32 rows, the paper_sr_bf16 training run for the rest
+    # the rwkv6 training run for wkv6_bwd, granite's fp32 training run
+    # for the f32 batched rows, qwen2's fp32 training run for the other
+    # f32 rows, the paper_sr_bf16 training run for the rest
     # (sr_matmul:train is sr_matmul's FF + BP count there)
     for r in rows:
         kernel = r["name"].split(":")[0]
-        counts = (fp32_full["counts"] if r["name"].endswith(":f32")
-                  else serve_counts.get(r["name"], train["counts"]))
+        counts = serve_counts.get(r["name"], fp32_full["counts"]
+                                  if r["name"].endswith(":f32")
+                                  else train["counts"])
         r["launches"] = counts[r.get("counter", kernel)]
         if f"{kernel}:launches" in counts:
             r["kernel_launches"] = counts[f"{kernel}:launches"]

@@ -42,7 +42,9 @@
 // f32 operands (the fp32 preset) take the f32 mainloop of
 // sgemm_sm90.cuh with A M-major (X's rows copied as they lie) and B
 // N-major: fmaf on the CUDA cores, no TF32, the scale and SR writeback
-// in its epilogue.
+// in its epilogue.  A MoE table's f32 UP is one launch of its BATCHED
+// form (outer_accum_batched_f32): each expert's X, dY and dW a
+// contiguous block of its own, no SR (an f32 weight is not rounded).
 #include "common.cuh"
 #include "gemm_sm90.cuh"
 #include "sgemm_sm90.cuh"
@@ -175,4 +177,27 @@ extern "C" int outer_accum_batched_bf16(const void* x, const void* dy,
   return sm90::run<64, true, true, true>(x, dy, rbits, out, W, D, F, T, D,
                                          F, scale, sr, splits, kb_per_split,
                                          grid_x, grid_y, st, E);
+}
+
+// dW[e] (D, F) = scale * x[e](T, D)^T . dy[e](T, F) for the E experts of
+// a MoE table with f32 operands (the fp32 preset), in ONE launch of
+// sgemm_sm90.cuh's mainloop (BATCHED, A M-major, B N-major): x (E, T, D)
+// and dy (E, T, F) contiguous, out (E, D, F) f32, no SR.  The plan
+// (splits, kb_per_split) and the grid (grid_x, grid_y) are one expert's
+// (D, F, T) from kernels/sr_matmul.py::f32_plan; ws holds splits x E x
+// D x F f32 partials, then E x grid_x x grid_y zeroed int32 counters,
+// when splits > 1.  Returns cudaGetLastError(), or cudaErrorInvalidValue
+// for a shape or plan that is not its own.
+extern "C" int outer_accum_batched_f32(const void* x, const void* dy,
+                                       void* out, void* ws, int E, int T,
+                                       int D, int F, float scale, int splits,
+                                       int kb_per_split, int grid_x,
+                                       int grid_y, void* stream) {
+  if (!rt::sgemm::batched_plan_ok(E, D, F, T, splits, kb_per_split, grid_x,
+                                  grid_y, ws))
+    return (int)cudaErrorInvalidValue;
+  return rt::sgemm::run<true, true, true>(
+      static_cast<const float*>(x), static_cast<const float*>(dy), nullptr,
+      out, static_cast<float*>(ws), D, F, T, D, F, scale, 0, splits,
+      kb_per_split, grid_x, grid_y, static_cast<cudaStream_t>(stream), E);
 }

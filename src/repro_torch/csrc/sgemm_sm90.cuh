@@ -46,6 +46,16 @@
 // - Epilogue: out = acc * scale as f32 with float4 stores, or its SR-bf16
 //   bits from rbits (sr_bf16_bits, common.cuh) with 8-byte stores: the
 //   plain SR cast of the kernel's own f32 result, bit for bit.
+// - BATCHED: the E products of a MoE expert table (the TPU kernels under
+//   jax.vmap) in one launch.  The expert is the outer tile coordinate,
+//   blockIdx.z = e * splits + split, and each operand and the output
+//   advance by one expert's contiguous (M, K), (K, N) and (M, N) block,
+//   so each role keeps its majorness: FF reads A K-major and B N-major,
+//   BP B K-major (trans_b), UP A M-major (X[e]^T of X (E, T, D)) and B
+//   N-major.  The split-K workspace holds splits x E x M x N partials,
+//   then E x grid_x x grid_y counters, and the last block of a tile sums
+//   its expert's splits in order 0..splits-1.  No SR: an f32 weight is
+//   not rounded.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -225,15 +235,19 @@ __device__ __forceinline__ float4 scaled(float4 v, float s) {
 // With m_fast the row tiles of one column tile are neighbours in launch
 // order (B's tile is then read from memory once while A stays in L2).
 // ws: splits x M x N f32 partials, then grid_x * grid_y int32 counters,
-// zeroed by the caller (splits > 1 only).
-template <bool A_MN, bool B_MN>
+// zeroed by the caller (splits > 1 only).  BATCHED: `experts` such
+// products, A, B and out (and rbits) advancing by M x K, K x N and
+// M x N elements an expert, blockIdx.z = expert * splits + split, ws
+// splits x experts x M x N partials, then experts x grid_x x grid_y
+// counters.
+template <bool A_MN, bool B_MN, bool BATCHED>
 __global__ void __launch_bounds__(NT, 2)
     sgemm_kernel(const float* __restrict__ A, const float* __restrict__ B,
                  const uint32_t* __restrict__ rbits, void* __restrict__ out,
                  float* __restrict__ ws, int M, int N, int K, int lda,
                  int ldb, int grid_x, int grid_y, int splits,
                  int kb_per_split, int m_fast, float scale, int sr,
-                 int vec_a, int vec_b, int vec_out) {
+                 int vec_a, int vec_b, int vec_out, int experts) {
   extern __shared__ float4 smem4[];
   float* As = reinterpret_cast<float*>(smem4);   // [STAGES][BK][LDA]
   float* Bs = As + STAGES * BK * LDA;            // [STAGES][BK][LDB]
@@ -245,7 +259,16 @@ __global__ void __launch_bounds__(NT, 2)
     tx = t / grid_y;
     ty = t % grid_y;
   }
-  const int m0 = ty * BM, n0 = tx * BN, z = blockIdx.z;
+  int z = blockIdx.z, e = 0;
+  const int E = BATCHED ? experts : 1;
+  if constexpr (BATCHED) {
+    e = blockIdx.z / splits;
+    z = blockIdx.z - e * splits;
+    A += (size_t)e * M * K;
+    B += (size_t)e * K * N;
+  }
+  const size_t eo = (size_t)e * M * N;   // this expert's output block
+  const int m0 = ty * BM, n0 = tx * BN;
   const int k_blocks = (K + BK - 1) / BK;
   const int kb0 = z * kb_per_split;
   const int nk = max(0, min(kb_per_split, k_blocks - kb0));
@@ -326,7 +349,7 @@ __global__ void __launch_bounds__(NT, 2)
   // acc[r][4 h + e] sits at row m0 + am + (r % 4) + 32 (r / 4), column
   // n0 + bn + 16 h + e
   const bool split = splits > 1;
-  float* part = split ? ws + (size_t)z * M * N : nullptr;
+  float* part = split ? ws + ((size_t)z * E + e) * M * N : nullptr;
 #pragma unroll
   for (int r = 0; r < 8; ++r) {
     const int gm = m0 + am + (r % 4) + 32 * (r / 4);
@@ -341,21 +364,25 @@ __global__ void __launch_bounds__(NT, 2)
       if (split)
         store4(part, nullptr, o, v, min(4, N - gn), 0, vec_out);
       else
-        store4(out, rbits, o, scaled(v, scale), min(4, N - gn), sr, vec_out);
+        store4(out, rbits, eo + o, scaled(v, scale), min(4, N - gn), sr,
+               vec_out);
     }
   }
   if (!split) return;
 
   // the last block of the tile sums every split's partial, in order
-  int* counters = reinterpret_cast<int*>(ws + (size_t)splits * M * N);
+  int* counters = reinterpret_cast<int*>(ws + (size_t)splits * E * M * N);
   __threadfence();
   __syncthreads();
   if (threadIdx.x == 0)
-    is_last = atomicAdd(&counters[ty * grid_x + tx], 1) == splits - 1;
+    is_last = atomicAdd(&counters[(e * grid_y + ty) * grid_x + tx], 1) ==
+              splits - 1;
   __syncthreads();
   if (!is_last) return;
   __threadfence();
   const size_t mn = (size_t)M * N;
+  const size_t sstride = (size_t)E * mn;   // split s's partials at s * it
+  const float* wp = ws + eo;               // this expert's split-0 partial
   for (int q = threadIdx.x; q < BM * BN / 4; q += NT) {
     const int gm = m0 + q / (BN / 4), gn = n0 + (q % (BN / 4)) * 4;
     if (gm >= M || gn >= N) continue;
@@ -363,24 +390,25 @@ __global__ void __launch_bounds__(NT, 2)
     const int n = min(4, N - gn);
     float4 v;
     if (vec_out) {
-      v = __ldcg(reinterpret_cast<const float4*>(ws + o));
+      v = __ldcg(reinterpret_cast<const float4*>(wp + o));
       for (int s = 1; s < splits; ++s) {
         const float4 u =
-            __ldcg(reinterpret_cast<const float4*>(ws + s * mn + o));
+            __ldcg(reinterpret_cast<const float4*>(wp + s * sstride + o));
         v.x += u.x;
         v.y += u.y;
         v.z += u.z;
         v.w += u.w;
       }
     } else {
-      float e[4] = {0.f, 0.f, 0.f, 0.f};
+      float e4[4] = {0.f, 0.f, 0.f, 0.f};
       for (int c = 0; c < n; ++c) {
-        e[c] = __ldcg(ws + o + c);
-        for (int s = 1; s < splits; ++s) e[c] += __ldcg(ws + s * mn + o + c);
+        e4[c] = __ldcg(wp + o + c);
+        for (int s = 1; s < splits; ++s)
+          e4[c] += __ldcg(wp + s * sstride + o + c);
       }
-      v = make_float4(e[0], e[1], e[2], e[3]);
+      v = make_float4(e4[0], e4[1], e4[2], e4[3]);
     }
-    store4(out, rbits, o, scaled(v, scale), n, sr, vec_out);
+    store4(out, rbits, eo + o, scaled(v, scale), n, sr, vec_out);
   }
 }
 
@@ -388,17 +416,38 @@ __global__ void __launch_bounds__(NT, 2)
 
 constexpr int MAX_DEVICES = 64;
 
+// Whether (splits, kb_per_split, grid_x, grid_y) is the plan of one
+// expert's (M, N, K) over this mainloop's tiles, as
+// kernels/sr_matmul.py::f32_plan gives it, with a workspace where it
+// splits: the batched C entries refuse any other.
+inline bool batched_plan_ok(int E, int M, int N, int K, int splits,
+                            int kb_per_split, int grid_x, int grid_y,
+                            const void* ws) {
+  const int k_blocks = (K + BK - 1) / BK;
+  return E >= 1 && M >= 1 && N >= 1 && K >= 1 && splits >= 1 &&
+         kb_per_split >= 1 && grid_x == (N + BN - 1) / BN &&
+         grid_y == (M + BM - 1) / BM &&
+         (long long)splits * kb_per_split >= k_blocks &&
+         (long long)(splits - 1) * kb_per_split < k_blocks &&
+         (splits == 1 || ws != nullptr);
+}
+
 // One f32 GEMM.  A is (M, K) row-major with row stride lda (A_MN: A =
 // X^T for X (K, M), row stride lda); B is (K, N) with row stride ldb
 // (B_MN) or (N, K).  The tile space (grid_x, grid_y, splits) and
 // kb_per_split come from the caller's plan; ws as sgemm_kernel's.
+// BATCHED: `experts` such products over contiguous operands (A (E, M,
+// K) or, A_MN, X (E, K, M); B (E, K, N) or (E, N, K); out (E, M, N)).
 // Returns 0 or a cudaError_t.
-template <bool A_MN, bool B_MN>
+template <bool A_MN, bool B_MN, bool BATCHED = false>
 int run(const float* a, const float* b, const void* rbits, void* out,
         float* ws, int M, int N, int K, int lda, int ldb, float scale,
         int sr, int splits, int kb_per_split, int grid_x, int grid_y,
-        cudaStream_t stream) {
-  auto kern = sgemm_kernel<A_MN, B_MN>;
+        cudaStream_t stream, int experts = 1) {
+  auto kern = sgemm_kernel<A_MN, B_MN, BATCHED>;
+  if (experts < 1 || (!BATCHED && experts != 1) ||
+      (long long)experts * splits > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
   int dev = 0;
   int err = static_cast<int>(cudaGetDevice(&dev));
   if (err != 0) return err;
@@ -410,16 +459,20 @@ int run(const float* a, const float* b, const void* rbits, void* out,
     if (err != 0) return err;
     if (dev < MAX_DEVICES) smem_set[dev] = true;
   }
-  const int vec_a = aligned16(a) && lda % 4 == 0;
-  const int vec_b = aligned16(b) && ldb % 4 == 0;
+  // an expert's operands start 16-byte aligned when its blocks hold a
+  // multiple of 4 floats (its output's do whenever N % 4 == 0)
+  const bool e_a = !BATCHED || (size_t)M * K % 4 == 0;
+  const bool e_b = !BATCHED || (size_t)K * N % 4 == 0;
+  const int vec_a = aligned16(a) && lda % 4 == 0 && e_a;
+  const int vec_b = aligned16(b) && ldb % 4 == 0 && e_b;
   const int vec_out = N % 4 == 0 && aligned16(out) && aligned16(rbits) &&
                       aligned16(ws);
   // row tiles fastest when all of A (at most 8 MB) stays in L2
   const int m_fast = grid_y > 1 && (size_t)M * K * 4 <= ((size_t)8 << 20);
-  kern<<<dim3(grid_x, grid_y, splits), NT, SMEM_BYTES, stream>>>(
+  kern<<<dim3(grid_x, grid_y, splits * experts), NT, SMEM_BYTES, stream>>>(
       a, b, static_cast<const uint32_t*>(rbits), out, ws, M, N, K, lda, ldb,
       grid_x, grid_y, splits, kb_per_split, m_fast, scale, sr, vec_a, vec_b,
-      vec_out);
+      vec_out, experts);
   return static_cast<int>(cudaGetLastError());
 }
 

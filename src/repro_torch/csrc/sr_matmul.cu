@@ -30,9 +30,11 @@
 // deterministic split-K; its header says what bounds it and how it is
 // tiled) — the TPU kernel accepts f32 operands too.
 //
-// Serving a MoE model runs it BATCHED: each expert table's PREFILL
-// product over all E experts as one launch (sr_matmul_batched_bf16; the
-// TPU kernel under jax.vmap).
+// A MoE model runs it BATCHED: each expert table's PREFILL, FF and BP
+// product over all E experts as one launch (the TPU kernel under
+// jax.vmap): sr_matmul_batched_bf16 for bf16 operands (the sm90
+// mainloop), sr_matmul_batched_f32 for f32 ones (the fp32 preset;
+// sgemm_sm90.cuh's mainloop).
 #include "common.cuh"
 #include "gemm_sm90.cuh"
 #include "sgemm_sm90.cuh"
@@ -198,4 +200,35 @@ extern "C" int sr_matmul_f32(const void* a, const void* b, const void* rbits,
   return rt::sgemm::run<false, true>(A, B, rbits, out, W, M, N, K, lda, ldb,
                                      1.0f, sr, splits, kb_per_split, grid_x,
                                      grid_y, st);
+}
+
+// out[e] = A[e] . B[e] for the E experts of a MoE table with f32
+// operands (the fp32 preset), in ONE launch of sgemm_sm90.cuh's
+// mainloop (BATCHED): A (E, M, K), B (E, K, N) or (E, N, K) with
+// trans_b, out (E, M, N) f32, each contiguous.  The plan's splits and
+// kb_per_split and the grid (grid_x, grid_y) are one expert's (M, N, K)
+// from kernels/sr_matmul.py::f32_plan; ws holds splits x E x M x N f32
+// partials, then E x grid_x x grid_y zeroed int32 counters, when
+// splits > 1.  No SR.  Returns cudaGetLastError(), or
+// cudaErrorInvalidValue for a shape or plan that is not its own.
+extern "C" int sr_matmul_batched_f32(const void* a, const void* b,
+                                     void* out, void* ws, int E, int M,
+                                     int N, int K, int trans_b, int splits,
+                                     int kb_per_split, int grid_x,
+                                     int grid_y, void* stream) {
+  if (!rt::sgemm::batched_plan_ok(E, M, N, K, splits, kb_per_split, grid_x,
+                                  grid_y, ws))
+    return (int)cudaErrorInvalidValue;
+  const float* A = static_cast<const float*>(a);
+  const float* B = static_cast<const float*>(b);
+  float* W = static_cast<float*>(ws);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (trans_b)
+    return rt::sgemm::run<false, false, true>(A, B, nullptr, out, W, M, N, K,
+                                              K, K, 1.0f, 0, splits,
+                                              kb_per_split, grid_x, grid_y,
+                                              st, E);
+  return rt::sgemm::run<false, true, true>(A, B, nullptr, out, W, M, N, K, K,
+                                           N, 1.0f, 0, splits, kb_per_split,
+                                           grid_x, grid_y, st, E);
 }

@@ -34,9 +34,8 @@ as one batched f32 ``torch.matmul``, and training through the same
 launch whose SR bits are one (E, D, F) draw from one generator seeded
 by :func:`up_key` of the table's whole dY (the reference splits the key
 per expert instead; each expert here reads its own part of the one
-stream).  Its operands are bf16: on a CUDA device an f32 word (the
-``fp32`` preset) raises NotImplementedError in every phase, since the
-f32 batched form is not ported.
+stream).  A bf16 word's launches take the kernels' sm90 path, an f32
+word's (the ``fp32`` preset) their f32 path, whose UP has no SR.
 
 plus :func:`pe_fused_attn_unit`, the ``decode_fused`` word that runs a
 whole attention unit as one fused kernel call, and :func:`pe_fused_ffn`,
@@ -104,22 +103,15 @@ def _up_rbits(word: PEWord, dyt: torch.Tensor, shape: tuple,
                       lo=word.update_rounding == "sr_lo")
 
 
-def _operand(t: torch.Tensor, dt_name: str, word: PEWord,
-             batched: bool) -> torch.Tensor:
+def _operand(t: torch.Tensor, dt_name: str, batched: bool) -> torch.Tensor:
     """t at the word's dtype `dt_name`, as the kernels take it.  A 2-D
     weight's operands go through ``kmm.operand`` (a column slice, such as
     rwkv6's rkvg quarters, is read in place, with no contiguous copy); an
-    expert table's are contiguous, and f32 ones on a CUDA device raise
-    (the f32 batched form, the fp32 preset on a MoE table, is not
-    ported)."""
+    expert table's, bf16 or f32, are contiguous, as the batched kernels
+    take them."""
     dt = dtype_from_name(dt_name)
     if not batched:
         return kmm.operand(t.to(dt))
-    if dt != torch.bfloat16 and t.device.type == "cuda":
-        raise NotImplementedError(
-            f"{word.op}: an expert table's words run bf16 operands on the "
-            f"card; the {dt_name} batched form (the fp32 preset on a MoE "
-            f"table) is not ported")
     return t.to(dt).contiguous()
 
 
@@ -136,8 +128,8 @@ def _matmul(a: torch.Tensor, b: torch.Tensor, trans_b: bool
 def _ff(x: torch.Tensor, w: torch.Tensor, word: PEWord,
         transpose_w: bool) -> torch.Tensor:
     batched = w.dim() == 3
-    y = _matmul(_operand(x, word.ff_dtype, word, batched),
-                _operand(w, word.ff_dtype, word, batched), transpose_w)
+    y = _matmul(_operand(x, word.ff_dtype, batched),
+                _operand(w, word.ff_dtype, batched), transpose_w)
     return y.to(x.dtype)
 
 
@@ -159,15 +151,15 @@ class _PEMatmul(torch.autograd.Function):
         x, w = ctx.saved_tensors
         word, transpose_w, key, entropy = ctx.cfg
         batched = w.dim() == 3
-        gb = _operand(g, word.bp_dtype, word, batched)
+        gb = _operand(g, word.bp_dtype, batched)
         dx = dw = None
         if ctx.needs_input_grad[0]:
             # BP: f32 accumulation, no SR (the gradient signal is
             # transient, not persistent state)
-            dx = _matmul(gb, _operand(w, word.bp_dtype, word, batched),
+            dx = _matmul(gb, _operand(w, word.bp_dtype, batched),
                          not transpose_w).to(x.dtype)
         if ctx.needs_input_grad[1]:
-            xb = _operand(x, word.bp_dtype, word, batched)
+            xb = _operand(x, word.bp_dtype, batched)
             xt, dyt = (gb, xb) if transpose_w else (xb, gb)
             sr = (word.update_rounding in ("sr", "sr_lo")
                   and w.dtype == torch.bfloat16)

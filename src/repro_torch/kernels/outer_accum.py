@@ -15,12 +15,13 @@ counter.
 :func:`outer_accum_batched` is the kernel's batched mode, the TPU kernel
 under ``jax.vmap`` (``repro/engine/dispatch.py:220-229``: one
 ``pallas_call`` with an expert axis in its grid): dW[e] = scale *
-X[e]^T dY[e] for the E experts of a MoE table, bf16 operands, f32 or
-SR-bf16 out with each expert's bits at its own offset, ONE launch of the
-sm90 path a call, planned by :func:`plan` over all E experts' tiles.  It
-has its own counter (``outer_accum:batched``) besides ``outer_accum``
-and ``outer_accum:sm90``; :func:`outer_accum_batched_plain` is its plain
-version.
+X[e]^T dY[e] for the E experts of a MoE table, ONE launch a call,
+planned over all E experts' tiles: bf16 operands on the sm90 path
+(:func:`batched_plan`), f32 or SR-bf16 out with each expert's bits at
+its own offset; f32 operands (the fp32 preset) on the f32 path
+(:func:`batched_f32_plan`), f32 out with no SR.  It has its own counter
+(``outer_accum:batched``) besides ``outer_accum`` and the path's;
+:func:`outer_accum_batched_plain` is its plain version.
 """
 from __future__ import annotations
 
@@ -154,6 +155,12 @@ def batched_plan(e: int, t: int, d: int, f: int) -> Plan:
     return plan(d, f, t, "m", "n", rows_invariant=False, experts=e)
 
 
+def batched_f32_plan(e: int, t: int, d: int, f: int) -> Plan:
+    """The plan of one expert's f32 dW (D, F) = X^T dY in a batched call:
+    sr_matmul.f32_plan over every expert's tiles."""
+    return plan(d, f, t, "m", "n", f32=True, experts=e)
+
+
 def outer_accum_batched_plain(x: torch.Tensor, dy: torch.Tensor, *,
                               scale: float = 1.0,
                               rbits: Optional[torch.Tensor] = None
@@ -174,13 +181,15 @@ def outer_accum_batched(x: torch.Tensor, dy: torch.Tensor, *,
                         scale: float = 1.0,
                         rbits: Optional[torch.Tensor] = None) -> torch.Tensor:
     """x (E, T, D), dy (E, T, F) -> dW (E, D, F) = scale * x[e]^T dy[e]
-    for every expert e, in ONE launch of the sm90 path.
+    for every expert e, in ONE launch.
 
-    bf16 operands, each contiguous and 16-byte aligned, with D and F
-    multiples of 8, so that TMA describes them: anything else raises, as
-    do f32 operands (there is no generic fallback).  Returns f32 without
-    rbits, SR-bf16 with rbits (32-bit patterns, (E, D, F), contiguous).
-    CPU tensors take the plain version.
+    Operands both bf16, each contiguous and 16-byte aligned, with D and
+    F multiples of 8, so that TMA describes them (the sm90 path): f32
+    out without rbits, SR-bf16 with rbits (32-bit patterns, (E, D, F),
+    contiguous).  Or both f32 and contiguous (the f32 path, the fp32
+    preset): f32 out, and no rbits (an f32 weight is not rounded).
+    Anything else raises; there is no generic fallback.  CPU tensors
+    take the plain version.
     """
     e, t, d, f = _batched_shapes(x, dy)
     if x.device.type == "cpu" and dy.device.type == "cpu":
@@ -188,9 +197,12 @@ def outer_accum_batched(x: torch.Tensor, dy: torch.Tensor, *,
     if x.device.type != "cuda" or dy.device != x.device:
         raise ValueError(f"outer_accum_batched: operands on {x.device} and "
                          f"{dy.device}")
-    if x.dtype != torch.bfloat16 or dy.dtype != torch.bfloat16:
-        raise TypeError(f"outer_accum_batched kernel takes two bf16 "
-                        f"operands, got {x.dtype}, {dy.dtype}")
+    dt = x.dtype
+    if dy.dtype != dt or dt not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"outer_accum_batched kernel takes two bf16 or two "
+                        f"f32 operands, got {dt}, {dy.dtype}")
+    if dt == torch.float32:
+        return _batched_f32(x, dy, e, t, d, f, scale, rbits)
     if not (x.is_contiguous() and dy.is_contiguous() and aligned16(x, dy)
             and d % 8 == 0 and f % 8 == 0):
         raise ValueError(
@@ -222,5 +234,36 @@ def outer_accum_batched(x: torch.Tensor, dy: torch.Tensor, *,
         raise launch_error("outer_accum_batched", err)
     COUNTER.n += 1
     PATH_COUNTERS["sm90"].n += 1
+    BATCHED_COUNTER.n += 1
+    return out
+
+
+def _batched_f32(x, dy, e: int, t: int, d: int, f: int, scale: float,
+                 rbits: Optional[torch.Tensor]) -> torch.Tensor:
+    """:func:`outer_accum_batched` of two f32 operands: one launch of the
+    f32 mainloop's batched form under :func:`batched_f32_plan`."""
+    if rbits is not None:
+        raise ValueError("outer_accum_batched: f32 operands take no rbits "
+                         "(the f32 batched form has no SR epilogue)")
+    if not (x.is_contiguous() and dy.is_contiguous()):
+        raise ValueError("outer_accum_batched kernel takes contiguous f32 "
+                         "operands")
+    out = torch.empty((e, d, f), dtype=torch.float32, device=x.device)
+    if out.numel() == 0:
+        return out
+    if t == 0:
+        return out.zero_()
+    p = batched_f32_plan(e, t, d, f)
+    gx, gy, _ = p.grid(d, f, t)
+    ws = split_workspace(p, d, f, x.device, experts=e)
+    err = _bind(build.load("outer_accum"), "outer_accum_batched_f32")(
+        build.ptr(x), build.ptr(dy), build.ptr(out),
+        build.ptr(ws) if ws is not None else None, e, t, d, f,
+        ctypes.c_float(scale), p.splits, p.kb_per_split(t), gx, gy,
+        build.stream_ptr(x.device))
+    if err != 0:
+        raise launch_error("outer_accum_batched", err)
+    COUNTER.n += 1
+    PATH_COUNTERS["f32"].n += 1
     BATCHED_COUNTER.n += 1
     return out

@@ -20,12 +20,12 @@ counter.
 
 :func:`sr_matmul_batched` is the kernel's batched mode, the TPU kernel
 under ``jax.vmap`` (one ``pallas_call`` with an expert axis in its
-grid): out[e] = a[e] @ b[e] for the E experts of a MoE table, bf16
-operands, f32 out, ONE launch of the sm90 path a call, with each
-expert's (M, N, K) planned by :func:`plan` over all E experts' tiles.
-It has its own counter (``sr_matmul:batched``) besides ``sr_matmul``
-and ``sr_matmul:sm90``; :func:`sr_matmul_batched_plain` is its plain
-version.
+grid): out[e] = a[e] @ b[e] for the E experts of a MoE table, f32 out,
+ONE launch a call, with each expert's (M, N, K) planned over all E
+experts' tiles: bf16 operands on the sm90 path (:func:`plan`), f32
+operands (the fp32 preset) on the f32 path (:func:`f32_plan`).  It has
+its own counter (``sr_matmul:batched``) besides ``sr_matmul`` and the
+path's; :func:`sr_matmul_batched_plain` is its plain version.
 """
 from __future__ import annotations
 
@@ -123,7 +123,7 @@ def plan(m: int, n: int, k: int, a_major: str = "k", b_major: str = "n",
     if a_major not in ("k", "m") or b_major not in ("k", "n"):
         raise ValueError(f"plan: majorness {a_major!r}, {b_major!r}")
     if f32:
-        return f32_plan(m, n, k)
+        return f32_plan(m, n, k, experts=experts)
     lda = (k if a_major == "k" else m) if lda is None else lda
     ldb = (k if b_major == "k" else n) if ldb is None else ldb
     if not (aligned and lda % 8 == 0 and ldb % 8 == 0):
@@ -145,17 +145,21 @@ def plan(m: int, n: int, k: int, a_major: str = "k", b_major: str = "n",
 
 
 @functools.lru_cache(maxsize=4096)
-def f32_plan(m: int, n: int, k: int) -> Plan:
+def f32_plan(m: int, n: int, k: int, experts: int = 1) -> Plan:
     """The plan of out(m, n) = A(m, k) . B(k, n) for f32 operands, from
     the shape alone (never majorness, strides or the device): the split
     count that a cost model of whole waves ranks fastest.  A wave holds
     SMS x F32_OCC blocks, and one that is not full costs as much as a
     full one, so a product whose tiles leave the card part-empty (the
     tied head's BP: 2 x 7 tiles) splits its reduction, paying the
-    partials' round trip and their ordered sum."""
+    partials' round trip and their ordered sum.  `experts` plans one
+    expert's product of a batched call, whose blocks are every expert's
+    tiles (granite's tables at C = 1024: 32 tiles an expert, 1024
+    blocks, no split; at C = 8, 128 blocks fill half a wave and K
+    splits in two)."""
     bm, bn, bk = F32_TILE
     kb = max(1, math.ceil(k / bk))
-    tiles = math.ceil(m / bm) * math.ceil(n / bn)
+    tiles = math.ceil(m / bm) * math.ceil(n / bn) * experts
     best = None
     for splits in range(1, kb + 1):
         per = math.ceil(kb / splits)
@@ -166,23 +170,25 @@ def f32_plan(m: int, n: int, k: int) -> Plan:
         waves = math.ceil(tiles * splits / (SMS * F32_OCC))
         t = waves * F32_OCC * bm * bn * per * bk / F32_SM_FMA
         if splits > 1:
-            t += (2 * splits * m * n * 4 / F32_HBM
+            t += (2 * splits * experts * m * n * 4 / F32_HBM
                   + splits * bm * bn * 4 / F32_BLOCK_BW)
         if best is None or t < best[0]:
             best = (t, splits)
     return Plan("f32", bm, bn, bk, best[1])
 
 
-def split_workspace(p: Plan, m: int, n: int, device) -> Optional[torch.Tensor]:
+def split_workspace(p: Plan, m: int, n: int, device,
+                    experts: int = 1) -> Optional[torch.Tensor]:
     """The f32 path's split-K workspace, or None without splits: splits x
-    m x n f32 partials, then one int32 counter per output tile (zeroed:
-    the last block of a tile to finish sees splits - 1)."""
+    experts x m x n f32 partials, then one int32 counter per output tile
+    of each expert (zeroed: the last block of a tile to finish sees
+    splits - 1)."""
     if p.splits <= 1:
         return None
-    tiles = math.ceil(m / p.bm) * math.ceil(n / p.bn)
-    ws = torch.empty(p.splits * m * n + tiles, dtype=torch.float32,
-                     device=device)
-    ws[p.splits * m * n:].view(torch.int32).zero_()
+    parts = p.splits * experts * m * n
+    tiles = math.ceil(m / p.bm) * math.ceil(n / p.bn) * experts
+    ws = torch.empty(parts + tiles, dtype=torch.float32, device=device)
+    ws[parts:].view(torch.int32).zero_()
     return ws
 
 
@@ -406,12 +412,13 @@ def sr_matmul_batched_plain(a: torch.Tensor, b: torch.Tensor, *,
 def sr_matmul_batched(a: torch.Tensor, b: torch.Tensor, *,
                       trans_b: bool = False) -> torch.Tensor:
     """a (E, M, K) @ b (E, K, N) expert by expert — or a[e] @ b[e].T for
-    b (E, N, K) with trans_b — in ONE launch of the sm90 path.
+    b (E, N, K) with trans_b — in ONE launch.
 
-    bf16 operands, each contiguous and 16-byte aligned, with K (and N
-    when b is (E, K, N)) a multiple of 8, so that TMA describes them:
-    anything else raises, as do f32 operands.  Returns (E, M, N) f32.
-    CPU tensors take the plain version.
+    Operands both bf16, each contiguous and 16-byte aligned, with K (and
+    N when b is (E, K, N)) a multiple of 8, so that TMA describes them
+    (the sm90 path); or both f32 and contiguous (the f32 path, the fp32
+    preset).  Anything else raises.  Returns (E, M, N) f32.  CPU tensors
+    take the plain version.
     """
     e, m, n, k = _batched_shapes(a, b, trans_b)
     dev = a.device
@@ -420,9 +427,12 @@ def sr_matmul_batched(a: torch.Tensor, b: torch.Tensor, *,
     if dev.type != "cuda" or b.device != dev:
         raise ValueError(f"sr_matmul_batched: operands on {dev} and "
                          f"{b.device}")
-    if a.dtype != torch.bfloat16 or b.dtype != torch.bfloat16:
-        raise TypeError(f"sr_matmul_batched kernel takes two bf16 operands, "
-                        f"got {a.dtype}, {b.dtype}")
+    dt = a.dtype
+    if b.dtype != dt or dt not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"sr_matmul_batched kernel takes two bf16 or two "
+                        f"f32 operands, got {dt}, {b.dtype}")
+    if dt == torch.float32:
+        return _batched_f32(a, b, e, m, n, k, trans_b)
     ldb = k if trans_b else n
     if not (a.is_contiguous() and b.is_contiguous() and aligned16(a, b)
             and k % 8 == 0 and ldb % 8 == 0):
@@ -457,3 +467,30 @@ def _batched_call(a, b, out, p: Plan, trans_b: bool) -> None:
         p.bn, p.splits, p.kb_per_split(k), gx, gy, build.stream_ptr(a.device))
     if err != 0:
         raise launch_error("sr_matmul_batched", err)
+
+
+def _batched_f32(a, b, e: int, m: int, n: int, k: int,
+                 trans_b: bool) -> torch.Tensor:
+    """:func:`sr_matmul_batched` of two f32 operands: one launch of the
+    f32 mainloop's batched form under ``f32_plan(m, n, k, experts=e)``."""
+    if not (a.is_contiguous() and b.is_contiguous()):
+        raise ValueError("sr_matmul_batched kernel takes contiguous f32 "
+                         "operands")
+    out = torch.empty((e, m, n), dtype=torch.float32, device=a.device)
+    if out.numel() == 0:
+        return out
+    if k == 0:
+        return out.zero_()
+    p = f32_plan(m, n, k, experts=e)
+    gx, gy, _ = p.grid(m, n, k)
+    ws = split_workspace(p, m, n, a.device, experts=e)
+    err = _bind(build.load("sr_matmul"), "sr_matmul_batched_f32")(
+        build.ptr(a), build.ptr(b), build.ptr(out),
+        build.ptr(ws) if ws is not None else None, e, m, n, k, int(trans_b),
+        p.splits, p.kb_per_split(k), gx, gy, build.stream_ptr(a.device))
+    if err != 0:
+        raise launch_error("sr_matmul_batched", err)
+    COUNTER.n += 1
+    PATH_COUNTERS["f32"].n += 1
+    BATCHED_COUNTER.n += 1
+    return out

@@ -44,9 +44,6 @@ def run(args, on_step=None) -> dict:
                             kernel_backend=args.kernel_backend,
                             microbatch=args.microbatch)
     step_fn, opt = tl.make_train_step(cfg, program, train_cfg)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(args.seed)
-    state = tl.init_state(cfg, program, train_cfg, gen, opt)
     print(f"arch={cfg.name} layers={cfg.n_layers} d={cfg.d_model} "
           f"params={cfg.param_count()} precision={args.precision} "
           f"backend={args.kernel_backend} optimizer={args.optimizer} "
@@ -55,9 +52,19 @@ def run(args, on_step=None) -> dict:
 
     ckpt = Checkpointer(args.ckpt_dir)
     meta = {"arch": cfg.name, "precision": args.precision}
-    if args.resume and ckpt.latest_step() is not None:
-        state, step, _ = ckpt.restore(device=dev)
-        print(f"resumed from step {step}")
+
+    def initial_state():
+        """The latest checkpoint's state with --resume, else a new one
+        from --seed.  It is made inside the call to run_with_recovery,
+        so no frame here holds it while the steps run: each step's old
+        state is freed once the next one exists."""
+        if args.resume and ckpt.latest_step() is not None:
+            state, step, _ = ckpt.restore(device=dev)
+            print(f"resumed from step {step}")
+            return state
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(args.seed)
+        return tl.init_state(cfg, program, train_cfg, gen, opt)
 
     pipe = SyntheticLM(cfg, shape)
     losses, seconds = [], []
@@ -73,9 +80,10 @@ def run(args, on_step=None) -> dict:
             on_step(step, metrics, dt)
 
     state = run_with_recovery(
-        step_fn=step_fn, state=state, batches=pipe.batch_at, ckpt=ckpt,
-        meta=meta, n_steps=args.steps, checkpoint_every=args.ckpt_every,
-        key=args.seed, on_metrics=on_metrics)
+        step_fn=step_fn, state=initial_state(), batches=pipe.batch_at,
+        ckpt=ckpt, meta=meta, n_steps=args.steps,
+        checkpoint_every=args.ckpt_every, key=args.seed,
+        on_metrics=on_metrics)
     if losses:
         print(f"done: {len(losses)} steps; loss {losses[0]:.4f} -> "
               f"{np.mean(losses[-10:]):.4f}")

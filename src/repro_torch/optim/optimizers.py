@@ -11,12 +11,17 @@ Each leaf's update is a function of its own (``Optimizer.leaf``), given
 the leaf's SR bits or generators, so tests can feed the reference's
 bits.  A live step derives one generator per written-back tensor from
 the step key (leaf i, output j).  On the cuda backend the SR writeback
-runs the ``sr_round`` kernel on the whole leaf, viewed flat; on the
-reference backend its plain version.  Unlike the reference, which scans
-very large stacked leaves layer by layer to bound its f32 temporaries,
-the port updates each leaf in one piece: the full-width model's largest
-leaf (24 x 896 x 9728) needs a few GB of f32 temporaries, which one
-card holds.
+runs the ``sr_round`` kernel on the tensor it is given, viewed flat; on
+the reference backend its plain version.
+
+As the reference's ``_leafwise`` does, a stacked leaf (3-D or more, a
+leading dim of at least 4) of more than ``_CHUNK_BYTES`` as f32 is
+updated layer by layer over its leading dim, so that each f32
+temporary is one layer's size (granite's (24, 32, 1024, 512) expert
+tables would take 1.5 GiB each whole).  Layer l's generators come from
+``fold_key(leaf key, l)``, the counterpart of the reference's
+``fold_in(k, l)``.  The gradients may be bf16: each leaf (or layer)
+is cast to f32 inside its update.
 """
 from __future__ import annotations
 
@@ -32,13 +37,24 @@ from repro_torch.core.tree import tree_get, tree_leaves, tree_map, tree_set
 from repro_torch.kernels import sr_round as ksr
 
 _F32 = torch.float32
+# leaves above this many bytes as f32 are updated layer by layer
+# (the reference's optim/optimizers.py _CHUNK_BYTES)
+_CHUNK_BYTES = 128e6
 
 
 @dataclass(frozen=True)
 class Optimizer:
     init: Callable        # params -> state {"m": tree, ...}
-    update: Callable      # (grads, state, params, step, key) -> (params, state)
+    # (grads, state, params, step, key, rbits=None) -> (params, state)
+    update: Callable
     leaf: Callable        # (g, *moments, p, step, rbits=, gens=) -> (p, *moments)
+
+
+def chunked(p: torch.Tensor) -> bool:
+    """Whether the update takes leaf `p` layer by layer over dim 0 (the
+    reference's `_leafwise` rule: 3-D or more, a leading dim of at least
+    4, more than _CHUNK_BYTES as f32)."""
+    return p.dim() >= 3 and p.shape[0] >= 4 and p.numel() * 4 > _CHUNK_BYTES
 
 
 def make_optimizer(cfg: TrainConfig, policy: PrecisionPolicy,
@@ -68,25 +84,54 @@ def make_optimizer(cfg: TrainConfig, policy: PrecisionPolicy,
                                                   device=p.device), params)
                 for n in names}
 
-    def update(grads, state, params, step: int, key: Optional[int]):
+    n_out = 1 + len(names)
+
+    def generators(k: int, device) -> list:
+        gens = []
+        for j in range(n_out):
+            gen = torch.Generator(device=device)
+            gen.manual_seed(fold_key(k, j))
+            gens.append(gen)
+        return gens
+
+    def update(grads, state, params, step: int, key: Optional[int],
+               rbits: Optional[Callable] = None):
+        """rbits(i, layer) -> the written-back tensors' bits for leaf i
+        (layer None for a leaf taken whole) replaces the generators, so
+        tests can feed the reference's bits."""
         sr = policy.update_rounding != "nearest"
+        if sr and key is None and rbits is None:
+            raise ValueError(f"{policy.name}: SR writeback needs the step "
+                             f"key")
         new_p: dict = {}
         new_s: dict = {n: {} for n in names}
         for i, (path, p) in enumerate(tree_leaves(params)):
-            g = tree_get(grads, path)
-            moments = [tree_get(state[n], path) for n in names]
-            gens = None
-            if sr:
-                if key is None:
-                    raise ValueError(f"{policy.name}: SR writeback needs "
-                                     f"the step key")
-                lk = fold_key(key, i)
-                gens = []
-                for j in range(1 + len(names)):
-                    gen = torch.Generator(device=p.device)
-                    gen.manual_seed(fold_key(lk, j))
-                    gens.append(gen)
-            out = leaf(g, *moments, p, step, gens=gens)
+            args = (tree_get(grads, path),
+                    *(tree_get(state[n], path) for n in names), p)
+            lk = fold_key(key, i) if sr and rbits is None else None
+
+            def one(part, layer):
+                kw = {}
+                if rbits is not None and sr:
+                    kw["rbits"] = rbits(i, layer)
+                elif lk is not None:
+                    kw["gens"] = generators(
+                        lk if layer is None else fold_key(lk, layer),
+                        p.device)
+                return leaf(*part, step, **kw)
+
+            if chunked(p):
+                out = None
+                for layer in range(p.shape[0]):
+                    res = one([a[layer] for a in args], layer)
+                    if out is None:
+                        out = [torch.empty(p.shape, dtype=r.dtype,
+                                           device=r.device) for r in res]
+                    for o, r in zip(out, res):
+                        o[layer].copy_(r)
+                    del res
+            else:
+                out = one(args, None)
             tree_set(new_p, path, out[0])
             for n, o in zip(names, out[1:]):
                 tree_set(new_s[n], path, o)

@@ -4,8 +4,11 @@
 FF + BP — autograd of the model loss under a ``PEContext`` at
 ``Phase.FF`` (the cuda backend's FF / BP / UP words run the
 hand-written kernels), then UP — the optimizer with the SR writeback of
-persistent state.  Microbatch gradients accumulate in f32.  Each builder
-returns a plain function (torch runs eagerly; there is no jit to wrap).
+persistent state.  Microbatch gradients accumulate in f32; a whole
+batch's gradients go to the optimizer at the parameters' dtype, which
+casts each leaf (or layer of a stacked leaf) to f32 as it updates it,
+so no f32 copy of the whole gradient tree exists.  Each builder returns
+a plain function (torch runs eagerly; there is no jit to wrap).
 """
 from __future__ import annotations
 
@@ -63,7 +66,8 @@ def make_train_step(cfg: ModelConfig, program: Program,
     the state {"params", "opt", "step"}, a batch of numpy arrays or
     tensors {"tokens", "labels"} and the step's integer key, and returns
     (new state, {"loss", "grad_norm"}) — the tensors of the new state are
-    new; the old state is not modified."""
+    new; the old state is not modified, and the step holds nothing of it
+    once it returns (a caller that drops its reference frees it)."""
     policy = program.policy
     backend = train_cfg.kernel_backend
     opt = make_optimizer(train_cfg, policy, backend)
@@ -96,19 +100,23 @@ def make_train_step(cfg: ModelConfig, program: Program,
             for i in range(nm):
                 li, gi = loss_and_grads({k: v[i] for k, v in micro.items()})
                 loss = loss + li
-                grads = [a + b.to(torch.float32) for a, b in zip(grads, gi)]
+                for a, b in zip(grads, gi):
+                    a.add_(b)
+                del gi          # before the next microbatch's backward
             loss = loss / nm
-            grads = [g / nm for g in grads]
+            for g in grads:
+                g.div_(nm)
         else:
-            loss, gi = loss_and_grads(batch)
-            grads = [g.to(torch.float32) for g in gi]
+            loss, grads = loss_and_grads(batch)
+        gnorm = torch.sqrt(sum(torch.sum(torch.square(g.to(torch.float32)))
+                               for g in grads))
         gtree: dict = {}
         for path, g in zip(paths, grads):
             tree_set(gtree, path, g)
+        del grads
         upd_key = key if policy.update_rounding != "nearest" else None
         new_params, new_opt = opt.update(gtree, state["opt"], params,
                                          state["step"], upd_key)
-        gnorm = torch.sqrt(sum(torch.sum(torch.square(g)) for g in grads))
         return ({"params": new_params, "opt": new_opt,
                  "step": state["step"] + 1},
                 {"loss": loss, "grad_norm": gnorm})

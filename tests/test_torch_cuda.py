@@ -1010,8 +1010,8 @@ def test_sr_matmul_batched_raises_on_what_the_tma_cannot_describe(dev):
     with pytest.raises(ValueError, match="16-byte"):
         kmm.sr_matmul_batched(a.transpose(1, 2).contiguous().transpose(1, 2),
                               b)
-    with pytest.raises(TypeError, match="bf16"):
-        kmm.sr_matmul_batched(a.float(), b.float())
+    with pytest.raises(TypeError, match="two bf16 or two f32"):
+        kmm.sr_matmul_batched(a.float(), b)
     assert kmm.COUNTER.n == n0
 
 
@@ -1214,8 +1214,8 @@ def test_outer_accum_batched_raises_on_what_the_tma_cannot_describe(dev):
     x12, dy12, _ = _up_operands(dev, 4, 40, 12, 32, seed=55)
     with pytest.raises(ValueError, match="16-byte"):
         koa.outer_accum_batched(x12, dy12)             # D = 12: 24-byte rows
-    with pytest.raises(TypeError, match="bf16"):
-        koa.outer_accum_batched(x.float(), dy.float())
+    with pytest.raises(TypeError, match="two bf16 or two f32"):
+        koa.outer_accum_batched(x.float(), dy)
     with pytest.raises(ValueError, match="rbits"):
         koa.outer_accum_batched(x, dy, rbits=torch.zeros(
             (4, 32, 64), dtype=torch.int32, device=dev))
@@ -1299,19 +1299,208 @@ def test_pe_batched_matmul_function_runs_the_kernels(dev, ecdf, transpose_w):
 
 
 @pytest.mark.cuda
-def test_pe_batched_matmul_raises_for_an_f32_word_on_the_card(dev):
-    """The fp32 preset's f32 batched form is not ported: an f32 word on
-    an expert table raises on the card (its plain versions run on the
-    CPU)."""
+@pytest.mark.parametrize("transpose_w", [False, True])
+@pytest.mark.parametrize("ecdf", [(32, 1024, 1024, 512), (4, 40, 64, 32),
+                                  (3, 37, 72, 40)], ids=str)
+def test_pe_batched_matmul_runs_an_f32_word_on_the_f32_kernels(
+        dev, ecdf, transpose_w):
+    """pe_dot of a 3-D table under an f32 word (the fp32 preset) on the
+    cuda backend: FF one f32 sr_matmul_batched launch, BP one with
+    trans_b flipped, UP one f32 outer_accum_batched launch (no SR), none
+    on sm90 or generic; y, dX and dW within the f32 path's tolerance of
+    the plain versions."""
     from repro_torch.core.phases import Phase
     from repro_torch.core.program import PEWord
     from repro_torch.engine.dispatch import pe_dot
-    x = torch.randn((4, 8, 64), device=dev)
-    w = torch.randn((4, 64, 32), device=dev, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        pe_dot(x, w, word=PEWord(op="moe_experts_in", ff_dtype="float32",
-                                 bp_dtype="float32"), backend="cuda",
-               phase=Phase.FF)
+    e, c, d, f = ecdf
+    g = torch.Generator(device=dev).manual_seed(59)
+    x = torch.randn((e, c, d), generator=g, device=dev)
+    w = (torch.randn((e, f, d) if transpose_w else (e, d, f), generator=g,
+                     device=dev) * d ** -0.5)
+    ct = torch.randn((e, c, f), generator=g, device=dev) * c ** -0.5
+    before = {"mm": kmm.BATCHED_COUNTER.n, "up": koa.BATCHED_COUNTER.n,
+              **{f"mm:{k}": v.n for k, v in kmm.PATH_COUNTERS.items()},
+              **{f"up:{k}": v.n for k, v in koa.PATH_COUNTERS.items()}}
+    xr, wr = x.clone().requires_grad_(), w.clone().requires_grad_()
+    y = pe_dot(xr, wr, word=PEWord(op="moe_experts_in", ff_dtype="float32",
+                                   bp_dtype="float32",
+                                   update_rounding="nearest"),
+               backend="cuda", transpose_w=transpose_w, phase=Phase.FF)
+    dx, dw = torch.autograd.grad(y, (xr, wr), grad_outputs=ct)
+    torch.cuda.synchronize()
+    moved = {"mm": kmm.BATCHED_COUNTER.n - before["mm"],
+             "up": koa.BATCHED_COUNTER.n - before["up"],
+             **{f"mm:{k}": v.n - before[f"mm:{k}"]
+                for k, v in kmm.PATH_COUNTERS.items()},
+             **{f"up:{k}": v.n - before[f"up:{k}"]
+                for k, v in koa.PATH_COUNTERS.items()}}
+    assert moved == {"mm": 2, "up": 1, "mm:f32": 2, "mm:sm90": 0,
+                     "mm:generic": 0, "up:f32": 1, "up:sm90": 0,
+                     "up:generic": 0}
+    assert y.dtype == dx.dtype == dw.dtype == torch.float32
+    torch.testing.assert_close(y, kmm.sr_matmul_batched_plain(
+        x, w, trans_b=transpose_w), rtol=MM_RTOL, atol=MM_ATOL)
+    torch.testing.assert_close(dx, kmm.sr_matmul_batched_plain(
+        ct, w, trans_b=not transpose_w), rtol=MM_RTOL, atol=MM_ATOL)
+    xt, dyt = (ct, x) if transpose_w else (x, ct)
+    torch.testing.assert_close(dw, koa.outer_accum_batched_plain(xt, dyt),
+                               rtol=MM_RTOL, atol=MM_ATOL)
+
+
+# ---------------------------------------------------------------------------
+# The f32 batched mode: an expert table's products under the fp32 preset,
+# one launch of sgemm_sm90.cuh's BATCHED form
+# ---------------------------------------------------------------------------
+
+
+def _f32_operands(dev, shapes, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return [torch.randn(s, generator=g, device=dev) * sc for s, sc in shapes]
+
+
+def _mm_counts():
+    return {name: c.n for name, c in (("all", kmm.COUNTER),
+                                      ("batched", kmm.BATCHED_COUNTER),
+                                      *kmm.PATH_COUNTERS.items())}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("trans_b", [False, True])
+@pytest.mark.parametrize("kn", [(1024, 512), (512, 1024), (72, 40),
+                                (333, 97)], ids=str)
+@pytest.mark.parametrize("m", [1, 8, 37, 40, 130])
+@pytest.mark.parametrize("e", [1, 4, 32])
+def test_sr_matmul_batched_f32_kernel_matches_plain(dev, e, m, kn, trans_b):
+    """f32 operands: one launch a call on the f32 path, counted on
+    sr_matmul, sr_matmul:f32 and sr_matmul:batched; each expert within
+    the f32 path's tolerance of the plain version, at ragged C, K and N
+    (K = 333: rows that are not 16-byte multiples)."""
+    k, n = kn
+    a, b = _f32_operands(dev, [((e, m, k), 1.0),
+                               ((e, n, k) if trans_b else (e, k, n),
+                                k ** -0.5)], seed=70)
+    before = _mm_counts()
+    got = kmm.sr_matmul_batched(a, b, trans_b=trans_b)
+    moved = {k_: v - before[k_] for k_, v in _mm_counts().items()}
+    assert moved == {"all": 1, "batched": 1, "sm90": 0, "generic": 0,
+                     "f32": 1}
+    assert got.dtype == torch.float32 and tuple(got.shape) == (e, m, n)
+    torch.testing.assert_close(got, kmm.sr_matmul_batched_plain(
+        a, b, trans_b=trans_b), rtol=MM_RTOL, atol=MM_ATOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("trans_b", [False, True])
+@pytest.mark.parametrize("emnk", [(32, 8, 512, 1024), (32, 40, 512, 1024),
+                                  (3, 37, 72, 2000), (32, 1024, 512, 1024)],
+                         ids=str)
+def test_sr_matmul_batched_f32_kernel_two_calls_bit_equal(dev, emnk,
+                                                          trans_b):
+    """Two calls give the same bits; all but the C = 1024 case take a
+    split-K plan (every expert's partials summed in split order by the
+    last block of its tile), which must match the plain version too."""
+    e, m, n, k = emnk
+    p = kmm.f32_plan(m, n, k, experts=e)
+    assert (p.splits > 1) == (m != 1024)
+    a, b = _f32_operands(dev, [((e, m, k), 1.0),
+                               ((e, n, k) if trans_b else (e, k, n),
+                                k ** -0.5)], seed=71)
+    first = kmm.sr_matmul_batched(a, b, trans_b=trans_b)
+    assert torch.equal(first.view(torch.int32), kmm.sr_matmul_batched(
+        a, b, trans_b=trans_b).view(torch.int32))
+    torch.testing.assert_close(first, kmm.sr_matmul_batched_plain(
+        a, b, trans_b=trans_b), rtol=MM_RTOL, atol=MM_ATOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("trans_b", [False, True])
+@pytest.mark.parametrize("k", [72, 2000])
+def test_sr_matmul_batched_f32_kernel_reads_no_other_expert(dev, trans_b, k):
+    """Expert 1's operands are all inf: a tile of expert 0 or 2 that read
+    across a boundary, or a split that summed another expert's partial
+    (K = 2000 splits), would turn its outputs inf or NaN."""
+    e, m, n = 3, 40, 72
+    assert (kmm.f32_plan(m, n, k, experts=e).splits > 1) == (k == 2000)
+    a, b = _f32_operands(dev, [((e, m, k), 1.0),
+                               ((e, n, k) if trans_b else (e, k, n),
+                                k ** -0.5)], seed=72)
+    a[1] = float("inf")
+    b[1] = float("inf")
+    got = kmm.sr_matmul_batched(a, b, trans_b=trans_b)
+    want = kmm.sr_matmul_batched_plain(a, b, trans_b=trans_b)
+    for i in (0, 2):
+        assert torch.isfinite(got[i]).all()
+        torch.testing.assert_close(got[i], want[i], rtol=MM_RTOL,
+                                   atol=MM_ATOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scale", [1.0, 0.25])
+@pytest.mark.parametrize("df", [(1024, 512), (512, 1024), (72, 40)],
+                         ids=str)
+@pytest.mark.parametrize("t", [1, 8, 37, 1024])
+@pytest.mark.parametrize("e", [1, 4, 32])
+def test_outer_accum_batched_f32_kernel_matches_plain(dev, e, t, df, scale):
+    """f32 operands: one launch a call on the f32 path, counted on
+    outer_accum, outer_accum:f32 and outer_accum:batched; dW with its
+    scale within the f32 path's tolerance of the plain version, at
+    ragged token counts."""
+    d, f = df
+    x, dy = _f32_operands(dev, [((e, t, d), 1.0),
+                                ((e, t, f), max(t, 1) ** -0.5)], seed=73)
+    before = _oa_counts()
+    got = koa.outer_accum_batched(x, dy, scale=scale)
+    moved = {k: v - before[k] for k, v in _oa_counts().items()}
+    assert moved == {"all": 1, "batched": 1, "sm90": 0, "generic": 0,
+                     "f32": 1}
+    assert got.dtype == torch.float32 and tuple(got.shape) == (e, d, f)
+    torch.testing.assert_close(got, koa.outer_accum_batched_plain(
+        x, dy, scale=scale), rtol=MM_RTOL, atol=MM_ATOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("etdf", [(32, 1024, 1024, 512), (2, 4096, 64, 64),
+                                  (3, 2000, 72, 40)], ids=str)
+def test_outer_accum_batched_f32_kernel_two_calls_bit_equal(dev, etdf):
+    """Two calls give the same bits; the 4096- and 2000-token cases take
+    a split of the tokens, which must match the plain version too."""
+    e, t, d, f = etdf
+    p = koa.batched_f32_plan(e, t, d, f)
+    assert (p.splits > 1) == (t != 1024)
+    x, dy = _f32_operands(dev, [((e, t, d), 1.0), ((e, t, f), t ** -0.5)],
+                          seed=74)
+    first = koa.outer_accum_batched(x, dy, scale=0.5)
+    assert torch.equal(first.view(torch.int32), koa.outer_accum_batched(
+        x, dy, scale=0.5).view(torch.int32))
+    torch.testing.assert_close(first, koa.outer_accum_batched_plain(
+        x, dy, scale=0.5), rtol=MM_RTOL, atol=MM_ATOL)
+
+
+@pytest.mark.cuda
+def test_f32_batched_kernels_raise_on_what_they_do_not_take(dev):
+    """Non-contiguous or mixed-dtype operands, and SR bits with f32
+    operands, raise with no launch."""
+    a, b = _f32_operands(dev, [((4, 8, 64), 1.0), ((4, 64, 32), 0.1)],
+                         seed=75)
+    x, dy = _f32_operands(dev, [((4, 40, 64), 1.0), ((4, 40, 32), 0.1)],
+                          seed=76)
+    n0, u0 = kmm.COUNTER.n, koa.COUNTER.n
+    strided = a.transpose(1, 2).contiguous().transpose(1, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        kmm.sr_matmul_batched(strided, b)
+    with pytest.raises(TypeError, match="two bf16 or two f32"):
+        kmm.sr_matmul_batched(a, b.bfloat16())
+    with pytest.raises(TypeError, match="two bf16 or two f32"):
+        kmm.sr_matmul_batched(a.double(), b.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        koa.outer_accum_batched(x.transpose(0, 1).contiguous()
+                                .transpose(0, 1), dy)
+    with pytest.raises(TypeError, match="two bf16 or two f32"):
+        koa.outer_accum_batched(x.bfloat16(), dy)
+    with pytest.raises(ValueError, match="no rbits"):
+        koa.outer_accum_batched(x, dy, rbits=torch.zeros(
+            (4, 64, 32), dtype=torch.int32, device=dev))
+    assert (kmm.COUNTER.n, koa.COUNTER.n) == (n0, u0)
 
 
 @pytest.mark.cuda

@@ -869,3 +869,111 @@ def test_sr_matmul_on_rkvg_column_view_matches_copy_and_pallas(quarter):
                                atol=MM_ATOL)
     tt = wt.t()                                 # a transpose is copied
     assert kmm.operand(tt) is not tt and kmm.operand(tt).is_contiguous()
+
+
+# ---------------------------------------------------------------------------
+# The f32 batched mode: a MoE expert table's products under the fp32 preset
+# ---------------------------------------------------------------------------
+
+# (experts, C, K, N) of granite-moe-1b-a400m's three tables (gate and up
+# (32, 1024, 512), down (32, 512, 1024)) in each role: FF (C, K) . (K,
+# N), BP (C, N) . (K, N)^T, UP (K, C) . (C, N) as (M, N, K)
+GRANITE_F32 = [(32, m, n, k) for c in (1024, 8, 40)
+               for m, n, k in ((c, 512, 1024), (c, 1024, 512))]
+
+
+@pytest.mark.parametrize("emnk", GRANITE_F32, ids=_mnk_id)
+def test_f32_batched_plan_depends_on_the_shape_and_experts_alone(emnk):
+    """The f32 batched plan comes from (M, N, K, E) alone, whatever the
+    operands' majorness, strides or alignment; its waves count every
+    expert's tiles: granite's tables at C = 1024 give 1024 or 2048
+    blocks and no split, a C = 8 product with 128 blocks (half a wave)
+    splits K."""
+    e, m, n, k = emnk
+    plans = {kmm.plan(m, n, k, am, bm_, lda=lda, ldb=ldb, aligned=al,
+                      rows_invariant=ri, f32=True, experts=e)
+             for am in ("k", "m") for bm_ in ("k", "n")
+             for lda, ldb in ((None, None), (k + 3, n + 5))
+             for al in (True, False) for ri in (True, False)}
+    p = kmm.f32_plan(m, n, k, experts=e)
+    assert plans == {p} and p.path == "f32"
+    gx, gy, splits = p.grid(m, n, k)
+    blocks = gx * gy * e
+    if m == 1024:
+        assert blocks in (1024, 2048) and splits == 1
+    if blocks < kmm.SMS * kmm.F32_OCC // 2 + 1:
+        assert splits > 1 and blocks * splits <= kmm.SMS * kmm.F32_OCC
+    assert koa.batched_f32_plan(e, k, m, n) == p
+    assert kmm.f32_plan(m, n, k, experts=1) == kmm.f32_plan(m, n, k)
+
+
+@pytest.mark.parametrize("emnk", [(32, 8, 512, 1024), (32, 40, 512, 1024),
+                                  (3, 37, 72, 2000)], ids=_mnk_id)
+def test_f32_batched_split_workspace_holds_every_experts_partials(emnk):
+    """splits x E x M x N f32 partials, then E x grid_x x grid_y zeroed
+    int32 counters, in one allocation: splits x E x M x N x 4 bytes plus
+    the counters."""
+    e, m, n, k = emnk
+    p = kmm.f32_plan(m, n, k, experts=e)
+    assert p.splits > 1
+    gx, gy, splits = p.grid(m, n, k)
+    ws = kmm.split_workspace(p, m, n, "cpu", experts=e)
+    parts = splits * e * m * n
+    assert ws.dtype == torch.float32
+    assert ws.numel() * 4 == parts * 4 + e * gx * gy * 4
+    assert bool((ws[parts:].view(torch.int32) == 0).all())
+    assert kmm.split_workspace(kmm.f32_plan(1024, 512, 1024, experts=32),
+                               1024, 512, "cpu", experts=32) is None
+
+
+@pytest.mark.parametrize("trans_b", [False, True])
+@pytest.mark.parametrize("emnk", [(4, 8, 96, 64), (3, 37, 64, 200),
+                                  (2, 5, 130, 72)], ids=_mnk_id)
+def test_sr_matmul_batched_f32_plain_matches_vmapped_pallas(emnk, trans_b):
+    """FF and BP (trans_b) of an f32 expert table: the batched plain
+    version against jax.vmap of the reference's sr_matmul in interpret
+    mode, at ragged C and K, within the f32 path's tolerance."""
+    e, m, n, k = emnk
+    rng = np.random.default_rng(61)
+    a = rng.standard_normal((e, m, k)).astype(np.float32)
+    b = (rng.standard_normal((e, n, k) if trans_b else (e, k, n))
+         * k ** -0.5).astype(np.float32)
+    want = jax.vmap(lambda x, y: jmm(x, y, None, block=(64, 64, 64),
+                                     interpret=True, trans_b=trans_b))(
+        jnp.asarray(a), jnp.asarray(b))
+    got = kmm.sr_matmul_batched(torch.from_numpy(a), torch.from_numpy(b),
+                                trans_b=trans_b)
+    assert got.dtype == torch.float32 and tuple(got.shape) == (e, m, n)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=MM_RTOL,
+                               atol=MM_ATOL)
+
+
+@pytest.mark.parametrize("scale", [1.0, "1/T"])
+@pytest.mark.parametrize("etdf", [(4, 12, 64, 32), (3, 37, 32, 64),
+                                  (2, 130, 72, 40)], ids=_mnk_id)
+def test_outer_accum_batched_f32_plain_matches_vmapped_pallas(etdf, scale):
+    """UP of an f32 expert table (no SR: an f32 weight is not rounded):
+    the batched plain version with its scale against jax.vmap of the
+    reference's outer_accum in interpret mode, at a ragged token count,
+    within outer_accum's f32 tolerance."""
+    e, t, d, f = etdf
+    scale = 1.0 / t if scale == "1/T" else scale
+    rng = np.random.default_rng(62)
+    x = rng.standard_normal((e, t, d)).astype(np.float32)
+    dy = rng.standard_normal((e, t, f)).astype(np.float32)
+    want = jax.vmap(lambda a, b: joa(a, b, scale=scale, block=(32, 32, 64),
+                                     interpret=True))(jnp.asarray(x),
+                                                      jnp.asarray(dy))
+    got = koa.outer_accum_batched(torch.from_numpy(x), torch.from_numpy(dy),
+                                  scale=scale)
+    assert got.dtype == torch.float32 and tuple(got.shape) == (e, d, f)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=OA_RTOL,
+                               atol=OA_ATOL)
+
+
+def test_f32_batched_wrappers_refuse_non_cpu_tensors_without_a_kernel():
+    meta = lambda *s: torch.empty(s, device="meta")
+    with pytest.raises(ValueError, match="operands on"):
+        kmm.sr_matmul_batched(meta(4, 8, 16), meta(4, 16, 32))
+    with pytest.raises(ValueError, match="operands on"):
+        koa.outer_accum_batched(meta(4, 8, 16), meta(4, 8, 32))

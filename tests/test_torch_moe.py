@@ -542,6 +542,46 @@ def test_expert_table_fp32_word_ff_bp_up_match_pallas(table, transpose_w):
         assert _grad_rel(g, w_) < F32_RTOL, (name, _grad_rel(g, w_))
 
 
+@pytest.mark.parametrize("transpose_w", [False, True])
+def test_expert_table_fp32_word_hands_the_kernels_contiguous_f32(
+        transpose_w, monkeypatch):
+    """An f32 word on a 3-D table, cuda backend, from strided views of x
+    and w: FF and BP each call sr_matmul_batched once, UP calls
+    outer_accum_batched once with no SR bits, every operand f32 and
+    contiguous, as the f32 batched kernels take them on the card."""
+    seen = []
+
+    def spy(name, fn):
+        def call(*ops, **kw):
+            seen.append((name, [(o.dtype, o.is_contiguous()) for o in ops],
+                         kw.get("rbits")))
+            return fn(*ops, **kw)
+        return call
+
+    monkeypatch.setattr(kmm, "sr_matmul_batched",
+                        spy("mm", kmm.sr_matmul_batched))
+    monkeypatch.setattr(koa, "outer_accum_batched",
+                        spy("up", koa.outer_accum_batched))
+    e, c, d, f = 3, 12, 16, 8
+    g = torch.Generator().manual_seed(4)
+    x = torch.randn((e, d, c), generator=g).transpose(1, 2)
+    w = torch.randn((e, d, f) if transpose_w else (e, f, d),
+                    generator=g).transpose(1, 2)
+    assert not (x.is_contiguous() or w.is_contiguous())
+    word = PEWord(op="moe_experts_in", ff_dtype="float32",
+                  bp_dtype="float32", update_rounding="nearest")
+    xr, wr = x.clone().requires_grad_(), w.clone().requires_grad_()
+    y = pe_dot(xr, wr, word=word, backend="cuda", transpose_w=transpose_w,
+               phase=Phase.FF)
+    dx, dw = torch.autograd.grad(y, (xr, wr), grad_outputs=torch.ones_like(y))
+    assert [n for n, _, _ in seen] == ["mm", "mm", "up"]
+    assert all(ops == [(torch.float32, True)] * 2 and rb is None
+               for _, ops, rb in seen)
+    assert y.dtype == dx.dtype == dw.dtype == torch.float32
+    torch.testing.assert_close(dw, koa.outer_accum_batched_plain(
+        *((torch.ones_like(y), x) if transpose_w else (x, torch.ones_like(y)))))
+
+
 def _reference_expert_bits(dy: jnp.ndarray, shape: tuple, lo: bool = False):
     """The reference's UP bits of a 3-D table: the pe_dot key split per
     expert, each expert's make_rbits(up_key(key_e, dY_e))."""

@@ -63,6 +63,7 @@ from repro_torch.models import attention as attn  # noqa: E402
 from repro_torch.models import layers  # noqa: E402
 from repro_torch.models import transformer as tfm  # noqa: E402
 from repro_torch.optim import make_optimizer  # noqa: E402
+from repro_torch.optim import optimizers as optim_mod  # noqa: E402
 from repro_torch.runtime import train_loop as tl  # noqa: E402
 from repro_torch.runtime.fault_tolerance import run_with_recovery  # noqa: E402
 
@@ -329,6 +330,158 @@ def test_optimizer_leaf_update_bit_equal_to_reference(opt_name, policy_name):
         for o, w in zip(out, want):
             assert o.dtype == torch.bfloat16
             np.testing.assert_array_equal(bits16(o), bits16(w))
+
+
+# a stacked leaf (updated layer by layer once the threshold is lowered
+# below its 7680 f32 bytes) and a 2-D one (always whole), in tree order
+CHUNK_SHAPES = {"stack": (6, 8, 40), "w": (24, 40)}
+CHUNK_LOW = 1000.0
+OPT_NAMES = {"sgdm": ("m",), "adamw": ("m", "v"), "adagrad": ("v",)}
+
+
+def _chunk_inputs(policy_name: str):
+    """(grads, moments, params) as JAX arrays and as port tensors with the
+    same values: params and moments at the policy's storage dtypes, the
+    gradients bf16-representable (f32 to JAX, as its step casts them;
+    bf16 to the port under paper_sr_bf16, as its step passes them)."""
+    rng = np.random.default_rng(12)
+    bf = policy_name != "fp32"
+    out = {"g": ({}, {}), "p": ({}, {}), "m": ({}, {}), "v": ({}, {})}
+    for name, shape in CHUNK_SHAPES.items():
+        for key, scale in (("p", 0.05), ("g", 1e-2), ("m", 1e-3),
+                           ("v", 1e-5)):
+            x = rng.standard_normal(shape) * scale
+            x = np.abs(x) if key == "v" else x
+            j, t = bf16_pair(x)
+            if key == "g" or not bf:
+                j = j.astype(jnp.float32)
+                t = t if (key == "g" and bf) else t.float()
+            out[key][0][name], out[key][1][name] = j, t
+    return out
+
+
+@pytest.mark.parametrize("opt_name", list(OPT_NAMES))
+def test_chunked_fp32_update_equals_the_whole_leaf_update(opt_name,
+                                                          monkeypatch):
+    """fp32: the stacked leaf updated layer by layer (the threshold
+    lowered) gives the whole-leaf update's bits, for every optimizer."""
+    inp = _chunk_inputs("fp32")
+    names = OPT_NAMES[opt_name]
+    opt = make_optimizer(TrainConfig(optimizer=opt_name), get_policy("fp32"),
+                         "cuda")
+    args = (inp["g"][1], {n: inp[n][1] for n in names}, inp["p"][1], 4, None)
+    stack = inp["p"][1]["stack"]
+    assert not optim_mod.chunked(stack)
+    whole = opt.update(*args)
+    monkeypatch.setattr(optim_mod, "_CHUNK_BYTES", CHUNK_LOW)
+    assert optim_mod.chunked(stack) and not optim_mod.chunked(inp["p"][1]["w"])
+    chunked = opt.update(*args)
+    for a, b in zip(tree_flat(whole), tree_flat(chunked)):
+        assert a.dtype == b.dtype == torch.float32
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def tree_flat(pair) -> list:
+    new_p, new_s = pair
+    return list(flat(new_p).values()) + [
+        v for n in sorted(new_s) for v in flat(new_s[n]).values()]
+
+
+def _leafwise_bits(opt_name: str, key, shapes: dict, chunk: set) -> dict:
+    """The bits the reference's _leafwise update draws: leaf i's key is
+    split(key, n)[i]; a scanned leaf's layer l takes fold_in(that, l),
+    then one key per written-back tensor."""
+    n_out = 1 + len(OPT_NAMES[opt_name])
+    keys = jax.random.split(key, len(shapes))
+    bits = {}
+    for i, (name, shape) in enumerate(shapes.items()):
+        layers = range(shape[0]) if name in chunk else (None,)
+        for layer in layers:
+            k = keys[i] if layer is None else jax.random.fold_in(keys[i],
+                                                                 layer)
+            sub = shape if layer is None else shape[1:]
+            bits[i, layer] = [i32(jax.random.bits(kk, sub, dtype=jnp.uint32))
+                              for kk in jax.random.split(k, n_out)]
+    return bits
+
+
+def _scan_op_by_op(body, carry, xs):
+    """jax.lax.scan's semantics, each step's ops dispatched one by one
+    (as the reference's unscanned update runs them in these tests)."""
+    ys = []
+    for j in range(jax.tree.leaves(xs)[0].shape[0]):
+        carry, y = body(carry, jax.tree.map(lambda a: a[j], xs))
+        ys.append(y)
+    return carry, jax.tree.map(lambda *a: jnp.stack(a), *ys)
+
+
+@pytest.mark.parametrize("opt_name", list(OPT_NAMES))
+def test_chunked_sr_update_matches_the_reference_leafwise_given_its_bits(
+        opt_name, monkeypatch):
+    """paper_sr_bf16 with the threshold lowered in both packages: the
+    port's layer-by-layer update, given the bits that the reference's
+    _leafwise scan draws for each layer (and for the whole 2-D leaf),
+    writes back the same bf16 bits as the reference, on both backends,
+    from bf16 gradients where the reference takes them in f32.
+
+    The reference's scan runs op by op, as its unscanned update does in
+    test_optimizer_leaf_update_bit_equal_to_reference: compiled, XLA
+    contracts sgdm's momentum * m + g into one fused multiply-add inside
+    the scan body, which moves one momentum of these 1920 (0.0 against
+    -3.27e-11) and which neither package's unscanned update does."""
+    monkeypatch.setattr(joptim, "_CHUNK_BYTES", CHUNK_LOW)
+    monkeypatch.setattr(optim_mod, "_CHUNK_BYTES", CHUNK_LOW)
+    monkeypatch.setattr(jax.lax, "scan", _scan_op_by_op)
+    inp = _chunk_inputs("paper_sr_bf16")
+    names = OPT_NAMES[opt_name]
+    key, step = jax.random.PRNGKey(21), 3
+    jopt = joptim.make_optimizer(JTrain(optimizer=opt_name),
+                                 jget_policy("paper_sr_bf16"))
+    jp, js = jopt.update(inp["g"][0], {n: inp[n][0] for n in names},
+                         inp["p"][0], jnp.asarray(step, jnp.int32), key)
+    bits = _leafwise_bits(opt_name, key, CHUNK_SHAPES, {"stack"})
+    want = [flat(jp)] + [flat(js[n]) for n in names]
+    for backend in ("reference", "cuda"):
+        opt = make_optimizer(TrainConfig(optimizer=opt_name),
+                             get_policy("paper_sr_bf16"), backend)
+        asked = []
+
+        def rbits(i, layer):
+            asked.append((i, layer))
+            return bits[i, layer]
+
+        new_p, new_s = opt.update(inp["g"][1], {n: inp[n][1] for n in names},
+                                  inp["p"][1], step, None, rbits=rbits)
+        assert sorted(asked, key=str) == sorted(bits, key=str)
+        for got, ref in zip([flat(new_p)] + [flat(new_s[n]) for n in names],
+                            want):
+            for path, t in got.items():
+                assert t.dtype == torch.bfloat16
+                np.testing.assert_array_equal(bits16(t), bits16(ref[path]),
+                                              err_msg=path)
+
+
+def test_chunked_sr_update_seeds_each_layer_from_fold_key(monkeypatch):
+    """A live step's layout for a layer-by-layer leaf: layer l of leaf i
+    draws its written-back tensors' bits from generators seeded with
+    fold_key(fold_key(fold_key(key, i), l), j), the counterpart of the
+    reference's fold_in(split(key)[i], l)."""
+    monkeypatch.setattr(optim_mod, "_CHUNK_BYTES", CHUNK_LOW)
+    inp = _chunk_inputs("paper_sr_bf16")
+    opt = make_optimizer(TrainConfig(optimizer="adamw"),
+                         get_policy("paper_sr_bf16"), "reference")
+    key, step = 77, 2
+    new_p, new_s = opt.update(inp["g"][1], {n: inp[n][1] for n in "mv"},
+                              inp["p"][1], step, key)
+    for layer in range(CHUNK_SHAPES["stack"][0]):
+        lk = rounding.fold_key(rounding.fold_key(key, 0), layer)
+        gens = [torch.Generator().manual_seed(rounding.fold_key(lk, j))
+                for j in range(3)]
+        want = opt.leaf(*(inp[n][1]["stack"][layer] for n in "gmvp"), step,
+                        gens=gens)
+        for got, w in zip((new_p, new_s["m"], new_s["v"]), want):
+            assert torch.equal(got["stack"][layer].view(torch.int16),
+                               w.view(torch.int16))
 
 
 # ---------------------------------------------------------------------------
@@ -650,6 +803,41 @@ def test_train_cli_runs_on_the_cpu_and_the_loss_falls(tmp_path, capsys):
     assert "step     9 loss=" in out and "done: 10 steps; loss" in out
     assert np.all(np.isfinite(res["losses"]))
     assert res["losses"][-1] < res["losses"][0]
+
+
+def test_train_run_frees_the_initial_state_once_a_step_has_run(
+        monkeypatch, tmp_path):
+    """launch.train.run hands its state to the loop and keeps none of it:
+    after step 0 no tensor of the initial state is alive (granite at the
+    reduced size, on the CPU), so a step holds two states, not three."""
+    import gc
+    import weakref
+
+    from repro_torch.core.tree import tree_leaves
+
+    refs = []
+    init_state = tl.init_state
+
+    def spy(*a, **kw):
+        state = init_state(*a, **kw)
+        refs.extend(weakref.ref(t) for tree in (state["params"],
+                                                state["opt"])
+                    for _, t in tree_leaves(tree))
+        return state
+
+    monkeypatch.setattr(tl, "init_state", spy)
+    alive = []
+
+    def on_step(step, metrics, dt):
+        gc.collect()
+        alive.append(sum(r() is not None for r in refs))
+
+    args = launch_train.parser().parse_args([
+        "--arch", "granite-moe-1b-a400m", "--reduced", "--device", "cpu",
+        "--kernel-backend", "cuda", "--steps", "2", "--batch", "2", "--seq",
+        "16", "--ckpt-dir", str(tmp_path)])
+    launch_train.run(args, on_step=on_step)
+    assert len(refs) > 20 and alive == [0, 0]
 
 
 def test_train_cli_needs_a_gpu_unless_asked_for_the_cpu(monkeypatch,
