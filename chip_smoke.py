@@ -257,7 +257,8 @@ def errs(got, want) -> tuple:
 def ptxas_report(log: str) -> list:
     """(kernel, registers, spill bytes stored, spill bytes loaded) per
     entry function of an -Xptxas -v log; gemm_sm90.cuh's mainloop is
-    named by its template arguments <BN, A_MN, B_MN, BATCHED>, sgemm_sm90.cuh's
+    named by its template arguments <BN, A_MN, B_MN>, gemm_sm90_batched.cuh's
+    by <BN, A_MN, B_MN, OUT> (OUT 0 f32, 1 bf16, 2 SR), sgemm_sm90.cuh's
     by <A_MN, B_MN, BATCHED>, wkv6.cu's by <hd, columns a block, columns a
     thread, bf16 r/k/v>, wkv6_bwd.cu's by <hd, bf16 r/k/v>."""
     import re
@@ -267,9 +268,13 @@ def ptxas_report(log: str) -> list:
                       r"for) '?([A-Za-z0-9_]+)", line)
         if m:
             cur = m.group(1)
-            g = re.search(r"gemm_kernelILi(\d+)ELb(\d)ELb(\d)ELb(\d)E", cur)
+            g = re.search(r"gemm_kernelILi(\d+)ELb(\d)ELb(\d)E", cur)
             if g:
                 cur = f"gemm_kernel<{','.join(g.groups())}>"
+            g = re.search(r"batched_kernelILi(\d+)ELb(\d)ELb(\d)ELi(\d)E",
+                          cur)
+            if g:
+                cur = f"batched_kernel<{','.join(g.groups())}>"
             g = re.search(r"sgemm_kernelILb(\d)ELb(\d)ELb(\d)E", cur)
             if g:
                 cur = f"sgemm_kernel<{','.join(g.groups())}>"
@@ -1360,15 +1365,192 @@ def _expert_plan_sweep(name: str, a, w, layers, want) -> dict:
     return res
 
 
+def _routed_rows(gcfg, router_w, T: int, gen) -> tuple:
+    """A MoE layer's routing of T tokens (T <= 4096: dropless, C = T
+    rounded up to 8) as models/moe.py makes it, on the card: the router
+    (_route, reference backend) on seeded activations x (T, d), the
+    dispatch into the (E, C, d) bf16 buffer of x's rows, and each
+    expert's live rows (_expert_rows).  Returns (rows, buffer)."""
+    import torch
+    from repro_torch.engine.context import PEContext
+    from repro_torch.models import moe
+    E, k, d = gcfg.moe.n_experts, gcfg.moe.top_k, gcfg.d_model
+    x = torch.randn((T, d), generator=gen, device="cuda")
+    _, topi, _ = moe._route(x, router_w.float(), k, PEContext())
+    C = max(8, -(-T // 8) * 8)
+    slot, keep = moe._dispatch_indices(topi.reshape(-1), E, C)
+    tok = torch.arange(T, device="cuda").repeat_interleave(k)
+    buf = torch.zeros((E * C + 1, d), device="cuda")
+    buf.index_copy_(0, slot, x[tok] * keep[:, None])
+    return moe._expert_rows(topi, E, C), buf[:-1].reshape(E, C, d).bfloat16()
+
+
+def _live_buffer(rows, C: int, width: int, gen, scale: float = 1.0):
+    """(E, C, width) bf16, random below each expert's live rows, zero past
+    them (as the dispatch leaves a buffer)."""
+    import torch
+    from repro_torch.kernels import sr_matmul as kmm
+    r = torch.randn((rows.numel(), C, width), generator=gen, device="cuda")
+    return torch.where(kmm.live_rows(rows, C)[..., None], r * scale,
+                       0.0).bfloat16()
+
+
+def _expert_role(tag: str, role: str, tables: list, rows, C: int, peaks,
+                 variants) -> dict:
+    """One role of a MoE layer's bf16 batched products over its three
+    tables, as the main path runs them: `tables` holds (name, routed, full)
+    with three operand sets each — routed: every expert's rows past
+    `rows` zero; full: every row live (the skewed worst case) — as (a, w)
+    (role prefill, ff: a . w; bp: a . w^T, trans_b) or (x, dy, rbits)
+    (up: SR x^T dy).  Gates each table's routed product: its f32 form
+    within MM_RTOL / MM_ATOL of the plain version, its bf16 out (FF, BP,
+    PREFILL) bit-equal to that f32 out rounded to nearest even, its SR
+    out (UP) bit-equal to the plain SR cast of that f32 out, and each
+    equal to the all-live kernel's on the same buffers (up to the sign of
+    a zero).  Times in a CUDA graph, warm in L2 (set 0 again and again)
+    and cold (the three sets in turn): the parent-equivalent all-live
+    form (FF / BP / PREFILL: every row, f32 out, then the cast to bf16;
+    UP: every token), the all-live bf16 form, the routed form (also in
+    CUDA events) and torch.bmm on the routed buffers; the bounds over the
+    full C and over the live rows (the inputs' live rows, every table an
+    expert with a live row reads, the whole output; UP: the whole bits
+    and dW); the routed form's mainloop / epilogue split
+    (launch/ablate_experts.py's variants, warm).  Returns the sums over
+    the three tables."""
+    import torch
+    from repro_torch.core.rounding import sr_cast_bf16
+    from repro_torch.kernels import outer_accum as koa
+    from repro_torch.kernels import sr_matmul as kmm
+    from repro_torch.launch import ablate_experts as ablate
+    bf = torch.bfloat16
+    E, live_n, busy = rows.numel(), int(rows.sum()), int((rows > 0).sum())
+    keys = ("ms", "plain", "lib", "graph", "cold", "lib_graph", "lib_cold",
+            "parent_graph", "parent_cold", "all_live_graph",
+            "all_live_cold", "bound", "bound_full")
+    tot = {k: 0.0 for k in keys}
+    split, by_ms, worst = {}, {"bytes": 0.0, "operations": 0.0}, 0.0
+    for name, routed, full in tables:
+        if role == "up":
+            x, dy, rb = routed[0]
+            K, N = x.shape[2], dy.shape[2]
+            run = lambda o: koa.outer_accum_batched(o[0], o[1], rbits=o[2],
+                                                    rows=rows)
+            every = lambda o: koa.outer_accum_batched(o[0], o[1],
+                                                      rbits=o[2])
+            parent = every
+            lib = lambda o: torch.bmm(o[0].transpose(1, 2), o[1])
+            f32 = koa.outer_accum_batched(x, dy, rows=rows)
+            want = koa.outer_accum_batched_plain(x, dy)
+            got = run(routed[0])
+            check(torch.equal(got.view(torch.int16),
+                              sr_cast_bf16(f32, rb).view(torch.int16)),
+                  f"{tag} up {name}: the SR epilogue is not the plain SR "
+                  f"cast of the kernel's own f32 product")
+            plain = lambda: koa.outer_accum_batched_plain(x, dy, rbits=rb,
+                                                          rows=rows)
+            out_elems, red = E * K * N, (K + N)
+            nb_live = 2 * live_n * red + 6 * out_elems
+            nb_full = 2 * E * C * red + 6 * out_elems
+            fl_live, fl_full = 2 * live_n * K * N, 2 * E * C * K * N
+        else:
+            a, w = routed[0]
+            trans_b = role == "bp"
+            run = lambda o: kmm.sr_matmul_batched(
+                o[0], o[1], trans_b=trans_b, rows=rows, out_dtype=bf)
+            every = lambda o: kmm.sr_matmul_batched(
+                o[0], o[1], trans_b=trans_b, out_dtype=bf)
+            parent = lambda o: kmm.sr_matmul_batched(
+                o[0], o[1], trans_b=trans_b).to(bf)
+            lib = lambda o: torch.bmm(o[0], o[1].transpose(1, 2) if trans_b
+                                      else o[1])
+            f32 = kmm.sr_matmul_batched(a, w, trans_b=trans_b, rows=rows)
+            want = kmm.sr_matmul_batched_plain(a, w, trans_b=trans_b,
+                                               rows=rows)
+            got = run(routed[0])
+            check(torch.equal(got.view(torch.int16),
+                              f32.to(bf).view(torch.int16)),
+                  f"{tag} {role} {name}: the bf16 epilogue is not the f32 "
+                  f"out rounded to nearest even")
+            plain = lambda: kmm.sr_matmul_batched_plain(
+                a, w, trans_b=trans_b, rows=rows, out_dtype=bf)
+            kr, (kw, nw) = a.shape[2], w.shape[1:]
+            n_out = kw if trans_b else nw
+            nb_live = 2 * live_n * kr + 2 * busy * kw * nw + 2 * E * C * n_out
+            nb_full = 2 * E * C * kr + 2 * E * kw * nw + 2 * E * C * n_out
+            fl_live, fl_full = 2 * live_n * kw * nw, 2 * E * C * kw * nw
+        torch.cuda.synchronize()
+        ea, _ = errs(f32, want)
+        worst = max(worst, ea)
+        check(torch.allclose(f32, want, rtol=MM_RTOL, atol=MM_ATOL),
+              f"{tag} {role} {name} (routed, C={C}): max abs err {ea:.3g}")
+        check(torch.equal(got, every(routed[0])),
+              f"{tag} {role} {name}: the live rows' result differs from the "
+              f"all-live kernel's on the same buffers")
+        if role != "up":
+            a_all, w_all = full[0]
+            check(torch.allclose(
+                kmm.sr_matmul_batched(a_all, w_all, trans_b=trans_b),
+                kmm.sr_matmul_batched_plain(a_all, w_all, trans_b=trans_b),
+                rtol=MM_RTOL, atol=MM_ATOL),
+                f"{tag} {role} {name}: every row live, out of tolerance")
+        del f32, want, got
+        b_live, by = bound(nb_live, fl_live, peaks)
+        b_full, _ = bound(nb_full, fl_full, peaks)
+        t = {"ms": time_ms(lambda: run(routed[0])),
+             "plain": time_ms(plain, iters=3, warmup=1),
+             "lib": time_ms(lambda: lib(routed[0])),
+             "graph": time_graph_ms(lambda: run(routed[0])),
+             "cold": time_graph_ms(lambda: [run(o) for o in routed],
+                                   iters=2) / len(routed),
+             "lib_graph": time_graph_ms(lambda: lib(routed[0])),
+             "lib_cold": time_graph_ms(lambda: [lib(o) for o in routed],
+                                       iters=2) / len(routed),
+             "parent_graph": time_graph_ms(lambda: parent(full[0])),
+             "parent_cold": time_graph_ms(lambda: [parent(o) for o in full],
+                                          iters=2) / len(full),
+             "all_live_graph": time_graph_ms(lambda: every(full[0])),
+             "all_live_cold": time_graph_ms(lambda: [every(o) for o in full],
+                                            iters=2) / len(full),
+             "bound": b_live, "bound_full": b_full}
+        sp = ablate.times(variants, lambda: run(routed[0]), time_graph_ms)
+        for k, v in t.items():
+            tot[k] += v
+        for k, v in sp.items():
+            split[k] = split.get(k, 0.0) + v
+        by_ms[by] += b_live
+        print(f"[{tag}] {role} {name:<12} C={C} ({live_n} of {E * C} rows "
+              f"live): graph warm / cold: routed {t['graph']:.4f} / "
+              f"{t['cold']:.4f}, all-live {t['all_live_graph']:.4f} / "
+              f"{t['all_live_cold']:.4f}, parent-equivalent all-live "
+              f"{t['parent_graph']:.4f} / {t['parent_cold']:.4f}, torch.bmm "
+              f"{t['lib_graph']:.4f} / {t['lib_cold']:.4f}; bound live rows "
+              f"{b_live:.4f} ({by}), full C {b_full:.4f}; events: routed "
+              f"{t['ms']:.4f}, plain {t['plain']:.4f}, torch.bmm "
+              f"{t['lib']:.4f}; split: {ablate.split_txt(sp)}; max_abs_err "
+              f"{ea:.3g}; == all-live kernel")
+    print(f"[{tag}] {role}, one layer's three tables at C={C}, graph warm / "
+          f"cold: routed {tot['graph']:.4f} / {tot['cold']:.4f}, all-live "
+          f"{tot['all_live_graph']:.4f} / {tot['all_live_cold']:.4f}, "
+          f"parent-equivalent all-live {tot['parent_graph']:.4f} / "
+          f"{tot['parent_cold']:.4f}, torch.bmm {tot['lib_graph']:.4f} / "
+          f"{tot['lib_cold']:.4f}; bound live rows {tot['bound']:.4f}, full "
+          f"C {tot['bound_full']:.4f}; split: {ablate.split_txt(split)}")
+    return {**tot, "split": split, "max_abs_err": worst,
+            "bound_by": max(by_ms, key=by_ms.get), "live_rows": live_n,
+            "rows": E * C}
+
+
 def phase_sr_matmul_experts(gcfg, gparams, peaks) -> dict:
     """sr_matmul's batched mode at granite's full-width PREFILL shapes:
     layer 0's three expert tables (32 experts; in and gate 1024 -> 512,
-    out 512 -> 1024) at C in EXPERT_CS rows an expert, each call one
-    launch on the sm90 path, within MM_RTOL / MM_ATOL of the plain
-    version and bit-equal over two calls; at the served C = 32 its
-    event, CUDA-graph, plain and torch.bmm times beside the bound, the
-    graph times also cold in L2 (each call on another layer's table, as
-    a chunk's 24 layers read them: 24 x 33.5 MB a table, the L2 50 MB)."""
+    out 512 -> 1024) at C in EXPERT_CS rows an expert, every row random,
+    each call one launch on the sm90 path, within MM_RTOL / MM_ATOL of
+    the plain version and bit-equal over two calls, with the plan sweep
+    at the served C = 32; then the served chunk as the main path runs it
+    (_expert_role: a 32-token chunk routed by layer 0's router, timed in
+    a CUDA graph warm and cold in L2, each call on another layer's
+    table, as a chunk's 24 layers read them: 24 x 33.5 MB a table, the
+    L2 50 MB)."""
     import torch
     from repro_torch.kernels import sr_matmul as kmm
     gen = torch.Generator(device="cuda").manual_seed(21)
@@ -1377,9 +1559,6 @@ def phase_sr_matmul_experts(gcfg, gparams, peaks) -> dict:
                                        "experts_out")]
     E = gcfg.moe.n_experts
     worst_abs = worst_rel = 0.0
-    tot = {"ms": 0.0, "graph": 0.0, "plain": 0.0, "lib": 0.0,
-           "lib_graph": 0.0, "bound": 0.0, "cold": 0.0, "lib_cold": 0.0}
-    by_ms = {"bytes": 0.0, "operations": 0.0}
     plans, sweep = {}, {}
     for C in EXPERT_CS:
         for name, w in tables:
@@ -1411,64 +1590,56 @@ def phase_sr_matmul_experts(gcfg, gparams, peaks) -> dict:
             check(torch.equal(got, again),
                   f"sr_matmul:experts {name} C={C}: two calls differ")
             worst_abs, worst_rel = max(worst_abs, ea), max(worst_rel, er)
-            b_ms, by = bound(2 * E * (C * K + K * N) + 4 * E * C * N,
-                             2 * E * C * N * K, peaks)
-            if C != 32:
-                print(f"[sr_matmul:experts] {name:<12} E={E} C={C} K={K} "
-                      f"N={N} {plan_txt(p)}: max_abs_err {ea:.3g}; 2 calls "
-                      f"bit-equal")
-                continue
-            plans[name] = list(p)
-            ms = time_ms(lambda: kmm.sr_matmul_batched(a, w))
-            dev = time_graph_ms(lambda: kmm.sr_matmul_batched(a, w))
-            plain = time_ms(lambda: kmm.sr_matmul_batched_plain(a, w))
-            lib = time_ms(lambda: torch.bmm(a, w))
-            lib_dev = time_graph_ms(lambda: torch.bmm(a, w))
-            layers = moe[name].unbind(0)
-            cold = time_graph_ms(lambda: [kmm.sr_matmul_batched(a, wl)
-                                          for wl in layers],
-                                 iters=2) / len(layers)
-            lib_cold = time_graph_ms(lambda: [torch.bmm(a, wl)
-                                              for wl in layers],
-                                     iters=2) / len(layers)
-            sweep[name] = _expert_plan_sweep(name, a, w, layers, want)
-            by_ms[by] += b_ms
-            for k, v in (("ms", ms), ("graph", dev), ("plain", plain),
-                         ("lib", lib), ("lib_graph", lib_dev),
-                         ("bound", b_ms), ("cold", cold),
-                         ("lib_cold", lib_cold)):
-                tot[k] += v
-            print(f"[sr_matmul:experts] {name:<12} E={E} C={C} K={K} N={N} "
-                  f"{plan_txt(p)}: kernel {ms:.4f}ms plain {plain:.4f}ms "
-                  f"torch.bmm {lib:.4f}ms bound {b_ms:.4f}ms ({by}); in a "
-                  f"CUDA graph: kernel {dev:.4f}ms torch.bmm "
-                  f"{lib_dev:.4f}ms, cold in L2: kernel {cold:.4f}ms "
-                  f"torch.bmm {lib_cold:.4f}ms  max_abs_err {ea:.3g}; 2 "
-                  f"calls bit-equal; one launch")
-    print(f"[sr_matmul:experts] one layer's three tables at C=32: kernel "
-          f"{tot['ms']:.4f}ms plain {tot['plain']:.4f}ms torch.bmm "
-          f"{tot['lib']:.4f}ms bound {tot['bound']:.4f}ms; in a CUDA graph: "
-          f"kernel {tot['graph']:.4f}ms torch.bmm {tot['lib_graph']:.4f}ms; "
-          f"cold in L2: kernel {tot['cold']:.4f}ms torch.bmm "
-          f"{tot['lib_cold']:.4f}ms")
+            print(f"[sr_matmul:experts] {name:<12} E={E} C={C} K={K} "
+                  f"N={N} {plan_txt(p)}: max_abs_err {ea:.3g}; 2 calls "
+                  f"bit-equal; one launch")
+            if C == 32:
+                plans[name] = list(p)
+                sweep[name] = _expert_plan_sweep(
+                    name, a, w, moe[name].unbind(0), want)
+    # the main path's chunk: layer 0's router on a seeded 32-token chunk,
+    # its dispatched buffer and live rows, bf16 out; cold: layers 0-2's
+    # tables in turn
+    from repro_torch.launch import ablate_experts
+    variants = ablate_experts.build_variants()
+    rows, xb = _routed_rows(gcfg, moe["router"][0], 32, gen)
+    tabs = []
+    for name, w in tables:
+        a = xb if w.shape[1] == gcfg.d_model else _live_buffer(
+            rows, 32, w.shape[1], gen)
+        full = torch.randn((E, 32, w.shape[1]), generator=gen,
+                           device="cuda").bfloat16()
+        layers = moe[name].unbind(0)[:3]
+        tabs.append((name, [(a, wl) for wl in layers],
+                     [(full, wl) for wl in layers]))
+    r = _expert_role("sr_matmul:experts:routed", "prefill", tabs, rows, 32,
+                     peaks, variants)
     return {"name": "sr_matmul:experts", "counter": "sr_matmul:batched",
-            "route": "cuda", "source": "src/repro_torch/csrc/gemm_sm90.cuh",
+            "route": "cuda", "source": "src/repro_torch/csrc/"
+                                       "gemm_sm90_batched.cuh",
             "entry": "src/repro_torch/csrc/sr_matmul.cu",
             "replaces": "src/repro/kernels/sr_matmul.py:96",
             "tpu_kernel": "repro/kernels/sr_matmul.py::sr_matmul under "
                           "jax.vmap (repro/engine/dispatch.py:198-199, "
                           "220-229)",
-            "max_abs_err": worst_abs, "max_rel_err": worst_rel,
-            "ms": tot["ms"], "kernel_ms": tot["ms"], "plain_ms": tot["plain"],
-            "library_ms": tot["lib"], "library": "torch.bmm",
-            "bound_ms": tot["bound"], "bound_by": max(by_ms, key=by_ms.get),
-            "graph_ms": tot["graph"], "library_graph_ms": tot["lib_graph"],
-            "cold_graph_ms": tot["cold"],
-            "library_cold_graph_ms": tot["lib_cold"], "plans": plans,
-            "plan_sweep": sweep,
+            "redesigned": "live rows, bf16 out by TMA store",
+            "max_abs_err": max(worst_abs, r["max_abs_err"]),
+            "max_rel_err": worst_rel,
+            "ms": r["ms"], "kernel_ms": r["ms"], "plain_ms": r["plain"],
+            "library_ms": r["lib"], "library": "torch.bmm",
+            "bound_ms": r["bound"], "bound_by": r["bound_by"],
+            "full_c_bound_ms": r["bound_full"], "graph_ms": r["graph"],
+            "library_graph_ms": r["lib_graph"], "cold_graph_ms": r["cold"],
+            "library_cold_graph_ms": r["lib_cold"],
+            "all_live_graph_ms": r["all_live_graph"],
+            "all_live_cold_graph_ms": r["all_live_cold"],
+            "parent_equivalent_graph_ms": r["parent_graph"],
+            "parent_equivalent_cold_graph_ms": r["parent_cold"],
+            "split_graph_ms": r["split"], "live_rows": r["live_rows"],
+            "plans": plans, "plan_sweep": sweep,
             "shapes": f"granite-moe-1b-a400m layer 0, one 32-token PREFILL "
-                      f"chunk: experts_in, experts_gate, experts_out, E={E}, "
-                      f"C=32"}
+                      f"chunk routed by layer 0's router: experts_in, "
+                      f"experts_gate, experts_out, E={E}, C=32, bf16 out"}
 
 
 def _layer0(tree):
@@ -2924,31 +3095,23 @@ def _granite_tables(gcfg) -> list:
 
 
 def phase_expert_training_products(gcfg, peaks) -> tuple:
-    """A MoE training step's expert products at granite's full width, with
-    random operands: outer_accum's batched mode (UP, dW (E, K, N) = X^T
-    dY) at layer 0's three tables and C in EXPERT_UP_CS rows an expert,
-    one launch on the sm90 path each, within MM_RTOL / MM_ATOL of the
-    plain version in f32, its SR result bit-equal to the plain SR cast
-    of its own f32 result and over two calls; at C = 1024 its event,
-    CUDA-graph (warm in L2, and cold: three operand sets in turn, each
-    larger than the L2), plain, torch.bmm and bound times.  Then
-    sr_matmul's batched mode at the same tables' FF (X . W) and BP (dY .
-    W^T, trans_b) at C = 1024, against the plain version and timed.
-    Returns (the kernels-line row of the batched UP, the FF / BP
-    numbers)."""
+    """A MoE training step's expert products at granite's full width:
+    outer_accum's batched mode (UP, dW (E, K, N) = X^T dY) at layer 0's
+    three tables' shapes and C in EXPERT_UP_CS rows an expert, every row
+    random, one launch on the sm90 path each, within MM_RTOL / MM_ATOL of
+    the plain version in f32, its SR result bit-equal to the plain SR
+    cast of its own f32 result and over two calls.  Then the step's UP,
+    FF (X . W) and BP (dY . W^T, trans_b) at C = 1024 as the main path
+    runs them — live rows from a seeded router, bf16 out, SR UP — gated
+    and timed by _expert_role against the all-live and parent-equivalent
+    forms and torch.bmm.  Returns (the kernels-line row of the batched
+    UP, the FF / BP numbers)."""
     import torch
     from repro_torch.core.rounding import sr_cast_bf16
     from repro_torch.kernels import outer_accum as koa
-    from repro_torch.kernels import sr_matmul as kmm
     gen = torch.Generator(device="cuda").manual_seed(24)
     E = gcfg.moe.n_experts
     worst_abs = 0.0
-    tot = {k: 0.0 for k in ("ms", "graph", "cold", "plain", "lib",
-                            "lib_graph", "lib_cold", "bound")}
-    by_ms = {"bytes": 0.0, "operations": 0.0}
-    mm = {r: {k: 0.0 for k in ("ms", "graph", "plain", "lib", "lib_graph",
-                               "bound")} for r in ("ff", "bp")}
-    mm_abs = 0.0
 
     def operands(C, K, N):
         x = torch.randn((E, C, K), generator=gen, device="cuda").bfloat16()
@@ -2990,110 +3153,74 @@ def phase_expert_training_products(gcfg, peaks) -> tuple:
                               again.view(torch.int16)),
                   f"outer_accum:experts {name} C={C}: two calls differ")
             del got, want, again, got_sr
-            b_ms, by = bound(2 * E * C * (K + N) + (4 + 2) * E * K * N,
-                             2 * E * C * K * N, peaks)
-            if C != EXPERT_UP_CS[-1]:
-                print(f"[outer_accum:experts] {name:<12} E={E} C={C} K={K} "
-                      f"N={N} {plan_txt(p)}: max_abs_err {ea:.3g}; SR "
-                      f"bit-equal to the plain cast; 2 calls bit-equal")
-                continue
-            call = lambda: koa.outer_accum_batched(x, dy, rbits=rb)
-            ms = time_ms(call)
-            dev = time_graph_ms(call)
-            sets = [(x, dy, rb)] + [operands(C, K, N) for _ in range(2)]
-            cold = time_graph_ms(lambda: [koa.outer_accum_batched(
-                a, b, rbits=r) for a, b, r in sets], iters=2) / len(sets)
-            plain = time_ms(lambda: koa.outer_accum_batched_plain(
-                x, dy, rbits=rb), iters=3, warmup=1)
-            xt = x.transpose(1, 2)
-            lib = time_ms(lambda: torch.bmm(xt, dy))
-            lib_dev = time_graph_ms(lambda: torch.bmm(xt, dy))
-            lib_cold = time_graph_ms(lambda: [torch.bmm(a.transpose(1, 2), b)
-                                              for a, b, _ in sets],
-                                     iters=2) / len(sets)
-            by_ms[by] += b_ms
-            for k, v in (("ms", ms), ("graph", dev), ("cold", cold),
-                         ("plain", plain), ("lib", lib), ("lib_graph",
-                                                          lib_dev),
-                         ("lib_cold", lib_cold), ("bound", b_ms)):
-                tot[k] += v
-            print(f"[outer_accum:experts] {name:<12} E={E} C={C} K={K} N={N} "
-                  f"(SR) {plan_txt(p)}: kernel {ms:.4f}ms plain "
-                  f"{plain:.4f}ms torch.bmm (bf16 out, no SR) {lib:.4f}ms "
-                  f"bound {b_ms:.4f}ms ({by}); in a CUDA graph: kernel "
-                  f"{dev:.4f}ms torch.bmm {lib_dev:.4f}ms, cold in L2: "
-                  f"kernel {cold:.4f}ms torch.bmm {lib_cold:.4f}ms  "
-                  f"max_abs_err {ea:.3g}; 2 calls bit-equal; one launch")
-            del sets
-            # the same table's FF and BP through sr_matmul's batched mode
-            w = (torch.randn((E, K, N), generator=gen, device="cuda")
-                 * K ** -0.5).bfloat16()
-            for role, a, trans_b in (("ff", x, False), ("bp", dy, True)):
-                pm = kmm.plan(C, K if trans_b else N, N if trans_b else K,
-                              "k", "k" if trans_b else "n", experts=E)
-                out = kmm.sr_matmul_batched(a, w, trans_b=trans_b)
-                want = kmm.sr_matmul_batched_plain(a, w, trans_b=trans_b)
-                torch.cuda.synchronize()
-                ea2, _ = errs(out, want)
-                mm_abs = max(mm_abs, ea2)
-                check(torch.allclose(out, want, rtol=MM_RTOL, atol=MM_ATOL),
-                      f"sr_matmul:experts {role} {name} C={C}: max abs err "
-                      f"{ea2:.3g}")
-                check(torch.equal(out, kmm.sr_matmul_batched(
-                    a, w, trans_b=trans_b)),
-                    f"sr_matmul:experts {role} {name}: two calls differ")
-                del out, want
-                f = lambda: kmm.sr_matmul_batched(a, w, trans_b=trans_b)
-                wl = w.transpose(1, 2) if trans_b else w
-                g = lambda: torch.bmm(a, wl)
-                t = {"ms": time_ms(f), "graph": time_graph_ms(f),
-                     "plain": time_ms(lambda: kmm.sr_matmul_batched_plain(
-                         a, w, trans_b=trans_b), iters=3, warmup=1),
-                     "lib": time_ms(g), "lib_graph": time_graph_ms(g)}
-                n_out = K if trans_b else N
-                t["bound"], mby = bound(
-                    2 * E * (C * a.shape[2] + K * N) + 4 * E * C * n_out,
-                    2 * E * C * K * N, peaks)
-                for k, v in t.items():
-                    mm[role][k] += v
-                print(f"[sr_matmul:experts:train] {role} {name:<12} E={E} "
-                      f"C={C} ({a.shape[2]} -> {n_out}) {plan_txt(pm)}: "
-                      f"kernel {t['ms']:.4f}ms plain {t['plain']:.4f}ms "
-                      f"torch.bmm {t['lib']:.4f}ms bound {t['bound']:.4f}ms "
-                      f"({mby}); in a CUDA graph: kernel {t['graph']:.4f}ms "
-                      f"torch.bmm {t['lib_graph']:.4f}ms  max_abs_err "
-                      f"{ea2:.3g}; 2 calls bit-equal")
-            del x, dy, rb, w
-            torch.cuda.empty_cache()
-    print(f"[outer_accum:experts] one layer's three tables at C="
-          f"{EXPERT_UP_CS[-1]} (SR): kernel {tot['ms']:.4f}ms plain "
-          f"{tot['plain']:.4f}ms torch.bmm {tot['lib']:.4f}ms bound "
-          f"{tot['bound']:.4f}ms; in a CUDA graph: kernel {tot['graph']:.4f}ms"
-          f" torch.bmm {tot['lib_graph']:.4f}ms; cold in L2: kernel "
-          f"{tot['cold']:.4f}ms torch.bmm {tot['lib_cold']:.4f}ms")
-    for role in ("ff", "bp"):
-        r = mm[role]
-        print(f"[sr_matmul:experts:train] {role}, one layer's three tables "
-              f"at C={EXPERT_UP_CS[-1]}: kernel {r['ms']:.4f}ms plain "
-              f"{r['plain']:.4f}ms torch.bmm {r['lib']:.4f}ms bound "
-              f"{r['bound']:.4f}ms; in a CUDA graph: kernel "
-              f"{r['graph']:.4f}ms torch.bmm {r['lib_graph']:.4f}ms")
+            print(f"[outer_accum:experts] {name:<12} E={E} C={C} K={K} "
+                  f"N={N} {plan_txt(p)}: max_abs_err {ea:.3g}; SR "
+                  f"bit-equal to the plain cast; 2 calls bit-equal")
+    # a training step's products at C = T = 1024 as the main path runs
+    # them: a seeded router's live rows, bf16 out, SR UP; three operand
+    # sets a table (the cold timings)
+    from repro_torch.launch import ablate_experts
+    variants = ablate_experts.build_variants()
+    C = EXPERT_UP_CS[-1]
+    router = (torch.randn((gcfg.d_model, E), generator=gen, device="cuda")
+              * gcfg.d_model ** -0.5)
+    rows, xb = _routed_rows(gcfg, router, C, gen)
+
+    def full(w):
+        return torch.randn((E, C, w), generator=gen, device="cuda").bfloat16()
+
+    def weight(K, N):
+        return (torch.randn((E, K, N), generator=gen, device="cuda")
+                * K ** -0.5).bfloat16()
+
+    res = {}
+    for role in ("up", "ff", "bp"):
+        tabs = []
+        for name, K, N in _granite_tables(gcfg):
+            if role == "up":
+                dy = lambda: _live_buffer(rows, C, N, gen, C ** -0.5)
+                routed = [(_live_buffer(rows, C, K, gen), dy(),
+                           _rbits(gen, (E, K, N))) for _ in range(3)]
+                every = [(full(K), full(N) * C ** -0.5, r)
+                         for _, _, r in routed]
+            else:
+                width = N if role == "bp" else K
+                a = (xb if role == "ff" and K == gcfg.d_model
+                     else _live_buffer(rows, C, width, gen))
+                ws = [weight(K, N) for _ in range(3)]
+                routed, every = ([(a, w) for w in ws],
+                                 [(full(width), w) for w in ws])
+            tabs.append((name, routed, every))
+        res[role] = _expert_role("experts:train", role, tabs, rows, C,
+                                 peaks, variants)
+        del tabs
+        torch.cuda.empty_cache()
+    up = res["up"]
     row = {"name": "outer_accum:experts", "counter": "outer_accum:batched",
-           "route": "cuda", "source": "src/repro_torch/csrc/gemm_sm90.cuh",
+           "route": "cuda",
+           "source": "src/repro_torch/csrc/gemm_sm90_batched.cuh",
            "entry": "src/repro_torch/csrc/outer_accum.cu",
            "replaces": "src/repro/kernels/outer_accum.py:80",
            "tpu_kernel": "repro/kernels/outer_accum.py::outer_accum under "
                          "jax.vmap (repro/engine/dispatch.py:220-229)",
-           "max_abs_err": worst_abs, "ms": tot["ms"], "kernel_ms": tot["ms"],
-           "plain_ms": tot["plain"], "library_ms": tot["lib"],
+           "redesigned": "live tokens, SR bits by TMA",
+           "max_abs_err": max(worst_abs, up["max_abs_err"]), "ms": up["ms"],
+           "kernel_ms": up["ms"], "plain_ms": up["plain"],
+           "library_ms": up["lib"],
            "library": "torch.bmm (bf16 out, no SR)",
-           "bound_ms": tot["bound"], "bound_by": max(by_ms, key=by_ms.get),
-           "graph_ms": tot["graph"], "cold_graph_ms": tot["cold"],
-           "library_graph_ms": tot["lib_graph"],
-           "library_cold_graph_ms": tot["lib_cold"],
+           "bound_ms": up["bound"], "bound_by": up["bound_by"],
+           "full_c_bound_ms": up["bound_full"], "graph_ms": up["graph"],
+           "cold_graph_ms": up["cold"], "library_graph_ms": up["lib_graph"],
+           "library_cold_graph_ms": up["lib_cold"],
+           "all_live_graph_ms": up["all_live_graph"],
+           "all_live_cold_graph_ms": up["all_live_cold"],
+           "split_graph_ms": up["split"], "live_rows": up["live_rows"],
            "shapes": f"granite-moe-1b-a400m, one layer's three expert "
-                     f"tables' UP with SR, E={E}, C={EXPERT_UP_CS[-1]}"}
-    return row, {"max_abs_err": mm_abs, **mm}
+                     f"tables' UP with SR, E={E}, C={C}, routed by a "
+                     f"seeded router"}
+    return row, {"max_abs_err": max(res["ff"]["max_abs_err"],
+                                    res["bp"]["max_abs_err"]),
+                 "ff": res["ff"], "bp": res["bp"]}
 
 
 def phase_train_granite_step0(gcfg, n: int = 4, B: int = TRAIN_B,
@@ -3546,6 +3673,28 @@ def print_targets(rows: dict) -> None:
     targets.append(("wkv6_bwd training shape B=4 S=256 H=32 hd=64, in a "
                     "CUDA graph <= 0.10 ms", rows["wkv6_bwd"]["graph_ms"],
                     0.10))
+    # the bf16 batched expert products' redesign: a layer's three tables
+    # with a seeded router's live rows, in a CUDA graph (warm), against
+    # torch.bmm on the same buffers and twice the live-row bound
+    ex, up = rows["sr_matmul:experts"], rows["outer_accum:experts"]
+    for role in ("ff", "bp"):
+        r = ex["train"][role]
+        targets += [
+            (f"experts {role} routed C=1024 <= torch.bmm", r["graph"],
+             r["lib_graph"]),
+            (f"experts {role} routed C=1024 <= 2x its live-row bound",
+             r["graph"], 2 * r["bound"]),
+            (f"experts {role} every row live <= the parent-equivalent "
+             f"(f32 out + cast)", r["all_live_graph"], r["parent_graph"])]
+    targets += [
+        ("experts up routed C=1024 (SR) <= torch.bmm (no SR)",
+         up["graph_ms"], up["library_graph_ms"]),
+        ("experts up routed C=1024 <= 2x its live-row bound", up["graph_ms"],
+         2 * up["bound_ms"]),
+        ("experts PREFILL routed C=32 warm <= 0.0364 ms", ex["graph_ms"],
+         0.0364),
+        ("experts PREFILL routed C=32 cold in L2 <= 0.0509 ms",
+         ex["cold_graph_ms"], 0.0509)]
     for what, got, limit in targets:
         print(f"[targets] {what}: {got:.4f}ms against {limit:.4f}ms: "
               f"{'met' if got <= limit else 'MISSED'}")

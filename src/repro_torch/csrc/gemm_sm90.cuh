@@ -6,11 +6,8 @@
 // It serves two TPU kernels: repro/kernels/sr_matmul.py::sr_matmul (the
 // MAC array: PREFILL, and FF / BP of training) and
 // repro/kernels/outer_accum.py::outer_accum (UP, dW = scale * X^T dY).
-// Its BATCHED form is both over a MoE layer's expert table (the TPU runs
-// sr_matmul and outer_accum under jax.vmap: one pallas_call with an
-// expert axis in its grid): out[e] = A[e] . B[e] for e < E in ONE launch,
-// the expert an outer coordinate of the persistent tile space — PREFILL,
-// FF and BP with A K-major, UP (dW[e] = X[e]^T dY[e]) with A M-major.
+// Their batched mode over a MoE expert table (the TPU kernels under
+// jax.vmap) is gemm_sm90_batched.cuh, built from the pieces here.
 // Every role reads its operands where they lie, through the majorness
 // template parameters, with no transposed copy:
 //
@@ -38,23 +35,6 @@
 //   reading the 272 MB table; its 7 x 2 output tiles of 128 x 128 need
 //   18 splits to stream it from every SM.
 //
-// - A MoE PREFILL chunk (BATCHED: E = 32 experts, M = C = 32 rows, one
-//   table of 32 x 1024 x 512 bf16) is bound by streaming the 33.5 MB
-//   table.  Each expert's (M, N, K) takes the 2-D plan's rule over the
-//   tiles of all E experts (granite: 128-wide tiles, 4 or 8 an expert,
-//   128 or 256 in all; 64-wide ones measured slower cold in L2), so the
-//   persistent blocks walk one or two experts' tiles each.  A and B are
-//   read through 3-D tensor maps (expert, rows, cols): a box past an
-//   expert's rows or K reads the TMA's zeros, never the next expert's
-//   rows, and the epilogue clips each expert's stores to its M rows.
-// - A MoE training step's expert products (BATCHED, C = T = 1024 rows an
-//   expert, a quarter of them real: dropless) are bound by the tensor
-//   cores in FF and BP.  Their UP (A = X[e]^T M-major: X (E, T, D) is a
-//   3-D map of (T, D) matrices, the TMA box 64 tokens x 64 of D) is bound
-//   by bytes: X, dY, the SR bits and the bf16 dW (granite: 192 MB a
-//   table); the split-K workspace, the SR bits and dW are indexed at each
-//   expert's offset, E x M x N flat.
-//
 // Tiles: BM = 128 (two consumer warpgroups of 64 rows), BN = 64 or 128,
 // BK = 64 (one 128-byte swizzle row of bf16), a ring of STAGES = 5.
 // Every tile is 1024-byte aligned in shared memory with the 128-byte
@@ -67,8 +47,7 @@
 // 151936 terms in 18 splits of about 8.4k).
 //
 // Split-K: a plan with splits > 1 writes each split's f32 partial tile
-// to a workspace [splits, E, M, N] (E = 1 unbatched); splitk_reduce then
-// sums the splits in
+// to a workspace [splits, M, N]; splitk_reduce then sums the splits in
 // the fixed order 0..splits-1 and applies the scale and the SR
 // writeback.  No float atomics: two calls on the same input give the
 // same bits, and the split count depends on the plan (N, K, layout),
@@ -180,16 +159,6 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
       "r"(c1), "r"(c2)
       : "memory");
-}
-
-// A box at (c0, c1) of matrix e: a 3-D load for a batched operand.
-template <bool BATCHED>
-__device__ __forceinline__ void tma_box(void* dst, const CUtensorMap* map,
-                                        uint64_t* bar, int c0, int c1, int e) {
-  if constexpr (BATCHED)
-    tma_load_3d(dst, map, bar, c0, c1, e);
-  else
-    tma_load(dst, map, bar, c0, c1);
 }
 
 __device__ __forceinline__ void tma_prefetch(const CUtensorMap* map) {
@@ -320,50 +289,36 @@ __device__ __forceinline__ void store_pair(void* out,
   if (pair) store_out(out, rbits, o + 1, v1, sr);
 }
 
-// Tile `tile` of the (grid_x, grid_y, splits, experts) space as (column
-// tile, row tile, split, expert).  Column tiles run fastest, so the
-// blocks in flight share A's rows; with m_fast the row tiles do (when
-// all of A is small enough to stay in L2, every B tile is then read from
-// memory once).  The expert is outermost: the blocks in flight walk one
-// expert's tiles, then the next expert's.  Unbatched, the expert is 0 at
-// compile time, so the 2-D kernel does no work for it.
+// Tile `tile` of the (grid_x, grid_y, splits) space as (column tile, row
+// tile, split).  Column tiles run fastest, so the blocks in flight share
+// A's rows; with m_fast the row tiles do (when all of A is small enough
+// to stay in L2, every B tile is then read from memory once).
 struct TileCoord {
-  int x, y, z, e;
+  int x, y, z;
 };
-template <bool BATCHED>
 __device__ __forceinline__ TileCoord tile_coord(int tile, int grid_x,
-                                                int grid_y, int splits,
-                                                int m_fast) {
-  int e = 0, t = tile;
-  if constexpr (BATCHED) {
-    const int per_e = grid_x * grid_y * splits;
-    e = tile / per_e;
-    t = tile % per_e;
-  }
-  const int xy = t % (grid_x * grid_y), z = t / (grid_x * grid_y);
-  if (m_fast) return {xy / grid_y, xy % grid_y, z, e};
-  return {xy % grid_x, xy / grid_x, z, e};
+                                                int grid_y, int m_fast) {
+  const int xy = tile % (grid_x * grid_y), z = tile / (grid_x * grid_y);
+  if (m_fast) return {xy / grid_y, xy % grid_y, z};
+  return {xy % grid_x, xy / grid_x, z};
 }
 
 // out(M, N) = scale * A . B, persistent: block b walks the output tiles
-// b, b + gridDim.x, ... of the (grid_x, grid_y, splits, experts) tile
-// space (the caller's loop nest, in tile_coord's order), so the producer
-// loads the next tile while the consumers store this one.  BATCHED: A,
-// B and out hold `experts` matrices each ((E, M, K) or, A_MN, X (E, K,
-// M); (E, K, N) or (E, N, K); (E, M, N), and rbits too) and A, B are
-// 3-D tensor maps; otherwise experts == 1.  a_rows (32, 64 or 128)
+// b, b + gridDim.x, ... of the (grid_x, grid_y, splits) tile space (the
+// caller's loop nest, in tile_coord's order), so the producer loads the
+// next tile while the consumers store this one.  a_rows (32, 64 or 128)
 // is how many rows of an A tile are loaded: a matrix of at most 32 or 64
 // rows loads only those (rows past M feed only output rows that are
 // never stored, and each output row depends on its own A row alone).
 // THREADS threads: warps 0-7 are the two consumer warpgroups, warp 8 the
 // producer.
-template <int BN, bool A_MN, bool B_MN, bool BATCHED>
+template <int BN, bool A_MN, bool B_MN>
 __global__ void __launch_bounds__(THREADS, 1)
     gemm_kernel(const __grid_constant__ CUtensorMap tma_a,
                 const __grid_constant__ CUtensorMap tma_b,
                 const uint32_t* __restrict__ rbits, void* __restrict__ out,
                 float* __restrict__ ws, int M, int N, int K, int grid_x,
-                int grid_y, int splits, int experts, int kb_per_split,
+                int grid_y, int splits, int kb_per_split,
                 int m_fast, int a_rows, float scale, int sr, int vec) {
   constexpr int B_BYTES = b_bytes<BN>();
   constexpr int NACC = BN / 2;   // f32 accumulators per thread
@@ -376,7 +331,7 @@ __global__ void __launch_bounds__(THREADS, 1)
   uint64_t* empty = full + STAGES;
 
   const int k_blocks = (K + BK - 1) / BK;
-  const int tiles = grid_x * grid_y * splits * (BATCHED ? experts : 1);
+  const int tiles = grid_x * grid_y * splits;
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < STAGES; ++s) {
@@ -397,8 +352,7 @@ __global__ void __launch_bounds__(THREADS, 1)
     tma_prefetch(&tma_b);
     int it = 0;
     for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-      const TileCoord tc = tile_coord<BATCHED>(tile, grid_x, grid_y, splits,
-                                               m_fast);
+      const TileCoord tc = tile_coord(tile, grid_x, grid_y, m_fast);
       const int n0 = tc.x * BN, m0 = tc.y * BM;
       const int kb0 = tc.z * kb_per_split;
       const int nk = min(kb_per_split, k_blocks - kb0);
@@ -411,18 +365,18 @@ __global__ void __launch_bounds__(THREADS, 1)
         mbar_expect_tx(&full[s], a_rows * BK * 2 + B_BYTES);
         if constexpr (A_MN) {
           for (int j = 0; j < a_rows / 64; ++j)
-            tma_box<BATCHED>(a_dst + j * MN_BLOCK, &tma_a, &full[s],
-                             m0 + 64 * j, k0, tc.e);
+            tma_load(a_dst + j * MN_BLOCK, &tma_a, &full[s], m0 + 64 * j,
+                     k0);
         } else {
-          tma_box<BATCHED>(a_dst, &tma_a, &full[s], k0, m0, tc.e);
+          tma_load(a_dst, &tma_a, &full[s], k0, m0);
         }
         if constexpr (B_MN) {
 #pragma unroll
           for (int j = 0; j < BN / 64; ++j)
-            tma_box<BATCHED>(b_dst + j * MN_BLOCK, &tma_b, &full[s],
-                             n0 + 64 * j, k0, tc.e);
+            tma_load(b_dst + j * MN_BLOCK, &tma_b, &full[s], n0 + 64 * j,
+                     k0);
         } else {
-          tma_box<BATCHED>(b_dst, &tma_b, &full[s], k0, n0, tc.e);
+          tma_load(b_dst, &tma_b, &full[s], k0, n0);
         }
       }
     }
@@ -434,11 +388,8 @@ __global__ void __launch_bounds__(THREADS, 1)
   const int t = threadIdx.x % 128;
   int it = 0;
   for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-    const TileCoord tc = tile_coord<BATCHED>(tile, grid_x, grid_y, splits,
-                                               m_fast);
+    const TileCoord tc = tile_coord(tile, grid_x, grid_y, m_fast);
     const int n0 = tc.x * BN, m0 = tc.y * BM, z = tc.z;
-    // this expert's matrix of out (and of rbits, ws): rows clip to its M
-    const size_t eo = BATCHED ? (size_t)tc.e * M * N : 0;
     const int nk = min(kb_per_split, k_blocks - z * kb_per_split);
     const bool active = m0 + 64 * wg < M;
     float acc[NACC];
@@ -491,7 +442,7 @@ __global__ void __launch_bounds__(THREADS, 1)
     if (splits > 1) {
       // the raw partial of split z (splitk_reduce scales it)
       float* part_out =
-          ws + (BATCHED ? (size_t)z * experts + tc.e : (size_t)z) * M * N;
+          ws + (size_t)z * M * N;
 #pragma unroll
       for (int j = 0; j < BN / 8; ++j) {
 #pragma unroll
@@ -515,7 +466,7 @@ __global__ void __launch_bounds__(THREADS, 1)
           const int r = row0 + 8 * h, c = col0 + 8 * j;
           rb[j][h] = (r < M && c < N)
                          ? __ldg(reinterpret_cast<const uint2*>(
-                               rbits + eo + (size_t)r * N + c))
+                               rbits + (size_t)r * N + c))
                          : make_uint2(0u, 0u);
         }
       }
@@ -529,7 +480,7 @@ __global__ void __launch_bounds__(THREADS, 1)
           const uint32_t lo = sr_bf16_bits(acc[e] * scale, rb[j][h].x);
           const uint32_t hi = sr_bf16_bits(acc[e + 1] * scale, rb[j][h].y);
           *reinterpret_cast<uint32_t*>(reinterpret_cast<uint16_t*>(out) +
-                                       eo + (size_t)r * N + c) =
+                                       (size_t)r * N + c) =
               lo | (hi << 16);
         }
       }
@@ -540,7 +491,7 @@ __global__ void __launch_bounds__(THREADS, 1)
         for (int h = 0; h < 2; ++h) {
           const int r = row0 + 8 * h, c = col0 + 8 * j;
           if (r < M && c < N)
-            store_pair(out, rbits, eo + (size_t)r * N + c,
+            store_pair(out, rbits, (size_t)r * N + c,
                        acc[4 * j + 2 * h] * scale,
                        acc[4 * j + 2 * h + 1] * scale, c + 1 < N, sr, vec);
         }
@@ -633,32 +584,41 @@ inline int ensure_context(const void* base) {
   return err;
 }
 
-// A TMA map of the row-major bf16 matrix at `base` (rows x cols, row
-// stride ld elements, a multiple of 8) with 64 x box_rows boxes and the
-// 128-byte swizzle; out-of-bounds elements read as zero.  depth > 0: a
-// 3-D map of `depth` such matrices, rows * ld elements apart (boxes of
-// one matrix each).  Encoding is pure host work of well under a
-// microsecond (chip_smoke.py times it), so every call encodes its maps
-// afresh.
-inline int make_map(CUtensorMap* map, const void* base, int rows, int cols,
-                    int ld, int box_rows, int depth = 0) {
+// A TMA map of the row-major matrix at `base` (rows x cols of `type`,
+// `elem` bytes each, row stride ld elements, ld * elem a multiple of 16)
+// with box_cols x box_rows boxes (box_cols * elem = 128 bytes) and the
+// 128-byte swizzle; out-of-bounds elements read as zero and are not
+// written.  depth > 0: a 3-D map of `depth` such matrices, rows * ld
+// elements apart (boxes of one matrix each).  Encoding is pure host work
+// of well under a microsecond (chip_smoke.py times it), so every call
+// encodes its maps afresh.
+inline int encode_map(CUtensorMap* map, const void* base,
+                      CUtensorMapDataType type, int elem, int rows, int cols,
+                      int ld, int box_cols, int box_rows, int depth = 0) {
   EncodeTiled fn = encoder();
   if (fn == nullptr) return ERR_NO_ENCODER;
   if (const int err = ensure_context(base)) return err;
   const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows,
                               (cuuint64_t)(depth > 0 ? depth : 1)};
-  const cuuint64_t strides[2] = {(cuuint64_t)ld * 2,
-                                 (cuuint64_t)rows * ld * 2};
-  const cuuint32_t box[3] = {(cuuint32_t)BK, (cuuint32_t)box_rows, 1};
-  const cuuint32_t elem[3] = {1, 1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
-                        depth > 0 ? 3 : 2,
-                        const_cast<void*>(base), dims, strides, box, elem,
+  const cuuint64_t strides[2] = {(cuuint64_t)ld * elem,
+                                 (cuuint64_t)rows * ld * elem};
+  const cuuint32_t box[3] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  const CUresult r = fn(map, type, depth > 0 ? 3 : 2,
+                        const_cast<void*>(base), dims, strides, box, unit,
                         CU_TENSOR_MAP_INTERLEAVE_NONE,
                         CU_TENSOR_MAP_SWIZZLE_128B,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : ERR_ENCODE;
+}
+
+// The same for a bf16 operand, in boxes of BK (one 128-byte row) x
+// box_rows.
+inline int make_map(CUtensorMap* map, const void* base, int rows, int cols,
+                    int ld, int box_rows, int depth = 0) {
+  return encode_map(map, base, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, rows,
+                    cols, ld, BK, box_rows, depth);
 }
 
 // How many rows of an A tile are loaded (see gemm_kernel's a_rows).
@@ -685,21 +645,16 @@ int make_maps(CUtensorMap* ma, CUtensorMap* mb, const void* a, const void* b,
 // stride ldb (B_MN) or (N, K) (K-major).  The tile space is
 // (grid_x, grid_y, splits) with kb_per_split k-blocks per split, walked
 // by min(tiles, SMs) persistent blocks; ws holds splits x M x N f32
-// when splits > 1.  BATCHED: `experts` such products, the operands and
-// out contiguous stacks of them (A (E, M, K) or, A_MN, X (E, K, M); B
-// (E, K, N) or (E, N, K); out and rbits (E, M, N)), and ws splits x E x
-// M x N.  Returns 0, a cudaError_t
-// or one of the ERR_ codes.
-template <int BN, bool A_MN, bool B_MN, bool BATCHED = false>
+// when splits > 1.  Returns 0, a cudaError_t or one of the ERR_ codes.
+template <int BN, bool A_MN, bool B_MN>
 int run(const void* a, const void* b, const void* rbits, void* out,
         float* ws, int M, int N, int K, int lda, int ldb, float scale,
         int sr, int splits, int kb_per_split, int grid_x, int grid_y,
-        cudaStream_t stream, int experts = 1) {
+        cudaStream_t stream) {
   CUtensorMap ma, mb;
-  int err = make_maps<BN, A_MN, B_MN>(&ma, &mb, a, b, M, N, K, lda, ldb,
-                                      BATCHED ? experts : 0);
+  int err = make_maps<BN, A_MN, B_MN>(&ma, &mb, a, b, M, N, K, lda, ldb);
   if (err != 0) return err;
-  auto kern = gemm_kernel<BN, A_MN, B_MN, BATCHED>;
+  auto kern = gemm_kernel<BN, A_MN, B_MN>;
   constexpr int smem = smem_bytes<BN>();
   // the shared-memory opt-in is a per-device property of the kernel
   int dev = 0;
@@ -715,20 +670,19 @@ int run(const void* a, const void* b, const void* rbits, void* out,
   }
   const uint32_t* R = static_cast<const uint32_t*>(rbits);
   const int vec = N % 2 == 0 && ((uintptr_t)rbits & 7u) == 0;
-  const int tiles = grid_x * grid_y * splits * experts;
+  const int tiles = grid_x * grid_y * splits;
   const int sms = sm_count(dev);
   const int a_rows = a_box_rows<A_MN>(M);
   const int blocks = tiles < sms ? tiles : sms;
-  // row tiles fastest when all of A (at most 8 MB; one expert's, as the
-  // blocks in flight walk one expert's tiles before the next) stays in L2
+  // row tiles fastest when all of A (at most 8 MB) stays in L2
   const int m_fast = grid_y > 1 && (size_t)M * K * 2 <= ((size_t)8 << 20);
   kern<<<blocks, THREADS, smem, stream>>>(ma, mb, R, out, ws, M, N, K,
-                                          grid_x, grid_y, splits, experts,
+                                          grid_x, grid_y, splits,
                                           kb_per_split, m_fast, a_rows,
                                           scale, sr, vec);
   err = static_cast<int>(cudaGetLastError());
   if (err != 0 || splits <= 1) return err;
-  const size_t mn = (size_t)experts * M * N;
+  const size_t mn = (size_t)M * N;
   const int rblocks = (int)((mn + 255) / 256 < 4096 ? (mn + 255) / 256 : 4096);
   splitk_reduce<A_MN><<<rblocks, 256, 0, stream>>>(ws, R, out, mn, splits,
                                                    scale, sr);

@@ -31,13 +31,14 @@
 // A MoE table's UP (the TPU kernel under jax.vmap,
 // repro/engine/dispatch.py:220-229: one pallas_call with an expert axis
 // in its grid, each expert's SR bits from its own key) is ONE launch of
-// the same sm90 mainloop in its BATCHED form (outer_accum_batched_bf16):
-// X (E, T, D) and dY (E, T, F) read through 3-D TMA maps, whose boxes
-// clip to one expert, so a token box past T reads zeros and never the
-// next expert's rows; dW[e] and its SR bits sit at e x D x F.  Granite's
-// tables (E = 32, T = 1024, D x F = 1024 x 512) are bound by bytes: X
-// 64 MB, dY 32, the bits 64 and the bf16 dW 32, 0.057 ms at 3.35 TB/s
-// against 0.035 ms of tensor-core work.
+// gemm_sm90_batched.cuh's kernel (outer_accum_batched_bf16): X (E, T, D)
+// and dY (E, T, F) read through 3-D TMA maps, whose boxes clip to one
+// expert, so a token box past T reads zeros and never the next expert's
+// rows; each expert's reduction stops at its live tokens; dW[e] and its
+// SR bits sit at e x D x F and move through TMA.  Granite's tables
+// (E = 32, T = 1024, about 256 tokens an expert live, D x F = 1024 x
+// 512) are bound by bytes: the bits 64 MB and the bf16 dW 32 a table,
+// beside the live rows of X and dY.
 //
 // f32 operands (the fp32 preset) take the f32 mainloop of
 // sgemm_sm90.cuh with A M-major (X's rows copied as they lie) and B
@@ -47,6 +48,7 @@
 // contiguous block of its own, no SR (an f32 weight is not rounded).
 #include "common.cuh"
 #include "gemm_sm90.cuh"
+#include "gemm_sm90_batched.cuh"
 #include "sgemm_sm90.cuh"
 
 namespace rt {
@@ -141,42 +143,45 @@ extern "C" int outer_accum(const void* x, const void* dy, const void* rbits,
 }
 
 // dW[e] (D, F) = scale * x[e](T, D)^T . dy[e](T, F) for the E experts of
-// a MoE table in ONE launch of the sm90 mainloop (gemm_sm90.cuh,
-// BATCHED, A M-major): x (E, T, D) and dy (E, T, F) bf16, contiguous and
-// 16-byte aligned, D and F multiples of 8; out (E, D, F) f32 without SR,
-// bf16 with it (rbits uint32 (E, D, F), each expert's at its own
-// offset).  The plan (bn, splits, kb_per_split) and the grid (grid_x,
-// grid_y) are one expert's (D, F, T) from kernels/sr_matmul.py::plan;
-// ws holds splits x E x D x F f32 when splits > 1, and splitk_reduce
-// then sums the splits in order and applies the scale and the SR.
-// Returns cudaGetLastError(), a gemm_sm90.cuh ERR_ code, or
-// cudaErrorInvalidValue for a shape or plan that is not its own.
+// a MoE table in ONE launch of gemm_sm90_batched.cuh's kernel (A
+// M-major): x (E, T, D) and dy (E, T, F) bf16, contiguous and 16-byte
+// aligned, D and F multiples of 8; out (E, D, F) f32 without SR, bf16
+// with it (rbits uint32 (E, D, F), each expert's at its own offset).
+// rows (E,) int32 on the device, or null: the tokens of x[e] and dy[e]
+// at or past rows[e] are zero, so each tile's reduction stops at
+// ceil(rows[e] / 64) token blocks (the same result).  The plan (bn,
+// splits, kb_per_split) and the grid (grid_x, grid_y) are one expert's
+// (D, F, T) from kernels/sr_matmul.py::plan; ws holds splits x E x D x F
+// f32 when splits > 1, and splitk_reduce_batched then sums the splits in
+// order and applies the scale and the SR.  Returns cudaGetLastError(), a
+// gemm_sm90.cuh ERR_ code, or cudaErrorInvalidValue for a shape or plan
+// that is not its own.
 extern "C" int outer_accum_batched_bf16(const void* x, const void* dy,
                                         const void* rbits, void* out,
-                                        void* ws, int E, int T, int D,
-                                        int F, float scale, int sr, int bn,
-                                        int splits, int kb_per_split,
-                                        int grid_x, int grid_y,
-                                        void* stream) {
-  using namespace rt;
-  const int k_blocks = (T + sm90::BK - 1) / sm90::BK;
-  if (E < 1 || T < 1 || D < 1 || F < 1 || D % 8 != 0 || F % 8 != 0 ||
-      (bn != 64 && bn != 128) || splits < 1 || kb_per_split < 1 ||
-      grid_x != (F + bn - 1) / bn || grid_y != (D + sm90::BM - 1) / sm90::BM ||
-      (long long)splits * kb_per_split < k_blocks ||
-      (long long)(splits - 1) * kb_per_split >= k_blocks ||
-      (splits > 1 && ws == nullptr) || (sr && rbits == nullptr))
+                                        void* ws, const void* rows, int E,
+                                        int T, int D, int F, float scale,
+                                        int sr, int bn, int splits,
+                                        int kb_per_split, int grid_x,
+                                        int grid_y, void* stream) {
+  using namespace rt::sm90;
+  if (!batched_plan_ok(E, D, F, T, bn, splits, kb_per_split, grid_x, grid_y,
+                       ws) ||
+      D % 8 != 0 || (sr && rbits == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* W = static_cast<float*>(ws);
-  if (bn == 128)
-    return sm90::run<128, true, true, true>(x, dy, rbits, out, W, D, F, T,
-                                            D, F, scale, sr, splits,
-                                            kb_per_split, grid_x, grid_y, st,
-                                            E);
-  return sm90::run<64, true, true, true>(x, dy, rbits, out, W, D, F, T, D,
-                                         F, scale, sr, splits, kb_per_split,
-                                         grid_x, grid_y, st, E);
+  const int* R = static_cast<const int*>(rows);
+#define RT_UP_E(BN, OUT)                                                  \
+  return run_batched<BN, true, true, OUT>(x, dy, rbits, out, W, R, D, F, T, \
+                                          scale, splits, kb_per_split,     \
+                                          grid_x, grid_y, st, E)
+  if (bn == 128) {
+    if (sr) RT_UP_E(128, OUT_SR);
+    RT_UP_E(128, OUT_F32);
+  }
+  if (sr) RT_UP_E(64, OUT_SR);
+  RT_UP_E(64, OUT_F32);
+#undef RT_UP_E
 }
 
 // dW[e] (D, F) = scale * x[e](T, D)^T . dy[e](T, F) for the E experts of

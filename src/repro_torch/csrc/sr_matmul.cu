@@ -32,11 +32,13 @@
 //
 // A MoE model runs it BATCHED: each expert table's PREFILL, FF and BP
 // product over all E experts as one launch (the TPU kernel under
-// jax.vmap): sr_matmul_batched_bf16 for bf16 operands (the sm90
-// mainloop), sr_matmul_batched_f32 for f32 ones (the fp32 preset;
-// sgemm_sm90.cuh's mainloop).
+// jax.vmap): sr_matmul_batched_bf16 for bf16 operands
+// (gemm_sm90_batched.cuh: only each expert's live rows, the caller's
+// dtype out through a TMA store), sr_matmul_batched_f32 for f32 ones
+// (the fp32 preset; sgemm_sm90.cuh's mainloop).
 #include "common.cuh"
 #include "gemm_sm90.cuh"
+#include "gemm_sm90_batched.cuh"
 #include "sgemm_sm90.cuh"
 
 namespace rt {
@@ -132,32 +134,50 @@ extern "C" int sr_matmul_bf16(const void* a, const void* b, const void* rbits,
 }
 
 // out[e] = A[e] . B[e] for the E experts of a MoE table, in ONE launch
-// of the sm90 mainloop (gemm_sm90.cuh, BATCHED): A (E, M, K), B (E, K, N)
-// or (E, N, K) with trans_b, out (E, M, N) f32, each contiguous and
-// 16-byte aligned with K (and N for B (E, K, N)) a multiple of 8.  The
-// plan's bn, splits and kb_per_split and the grid (grid_x, grid_y) are
-// one expert's (M, N, K); ws holds splits x E x M x N f32 when
-// splits > 1.  No SR: no serving word rounds its output.  Returns
-// cudaGetLastError() or a gemm_sm90.cuh ERR_ code.
+// of gemm_sm90_batched.cuh's kernel: A (E, M, K), B (E, K, N) or
+// (E, N, K) with trans_b, out (E, M, N) f32, or bf16 (rounded to nearest
+// even) with out_bf16; each contiguous and 16-byte aligned, K and N
+// multiples of 8 (16-byte rows for the TMA loads and stores).  rows
+// (E,) int32 on the device, or null: the rows of A[e] at or past rows[e]
+// are zero, so only A[e]'s live row tiles are computed and the rest of
+// out[e] is written as zeros (the same result).  The plan's bn, splits
+// and kb_per_split and the grid (grid_x, grid_y) are one expert's
+// (M, N, K); ws holds splits x E x M x N f32 when splits > 1.  No SR: no
+// serving or training word rounds this output.  Returns
+// cudaGetLastError(), a gemm_sm90.cuh ERR_ code, or
+// cudaErrorInvalidValue for a shape or plan that is not its own.
 extern "C" int sr_matmul_batched_bf16(const void* a, const void* b,
-                                      void* out, void* ws, int E, int M,
-                                      int N, int K, int trans_b, int bn,
+                                      void* out, void* ws, const void* rows,
+                                      int E, int M, int N, int K,
+                                      int trans_b, int out_bf16, int bn,
                                       int splits, int kb_per_split,
                                       int grid_x, int grid_y, void* stream) {
-  using namespace rt;
+  using namespace rt::sm90;
+  if (!batched_plan_ok(E, M, N, K, bn, splits, kb_per_split, grid_x, grid_y,
+                       ws) ||
+      K % 8 != 0)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* W = static_cast<float*>(ws);
-  const int ldb = trans_b ? K : N;
-#define RT_SM90_E(BN, B_MN)                                                 \
-  return sm90::run<BN, false, B_MN, true>(a, b, nullptr, out, W, M, N, K, K, \
-                                          ldb, 1.0f, 0, splits, kb_per_split, \
-                                          grid_x, grid_y, st, E)
+  const int* R = static_cast<const int*>(rows);
+#define RT_SM90_E(BN, B_MN, OUT)                                           \
+  return run_batched<BN, false, B_MN, OUT>(a, b, nullptr, out, W, R, M, N, \
+                                           K, 1.0f, splits, kb_per_split, \
+                                           grid_x, grid_y, st, E)
+#define RT_SM90_E_OUT(BN, B_MN)     \
+  if (out_bf16) RT_SM90_E(BN, B_MN, OUT_BF16); \
+  RT_SM90_E(BN, B_MN, OUT_F32)
   if (bn == 128) {
-    if (trans_b) RT_SM90_E(128, false);
-    RT_SM90_E(128, true);
+    if (trans_b) {
+      RT_SM90_E_OUT(128, false);
+    }
+    RT_SM90_E_OUT(128, true);
   }
-  if (trans_b) RT_SM90_E(64, false);
-  RT_SM90_E(64, true);
+  if (trans_b) {
+    RT_SM90_E_OUT(64, false);
+  }
+  RT_SM90_E_OUT(64, true);
+#undef RT_SM90_E_OUT
 #undef RT_SM90_E
 }
 

@@ -46,9 +46,12 @@ class PEContext:
         return dataclasses.replace(DEFAULT_WORD, op=op_name)
 
     def dot(self, op_name: str, x: torch.Tensor, w: torch.Tensor, *,
-            transpose_w: bool = False) -> torch.Tensor:
-        """THE seam: one weight-bearing matmul under op_name's word."""
+            transpose_w: bool = False,
+            rows: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """THE seam: one weight-bearing matmul under op_name's word (rows:
+        an expert table's live rows an expert, see ``pe_dot``)."""
         # the reference backend draws no entropy: no key to derive
         key = op_key(self.key, op_name) if self.backend == "cuda" else None
         return pe_dot(x, w, word=self.word(op_name), backend=self.backend,
-                      transpose_w=transpose_w, phase=self.phase, key=key)
+                      transpose_w=transpose_w, phase=self.phase, key=key,
+                      rows=rows)

@@ -115,41 +115,46 @@ def _operand(t: torch.Tensor, dt_name: str, batched: bool) -> torch.Tensor:
     return t.to(dt).contiguous()
 
 
-def _matmul(a: torch.Tensor, b: torch.Tensor, trans_b: bool
+def _matmul(a: torch.Tensor, b: torch.Tensor, trans_b: bool,
+            rows: Optional[torch.Tensor], out_dtype: torch.dtype
             ) -> torch.Tensor:
-    """a @ b (or a @ b.T) with f32 accumulation, f32 out: ``sr_matmul``
-    for a 2-D weight, ONE ``sr_matmul_batched`` launch over all experts
-    for an expert table."""
+    """a @ b (or a @ b.T) with f32 accumulation, in out_dtype: ``sr_matmul``
+    for a 2-D weight (f32 out, then cast), ONE ``sr_matmul_batched``
+    launch over all experts for an expert table, which writes out_dtype
+    itself and computes only each expert's `rows` live rows."""
     if b.dim() == 3:
-        return kmm.sr_matmul_batched(a, b, trans_b=trans_b)
-    return kmm.sr_matmul(a, b, None, trans_b=trans_b)
+        return kmm.sr_matmul_batched(a, b, trans_b=trans_b, rows=rows,
+                                     out_dtype=out_dtype)
+    return kmm.sr_matmul(a, b, None, trans_b=trans_b).to(out_dtype)
 
 
-def _ff(x: torch.Tensor, w: torch.Tensor, word: PEWord,
-        transpose_w: bool) -> torch.Tensor:
+def _ff(x: torch.Tensor, w: torch.Tensor, word: PEWord, transpose_w: bool,
+        rows: Optional[torch.Tensor] = None) -> torch.Tensor:
     batched = w.dim() == 3
-    y = _matmul(_operand(x, word.ff_dtype, batched),
-                _operand(w, word.ff_dtype, batched), transpose_w)
-    return y.to(x.dtype)
+    return _matmul(_operand(x, word.ff_dtype, batched),
+                   _operand(w, word.ff_dtype, batched), transpose_w, rows,
+                   x.dtype)
 
 
 class _PEMatmul(torch.autograd.Function):
     """The FF / BP / UP program word of one weight matmul: x (M, K) with
     a 2-D weight, or x (E, C, K) with an expert table (E, K, N) (or
     (E, N, K) with transpose_w), each phase then ONE launch over all E
-    experts."""
+    experts, which FF, BP and UP run over each expert's `rows` live rows
+    (the remat FF and the backward see the same counts)."""
 
     @staticmethod
     def forward(ctx, x, w, word: PEWord, transpose_w: bool,
-                key: Optional[int], entropy: Optional[Callable]):
+                key: Optional[int], entropy: Optional[Callable],
+                rows: Optional[torch.Tensor]):
         ctx.save_for_backward(x, w)
-        ctx.cfg = (word, transpose_w, key, entropy)
-        return _ff(x, w, word, transpose_w)
+        ctx.cfg = (word, transpose_w, key, entropy, rows)
+        return _ff(x, w, word, transpose_w, rows)
 
     @staticmethod
     def backward(ctx, g):
         x, w = ctx.saved_tensors
-        word, transpose_w, key, entropy = ctx.cfg
+        word, transpose_w, key, entropy, rows = ctx.cfg
         batched = w.dim() == 3
         gb = _operand(g, word.bp_dtype, batched)
         dx = dw = None
@@ -157,7 +162,7 @@ class _PEMatmul(torch.autograd.Function):
             # BP: f32 accumulation, no SR (the gradient signal is
             # transient, not persistent state)
             dx = _matmul(gb, _operand(w, word.bp_dtype, batched),
-                         not transpose_w).to(x.dtype)
+                         not transpose_w, rows, x.dtype)
         if ctx.needs_input_grad[1]:
             xb = _operand(x, word.bp_dtype, batched)
             xt, dyt = (gb, xb) if transpose_w else (xb, gb)
@@ -166,9 +171,10 @@ class _PEMatmul(torch.autograd.Function):
             shape = (*xt.shape[:-2], xt.shape[-1], dyt.shape[-1])
             rbits = (_up_rbits(word, dyt, shape, key, entropy) if sr
                      else None)
-            up = koa.outer_accum_batched if batched else koa.outer_accum
-            dw = up(xt, dyt, rbits=rbits).to(w.dtype)
-        return dx, dw, None, None, None, None
+            dw = (koa.outer_accum_batched(xt, dyt, rbits=rbits, rows=rows)
+                  if batched else koa.outer_accum(xt, dyt, rbits=rbits))
+            dw = dw.to(w.dtype)
+        return dx, dw, None, None, None, None, None
 
 
 def _wt(w: torch.Tensor, transpose_w: bool) -> torch.Tensor:
@@ -195,11 +201,11 @@ def _matvec(x: torch.Tensor, w: torch.Tensor, word: PEWord,
 
 
 def _prefill(x: torch.Tensor, w: torch.Tensor, word: PEWord,
-             transpose_w: bool) -> torch.Tensor:
+             transpose_w: bool, rows: Optional[torch.Tensor]) -> torch.Tensor:
     """The PREFILL word: the sr_matmul kernel over the chunk's rows; for
-    an expert table, one batched launch over every expert's rows."""
+    an expert table, one batched launch over every expert's live rows."""
     if w.dim() == 3:
-        return _ff(x, w, word, transpose_w)
+        return _ff(x, w, word, transpose_w, rows)
     y = _ff(x.reshape(-1, x.shape[-1]), w, word, transpose_w)
     return y.reshape(*x.shape[:-1], y.shape[-1])
 
@@ -208,7 +214,8 @@ def pe_dot(x: torch.Tensor, w: torch.Tensor, *,
            word: Optional[PEWord] = None, backend: str = "reference",
            transpose_w: bool = False, phase: Phase = Phase.PREFILL,
            key: Optional[int] = None,
-           entropy: Optional[Callable] = None) -> torch.Tensor:
+           entropy: Optional[Callable] = None,
+           rows: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Dispatch one weight-bearing matmul through its PE program word.
 
     x: (..., K); w: (K, N), or (N, K) with transpose_w, or an expert
@@ -217,7 +224,12 @@ def pe_dot(x: torch.Tensor, w: torch.Tensor, *,
     UP) runs the differentiable three-phase word, the serving phases the
     forward-only words.  `key` seeds the UP phase's SR entropy (the op's
     :func:`op_key`); `entropy(op, dY) -> rbits` replaces that draw (for
-    an expert table dY is (E, C, F) and rbits (E, D, F)).
+    an expert table dY is (E, C, F) and rbits (E, D, F)).  `rows` (E,)
+    int32, for an expert table only: each expert's live rows of x (the
+    rest are zero, as the MoE dispatch builds them); the cuda backend's
+    bf16 batched launches (PREFILL, FF, BP, UP) compute only those, for
+    the same result.  The reference backend, the DECODE matvec and the
+    f32 batched forms ignore it.
     """
     word = word or DEFAULT_WORD
     if backend not in BACKENDS:
@@ -228,14 +240,15 @@ def pe_dot(x: torch.Tensor, w: torch.Tensor, *,
         return _reference_dot(x, w, transpose_w)
     if phase not in SERVING_PHASES:
         if w.dim() == 3:
-            return _PEMatmul.apply(x, w, word, transpose_w, key, entropy)
+            return _PEMatmul.apply(x, w, word, transpose_w, key, entropy,
+                                   rows)
         lead = x.shape[:-1]
         y2 = _PEMatmul.apply(x.reshape(-1, x.shape[-1]), w, word,
-                             transpose_w, key, entropy)
+                             transpose_w, key, entropy, None)
         return y2.reshape(*lead, y2.shape[-1])
     if kern in ("matvec", "decode_fused"):
         return _matvec(x, w, word, transpose_w)
-    return _prefill(x, w, word, transpose_w)
+    return _prefill(x, w, word, transpose_w, rows)
 
 
 def fused_block_n(word: Optional[PEWord], default: int = 256) -> int:

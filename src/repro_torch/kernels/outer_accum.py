@@ -17,8 +17,9 @@ under ``jax.vmap`` (``repro/engine/dispatch.py:220-229``: one
 ``pallas_call`` with an expert axis in its grid): dW[e] = scale *
 X[e]^T dY[e] for the E experts of a MoE table, ONE launch a call,
 planned over all E experts' tiles: bf16 operands on the sm90 path
-(:func:`batched_plan`), f32 or SR-bf16 out with each expert's bits at
-its own offset; f32 operands (the fp32 preset) on the f32 path
+(:func:`batched_plan`; ``csrc/gemm_sm90_batched.cuh``, whose reduction
+stops at each expert's live tokens when given their count), f32 or
+SR-bf16 out with each expert's bits at its own offset; f32 operands (the fp32 preset) on the f32 path
 (:func:`batched_f32_plan`), f32 out with no SR.  It has its own counter
 (``outer_accum:batched``) besides ``outer_accum`` and the path's;
 :func:`outer_accum_batched_plain` is its plain version.
@@ -34,8 +35,9 @@ import torch
 from repro_torch.core.rounding import sr_cast_bf16
 from repro_torch.kernels import build
 from repro_torch.kernels.sr_matmul import (PATHS, Plan, aligned16,
-                                           launch_error, launch_geometry,
-                                           plan, row_stride, split_workspace,
+                                           check_rows, launch_error,
+                                           launch_geometry, live_rows, plan,
+                                           row_stride, split_workspace,
                                            takes_view)
 
 COUNTER = build.LaunchCounter("outer_accum")   # every launch, any path
@@ -163,15 +165,22 @@ def batched_f32_plan(e: int, t: int, d: int, f: int) -> Plan:
 
 def outer_accum_batched_plain(x: torch.Tensor, dy: torch.Tensor, *,
                               scale: float = 1.0,
-                              rbits: Optional[torch.Tensor] = None
+                              rbits: Optional[torch.Tensor] = None,
+                              rows: Optional[torch.Tensor] = None
                               ) -> torch.Tensor:
     """:func:`outer_accum_plain` expert by expert: (E, D, F), f32, or
-    SR-bf16 from rbits (E, D, F)."""
-    e, _, d, f = _batched_shapes(x, dy)
+    SR-bf16 from rbits (E, D, F).  rows: only the tokens of x[e] and
+    dy[e] below rows[e] enter the sum (the kernel's contract: the rest
+    are zero)."""
+    e, t, d, f = _batched_shapes(x, dy)
+    check_rows(rows, e, x.device, "outer_accum_batched")
     if e == 0:
         return torch.empty((0, d, f), device=x.device,
                            dtype=torch.float32 if rbits is None
                            else torch.bfloat16)
+    if rows is not None:
+        live = live_rows(rows, t)[..., None]
+        x, dy = torch.where(live, x, 0.0), torch.where(live, dy, 0.0)
     return torch.stack([outer_accum_plain(
         x[i], dy[i], scale=scale, rbits=None if rbits is None else rbits[i])
         for i in range(e)])
@@ -179,21 +188,27 @@ def outer_accum_batched_plain(x: torch.Tensor, dy: torch.Tensor, *,
 
 def outer_accum_batched(x: torch.Tensor, dy: torch.Tensor, *,
                         scale: float = 1.0,
-                        rbits: Optional[torch.Tensor] = None) -> torch.Tensor:
+                        rbits: Optional[torch.Tensor] = None,
+                        rows: Optional[torch.Tensor] = None) -> torch.Tensor:
     """x (E, T, D), dy (E, T, F) -> dW (E, D, F) = scale * x[e]^T dy[e]
     for every expert e, in ONE launch.
 
     Operands both bf16, each contiguous and 16-byte aligned, with D and
     F multiples of 8, so that TMA describes them (the sm90 path): f32
     out without rbits, SR-bf16 with rbits (32-bit patterns, (E, D, F),
-    contiguous).  Or both f32 and contiguous (the f32 path, the fp32
-    preset): f32 out, and no rbits (an f32 weight is not rounded).
-    Anything else raises; there is no generic fallback.  CPU tensors
-    take the plain version.
+    contiguous).  rows: (E,) int32 on the operands' device, each
+    expert's live tokens — the contract is that the tokens of x[e] and
+    dy[e] at or past rows[e] are zero, so each tile's reduction stops at
+    ceil(rows[e] / 64) token blocks; the result is still x[e]^T dy[e]
+    (up to the sign of a zero).  Or both f32 and contiguous (the f32
+    path, the fp32 preset): f32 out, no rbits (an f32 weight is not
+    rounded), rows ignored.  Anything else raises; there is no generic
+    fallback.  CPU tensors take the plain version.
     """
     e, t, d, f = _batched_shapes(x, dy)
     if x.device.type == "cpu" and dy.device.type == "cpu":
-        return outer_accum_batched_plain(x, dy, scale=scale, rbits=rbits)
+        return outer_accum_batched_plain(x, dy, scale=scale, rbits=rbits,
+                                         rows=rows)
     if x.device.type != "cuda" or dy.device != x.device:
         raise ValueError(f"outer_accum_batched: operands on {x.device} and "
                          f"{dy.device}")
@@ -201,6 +216,7 @@ def outer_accum_batched(x: torch.Tensor, dy: torch.Tensor, *,
     if dy.dtype != dt or dt not in (torch.bfloat16, torch.float32):
         raise TypeError(f"outer_accum_batched kernel takes two bf16 or two "
                         f"f32 operands, got {dt}, {dy.dtype}")
+    check_rows(rows, e, x.device, "outer_accum_batched")
     if dt == torch.float32:
         return _batched_f32(x, dy, e, t, d, f, scale, rbits)
     if not (x.is_contiguous() and dy.is_contiguous() and aligned16(x, dy)
@@ -227,9 +243,10 @@ def outer_accum_batched(x: torch.Tensor, dy: torch.Tensor, *,
                       device=x.device) if p.splits > 1 else None)
     err = _bind(build.load("outer_accum"), "outer_accum_batched_bf16")(
         build.ptr(x), build.ptr(dy), build.ptr(rbits) if sr else None,
-        build.ptr(out), build.ptr(ws) if ws is not None else None, e, t, d,
-        f, ctypes.c_float(scale), int(sr), p.bn, p.splits,
-        p.kb_per_split(t), gx, gy, build.stream_ptr(x.device))
+        build.ptr(out), build.ptr(ws) if ws is not None else None,
+        build.ptr(rows) if rows is not None else None, e, t, d, f,
+        ctypes.c_float(scale), int(sr), p.bn, p.splits, p.kb_per_split(t),
+        gx, gy, build.stream_ptr(x.device))
     if err != 0:
         raise launch_error("outer_accum_batched", err)
     COUNTER.n += 1

@@ -20,10 +20,12 @@ counter.
 
 :func:`sr_matmul_batched` is the kernel's batched mode, the TPU kernel
 under ``jax.vmap`` (one ``pallas_call`` with an expert axis in its
-grid): out[e] = a[e] @ b[e] for the E experts of a MoE table, f32 out,
-ONE launch a call, with each expert's (M, N, K) planned over all E
-experts' tiles: bf16 operands on the sm90 path (:func:`plan`), f32
-operands (the fp32 preset) on the f32 path (:func:`f32_plan`).  It has
+grid): out[e] = a[e] @ b[e] for the E experts of a MoE table, f32 or
+bf16 out, ONE launch a call, with each expert's (M, N, K) planned over
+all E experts' tiles: bf16 operands on the sm90 path (:func:`plan`;
+``csrc/gemm_sm90_batched.cuh``, which computes only each expert's live
+rows when given their count), f32 operands (the fp32 preset) on the f32
+path (:func:`f32_plan`).  It has
 its own counter (``sr_matmul:batched``) besides ``sr_matmul`` and the
 path's; :func:`sr_matmul_batched_plain` is its plain version.
 """
@@ -398,32 +400,67 @@ def _batched_shapes(a: torch.Tensor, b: torch.Tensor, trans_b: bool) -> tuple:
     return e, m, n, k
 
 
+def live_rows(rows: torch.Tensor, m: int) -> torch.Tensor:
+    """(E, m) bool: row r of expert e is live, r < rows[e]."""
+    return torch.arange(m, device=rows.device)[None, :] < rows[:, None]
+
+
+def check_rows(rows: Optional[torch.Tensor], e: int, device,
+               name: str) -> None:
+    """rows, where given, as the batched kernels take it: (E,) int32,
+    contiguous, on the operands' device."""
+    if rows is not None and (rows.shape != (e,) or rows.dtype != torch.int32
+                             or rows.device != device
+                             or not rows.is_contiguous()):
+        raise ValueError(f"{name}: rows must be a contiguous (E,) int32 "
+                         f"tensor on the operands' device")
+
+
 def sr_matmul_batched_plain(a: torch.Tensor, b: torch.Tensor, *,
-                            trans_b: bool = False) -> torch.Tensor:
+                            trans_b: bool = False,
+                            rows: Optional[torch.Tensor] = None,
+                            out_dtype: torch.dtype = torch.float32
+                            ) -> torch.Tensor:
     """a[e] @ b[e] (or a[e] @ b[e].T) for every e with f32 accumulation:
-    :func:`sr_matmul_plain` expert by expert.  Returns (E, M, N) f32."""
+    :func:`sr_matmul_plain` expert by expert, (E, M, N) in out_dtype (the
+    f32 result rounded to nearest even for bf16).  rows: the rows of
+    out[e] at or past rows[e] are 0 (the kernel's contract: those rows
+    of a[e] are zero)."""
     e, m, n, _ = _batched_shapes(a, b, trans_b)
+    check_rows(rows, e, a.device, "sr_matmul_batched")
     if e == 0:
-        return torch.empty((0, m, n), dtype=torch.float32, device=a.device)
-    return torch.stack([sr_matmul_plain(a[i], b[i], trans_b=trans_b)
-                        for i in range(e)])
+        return torch.empty((0, m, n), dtype=out_dtype, device=a.device)
+    out = torch.stack([sr_matmul_plain(a[i], b[i], trans_b=trans_b)
+                       for i in range(e)])
+    if rows is not None:
+        out = torch.where(live_rows(rows, m)[..., None], out, 0.0)
+    return out.to(out_dtype)
 
 
 def sr_matmul_batched(a: torch.Tensor, b: torch.Tensor, *,
-                      trans_b: bool = False) -> torch.Tensor:
+                      trans_b: bool = False,
+                      rows: Optional[torch.Tensor] = None,
+                      out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """a (E, M, K) @ b (E, K, N) expert by expert — or a[e] @ b[e].T for
     b (E, N, K) with trans_b — in ONE launch.
 
-    Operands both bf16, each contiguous and 16-byte aligned, with K (and
-    N when b is (E, K, N)) a multiple of 8, so that TMA describes them
-    (the sm90 path); or both f32 and contiguous (the f32 path, the fp32
-    preset).  Anything else raises.  Returns (E, M, N) f32.  CPU tensors
-    take the plain version.
+    Operands both bf16, each contiguous and 16-byte aligned, with K and
+    N multiples of 8, so that TMA describes them and the output (the
+    sm90 path); or both f32 and contiguous (the f32 path, the fp32
+    preset).  Anything else raises.  Returns (E, M, N) in out_dtype (f32
+    or bf16; bf16 is the f32 result rounded to nearest even, written by
+    the bf16 kernel itself).  rows: (E,) int32 on the operands' device,
+    each expert's live rows — the contract is that the rows of a[e] at
+    or past rows[e] are zero, so the bf16 kernel computes only the row
+    tiles below rows[e] and writes zeros past them; the result is still
+    a[e] @ b[e] (up to the sign of a zero).  The f32 path ignores it.
+    CPU tensors take the plain version.
     """
     e, m, n, k = _batched_shapes(a, b, trans_b)
     dev = a.device
     if dev.type == "cpu" and b.device.type == "cpu":
-        return sr_matmul_batched_plain(a, b, trans_b=trans_b)
+        return sr_matmul_batched_plain(a, b, trans_b=trans_b, rows=rows,
+                                       out_dtype=out_dtype)
     if dev.type != "cuda" or b.device != dev:
         raise ValueError(f"sr_matmul_batched: operands on {dev} and "
                          f"{b.device}")
@@ -431,40 +468,47 @@ def sr_matmul_batched(a: torch.Tensor, b: torch.Tensor, *,
     if b.dtype != dt or dt not in (torch.bfloat16, torch.float32):
         raise TypeError(f"sr_matmul_batched kernel takes two bf16 or two "
                         f"f32 operands, got {dt}, {b.dtype}")
+    if out_dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"sr_matmul_batched writes f32 or bf16, not "
+                        f"{out_dtype}")
+    check_rows(rows, e, dev, "sr_matmul_batched")
     if dt == torch.float32:
-        return _batched_f32(a, b, e, m, n, k, trans_b)
-    ldb = k if trans_b else n
+        return _batched_f32(a, b, e, m, n, k, trans_b).to(out_dtype)
     if not (a.is_contiguous() and b.is_contiguous() and aligned16(a, b)
-            and k % 8 == 0 and ldb % 8 == 0):
+            and k % 8 == 0 and n % 8 == 0):
         raise ValueError(
             "sr_matmul_batched kernel takes contiguous, 16-byte aligned "
-            "operands with 16-byte rows (K, and N for b (E, K, N), "
-            "multiples of 8): the TMA describes no other")
-    out = torch.empty((e, m, n), dtype=torch.float32, device=dev)
+            "operands with 16-byte rows (K and N multiples of 8): the TMA "
+            "describes no other")
+    out = torch.empty((e, m, n), dtype=out_dtype, device=dev)
     if out.numel() == 0:
         return out
     if k == 0:
         return out.zero_()
-    p = launch_geometry(m, n, k, "k", "k" if trans_b else "n", k, ldb,
-                        True, experts=e)[0]
-    _batched_call(a, b, out, p, trans_b)
+    p = launch_geometry(m, n, k, "k", "k" if trans_b else "n", k,
+                        k if trans_b else n, True, experts=e)[0]
+    _batched_call(a, b, out, p, trans_b, rows)
     COUNTER.n += 1
     PATH_COUNTERS["sm90"].n += 1
     BATCHED_COUNTER.n += 1
     return out
 
 
-def _batched_call(a, b, out, p: Plan, trans_b: bool) -> None:
-    """One launch of the batched C entry under plan `p` into `out`
-    (operands as :func:`sr_matmul_batched` checked them)."""
+def _batched_call(a, b, out, p: Plan, trans_b: bool,
+                  rows: Optional[torch.Tensor] = None) -> None:
+    """One launch of the batched C entry under plan `p` into `out` (f32
+    or bf16; operands and rows as :func:`sr_matmul_batched` checked
+    them)."""
     e, m, n, k = _batched_shapes(a, b, trans_b)
     gx, gy, _ = p.grid(m, n, k)
     ws = (torch.empty((p.splits, e, m, n), dtype=torch.float32,
                       device=a.device) if p.splits > 1 else None)
     err = _bind(build.load("sr_matmul"), "sr_matmul_batched_bf16")(
         build.ptr(a), build.ptr(b), build.ptr(out),
-        build.ptr(ws) if ws is not None else None, e, m, n, k, int(trans_b),
-        p.bn, p.splits, p.kb_per_split(k), gx, gy, build.stream_ptr(a.device))
+        build.ptr(ws) if ws is not None else None,
+        build.ptr(rows) if rows is not None else None, e, m, n, k,
+        int(trans_b), int(out.dtype == torch.bfloat16), p.bn, p.splits,
+        p.kb_per_split(k), gx, gy, build.stream_ptr(a.device))
     if err != 0:
         raise launch_error("sr_matmul_batched", err)
 

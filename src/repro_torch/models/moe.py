@@ -9,7 +9,9 @@
      row in an (E, C, d) buffer (C = capacity), and an entry past C goes
      to a trash row.
   3. The expert FFN: three batched products (gate and up are separate
-     tables), one PE program word each over all E experts.
+     tables), one PE program word each over all E experts, each told
+     every expert's count of kept entries (its live rows: the buffer's
+     rows past it are zero), so the kernels compute only those.
   4. Combine: each token's k expert rows, weighted by the combine
      weights, summed in f32.
 
@@ -126,17 +128,35 @@ def _dispatch_indices(experts: torch.Tensor, n_experts: int, capacity: int):
     return slot_sorted[inv], keep_sorted[inv]
 
 
+def _expert_rows(topi: torch.Tensor, n_experts: int,
+                 capacity: int) -> torch.Tensor:
+    """(E,) int32: each expert's kept entries, its count in topi clamped
+    to the capacity — the rows of its buffer that the dispatch fills
+    (_dispatch_indices keeps an expert's first `capacity` entries).  A
+    scatter, on the device: bincount would read its length on the host,
+    a sync every layer."""
+    flat = topi.reshape(-1)
+    count = torch.zeros(n_experts, dtype=torch.int32,
+                        device=topi.device).scatter_add_(
+        0, flat, torch.ones(flat.shape, dtype=torch.int32,
+                            device=topi.device))
+    return count.clamp_(max=capacity)
+
+
 def _expert_ffn(cfg: ModelConfig, xb: torch.Tensor, params: dict,
-                sh: PEContext) -> torch.Tensor:
+                sh: PEContext,
+                rows: Optional[torch.Tensor] = None) -> torch.Tensor:
     """xb: (E, C, d) -> (E, C, d): one program word per table, each a
-    batched product over the E experts."""
-    h = sh.dot("moe_experts_in", xb, params["experts_in"])
+    batched product over the E experts.  rows (E,): each expert's live
+    rows of xb (the rest zero, and so the rest of every table's input
+    and output: the activations map 0 to 0)."""
+    h = sh.dot("moe_experts_in", xb, params["experts_in"], rows=rows)
     if cfg.act in ("swiglu", "geglu"):
-        g = sh.dot("moe_experts_gate", xb, params["experts_gate"])
+        g = sh.dot("moe_experts_gate", xb, params["experts_gate"], rows=rows)
         h = (_silu(g) if cfg.act == "swiglu" else _gelu(g)) * h
     else:
         h = act_fn(cfg.act, h)
-    return sh.dot("moe_experts_out", h, params["experts_out"])
+    return sh.dot("moe_experts_out", h, params["experts_out"], rows=rows)
 
 
 def _moe_single(cfg: ModelConfig, x: torch.Tensor, params: dict,
@@ -154,6 +174,7 @@ def _moe_single(cfg: ModelConfig, x: torch.Tensor, params: dict,
          else _capacity(T, m.top_k, m.n_experts))
     E = m.n_experts
     slot, keep = _dispatch_indices(topi.reshape(-1), E, C)
+    rows = _expert_rows(topi, E, C)
     tok = torch.arange(T, device=x.device).repeat_interleave(m.top_k)
     src = torch.where(keep[:, None], xf[tok], torch.zeros((), dtype=x.dtype,
                                                           device=x.device))
@@ -161,7 +182,7 @@ def _moe_single(cfg: ModelConfig, x: torch.Tensor, params: dict,
     # more than once, so the real rows do not depend on the write order
     buf = torch.zeros((E * C + 1, d), dtype=x.dtype, device=x.device)
     buf.index_copy_(0, slot, src)
-    yb = _expert_ffn(cfg, buf[:-1].reshape(E, C, d), params, sh)
+    yb = _expert_ffn(cfg, buf[:-1].reshape(E, C, d), params, sh, rows)
     ybp = torch.cat([yb.reshape(E * C, d),
                      torch.zeros((1, d), dtype=yb.dtype, device=x.device)])
     y = (ybp[slot] * keep[:, None]).reshape(T, m.top_k, d)

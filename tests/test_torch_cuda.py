@@ -1535,3 +1535,212 @@ def test_tied_head_at_granite_vocab_trains_on_the_sm90_path(dev):
         ct, table).bfloat16().float(), rtol=2e-2, atol=2e-3)
     assert torch.equal(dw.view(torch.int16), sr_cast_bf16(
         koa.outer_accum(kmm.operand(ct), x), rb).view(torch.int16))
+
+
+# ---------------------------------------------------------------------------
+# The bf16 batched forms' live rows: each expert's count of kept entries
+# (models/moe.py::_expert_rows) lets sr_matmul_batched skip the dead row
+# tiles and outer_accum_batched stop its token reduction at the count;
+# the results equal the all-live kernel's up to the sign of a zero
+# (torch.equal takes -0 == +0)
+# ---------------------------------------------------------------------------
+
+# an expert's kept entries at every edge of a 64-token block and a
+# 128-row tile, with an empty expert and a full one (C) at the end
+LIVE_COUNTS = (0, 1, 63, 64, 65, 127, 128, 129)
+
+
+def _dispatched(dev, C, widths, seed, counts=LIVE_COUNTS):
+    """Buffers built by the MoE dispatch (models/moe.py) for experts with
+    `counts` + (C,) routed entries: one (E, C, w) bf16 buffer per width
+    in `widths`, each expert's rows past its count zero, and rows (E,)
+    int32 from _expert_rows."""
+    from repro_torch.models import moe
+    counts = (*counts, C)
+    E = len(counts)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    experts = torch.cat([torch.full((c,), i, dtype=torch.int64, device=dev)
+                         for i, c in enumerate(counts)])
+    experts = experts[torch.randperm(experts.numel(), generator=g,
+                                     device=dev)]
+    slot, keep = moe._dispatch_indices(experts, E, C)
+    rows = moe._expert_rows(experts, E, C)
+    bufs = []
+    for w in widths:
+        src = torch.randn((experts.numel(), w), generator=g, device=dev)
+        buf = torch.zeros((E * C + 1, w), device=dev)
+        buf.index_copy_(0, slot, src * keep[:, None])
+        bufs.append(buf[:-1].reshape(E, C, w).bfloat16().contiguous())
+    assert rows.tolist() == list(counts)
+    return bufs, rows, g
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("trans_b", [False, True], ids=["ff", "bp"])
+@pytest.mark.parametrize("kn", [(1024, 512), (64, 96)], ids=str)
+def test_sr_matmul_batched_live_rows_match_plain_and_all_live(dev, kn,
+                                                             trans_b):
+    """sr_matmul_batched with each expert's live rows, at counts on every
+    tile edge (C = 200: a ragged last tile): f32 out within the f32
+    path's tolerance of the plain version; f32 and bf16 out equal to the
+    all-live kernel's; the bf16 out bit-equal to the f32 out rounded to
+    nearest even; one launch each."""
+    k, n = kn
+    (a,), rows, g = _dispatched(dev, 200, [n if trans_b else k], seed=80)
+    E = a.shape[0]
+    w = (torch.randn((E, k, n), generator=g, device=dev)
+         * a.shape[2] ** -0.5).bfloat16()
+    b0 = kmm.BATCHED_COUNTER.n
+    got = kmm.sr_matmul_batched(a, w, trans_b=trans_b, rows=rows)
+    got16 = kmm.sr_matmul_batched(a, w, trans_b=trans_b, rows=rows,
+                                  out_dtype=torch.bfloat16)
+    assert kmm.BATCHED_COUNTER.n == b0 + 2
+    assert got.dtype == torch.float32 and got16.dtype == torch.bfloat16
+    torch.testing.assert_close(got, kmm.sr_matmul_batched_plain(
+        a, w, trans_b=trans_b, rows=rows), rtol=MM_RTOL, atol=MM_ATOL)
+    assert torch.equal(got, kmm.sr_matmul_batched(a, w, trans_b=trans_b))
+    assert torch.equal(got16, kmm.sr_matmul_batched(
+        a, w, trans_b=trans_b, out_dtype=torch.bfloat16))
+    assert torch.equal(got16.view(torch.int16),
+                       got.to(torch.bfloat16).view(torch.int16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["f32", "sr"])
+@pytest.mark.parametrize("df", [(1024, 512), (72, 40)], ids=str)
+def test_outer_accum_batched_live_rows_match_plain_and_all_live(dev, df,
+                                                                mode):
+    """outer_accum_batched with each expert's live tokens: the reduction
+    stops at ceil(count / 64) token blocks (an empty expert's dW is 0).
+    f32 within the tolerance of the plain version and equal to the
+    all-live kernel's; SR bit-equal to the plain SR cast of its own f32
+    result and to the all-live kernel's SR result."""
+    d, f = df
+    (x, dy), rows, g = _dispatched(dev, 200, [d, f], seed=81)
+    dy = (dy.float() * 200 ** -0.5).bfloat16()
+    got = koa.outer_accum_batched(x, dy, rows=rows)
+    torch.testing.assert_close(got, koa.outer_accum_batched_plain(
+        x, dy, rows=rows), rtol=MM_RTOL, atol=MM_ATOL)
+    assert torch.equal(got, koa.outer_accum_batched(x, dy))
+    assert torch.equal(got[0], torch.zeros_like(got[0]))
+    if mode == "sr":
+        rb = _up_bits(g, dev, tuple(got.shape), "sr")
+        sr = koa.outer_accum_batched(x, dy, rbits=rb, rows=rows)
+        assert torch.equal(sr.view(torch.int16),
+                           sr_cast_bf16(got, rb).view(torch.int16))
+        assert torch.equal(sr, koa.outer_accum_batched(x, dy, rbits=rb))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["ff:f32", "ff:bf16", "bp:bf16", "up:f32",
+                                  "up:sr"])
+def test_batched_kernels_write_every_element_with_live_rows(dev, case):
+    """The output's block is first filled with NaN (the caching allocator
+    hands the kernel that block again): every element comes back
+    finite, the rows past an expert's live tile exactly 0 (FF / BP: the
+    dead row tiles' zeros; UP: every dW element, an empty expert's
+    too)."""
+    role, kind = case.split(":")
+    C, k, n = 200, 1024, 512
+    if role == "up":
+        (x, dy), rows, g = _dispatched(dev, C, [k, n], seed=82)
+        rb = _up_bits(g, dev, (x.shape[0], k, n), "sr") if kind == "sr" \
+            else None
+        shape, dt = (x.shape[0], k, n), (torch.bfloat16 if rb is not None
+                                         else torch.float32)
+        call = lambda: koa.outer_accum_batched(x, dy, rbits=rb, rows=rows)
+    else:
+        trans_b = role == "bp"
+        (a,), rows, g = _dispatched(dev, C, [n if trans_b else k], seed=82)
+        w = (torch.randn((a.shape[0], k, n), generator=g, device=dev)
+             * a.shape[2] ** -0.5).bfloat16()
+        dt = torch.bfloat16 if kind == "bf16" else torch.float32
+        shape = (a.shape[0], C, k if trans_b else n)
+        call = lambda: kmm.sr_matmul_batched(a, w, trans_b=trans_b,
+                                             rows=rows, out_dtype=dt)
+    poison = torch.full(shape, float("nan"), dtype=dt, device=dev)
+    ptr = poison.data_ptr()
+    del poison
+    got = call()
+    torch.cuda.synchronize()
+    assert got.data_ptr() == ptr, "the allocator did not reuse the block"
+    assert torch.isfinite(got.float()).all()
+    if role != "up":
+        live = kmm.live_rows(rows, C)
+        assert torch.equal(got[~live].float(),
+                           torch.zeros_like(got[~live].float()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [("ff", 2, 8, 64, 4096), ("bp", 2, 8, 64, 4096),
+                                  ("ff", 32, 8, 512, 1024),
+                                  ("ff", 32, 40, 1024, 512),
+                                  ("bp", 32, 40, 1024, 512),
+                                  ("up", 2, 4096, 64, 64),
+                                  ("up", 32, 40, 1024, 512)], ids=str)
+def test_batched_kernels_with_live_rows_two_calls_bit_equal(dev, case):
+    """Split-K plans ((2, 8, 64, 4096) FF / BP, (2, 4096, 64, 64) UP:
+    partials summed in split order, the dead row tiles zeroed by the
+    sum) and granite's short tables (C = 8, 40) with live rows below C:
+    two calls give the same bits, equal to the all-live kernel's."""
+    role, e, c, n, k = case
+    g = torch.Generator(device=dev).manual_seed(83)
+    rows = torch.randint(0, c + 1, (e,), generator=g, device=dev,
+                         dtype=torch.int32)
+    live = kmm.live_rows(rows, c)[..., None]
+    if role == "up":
+        x = torch.where(live, torch.randn((e, c, n), generator=g,
+                                          device=dev), 0.0).bfloat16()
+        dy = torch.where(live, torch.randn((e, c, k), generator=g,
+                                           device=dev), 0.0).bfloat16()
+        rb = _up_bits(g, dev, (e, n, k), "sr")
+        assert (koa.batched_plan(e, c, n, k).splits > 1) == (c == 4096)
+        first = koa.outer_accum_batched(x, dy, rbits=rb, rows=rows)
+        assert torch.equal(first, koa.outer_accum_batched(x, dy, rbits=rb,
+                                                          rows=rows))
+        assert torch.equal(first, koa.outer_accum_batched(x, dy, rbits=rb))
+        return
+    trans_b = role == "bp"
+    a = torch.where(live, torch.randn((e, c, k), generator=g, device=dev),
+                    0.0).bfloat16()
+    w = (torch.randn((e, n, k) if trans_b else (e, k, n), generator=g,
+                     device=dev) * k ** -0.5).bfloat16()
+    p = kmm.plan(c, n, k, "k", "k" if trans_b else "n", experts=e)
+    assert (p.splits > 1) == (k == 4096)
+    for dt in (torch.float32, torch.bfloat16):
+        first = kmm.sr_matmul_batched(a, w, trans_b=trans_b, rows=rows,
+                                      out_dtype=dt)
+        assert torch.equal(first, kmm.sr_matmul_batched(
+            a, w, trans_b=trans_b, rows=rows, out_dtype=dt))
+        assert torch.equal(first, kmm.sr_matmul_batched(
+            a, w, trans_b=trans_b, out_dtype=dt))
+    torch.testing.assert_close(first.float(), kmm.sr_matmul_batched_plain(
+        a, w, trans_b=trans_b, rows=rows), rtol=2e-2, atol=2e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("transpose_w", [False, True])
+def test_pe_batched_matmul_with_live_rows_equals_all_live(dev, transpose_w):
+    """pe_dot of an expert table on the cuda backend with the dispatch's
+    live rows and without: y, dX and the SR dW (the hook's bits) equal,
+    bf16 out of FF and BP written by the kernel (no cast launch)."""
+    from repro_torch.core.phases import Phase
+    from repro_torch.core.program import PEWord
+    from repro_torch.engine.dispatch import pe_dot
+    d, f = 1024, 512
+    (x, ct), rows, g = _dispatched(dev, 200, [d, f], seed=84)
+    E = x.shape[0]
+    w = (torch.randn((E, f, d) if transpose_w else (E, d, f), generator=g,
+                     device=dev) * d ** -0.5).bfloat16()
+    rb = _up_bits(g, dev, tuple(w.shape), "sr")
+    word = PEWord(op="moe_experts_in", update_rounding="sr")
+    res = []
+    for r in (rows, None):
+        xr, wr = x.clone().requires_grad_(), w.clone().requires_grad_()
+        y = pe_dot(xr, wr, word=word, backend="cuda",
+                   transpose_w=transpose_w, phase=Phase.FF,
+                   entropy=lambda op, dyt: rb, rows=r)
+        res.append((y, *torch.autograd.grad(y, (xr, wr), grad_outputs=ct)))
+    for got, want in zip(*res):
+        assert got.dtype == torch.bfloat16
+        assert torch.equal(got, want)

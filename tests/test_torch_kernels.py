@@ -977,3 +977,43 @@ def test_f32_batched_wrappers_refuse_non_cpu_tensors_without_a_kernel():
         kmm.sr_matmul_batched(meta(4, 8, 16), meta(4, 16, 32))
     with pytest.raises(ValueError, match="operands on"):
         koa.outer_accum_batched(meta(4, 8, 16), meta(4, 8, 32))
+
+
+@pytest.mark.parametrize("trans_b", [False, True])
+@pytest.mark.parametrize("emnk", [(4, 40, 96, 64), (3, 37, 64, 200)], ids=str)
+def test_batched_plain_bf16_out_is_the_f32_out_rounded_to_nearest(emnk,
+                                                                 trans_b):
+    """sr_matmul_batched's plain version with out_dtype bf16 (the FF, BP
+    and PREFILL words of an expert table) is its f32 result cast to bf16
+    (round to nearest even), bit for bit, with live rows or without;
+    rows zero the output past each expert's count."""
+    e, m, n, k = emnk
+    rng = np.random.default_rng(12)
+    a = torch.from_numpy(rng.standard_normal((e, m, k), np.float32))
+    b = torch.from_numpy((rng.standard_normal(
+        (e, n, k) if trans_b else (e, k, n)) * k ** -0.5).astype(np.float32))
+    a, b = a.bfloat16(), b.bfloat16()
+    rows = torch.tensor(rng.integers(0, m + 1, e), dtype=torch.int32)
+    for r in (None, rows):
+        f32 = kmm.sr_matmul_batched_plain(a, b, trans_b=trans_b, rows=r)
+        bf = kmm.sr_matmul_batched(a, b, trans_b=trans_b, rows=r,
+                                   out_dtype=torch.bfloat16)
+        assert bf.dtype == torch.bfloat16
+        assert torch.equal(bf.view(torch.int16),
+                           f32.to(torch.bfloat16).view(torch.int16))
+    dead = ~kmm.live_rows(rows, m)
+    assert torch.equal(f32[dead], torch.zeros_like(f32[dead]))
+
+
+def test_expert_ablation_edits_find_the_batched_kernel():
+    """launch/ablate_experts.py leaves the batched kernel's epilogue or
+    mainloop out by editing a copy of csrc/gemm_sm90_batched.cuh: every
+    edit's anchor is in the header once, and every variant differs from
+    it."""
+    from repro_torch.launch import ablate_experts as ablate
+    src = (build.CSRC / ablate.HEADER).read_text()
+    for name, edits in ablate.VARIANTS.items():
+        text = ablate.variant_source(src, edits)
+        assert (text == src) == (name == "full"), name
+    with pytest.raises(RuntimeError, match="occurs 0 times"):
+        ablate.variant_source(src, (("no such line\n", ""),))

@@ -182,6 +182,110 @@ def test_dispatch_indices_match_reference(t, e, k, dropless, seed):
     np.testing.assert_array_equal(keep.numpy(), np.asarray(jkeep))
 
 
+# T from a few values, as above; `hot` sends every token's first choice
+# to expert 0, so the capacity branch drops entries
+@given(t=st.sampled_from([1, 5, 8, 32, 40, 257]),
+       e=st.sampled_from([2, 4, 8, 32]),
+       k=st.integers(min_value=1, max_value=8),
+       dropless=st.booleans(), hot=st.booleans(),
+       seed=st.integers(min_value=0, max_value=10_000))
+@settings(max_examples=40, deadline=None, derandomize=True)
+def test_expert_rows_count_the_reference_dispatch_kept_slots(t, e, k,
+                                                            dropless, hot,
+                                                            seed):
+    """_expert_rows (the live rows _moe_single hands each expert table)
+    equals, expert by expert, the number of slots that JAX's
+    _dispatch_indices keeps for it, dropless and under the capacity
+    factor."""
+    k = min(k, e)
+    rng = np.random.default_rng(seed)
+    topi = np.stack([rng.permutation(e)[:k] for _ in range(t)])
+    if hot:
+        topi = np.where(topi == 0, topi[:, :1], topi)
+        topi[:, 0] = 0
+    C = max(8, -(-t // 8) * 8) if dropless else moe._capacity(t, k, e)
+    rows = moe._expert_rows(torch.from_numpy(topi), e, C)
+    jslot, jkeep = jmoe._dispatch_indices(
+        jnp.asarray(topi.reshape(-1), jnp.int32), e, C)
+    want = np.bincount(np.asarray(jslot)[np.asarray(jkeep)] // C,
+                       minlength=e)
+    assert rows.dtype == torch.int32
+    np.testing.assert_array_equal(rows.numpy(), want)
+
+
+@pytest.mark.parametrize("T,hot", [(40, False), (4104, True)])
+def test_dispatch_buffer_rows_past_the_live_count_are_zero(T, hot,
+                                                           monkeypatch):
+    """The (E, C, d) buffer _moe_single hands the expert tables is zero at
+    and past each expert's live row count, and the count is the number of
+    its kept entries: dropless (T = 40) and on the capacity branch (T =
+    4104, every first choice on expert 0, which overflows C)."""
+    cfg = get_reduced(GRANITE)
+    E, d = cfg.moe.n_experts, cfg.d_model
+    seen, ffn = [], moe._expert_ffn
+
+    def spy(cfg_, xb, params, sh, rows=None):
+        seen.append((xb, rows))
+        return ffn(cfg_, xb, params, sh, rows)
+
+    monkeypatch.setattr(moe, "_expert_ffn", spy)
+    rng = np.random.default_rng(T)
+    p = {k: torch.from_numpy(np.array(v)) for k, v in
+         jmoe.moe_params(cfg, jax.random.PRNGKey(T)).items()}
+    if hot:
+        p["router"][:, 0] += 100.0
+    # positive inputs: the router's +100 on expert 0 raises its logit
+    x = torch.from_numpy(np.abs(rng.standard_normal((1, T, d))).astype(
+        np.float32))
+    moe.moe_block(cfg, x, p, PEContext())
+    (xb, rows), = seen
+    C = xb.shape[1]
+    live = kmm.live_rows(rows, C)
+    assert torch.equal(xb[~live], torch.zeros_like(xb[~live]))
+    assert bool((xb[live].abs().sum(-1) > 0).all())
+    # dropless: every entry kept; hot: expert 0 full, the rest dropped
+    kept = int(rows.sum())
+    assert (kept < T * cfg.moe.top_k) == hot
+    assert (int(rows[0]) == C) == hot
+    if hot:
+        assert C == moe._capacity(T, cfg.moe.top_k, E) < T
+
+
+@pytest.mark.parametrize("transpose_w", [False, True])
+def test_pe_dot_with_live_rows_on_cpu_tensors_equals_all_live(transpose_w):
+    """pe_dot of an expert table on the cuda backend with CPU tensors (the
+    batched plain versions): FF, BP and the SR UP (the hook's bits) give
+    the same bits with the live rows as without, for an empty expert, a
+    full one and a ragged one."""
+    E, C, d, f = 3, 40, 64, 32
+    rows = torch.tensor([0, C, 13], dtype=torch.int32)
+    live = kmm.live_rows(rows, C)[..., None]
+    rng = np.random.default_rng(21)
+    x = torch.where(live, torch.from_numpy(rng.standard_normal(
+        (E, C, d), np.float32)), 0.0).bfloat16()
+    ct = torch.where(live, torch.from_numpy(rng.standard_normal(
+        (E, C, f), np.float32)), 0.0).bfloat16()
+    w = torch.from_numpy((rng.standard_normal(
+        (E, f, d) if transpose_w else (E, d, f)) * d ** -0.5).astype(
+        np.float32)).bfloat16()
+    rb = torch.from_numpy(rng.integers(-2**31, 2**31, w.shape,
+                                       dtype=np.int64).astype(np.int32))
+    word = PEWord(op="moe_experts_in", update_rounding="sr")
+    res = []
+    for r in (rows, None):
+        xr, wr = x.clone().requires_grad_(), w.clone().requires_grad_()
+        y = pe_dot(xr, wr, word=word, backend="cuda",
+                   transpose_w=transpose_w, phase=Phase.FF,
+                   entropy=lambda op, dyt: rb, rows=r)
+        res.append((y, *torch.autograd.grad(y, (xr, wr), grad_outputs=ct)))
+    for got, want in zip(*res):
+        assert got.dtype == torch.bfloat16
+        assert torch.equal(got, want)
+    y, dx, _ = res[0]
+    assert torch.equal(y[0], torch.zeros_like(y[0]))
+    assert torch.equal(dx[0], torch.zeros_like(dx[0]))
+
+
 def _kept_tokens(probs: np.ndarray, k: int) -> np.ndarray:
     """Tokens whose k + 1 largest probabilities are all more than TIE_GAP
     apart: their top k (set and order) cannot swap between packages."""
