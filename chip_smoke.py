@@ -259,8 +259,9 @@ def ptxas_report(log: str) -> list:
     entry function of an -Xptxas -v log; gemm_sm90.cuh's mainloop is
     named by its template arguments <BN, A_MN, B_MN>, gemm_sm90_batched.cuh's
     by <BN, A_MN, B_MN, OUT> (OUT 0 f32, 1 bf16, 2 SR), sgemm_sm90.cuh's
-    by <A_MN, B_MN, BATCHED>, wkv6.cu's by <hd, columns a block, columns a
-    thread, bf16 r/k/v>, wkv6_bwd.cu's by <hd, bf16 r/k/v>."""
+    and sgemm_sm90_batched.cuh's by <A_MN, B_MN>, wkv6.cu's by <hd,
+    columns a block, columns a thread, bf16 r/k/v>, wkv6_bwd.cu's by
+    <hd, bf16 r/k/v>."""
     import re
     rows, cur, spill = [], None, (0, 0)
     for line in log.splitlines():
@@ -275,9 +276,10 @@ def ptxas_report(log: str) -> list:
                           cur)
             if g:
                 cur = f"batched_kernel<{','.join(g.groups())}>"
-            g = re.search(r"sgemm_kernelILb(\d)ELb(\d)ELb(\d)E", cur)
+            g = re.search(r"sgemm_(batched_)?kernelILb(\d)ELb(\d)E", cur)
             if g:
-                cur = f"sgemm_kernel<{','.join(g.groups())}>"
+                cur = (f"sgemm_{g.group(1) or ''}kernel<"
+                       f"{','.join(g.groups()[1:])}>")
             g = re.search(r"wkv6_kernelILi(\d+)ELi(\d+)ELi(\d+)ELb(\d)E",
                           cur)
             if g:
@@ -1370,7 +1372,8 @@ def _routed_rows(gcfg, router_w, T: int, gen) -> tuple:
     rounded up to 8) as models/moe.py makes it, on the card: the router
     (_route, reference backend) on seeded activations x (T, d), the
     dispatch into the (E, C, d) bf16 buffer of x's rows, and each
-    expert's live rows (_expert_rows).  Returns (rows, buffer)."""
+    expert's live rows (_expert_rows).  Returns (rows, buffer), the
+    buffer f32 (the bf16 words cast it)."""
     import torch
     from repro_torch.engine.context import PEContext
     from repro_torch.models import moe
@@ -1382,17 +1385,18 @@ def _routed_rows(gcfg, router_w, T: int, gen) -> tuple:
     tok = torch.arange(T, device="cuda").repeat_interleave(k)
     buf = torch.zeros((E * C + 1, d), device="cuda")
     buf.index_copy_(0, slot, x[tok] * keep[:, None])
-    return moe._expert_rows(topi, E, C), buf[:-1].reshape(E, C, d).bfloat16()
+    return moe._expert_rows(topi, E, C), buf[:-1].reshape(E, C, d)
 
 
-def _live_buffer(rows, C: int, width: int, gen, scale: float = 1.0):
-    """(E, C, width) bf16, random below each expert's live rows, zero past
-    them (as the dispatch leaves a buffer)."""
+def _live_buffer(rows, C: int, width: int, gen, scale: float = 1.0,
+                 f32: bool = False):
+    """(E, C, width) bf16 (f32 with `f32`), random below each expert's
+    live rows, zero past them (as the dispatch leaves a buffer)."""
     import torch
     from repro_torch.kernels import sr_matmul as kmm
     r = torch.randn((rows.numel(), C, width), generator=gen, device="cuda")
-    return torch.where(kmm.live_rows(rows, C)[..., None], r * scale,
-                       0.0).bfloat16()
+    buf = torch.where(kmm.live_rows(rows, C)[..., None], r * scale, 0.0)
+    return buf if f32 else buf.bfloat16()
 
 
 def _expert_role(tag: str, role: str, tables: list, rows, C: int, peaks,
@@ -1603,6 +1607,7 @@ def phase_sr_matmul_experts(gcfg, gparams, peaks) -> dict:
     from repro_torch.launch import ablate_experts
     variants = ablate_experts.build_variants()
     rows, xb = _routed_rows(gcfg, moe["router"][0], 32, gen)
+    xb = xb.bfloat16()
     tabs = []
     for name, w in tables:
         a = xb if w.shape[1] == gcfg.d_model else _live_buffer(
@@ -3077,6 +3082,10 @@ GRANITE_GRAD_L2 = 0.05
 # ragged one (its UP with scale 1/C), and a training step's dropless
 # T = B x S (the timed one)
 EXPERT_F32_CS = (8, 40, TRAIN_B * TRAIN_S)
+# the f32 batched products of one layer's three tables at C = 1024 in a
+# CUDA graph as the kernel that computed every row measured them (NVIDIA
+# H100 80GB HBM3, 700 W), the yardstick of [targets]
+F32_EXPERTS_ALL_ROWS_GRAPH_MS = {"ff": 2.5140, "bp": 2.4740, "up": 2.4159}
 # router probabilities nearer than this may swap between two backends
 # (tests/test_torch_moe.py's TIE_GAP)
 TIE_GAP = 1e-5
@@ -3165,6 +3174,7 @@ def phase_expert_training_products(gcfg, peaks) -> tuple:
     router = (torch.randn((gcfg.d_model, E), generator=gen, device="cuda")
               * gcfg.d_model ** -0.5)
     rows, xb = _routed_rows(gcfg, router, C, gen)
+    xb = xb.bfloat16()
 
     def full(w):
         return torch.randn((E, C, w), generator=gen, device="cuda").bfloat16()
@@ -3405,24 +3415,21 @@ def phase_train_granite() -> dict:
 
 def phase_expert_f32_products(gcfg, peaks) -> tuple:
     """The f32 batched mode (the fp32 preset on a MoE table) at granite's
-    full width, random f32 operands: at layer 0's three tables and C in
-    EXPERT_F32_CS rows an expert, sr_matmul_batched's FF (x . W) and BP
+    full width: at layer 0's three tables and C in EXPERT_F32_CS rows an
+    expert, every row random, sr_matmul_batched's FF (x . W) and BP
     (dY . W^T, trans_b) and outer_accum_batched's UP (scale X^T dY,
     scale 1/C at C = 40), each one launch on the f32 path, within
     MM_RTOL / MM_ATOL of its plain version and bit-equal over two calls
     (the C = 8 and 40 products whose blocks fill less than a wave split
-    K); at C = 1024 each product's event, CUDA-graph, plain and torch.bmm
-    (TF32 off) times beside its bound (the product's f32 operations at
-    the card's f32 peak; granite's shapes need no padding to the
-    kernel's 128 x 128 x 16 tiles).  Returns the kernels-line rows of
-    sr_matmul's and outer_accum's f32 batched modes."""
+    K).  Then a training step's FF, BP and UP at C = 1024 as the main
+    path runs them, with a seeded router's live rows, gated and timed by
+    _expert_role_f32.  Returns the kernels-line rows of sr_matmul's and
+    outer_accum's f32 batched modes."""
     import torch
     from repro_torch.kernels import outer_accum as koa
     from repro_torch.kernels import sr_matmul as kmm
     gen = torch.Generator(device="cuda").manual_seed(26)
     E, T = gcfg.moe.n_experts, EXPERT_F32_CS[-1]
-    keys = ("ms", "graph", "plain", "lib", "lib_graph", "bound")
-    tot = {r: {k: 0.0 for k in keys} for r in ("ff", "bp", "up")}
     worst = {"ff": 0.0, "bp": 0.0, "up": 0.0}
     splits_seen = set()
 
@@ -3441,22 +3448,17 @@ def phase_expert_f32_products(gcfg, peaks) -> tuple:
             x, w, dy = rnd((E, C, K)), rnd((E, K, N), K ** -0.5), \
                 rnd((E, C, N), C ** -0.5)
             scale = 1.0 / C if C == 40 else 1.0
-            wt = w.transpose(1, 2)
-            xt = x.transpose(1, 2)
             roles = (
                 ("ff", kmm, (C, N, K), kmm.f32_plan(C, N, K, experts=E),
                  lambda: kmm.sr_matmul_batched(x, w),
-                 lambda: kmm.sr_matmul_batched_plain(x, w),
-                 lambda: torch.bmm(x, w)),
+                 lambda: kmm.sr_matmul_batched_plain(x, w)),
                 ("bp", kmm, (C, K, N), kmm.f32_plan(C, K, N, experts=E),
                  lambda: kmm.sr_matmul_batched(dy, w, trans_b=True),
-                 lambda: kmm.sr_matmul_batched_plain(dy, w, trans_b=True),
-                 lambda: torch.bmm(dy, wt)),
+                 lambda: kmm.sr_matmul_batched_plain(dy, w, trans_b=True)),
                 ("up", koa, (K, N, C), koa.batched_f32_plan(E, C, K, N),
                  lambda: koa.outer_accum_batched(x, dy, scale=scale),
-                 lambda: koa.outer_accum_batched_plain(x, dy, scale=scale),
-                 lambda: torch.bmm(xt, dy)))       # timed at scale 1 only
-            for role, mod, (m, n, k), p, call, plain, lib in roles:
+                 lambda: koa.outer_accum_batched_plain(x, dy, scale=scale)))
+            for role, mod, (m, n, k), p, call, plain in roles:
                 tag = ("outer_accum:batched:f32" if role == "up"
                        else "sr_matmul:experts:f32")
                 got, moved = one_launch(call, mod)
@@ -3479,57 +3481,70 @@ def phase_expert_f32_products(gcfg, peaks) -> tuple:
                     splits_seen.add((role, name, C, p.splits))
                 del got, again, want
                 note = ", scale 1/C" if role == "up" and scale != 1 else ""
-                what = (f"[{tag}] {role} {name:<12} E={E} C={C} "
-                        f"({m}x{n}x{k}{note}) {plan_txt(p)}")
-                if C != T:
-                    print(f"{what}: max_abs_err {ea:.3g}; 2 calls "
-                          f"bit-equal; one launch")
-                    continue
-                b_ms, by = bound(4 * E * (m * k + k * n + m * n),
-                                 2 * E * m * n * k, peaks, f32=True)
-                t = {"ms": time_ms(call), "graph": time_graph_ms(call),
-                     "plain": time_ms(plain, iters=3, warmup=1),
-                     "lib": time_ms(lib), "lib_graph": time_graph_ms(lib),
-                     "bound": b_ms}
-                for kk, v in t.items():
-                    tot[role][kk] += v
-                print(f"{what}: kernel {t['ms']:.4f}ms plain "
-                      f"{t['plain']:.4f}ms torch.bmm (f32, TF32 off) "
-                      f"{t['lib']:.4f}ms bound {b_ms:.4f}ms ({by}, "
-                      f"{2 * E * m * n * k / 1e9:.1f} GFLOP); in a CUDA "
-                      f"graph: kernel {t['graph']:.4f}ms torch.bmm "
-                      f"{t['lib_graph']:.4f}ms, {b_ms / t['graph']:.2f} of "
-                      f"the f32 peak  max_abs_err {ea:.3g}; 2 calls "
-                      f"bit-equal; one launch")
-            del x, w, dy, wt, xt
+                print(f"[{tag}] {role} {name:<12} E={E} C={C} "
+                      f"({m}x{n}x{k}{note}) {plan_txt(p)}: max_abs_err "
+                      f"{ea:.3g}; 2 calls bit-equal; one launch")
+            del x, w, dy
             torch.cuda.empty_cache()
     check(any(C < T for _, _, C, _ in splits_seen),
           f"no f32 batched product below C={T} split K: {splits_seen}")
     print(f"[sr_matmul:experts:f32] split-K plans held bit-equal: "
           f"{sorted(splits_seen)}")
-    for role, tag in (("ff", "sr_matmul:experts:f32"),
-                      ("bp", "sr_matmul:experts:f32"),
-                      ("up", "outer_accum:batched:f32")):
-        r = tot[role]
-        print(f"[{tag}] {role}, one layer's three tables at C={T}: kernel "
-              f"{r['ms']:.4f}ms plain {r['plain']:.4f}ms torch.bmm "
-              f"{r['lib']:.4f}ms bound {r['bound']:.4f}ms; in a CUDA graph: "
-              f"kernel {r['graph']:.4f}ms torch.bmm {r['lib_graph']:.4f}ms")
+
+    # a training step's products at C = T = 1024 as the main path runs
+    # them: a seeded router's live rows; three operand sets a table (the
+    # cold timings), the all-live sets with every row random
+    router = (torch.randn((gcfg.d_model, E), generator=gen, device="cuda")
+              * gcfg.d_model ** -0.5)
+    rows, xb = _routed_rows(gcfg, router, T, gen)
+    res = {}
+    for role in ("ff", "bp", "up"):
+        tabs = []
+        for name, K, N in _granite_tables(gcfg):
+            w = [rnd((E, K, N), K ** -0.5) for _ in range(3)]
+            if role == "up":
+                routed = [(_live_buffer(rows, T, K, gen, f32=True),
+                           _live_buffer(rows, T, N, gen, T ** -0.5, f32=True))
+                          for _ in range(3)]
+                full = [(rnd((E, T, K)), rnd((E, T, N), T ** -0.5))
+                        for _ in range(3)]
+            else:
+                width = N if role == "bp" else K
+                a = (xb if role == "ff" and K == gcfg.d_model
+                     else _live_buffer(rows, T, width, gen, f32=True))
+                routed = [(a, wi) for wi in w]
+                full = [(rnd((E, T, width)), wi) for wi in w]
+            tabs.append((name, routed, full))
+        res[role] = _expert_role_f32(role, tabs, rows, T, peaks)
+        res[role]["max_abs_err"] = max(res[role]["max_abs_err"],
+                                       worst[role])
+        del tabs
+        torch.cuda.empty_cache()
 
     def row(name, counter, entry, roles, tpu, what):
-        t = {k: sum(tot[r][k] for r in roles) for k in keys}
+        t = {k: sum(res[r][k] for r in roles) for k in res["ff"]
+             if isinstance(res["ff"][k], float)}
         return {"name": name, "counter": counter, "route": "cuda",
-                "source": "src/repro_torch/csrc/sgemm_sm90.cuh",
+                "source": "src/repro_torch/csrc/sgemm_sm90_batched.cuh",
                 "entry": entry, "replaces": tpu[0], "tpu_kernel": tpu[1],
-                "max_abs_err": max(worst[r] for r in roles),
-                "ms": t["ms"], "kernel_ms": t["ms"],
-                "plain_ms": t["plain"], "library_ms": t["lib"],
+                "redesigned": "live rows only; FF / BP live tiles first, "
+                              "the UP's experts longest first",
+                "max_abs_err": max(res[r]["max_abs_err"] for r in roles),
+                "ms": t["ms"], "kernel_ms": t["ms"], "plain_ms": t["plain"],
+                "library_ms": t["lib"],
                 "library": "torch.bmm (f32, TF32 off)",
                 "bound_ms": t["bound"], "bound_by": "operations",
-                "graph_ms": t["graph"], "library_graph_ms": t["lib_graph"],
-                **{r: tot[r] for r in roles},
+                "full_c_bound_ms": t["bound_full"], "graph_ms": t["graph"],
+                "cold_graph_ms": t["cold"],
+                "library_graph_ms": t["lib_graph"],
+                "library_cold_graph_ms": t["lib_cold"],
+                "all_live_graph_ms": t["all_live_graph"],
+                "all_live_cold_graph_ms": t["all_live_cold"],
+                "live_rows": res["ff"]["live_rows"],
+                **{r: res[r] for r in roles},
                 "shapes": f"granite-moe-1b-a400m, one layer's three expert "
-                          f"tables' {what}, f32, E={E}, C={T}"}
+                          f"tables' {what}, f32, E={E}, C={T}, routed by a "
+                          f"seeded router"}
 
     return (row("sr_matmul:experts:f32", "sr_matmul:batched",
                 "src/repro_torch/csrc/sr_matmul.cu", ("ff", "bp"),
@@ -3541,6 +3556,132 @@ def phase_expert_f32_products(gcfg, peaks) -> tuple:
                 ("src/repro/kernels/outer_accum.py:80",
                  "repro/kernels/outer_accum.py::outer_accum under jax.vmap "
                  "(repro/engine/dispatch.py:220-225)"), "UP"))
+
+
+def _expert_role_f32(role: str, tables: list, rows, C: int, peaks) -> dict:
+    """One role of a MoE layer's f32 batched products over its three
+    tables, as the fp32 main path runs them: `tables` holds (name,
+    routed, full) with three operand sets each — routed: every expert's
+    rows past `rows` zero; full: every row live and random (the skewed
+    worst case) — as (a, w) (ff: a . w; bp: a . w^T) or (x, dy) (up:
+    x^T dy).  Gates each table's routed product: within MM_RTOL /
+    MM_ATOL of the plain version and bit-equal to the all-live kernel's
+    on the same buffers (up to the sign of a zero).  Times in a CUDA
+    graph, warm in L2 (set 0 again and again) and cold (the three sets
+    in turn): the routed form (also in CUDA events), the all-live form
+    on the full sets and torch.bmm (TF32 off) on the routed sets; the
+    bounds over the live rows (2 x live rows x K x N operations at the
+    f32 peak, or the bytes: the live rows, the tables of experts with a
+    live row, the whole output) and over the full C; the kernel's live
+    units against the card's resident blocks (two an SM).  Returns the
+    sums over the three tables."""
+    import torch
+    from repro_torch.kernels import outer_accum as koa
+    from repro_torch.kernels import sr_matmul as kmm
+    E, live_n, busy = rows.numel(), int(rows.sum()), int((rows > 0).sum())
+    slots = 2 * torch.cuda.get_device_properties(0).multi_processor_count
+    keys = ("ms", "plain", "lib", "graph", "cold", "lib_graph", "lib_cold",
+            "all_live_graph", "all_live_cold", "bound", "bound_full")
+    tot = {k: 0.0 for k in keys}
+    worst = 0.0
+    for name, routed, full in tables:
+        if role == "up":
+            x, dy = routed[0]
+            K, N = x.shape[2], dy.shape[2]
+            run = lambda o: koa.outer_accum_batched(o[0], o[1], rows=rows)
+            every = lambda o: koa.outer_accum_batched(o[0], o[1])
+            lib = lambda o: torch.bmm(o[0].transpose(1, 2), o[1])
+            plain = lambda: koa.outer_accum_batched_plain(x, dy, rows=rows)
+            out_elems, wk, wn = E * K * N, K, N
+            nb_live = 4 * (live_n * (K + N) + out_elems)
+            nb_full = 4 * (E * C * (K + N) + out_elems)
+            gx, gy, sp = koa.batched_f32_plan(E, C, K, N).grid(K, N, C)
+            # every unit runs, its reduction cut at the live tokens
+            units = live_units = E * gx * gy * sp
+        else:
+            a, w = routed[0]
+            trans_b = role == "bp"
+            run = lambda o: kmm.sr_matmul_batched(o[0], o[1],
+                                                  trans_b=trans_b, rows=rows)
+            every = lambda o: kmm.sr_matmul_batched(o[0], o[1],
+                                                    trans_b=trans_b)
+            lib = lambda o: torch.bmm(o[0], o[1].transpose(1, 2) if trans_b
+                                      else o[1])
+            plain = lambda: kmm.sr_matmul_batched_plain(
+                a, w, trans_b=trans_b, rows=rows)
+            kr, (wk, wn) = a.shape[2], w.shape[1:]
+            m, n, k = C, (wk if trans_b else wn), kr
+            nb_live = 4 * (live_n * kr + busy * wk * wn + E * C * n)
+            nb_full = 4 * (E * C * kr + E * wk * wn + E * C * n)
+            p = kmm.f32_plan(m, n, k, experts=E)
+            gx, gy, sp = p.grid(m, n, k)
+            units = E * gx * gy * sp
+            # the units whose row tile holds a live row
+            live_units = gx * sp * int(
+                ((rows + p.bm - 1) // p.bm).clamp(0, gy).sum())
+        # the output's block first holds NaN (the caching allocator hands
+        # it to the kernel again): every element must be written
+        poison = torch.full((E, m, n) if role != "up" else (E, wk, wn),
+                            float("nan"), device="cuda")
+        ptr = poison.data_ptr()
+        del poison
+        got = run(routed[0])
+        want = plain()
+        torch.cuda.synchronize()
+        check(got.data_ptr() == ptr, f"experts:f32 {role} {name}: the "
+              f"allocator did not hand the poisoned block back")
+        check(bool(torch.isfinite(got).all()), f"experts:f32 {role} {name}: "
+              f"elements left unwritten (NaN) with live rows")
+        if role != "up":
+            dead = ~kmm.live_rows(rows, C)
+            check(not bool(got[dead].any()), f"experts:f32 {role} {name}: "
+                  f"a dead row is not 0")
+        ea, _ = errs(got, want)
+        worst = max(worst, ea)
+        check(torch.allclose(got, want, rtol=MM_RTOL, atol=MM_ATOL),
+              f"experts:f32 {role} {name} (routed, C={C}): max abs err "
+              f"{ea:.3g}")
+        check(torch.equal(got, every(routed[0])),
+              f"experts:f32 {role} {name}: the live rows' result differs "
+              f"from the all-live kernel's on the same buffers")
+        del got, want
+        b_live, by = bound(nb_live, 2 * live_n * wk * wn, peaks, f32=True)
+        b_full, _ = bound(nb_full, 2 * E * C * wk * wn, peaks, f32=True)
+        t = {"ms": time_ms(lambda: run(routed[0])),
+             "plain": time_ms(plain, iters=3, warmup=1),
+             "lib": time_ms(lambda: lib(routed[0])),
+             "graph": time_graph_ms(lambda: run(routed[0])),
+             "cold": time_graph_ms(lambda: [run(o) for o in routed],
+                                   iters=2) / len(routed),
+             "lib_graph": time_graph_ms(lambda: lib(routed[0])),
+             "lib_cold": time_graph_ms(lambda: [lib(o) for o in routed],
+                                       iters=2) / len(routed),
+             "all_live_graph": time_graph_ms(lambda: every(full[0])),
+             "all_live_cold": time_graph_ms(lambda: [every(o) for o in full],
+                                            iters=2) / len(full),
+             "bound": b_live, "bound_full": b_full}
+        for kk, v in t.items():
+            tot[kk] += v
+        print(f"[experts:f32] {role} {name:<12} C={C} ({live_n} of {E * C} "
+              f"rows live; {live_units} live of {units} units, "
+              f"{live_units / slots:.2f} waves of {slots} blocks): graph "
+              f"warm / cold: routed {t['graph']:.4f} / {t['cold']:.4f}, "
+              f"all-live {t['all_live_graph']:.4f} / "
+              f"{t['all_live_cold']:.4f}, torch.bmm {t['lib_graph']:.4f} / "
+              f"{t['lib_cold']:.4f}; bound live rows {b_live:.4f} ({by}), "
+              f"full C {b_full:.4f}; events: routed {t['ms']:.4f}, plain "
+              f"{t['plain']:.4f}, torch.bmm {t['lib']:.4f}; max_abs_err "
+              f"{ea:.3g}; == all-live kernel; a NaN-poisoned output "
+              f"rewritten, dead rows 0")
+    print(f"[experts:f32] {role}, one layer's three tables at C={C}, graph "
+          f"warm / cold: routed {tot['graph']:.4f} / {tot['cold']:.4f}, "
+          f"all-live {tot['all_live_graph']:.4f} / "
+          f"{tot['all_live_cold']:.4f}, torch.bmm {tot['lib_graph']:.4f} / "
+          f"{tot['lib_cold']:.4f}; bound live rows {tot['bound']:.4f} "
+          f"({tot['bound'] / tot['graph']:.2f} of it reached), full C "
+          f"{tot['bound_full']:.4f}")
+    return {**tot, "max_abs_err": worst, "live_rows": live_n,
+            "rows": E * C}
 
 
 def phase_train_granite_fp32(gcfg, n: int = 4) -> None:
@@ -3695,6 +3836,26 @@ def print_targets(rows: dict) -> None:
          0.0364),
         ("experts PREFILL routed C=32 cold in L2 <= 0.0509 ms",
          ex["cold_graph_ms"], 0.0509)]
+    # the f32 batched expert products' redesign: a layer's three tables
+    # with a seeded router's live rows, in a CUDA graph (warm), against
+    # half of the all-rows kernel's time, torch.bmm on the same buffers
+    # and twice the live-row bound; every row live within 5% of it
+    f32 = {"ff": rows["sr_matmul:experts:f32"]["ff"],
+           "bp": rows["sr_matmul:experts:f32"]["bp"],
+           "up": rows["outer_accum:experts:f32"]["up"]}
+    for role, r in f32.items():
+        old = F32_EXPERTS_ALL_ROWS_GRAPH_MS[role]
+        targets += [
+            (f"experts:f32 {role} routed C=1024 <= 0.5x the all-rows "
+             f"kernel's {old}",
+             r["graph"], 0.5 * old),
+            (f"experts:f32 {role} routed C=1024 <= torch.bmm", r["graph"],
+             r["lib_graph"]),
+            (f"experts:f32 {role} routed C=1024 <= 2x its live-row bound",
+             r["graph"], 2 * r["bound"]),
+            (f"experts:f32 {role} every row live <= 1.05x the all-rows "
+             f"kernel's {old}",
+             r["all_live_graph"], 1.05 * old)]
     for what, got, limit in targets:
         print(f"[targets] {what}: {got:.4f}ms against {limit:.4f}ms: "
               f"{'met' if got <= limit else 'MISSED'}")

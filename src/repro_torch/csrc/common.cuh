@@ -115,6 +115,20 @@ __device__ __forceinline__ void mma_step(AccFrag& acc, const bf16* As,
   }
 }
 
+// The largest e < n with f(e) <= v, for f nondecreasing (f(0) <= v).
+template <typename F>
+__device__ __forceinline__ int last_at_most(int n, int v, F f) {
+  int lo = 0, hi = n - 1;
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) >> 1;
+    if (f(mid) <= v)
+      lo = mid;
+    else
+      hi = mid - 1;
+  }
+  return lo;
+}
+
 __host__ __device__ __forceinline__ bool aligned16(const void* p) {
   return ((uintptr_t)p & 15u) == 0;
 }

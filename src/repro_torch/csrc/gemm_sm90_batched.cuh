@@ -153,20 +153,6 @@ struct BTile {
   bool dead;
 };
 
-// The largest e < n with f(e) <= v, for f nondecreasing (f(0) <= v).
-template <typename F>
-__device__ __forceinline__ int last_at_most(int n, int v, F f) {
-  int lo = 0, hi = n - 1;
-  while (lo < hi) {
-    const int mid = (lo + hi + 1) >> 1;
-    if (f(mid) <= v)
-      lo = mid;
-    else
-      hi = mid - 1;
-  }
-  return lo;
-}
-
 // Tile `tile` of the walk.  K-major (tab: the prefix of live tiles,
 // tab[experts] their total): the live tiles of every expert, each
 // expert's (x, y, z) in tile_coord's order over its live row tiles,

@@ -43,13 +43,16 @@
 // f32 operands (the fp32 preset) take the f32 mainloop of
 // sgemm_sm90.cuh with A M-major (X's rows copied as they lie) and B
 // N-major: fmaf on the CUDA cores, no TF32, the scale and SR writeback
-// in its epilogue.  A MoE table's f32 UP is one launch of its BATCHED
-// form (outer_accum_batched_f32): each expert's X, dY and dW a
-// contiguous block of its own, no SR (an f32 weight is not rounded).
+// in its epilogue.  A MoE table's f32 UP is one launch of
+// sgemm_sm90_batched.cuh's kernel (outer_accum_batched_f32):
+// each expert's X, dY and dW a contiguous block of its own, the token
+// loop stopped at each expert's live count, no SR (an f32 weight is not
+// rounded).
 #include "common.cuh"
 #include "gemm_sm90.cuh"
 #include "gemm_sm90_batched.cuh"
 #include "sgemm_sm90.cuh"
+#include "sgemm_sm90_batched.cuh"
 
 namespace rt {
 
@@ -186,23 +189,30 @@ extern "C" int outer_accum_batched_bf16(const void* x, const void* dy,
 
 // dW[e] (D, F) = scale * x[e](T, D)^T . dy[e](T, F) for the E experts of
 // a MoE table with f32 operands (the fp32 preset), in ONE launch of
-// sgemm_sm90.cuh's mainloop (BATCHED, A M-major, B N-major): x (E, T, D)
-// and dy (E, T, F) contiguous, out (E, D, F) f32, no SR.  The plan
-// (splits, kb_per_split) and the grid (grid_x, grid_y) are one expert's
-// (D, F, T) from kernels/sr_matmul.py::f32_plan; ws holds splits x E x
-// D x F f32 partials, then E x grid_x x grid_y zeroed int32 counters,
-// when splits > 1.  Returns cudaGetLastError(), or cudaErrorInvalidValue
-// for a shape or plan that is not its own.
+// sgemm_sm90_batched.cuh's kernel (A M-major, B N-major):
+// x (E, T, D) and dy (E, T, F) contiguous, out (E, D, F) f32, no SR.
+// rows (E,) int32 on the device, or null: the tokens of x[e] and dy[e]
+// at or past rows[e] are zero, so each tile's reduction stops at
+// ceil(rows[e] / 16) token blocks (the same result; an expert with no
+// live token gets dW[e] = 0).  The plan (splits, kb_per_split) and the
+// grid (grid_x, grid_y) are one expert's (D, F, T) from
+// kernels/sr_matmul.py::f32_plan; ws holds splits x E x D x F f32
+// partials, then E x grid_x x grid_y zeroed int32 counters, when
+// splits > 1.  Returns cudaGetLastError(), or cudaErrorInvalidValue for
+// a shape or plan that is not its own.
 extern "C" int outer_accum_batched_f32(const void* x, const void* dy,
-                                       void* out, void* ws, int E, int T,
-                                       int D, int F, float scale, int splits,
+                                       void* out, void* ws, const void* rows,
+                                       int E, int T, int D, int F,
+                                       float scale, int splits,
                                        int kb_per_split, int grid_x,
                                        int grid_y, void* stream) {
-  if (!rt::sgemm::batched_plan_ok(E, D, F, T, splits, kb_per_split, grid_x,
-                                  grid_y, ws))
+  using namespace rt::sgemm;
+  if (!batched_plan_ok(E, D, F, T, splits, kb_per_split, grid_x, grid_y,
+                       ws))
     return (int)cudaErrorInvalidValue;
-  return rt::sgemm::run<true, true, true>(
-      static_cast<const float*>(x), static_cast<const float*>(dy), nullptr,
-      out, static_cast<float*>(ws), D, F, T, D, F, scale, 0, splits,
-      kb_per_split, grid_x, grid_y, static_cast<cudaStream_t>(stream), E);
+  return run_batched<true, true>(
+      static_cast<const float*>(x), static_cast<const float*>(dy),
+      static_cast<const int*>(rows), static_cast<float*>(out),
+      static_cast<float*>(ws), D, F, T, scale, splits, kb_per_split, grid_x,
+      grid_y, E, static_cast<cudaStream_t>(stream));
 }

@@ -46,16 +46,9 @@
 // - Epilogue: out = acc * scale as f32 with float4 stores, or its SR-bf16
 //   bits from rbits (sr_bf16_bits, common.cuh) with 8-byte stores: the
 //   plain SR cast of the kernel's own f32 result, bit for bit.
-// - BATCHED: the E products of a MoE expert table (the TPU kernels under
-//   jax.vmap) in one launch.  The expert is the outer tile coordinate,
-//   blockIdx.z = e * splits + split, and each operand and the output
-//   advance by one expert's contiguous (M, K), (K, N) and (M, N) block,
-//   so each role keeps its majorness: FF reads A K-major and B N-major,
-//   BP B K-major (trans_b), UP A M-major (X[e]^T of X (E, T, D)) and B
-//   N-major.  The split-K workspace holds splits x E x M x N partials,
-//   then E x grid_x x grid_y counters, and the last block of a tile sums
-//   its expert's splits in order 0..splits-1.  No SR: an f32 weight is
-//   not rounded.
+// - The batched form (a MoE expert table's E products in one launch)
+//   is sgemm_sm90_batched.cuh's, on this file's tile mainloop and
+//   epilogue.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -227,71 +220,53 @@ __device__ __forceinline__ float4 scaled(float4 v, float s) {
   return make_float4(v.x * s, v.y * s, v.z * s, v.w * s);
 }
 
-// ---- the kernel ------------------------------------------------------------
+// ---- one tile ---------------------------------------------------------------
 
-// out(M, N) = scale * A . B (see the header for the layouts), over the
-// tile space (grid_x column tiles, grid_y row tiles, splits); block
-// (x, y, z) computes tile (x, y) over k-blocks z * kb_per_split onward.
-// With m_fast the row tiles of one column tile are neighbours in launch
-// order (B's tile is then read from memory once while A stays in L2).
-// ws: splits x M x N f32 partials, then grid_x * grid_y int32 counters,
-// zeroed by the caller (splits > 1 only).  BATCHED: `experts` such
-// products, A, B and out (and rbits) advancing by M x K, K x N and
-// M x N elements an expert, blockIdx.z = expert * splits + split, ws
-// splits x experts x M x N partials, then experts x grid_x x grid_y
-// counters.
-template <bool A_MN, bool B_MN, bool BATCHED>
-__global__ void __launch_bounds__(NT, 2)
-    sgemm_kernel(const float* __restrict__ A, const float* __restrict__ B,
-                 const uint32_t* __restrict__ rbits, void* __restrict__ out,
-                 float* __restrict__ ws, int M, int N, int K, int lda,
-                 int ldb, int grid_x, int grid_y, int splits,
-                 int kb_per_split, int m_fast, float scale, int sr,
-                 int vec_a, int vec_b, int vec_out, int experts) {
-  extern __shared__ float4 smem4[];
-  float* As = reinterpret_cast<float*>(smem4);   // [STAGES][BK][LDA]
-  float* Bs = As + STAGES * BK * LDA;            // [STAGES][BK][LDB]
-  __shared__ int is_last;
+// A tile's place in its product: the operands (one expert's), the tile's
+// corner (m0, n0) and its k-blocks kb0 .. kb0 + nk - 1.
+struct TileAt {
+  const float* a;
+  const float* b;
+  int m0, n0, kb0, nk;
+};
 
-  int tx = blockIdx.x, ty = blockIdx.y;
-  if (m_fast) {
-    const int t = blockIdx.y * gridDim.x + blockIdx.x;
-    tx = t / grid_y;
-    ty = t % grid_y;
-  }
-  int z = blockIdx.z, e = 0;
-  const int E = BATCHED ? experts : 1;
-  if constexpr (BATCHED) {
-    e = blockIdx.z / splits;
-    z = blockIdx.z - e * splits;
-    A += (size_t)e * M * K;
-    B += (size_t)e * K * N;
-  }
-  const size_t eo = (size_t)e * M * N;   // this expert's output block
-  const int m0 = ty * BM, n0 = tx * BN;
-  const int k_blocks = (K + BK - 1) / BK;
-  const int kb0 = z * kb_per_split;
-  const int nk = max(0, min(kb_per_split, k_blocks - kb0));
+// acc = this thread's 8 x 8 outputs of the BM x BN tile at (at.m0,
+// at.n0) of A . B, summed over at's k-blocks through the ring
+// (As [STAGES][BK][LDA], Bs [STAGES][BK][LDB]; RA,
+// RB: the K-major operands' register tiles, NoTile for an operand that
+// takes cp.async).  Warp w owns rows 64 (w % 2) .. + 63 and columns
+// 32 (w / 2) .. + 31 of the tile; lane l the 4 x 4 sub-tiles at rows
+// + 4 (l / 4) + {0, 32}, columns + 4 (l % 4) + {0, 16}: acc[r][4 h + e]
+// sits at row m0 + tile_row(r), column n0 + tile_col(h) + e.  Every
+// cp.async of the tile has landed when it returns.
+__device__ __forceinline__ int tile_row(int r) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  return (warp % 2) * 64 + (lane / 4) * 4 + (r % 4) + 32 * (r / 4);
+}
+__device__ __forceinline__ int tile_col(int h) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  return (warp / 2) * 32 + (lane % 4) * 4 + 16 * h;
+}
 
-  // the K-major operands' register tiles (one tile ahead)
-  using ATile = typename std::conditional<A_MN, NoTile, KTile<BM, NT>>::type;
-  using BTile = typename std::conditional<B_MN, NoTile, KTile<BN, NT>>::type;
-  ATile ra;
-  BTile rb;
-
+template <bool A_MN, bool B_MN, class RA, class RB>
+__device__ __forceinline__ void tile_product(
+    float (&acc)[8][8], float* As, float* Bs, const TileAt& at, int lda,
+    int ldb, int M, int N, int K, bool vec_a, bool vec_b) {
+  RA ra;
+  RB rb;
   auto issue_copies = [&](int i) {   // cp.async of k-block kb0 + i
-    const int st = i % STAGES, k0 = (kb0 + i) * BK;
+    const int st = i % STAGES, k0 = (at.kb0 + i) * BK;
     if constexpr (A_MN)
-      copy_mn_tile<BM, LDA, NT>(As + st * BK * LDA, A, lda, k0, m0, K, M,
-                                vec_a);
+      copy_mn_tile<BM, LDA, NT>(As + st * BK * LDA, at.a, lda, k0, at.m0, K,
+                                M, vec_a);
     if constexpr (B_MN)
-      copy_mn_tile<BN, LDB, NT>(Bs + st * BK * LDB, B, ldb, k0, n0, K, N,
-                                vec_b);
+      copy_mn_tile<BN, LDB, NT>(Bs + st * BK * LDB, at.b, ldb, k0, at.n0, K,
+                                N, vec_b);
   };
   auto load_regs = [&](int i) {
-    const int k0 = (kb0 + i) * BK;
-    ra.load(A, lda, m0, k0, M, K, vec_a);
-    rb.load(B, ldb, n0, k0, N, K, vec_b);
+    const int k0 = (at.kb0 + i) * BK;
+    ra.load(at.a, lda, at.m0, k0, M, K, vec_a);
+    rb.load(at.b, ldb, at.n0, k0, N, K, vec_b);
   };
   auto store_regs = [&](int i) {
     const int st = i % STAGES;
@@ -301,32 +276,26 @@ __global__ void __launch_bounds__(NT, 2)
 
 #pragma unroll
   for (int i = 0; i < STAGES - 1; ++i) {
-    if (i < nk) issue_copies(i);
+    if (i < at.nk) issue_copies(i);
     cp_async_commit();
   }
-  if (nk > 0) {
+  if (at.nk > 0) {
     load_regs(0);
     store_regs(0);
   }
 
-  // warp w owns rows 64 (w % 2) .. + 63 and columns 32 (w / 2) .. + 31;
-  // lane l the 4 x 4 sub-tiles at rows + 4 (l / 4) + {0, 32}, columns
-  // + 4 (l % 4) + {0, 16}
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int am = (warp % 2) * 64 + (lane / 4) * 4;
-  const int bn = (warp / 2) * 32 + (lane % 4) * 4;
-  float acc[8][8];
+  const int am = tile_row(0), bn = tile_col(0);
 #pragma unroll
   for (int i = 0; i < 8; ++i)
 #pragma unroll
     for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
 
-  for (int i = 0; i < nk; ++i) {
+  for (int i = 0; i < at.nk; ++i) {
     cp_async_wait<STAGES - 2>();
     __syncthreads();
-    if (i + STAGES - 1 < nk) issue_copies(i + STAGES - 1);
+    if (i + STAGES - 1 < at.nk) issue_copies(i + STAGES - 1);
     cp_async_commit();
-    if (i + 1 < nk) load_regs(i + 1);
+    if (i + 1 < at.nk) load_regs(i + 1);
     const float* as = As + (i % STAGES) * BK * LDA + am;
     const float* bs = Bs + (i % STAGES) * BK * LDB + bn;
 #pragma unroll
@@ -342,21 +311,33 @@ __global__ void __launch_bounds__(NT, 2)
 #pragma unroll
         for (int c = 0; c < 8; ++c) acc[r][c] = fmaf(a[r], b[c], acc[r][c]);
     }
-    if (i + 1 < nk) store_regs(i + 1);
+    if (i + 1 < at.nk) store_regs(i + 1);
   }
   cp_async_wait<0>();
+}
 
-  // acc[r][4 h + e] sits at row m0 + am + (r % 4) + 32 (r / 4), column
-  // n0 + bn + 16 h + e
+// The tile's output: out[eo + gm * N + gn] = acc * scale (f32, or SR-bf16
+// bits from rbits at the same offset); with splits > 1 the raw partial
+// of split z into ws instead (splits x E x M x N partials, expert e's at
+// e x M x N, then the tile counters), and the block that finishes the
+// tile last (counter `ctr`, as it learns from an integer atomic, with no
+// float atomics) sums every split's partial in split order 0..splits-1
+// and writes the output.  is_last: an int in shared memory.
+__device__ __forceinline__ void tile_epilogue(
+    const float (&acc)[8][8], void* out, const uint32_t* __restrict__ rbits,
+    float* __restrict__ ws, int* is_last, int M, int N, int m0, int n0,
+    int z, int e, int E, int splits, int ctr, float scale, int sr,
+    bool vec_out) {
+  const size_t eo = (size_t)e * M * N;   // this expert's output block
   const bool split = splits > 1;
   float* part = split ? ws + ((size_t)z * E + e) * M * N : nullptr;
 #pragma unroll
   for (int r = 0; r < 8; ++r) {
-    const int gm = m0 + am + (r % 4) + 32 * (r / 4);
+    const int gm = m0 + tile_row(r);
     if (gm >= M) continue;
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      const int gn = n0 + bn + 16 * h;
+      const int gn = n0 + tile_col(h);
       if (gn >= N) continue;
       const float4 v = make_float4(acc[r][4 * h], acc[r][4 * h + 1],
                                    acc[r][4 * h + 2], acc[r][4 * h + 3]);
@@ -375,14 +356,12 @@ __global__ void __launch_bounds__(NT, 2)
   __threadfence();
   __syncthreads();
   if (threadIdx.x == 0)
-    is_last = atomicAdd(&counters[(e * grid_y + ty) * grid_x + tx], 1) ==
-              splits - 1;
+    *is_last = atomicAdd(&counters[ctr], 1) == splits - 1;
   __syncthreads();
-  if (!is_last) return;
+  if (!*is_last) return;
   __threadfence();
-  const size_t mn = (size_t)M * N;
-  const size_t sstride = (size_t)E * mn;   // split s's partials at s * it
-  const float* wp = ws + eo;               // this expert's split-0 partial
+  const size_t sstride = (size_t)E * M * N;   // split s's partials at s * it
+  const float* wp = ws + eo;                  // this expert's split-0 partial
   for (int q = threadIdx.x; q < BM * BN / 4; q += NT) {
     const int gm = m0 + q / (BN / 4), gn = n0 + (q % (BN / 4)) * 4;
     if (gm >= M || gn >= N) continue;
@@ -412,42 +391,65 @@ __global__ void __launch_bounds__(NT, 2)
   }
 }
 
+// ---- the kernel ------------------------------------------------------------
+
+// out(M, N) = scale * A . B (see the header for the layouts), over the
+// tile space (grid_x column tiles, grid_y row tiles, splits); block
+// (x, y, z) computes tile (x, y) over k-blocks z * kb_per_split onward.
+// With m_fast the row tiles of one column tile are neighbours in launch
+// order (B's tile is then read from memory once while A stays in L2).
+// ws: splits x M x N f32 partials, then grid_x * grid_y int32 counters,
+// zeroed by the caller (splits > 1 only).
+template <bool A_MN, bool B_MN>
+__global__ void __launch_bounds__(NT, 2)
+    sgemm_kernel(const float* __restrict__ A, const float* __restrict__ B,
+                 const uint32_t* __restrict__ rbits, void* __restrict__ out,
+                 float* __restrict__ ws, int M, int N, int K, int lda,
+                 int ldb, int grid_x, int grid_y, int splits,
+                 int kb_per_split, int m_fast, float scale, int sr,
+                 int vec_a, int vec_b, int vec_out) {
+  extern __shared__ float4 smem4[];
+  float* As = reinterpret_cast<float*>(smem4);   // [STAGES][BK][LDA]
+  float* Bs = As + STAGES * BK * LDA;            // [STAGES][BK][LDB]
+  __shared__ int is_last;
+
+  int tx = blockIdx.x, ty = blockIdx.y;
+  if (m_fast) {
+    const int t = blockIdx.y * gridDim.x + blockIdx.x;
+    tx = t / grid_y;
+    ty = t % grid_y;
+  }
+  const int z = blockIdx.z;
+  const int k_blocks = (K + BK - 1) / BK;
+  const int kb0 = z * kb_per_split;
+  const int nk = max(0, min(kb_per_split, k_blocks - kb0));
+  // the K-major operands' register tiles (one tile ahead)
+  using ATile = typename std::conditional<A_MN, NoTile, KTile<BM, NT>>::type;
+  using BTile = typename std::conditional<B_MN, NoTile, KTile<BN, NT>>::type;
+  float acc[8][8];
+  const TileAt at{A, B, ty * BM, tx * BN, kb0, nk};
+  tile_product<A_MN, B_MN, ATile, BTile>(acc, As, Bs, at, lda, ldb, M, N, K,
+                                         vec_a, vec_b);
+  tile_epilogue(acc, out, rbits, ws, &is_last, M, N, ty * BM, tx * BN, z, 0,
+                1, splits, ty * grid_x + tx, scale, sr, vec_out);
+}
+
 // ---- host side -------------------------------------------------------------
 
 constexpr int MAX_DEVICES = 64;
-
-// Whether (splits, kb_per_split, grid_x, grid_y) is the plan of one
-// expert's (M, N, K) over this mainloop's tiles, as
-// kernels/sr_matmul.py::f32_plan gives it, with a workspace where it
-// splits: the batched C entries refuse any other.
-inline bool batched_plan_ok(int E, int M, int N, int K, int splits,
-                            int kb_per_split, int grid_x, int grid_y,
-                            const void* ws) {
-  const int k_blocks = (K + BK - 1) / BK;
-  return E >= 1 && M >= 1 && N >= 1 && K >= 1 && splits >= 1 &&
-         kb_per_split >= 1 && grid_x == (N + BN - 1) / BN &&
-         grid_y == (M + BM - 1) / BM &&
-         (long long)splits * kb_per_split >= k_blocks &&
-         (long long)(splits - 1) * kb_per_split < k_blocks &&
-         (splits == 1 || ws != nullptr);
-}
 
 // One f32 GEMM.  A is (M, K) row-major with row stride lda (A_MN: A =
 // X^T for X (K, M), row stride lda); B is (K, N) with row stride ldb
 // (B_MN) or (N, K).  The tile space (grid_x, grid_y, splits) and
 // kb_per_split come from the caller's plan; ws as sgemm_kernel's.
-// BATCHED: `experts` such products over contiguous operands (A (E, M,
-// K) or, A_MN, X (E, K, M); B (E, K, N) or (E, N, K); out (E, M, N)).
 // Returns 0 or a cudaError_t.
-template <bool A_MN, bool B_MN, bool BATCHED = false>
+template <bool A_MN, bool B_MN>
 int run(const float* a, const float* b, const void* rbits, void* out,
         float* ws, int M, int N, int K, int lda, int ldb, float scale,
         int sr, int splits, int kb_per_split, int grid_x, int grid_y,
-        cudaStream_t stream, int experts = 1) {
-  auto kern = sgemm_kernel<A_MN, B_MN, BATCHED>;
-  if (experts < 1 || (!BATCHED && experts != 1) ||
-      (long long)experts * splits > 65535)
-    return static_cast<int>(cudaErrorInvalidValue);
+        cudaStream_t stream) {
+  auto kern = sgemm_kernel<A_MN, B_MN>;
+  if (splits > 65535) return static_cast<int>(cudaErrorInvalidValue);
   int dev = 0;
   int err = static_cast<int>(cudaGetDevice(&dev));
   if (err != 0) return err;
@@ -459,20 +461,16 @@ int run(const float* a, const float* b, const void* rbits, void* out,
     if (err != 0) return err;
     if (dev < MAX_DEVICES) smem_set[dev] = true;
   }
-  // an expert's operands start 16-byte aligned when its blocks hold a
-  // multiple of 4 floats (its output's do whenever N % 4 == 0)
-  const bool e_a = !BATCHED || (size_t)M * K % 4 == 0;
-  const bool e_b = !BATCHED || (size_t)K * N % 4 == 0;
-  const int vec_a = aligned16(a) && lda % 4 == 0 && e_a;
-  const int vec_b = aligned16(b) && ldb % 4 == 0 && e_b;
+  const int vec_a = aligned16(a) && lda % 4 == 0;
+  const int vec_b = aligned16(b) && ldb % 4 == 0;
   const int vec_out = N % 4 == 0 && aligned16(out) && aligned16(rbits) &&
                       aligned16(ws);
   // row tiles fastest when all of A (at most 8 MB) stays in L2
   const int m_fast = grid_y > 1 && (size_t)M * K * 4 <= ((size_t)8 << 20);
-  kern<<<dim3(grid_x, grid_y, splits * experts), NT, SMEM_BYTES, stream>>>(
+  kern<<<dim3(grid_x, grid_y, splits), NT, SMEM_BYTES, stream>>>(
       a, b, static_cast<const uint32_t*>(rbits), out, ws, M, N, K, lda, ldb,
       grid_x, grid_y, splits, kb_per_split, m_fast, scale, sr, vec_a, vec_b,
-      vec_out, experts);
+      vec_out);
   return static_cast<int>(cudaGetLastError());
 }
 

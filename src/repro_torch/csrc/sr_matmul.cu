@@ -35,11 +35,13 @@
 // jax.vmap): sr_matmul_batched_bf16 for bf16 operands
 // (gemm_sm90_batched.cuh: only each expert's live rows, the caller's
 // dtype out through a TMA store), sr_matmul_batched_f32 for f32 ones
-// (the fp32 preset; sgemm_sm90.cuh's mainloop).
+// (the fp32 preset; sgemm_sm90_batched.cuh: only each expert's live
+// rows, over sgemm_sm90.cuh's mainloop).
 #include "common.cuh"
 #include "gemm_sm90.cuh"
 #include "gemm_sm90_batched.cuh"
 #include "sgemm_sm90.cuh"
+#include "sgemm_sm90_batched.cuh"
 
 namespace rt {
 
@@ -223,32 +225,35 @@ extern "C" int sr_matmul_f32(const void* a, const void* b, const void* rbits,
 }
 
 // out[e] = A[e] . B[e] for the E experts of a MoE table with f32
-// operands (the fp32 preset), in ONE launch of sgemm_sm90.cuh's
-// mainloop (BATCHED): A (E, M, K), B (E, K, N) or (E, N, K) with
-// trans_b, out (E, M, N) f32, each contiguous.  The plan's splits and
-// kb_per_split and the grid (grid_x, grid_y) are one expert's (M, N, K)
-// from kernels/sr_matmul.py::f32_plan; ws holds splits x E x M x N f32
+// operands (the fp32 preset), in ONE launch of sgemm_sm90_batched.cuh's
+// kernel: A (E, M, K), B (E, K, N) or (E, N, K) with trans_b,
+// out (E, M, N) f32, each contiguous.  rows (E,) int32 on the device, or
+// null: the rows of A[e] at or past rows[e] are zero, so only A[e]'s
+// live row tiles are computed and the rest of out[e] is written as zeros
+// (the same result).  The plan's splits and kb_per_split and the grid
+// (grid_x, grid_y) are one expert's (M, N, K) from
+// kernels/sr_matmul.py::f32_plan; ws holds splits x E x M x N f32
 // partials, then E x grid_x x grid_y zeroed int32 counters, when
 // splits > 1.  No SR.  Returns cudaGetLastError(), or
 // cudaErrorInvalidValue for a shape or plan that is not its own.
 extern "C" int sr_matmul_batched_f32(const void* a, const void* b,
-                                     void* out, void* ws, int E, int M,
-                                     int N, int K, int trans_b, int splits,
-                                     int kb_per_split, int grid_x,
-                                     int grid_y, void* stream) {
-  if (!rt::sgemm::batched_plan_ok(E, M, N, K, splits, kb_per_split, grid_x,
-                                  grid_y, ws))
+                                     void* out, void* ws, const void* rows,
+                                     int E, int M, int N, int K, int trans_b,
+                                     int splits, int kb_per_split,
+                                     int grid_x, int grid_y, void* stream) {
+  using namespace rt::sgemm;
+  if (!batched_plan_ok(E, M, N, K, splits, kb_per_split, grid_x, grid_y,
+                       ws))
     return (int)cudaErrorInvalidValue;
   const float* A = static_cast<const float*>(a);
   const float* B = static_cast<const float*>(b);
+  const int* R = static_cast<const int*>(rows);
+  float* O = static_cast<float*>(out);
   float* W = static_cast<float*>(ws);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (trans_b)
-    return rt::sgemm::run<false, false, true>(A, B, nullptr, out, W, M, N, K,
-                                              K, K, 1.0f, 0, splits,
-                                              kb_per_split, grid_x, grid_y,
-                                              st, E);
-  return rt::sgemm::run<false, true, true>(A, B, nullptr, out, W, M, N, K, K,
-                                           N, 1.0f, 0, splits, kb_per_split,
-                                           grid_x, grid_y, st, E);
+    return run_batched<false, false>(A, B, R, O, W, M, N, K, 1.0f, splits,
+                                     kb_per_split, grid_x, grid_y, E, st);
+  return run_batched<false, true>(A, B, R, O, W, M, N, K, 1.0f, splits,
+                                  kb_per_split, grid_x, grid_y, E, st);
 }

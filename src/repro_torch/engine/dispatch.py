@@ -227,9 +227,9 @@ def pe_dot(x: torch.Tensor, w: torch.Tensor, *,
     an expert table dY is (E, C, F) and rbits (E, D, F)).  `rows` (E,)
     int32, for an expert table only: each expert's live rows of x (the
     rest are zero, as the MoE dispatch builds them); the cuda backend's
-    bf16 batched launches (PREFILL, FF, BP, UP) compute only those, for
-    the same result.  The reference backend, the DECODE matvec and the
-    f32 batched forms ignore it.
+    batched launches (PREFILL, FF, BP, UP; bf16 and f32) compute only
+    those, for the same result.  The reference backend and the DECODE
+    matvec ignore it.
     """
     word = word or DEFAULT_WORD
     if backend not in BACKENDS:

@@ -19,8 +19,10 @@ X[e]^T dY[e] for the E experts of a MoE table, ONE launch a call,
 planned over all E experts' tiles: bf16 operands on the sm90 path
 (:func:`batched_plan`; ``csrc/gemm_sm90_batched.cuh``, whose reduction
 stops at each expert's live tokens when given their count), f32 or
-SR-bf16 out with each expert's bits at its own offset; f32 operands (the fp32 preset) on the f32 path
-(:func:`batched_f32_plan`), f32 out with no SR.  It has its own counter
+SR-bf16 out with each expert's bits at its own offset; f32 operands
+(the fp32 preset) on the f32 path (:func:`batched_f32_plan`;
+``csrc/sgemm_sm90_batched.cuh``, whose token loop stops at each
+expert's live count too), f32 out with no SR.  It has its own counter
 (``outer_accum:batched``) besides ``outer_accum`` and the path's;
 :func:`outer_accum_batched_plain` is its plain version.
 """
@@ -202,8 +204,9 @@ def outer_accum_batched(x: torch.Tensor, dy: torch.Tensor, *,
     ceil(rows[e] / 64) token blocks; the result is still x[e]^T dy[e]
     (up to the sign of a zero).  Or both f32 and contiguous (the f32
     path, the fp32 preset): f32 out, no rbits (an f32 weight is not
-    rounded), rows ignored.  Anything else raises; there is no generic
-    fallback.  CPU tensors take the plain version.
+    rounded), the reduction stopped at ceil(rows[e] / 16) token blocks.
+    Anything else raises; there is no generic fallback.  CPU tensors take
+    the plain version.
     """
     e, t, d, f = _batched_shapes(x, dy)
     if x.device.type == "cpu" and dy.device.type == "cpu":
@@ -218,7 +221,7 @@ def outer_accum_batched(x: torch.Tensor, dy: torch.Tensor, *,
                         f"f32 operands, got {dt}, {dy.dtype}")
     check_rows(rows, e, x.device, "outer_accum_batched")
     if dt == torch.float32:
-        return _batched_f32(x, dy, e, t, d, f, scale, rbits)
+        return _batched_f32(x, dy, e, t, d, f, scale, rbits, rows)
     if not (x.is_contiguous() and dy.is_contiguous() and aligned16(x, dy)
             and d % 8 == 0 and f % 8 == 0):
         raise ValueError(
@@ -256,9 +259,12 @@ def outer_accum_batched(x: torch.Tensor, dy: torch.Tensor, *,
 
 
 def _batched_f32(x, dy, e: int, t: int, d: int, f: int, scale: float,
-                 rbits: Optional[torch.Tensor]) -> torch.Tensor:
-    """:func:`outer_accum_batched` of two f32 operands: one launch of the
-    f32 mainloop's batched form under :func:`batched_f32_plan`."""
+                 rbits: Optional[torch.Tensor],
+                 rows: Optional[torch.Tensor]) -> torch.Tensor:
+    """:func:`outer_accum_batched` of two f32 operands: one launch of
+    ``csrc/sgemm_sm90_batched.cuh``'s kernel under
+    :func:`batched_f32_plan`, each expert's reduction stopped at its
+    `rows` live tokens."""
     if rbits is not None:
         raise ValueError("outer_accum_batched: f32 operands take no rbits "
                          "(the f32 batched form has no SR epilogue)")
@@ -275,7 +281,8 @@ def _batched_f32(x, dy, e: int, t: int, d: int, f: int, scale: float,
     ws = split_workspace(p, d, f, x.device, experts=e)
     err = _bind(build.load("outer_accum"), "outer_accum_batched_f32")(
         build.ptr(x), build.ptr(dy), build.ptr(out),
-        build.ptr(ws) if ws is not None else None, e, t, d, f,
+        build.ptr(ws) if ws is not None else None,
+        build.ptr(rows) if rows is not None else None, e, t, d, f,
         ctypes.c_float(scale), p.splits, p.kb_per_split(t), gx, gy,
         build.stream_ptr(x.device))
     if err != 0:

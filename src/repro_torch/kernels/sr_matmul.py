@@ -25,7 +25,8 @@ bf16 out, ONE launch a call, with each expert's (M, N, K) planned over
 all E experts' tiles: bf16 operands on the sm90 path (:func:`plan`;
 ``csrc/gemm_sm90_batched.cuh``, which computes only each expert's live
 rows when given their count), f32 operands (the fp32 preset) on the f32
-path (:func:`f32_plan`).  It has
+path (:func:`f32_plan`; ``csrc/sgemm_sm90_batched.cuh``, likewise over
+the live rows).  It has
 its own counter (``sr_matmul:batched``) besides ``sr_matmul`` and the
 path's; :func:`sr_matmul_batched_plain` is its plain version.
 """
@@ -453,8 +454,8 @@ def sr_matmul_batched(a: torch.Tensor, b: torch.Tensor, *,
     each expert's live rows — the contract is that the rows of a[e] at
     or past rows[e] are zero, so the bf16 kernel computes only the row
     tiles below rows[e] and writes zeros past them; the result is still
-    a[e] @ b[e] (up to the sign of a zero).  The f32 path ignores it.
-    CPU tensors take the plain version.
+    a[e] @ b[e] (up to the sign of a zero).  The f32 kernel does the same
+    (f32 out).  CPU tensors take the plain version.
     """
     e, m, n, k = _batched_shapes(a, b, trans_b)
     dev = a.device
@@ -473,7 +474,7 @@ def sr_matmul_batched(a: torch.Tensor, b: torch.Tensor, *,
                         f"{out_dtype}")
     check_rows(rows, e, dev, "sr_matmul_batched")
     if dt == torch.float32:
-        return _batched_f32(a, b, e, m, n, k, trans_b).to(out_dtype)
+        return _batched_f32(a, b, e, m, n, k, trans_b, rows).to(out_dtype)
     if not (a.is_contiguous() and b.is_contiguous() and aligned16(a, b)
             and k % 8 == 0 and n % 8 == 0):
         raise ValueError(
@@ -513,10 +514,11 @@ def _batched_call(a, b, out, p: Plan, trans_b: bool,
         raise launch_error("sr_matmul_batched", err)
 
 
-def _batched_f32(a, b, e: int, m: int, n: int, k: int,
-                 trans_b: bool) -> torch.Tensor:
-    """:func:`sr_matmul_batched` of two f32 operands: one launch of the
-    f32 mainloop's batched form under ``f32_plan(m, n, k, experts=e)``."""
+def _batched_f32(a, b, e: int, m: int, n: int, k: int, trans_b: bool,
+                 rows: Optional[torch.Tensor]) -> torch.Tensor:
+    """:func:`sr_matmul_batched` of two f32 operands: one launch of
+    ``csrc/sgemm_sm90_batched.cuh``'s kernel under ``f32_plan(m, n, k,
+    experts=e)`` over each expert's `rows` live rows."""
     if not (a.is_contiguous() and b.is_contiguous()):
         raise ValueError("sr_matmul_batched kernel takes contiguous f32 "
                          "operands")
@@ -530,8 +532,10 @@ def _batched_f32(a, b, e: int, m: int, n: int, k: int,
     ws = split_workspace(p, m, n, a.device, experts=e)
     err = _bind(build.load("sr_matmul"), "sr_matmul_batched_f32")(
         build.ptr(a), build.ptr(b), build.ptr(out),
-        build.ptr(ws) if ws is not None else None, e, m, n, k, int(trans_b),
-        p.splits, p.kb_per_split(k), gx, gy, build.stream_ptr(a.device))
+        build.ptr(ws) if ws is not None else None,
+        build.ptr(rows) if rows is not None else None, e, m, n, k,
+        int(trans_b), p.splits, p.kb_per_split(k), gx, gy,
+        build.stream_ptr(a.device))
     if err != 0:
         raise launch_error("sr_matmul_batched", err)
     COUNTER.n += 1

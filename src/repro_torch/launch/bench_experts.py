@@ -1,7 +1,7 @@
-"""Device time of a MoE layer's bf16 batched expert products, tree by tree.
+"""Device time of a MoE layer's batched expert products, tree by tree.
 
     PYTHONPATH=src python -m repro_torch.launch.bench_experts \\
-        [--tree DIR ...] [--rounds 2]
+        [--tree DIR ...] [--rounds 2] [--precision fp32]
 
 Times granite-moe-1b-a400m's three expert tables a layer (32 experts;
 experts_in and experts_gate 1024 -> 512, experts_out 512 -> 1024) in a
@@ -22,6 +22,15 @@ them):
 - ``…:all-live``: every row of every expert live (a skewed routing's
   worst case: one expert takes every token);
 - ``…:bmm``: ``torch.bmm`` on the routed buffers (bf16 out, no SR).
+
+``--precision fp32`` times the f32 batched forms instead (the fp32
+preset on a MoE table: f32 operands, f32 out, no SR): FF, BP and UP at
+C = 1024, routed, all-live and ``torch.bmm`` (TF32 off), each called as
+the dispatch calls it, with the live rows (a tree whose f32 kernels
+predate them takes every row whatever it is passed); FF and BP also
+under 1, 2 and 4 splits of K (``…:splits<s>``, routed and all-live;
+the child process replaces ``sr_matmul.f32_plan`` for the call), the
+sweep behind ``f32_plan``'s choice for a MoE table.
 
 Each tree runs in a process of its own, which imports that tree's
 ``repro_torch``, builds its kernels and holds each product against its
@@ -44,7 +53,7 @@ ROOT = Path(__file__).resolve().parents[3]
 
 # run in each tree's own process: only the public wrappers and their
 # plain versions, which every tree since the batched UP was added has
-CHILD = r"""
+COMMON = r"""
 import inspect, json, torch
 from repro_torch.kernels import outer_accum as koa
 from repro_torch.kernels import sr_matmul as kmm
@@ -82,6 +91,8 @@ def routed_rows(T):
     return torch.zeros(E, dtype=torch.int32, device="cuda").scatter_add_(
         0, top, torch.ones(top.numel(), dtype=torch.int32, device="cuda"))
 
+"""
+CHILD = COMMON + r"""
 def buf(rows, C, w, scale=1.0):
     live = torch.arange(C, device="cuda")[None, :] < rows[:, None]
     r = torch.randn((E, C, w), generator=gen, device="cuda") * scale
@@ -157,9 +168,85 @@ print(json.dumps({"live_rows_passed": LIVE, "cases": out}))
 """
 
 
-def run_tree(tree: Path) -> dict:
+# the f32 forms (--precision fp32), in each tree's own process; FF
+# and BP also under SPLITS' split counts
+CHILD_F32 = COMMON + r"""
+C, SPLITS = 1024, (1, 2, 4)
+
+
+def buf32(rows, w, scale=1.0):
+    live = torch.arange(C, device="cuda")[None, :] < rows[:, None]
+    r = torch.randn((E, C, w), generator=gen, device="cuda") * scale
+    return torch.where(live[..., None], r, 0.0)
+
+def operands(role, rows, k, n):
+    w = torch.randn((E, k, n), generator=gen, device="cuda") * k ** -0.5
+    if role == "bp":
+        return buf32(rows, n), w
+    if role == "up":
+        return buf32(rows, k), buf32(rows, n, C ** -0.5)
+    return buf32(rows, k), w
+
+def call(role, ops, rows, bmm=False, splits=None):
+    if role == "up":
+        x, dy = ops
+        if bmm:
+            return torch.bmm(x.transpose(1, 2), dy)
+        return koa.outer_accum_batched(x, dy, rows=rows)
+    a, w = ops
+    tb = role == "bp"
+    if bmm:
+        return torch.bmm(a, w.transpose(1, 2) if tb else w)
+    if splits is None:
+        return kmm.sr_matmul_batched(a, w, trans_b=tb, rows=rows)
+    own = kmm.f32_plan
+    kmm.f32_plan = lambda *args, **kw: own(*args, **kw)._replace(
+        splits=splits)
+    try:
+        return kmm.sr_matmul_batched(a, w, trans_b=tb, rows=rows)
+    finally:
+        kmm.f32_plan = own
+
+def check(role, ops, rows, got):
+    if role == "up":
+        want = koa.outer_accum_batched_plain(*ops, rows=rows)
+    else:
+        want = kmm.sr_matmul_batched_plain(*ops, trans_b=role == "bp",
+                                           rows=rows)
+    assert torch.allclose(got, want, rtol=5e-4, atol=1e-4), role
+    return float((got - want).abs().max() / want.abs().max())
+
+out = {}
+routed = routed_rows(C)
+full = torch.full((E,), C, dtype=torch.int32, device="cuda")
+for role in ("ff", "bp", "up"):
+    cases = [(role, routed, False, None), (role + ":all-live", full, False,
+                                          None),
+             (role + ":bmm", routed, True, None)]
+    if role != "up":
+        cases += [(f"{role}:splits{s}{tag}", r, False, s) for s in SPLITS
+                  for tag, r in (("", routed), (":all-live", full))]
+    for label, rows, bmm, splits in cases:
+        warm = cold = err = 0.0
+        for k, n in TABLES:
+            sets = [operands(role, rows, k, n) for _ in range(3)]
+            f = lambda: call(role, sets[0], rows, bmm, splits)
+            if not bmm:
+                err = max(err, check(role, sets[0], rows, f()))
+            warm += graph_ms(f)
+            cold += graph_ms(lambda: [call(role, s, rows, bmm, splits)
+                                      for s in sets], iters=4) / 3
+            del sets
+        out[label] = {"graph_ms": warm, "cold_ms": cold,
+                      "live_rows": int(rows.sum()), "rows": C * E,
+                      "max_rel_err": err}
+print(json.dumps({"live_rows_passed": True, "cases": out}))
+"""
+
+
+def run_tree(tree: Path, child: str = CHILD) -> dict:
     env = dict(os.environ, PYTHONPATH=str(tree / "src"))
-    proc = subprocess.run([sys.executable, "-c", CHILD], env=env,
+    proc = subprocess.run([sys.executable, "-c", child], env=env,
                           capture_output=True, text=True, timeout=900)
     if proc.returncode != 0:
         raise RuntimeError(f"{tree}: exit {proc.returncode}\n"
@@ -173,6 +260,9 @@ def main(argv=None) -> int:
                     help="a checkout's root (repeatable; default: this one)")
     ap.add_argument("--rounds", type=int, default=1,
                     help="passes over the trees, every second one reversed")
+    ap.add_argument("--precision", choices=("paper_sr_bf16", "fp32"),
+                    default="paper_sr_bf16",
+                    help="the bf16 batched forms, or the f32 ones (fp32)")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -183,7 +273,8 @@ def main(argv=None) -> int:
              for t in (trees if n % 2 == 0 else trees[::-1])]
     runs = []
     for tree in order:
-        res = run_tree(tree)
+        res = run_tree(tree, CHILD_F32 if args.precision == "fp32"
+                       else CHILD)
         for name, d in res["cases"].items():
             print(f"[bench_experts] {tree.name} {name}: graph warm "
                   f"{d['graph_ms']:.4f} ms, cold {d['cold_ms']:.4f} ms a "

@@ -25,23 +25,23 @@ import time
 # (f32) serve sr_matmul with A K-major (template argument A_MN false) and
 # outer_accum with A = X^T (A_MN true); a MoE table's batched products
 # are gemm_sm90_batched.cuh's batched_kernel and splitk_reduce_batched
-# (bf16) and sgemm_sm90.cuh's kernel with BATCHED, its last argument,
-# true (f32): sr_matmul:batched with A_MN false, outer_accum:batched (a
-# MoE table's UP) with A_MN true; decode_fused.cu's kernels carry their
+# (bf16) and sgemm_sm90_batched.cuh's sgemm_batched_kernel (f32):
+# sr_matmul:batched with A_MN false, outer_accum:batched (a MoE table's
+# UP) with A_MN true; decode_fused.cu's kernels carry their
 # word as the first template argument (0 fused_attn_unit, 1 fused_ffn)
 PORT_KERNELS = {
     "sr_matmul": r"rt::(sr_matmul_kernel|sm90::(gemm_kernel<\d+, false, "
                  r"\w+>|splitk_reduce<false>)|"
-                 r"sgemm::sgemm_kernel<false, \w+, false>)",
+                 r"sgemm::sgemm_kernel<false, \w+>)",
     "sr_matmul:batched": r"rt::(sm90::(batched_kernel<\d+, false|"
                          r"splitk_reduce_batched<false)|"
-                         r"sgemm::sgemm_kernel<false, \w+, true>)",
+                         r"sgemm::sgemm_batched_kernel<false, \w+>)",
     "outer_accum": r"rt::(outer_accum_kernel|sm90::(gemm_kernel<\d+, true, "
                    r"\w+>|splitk_reduce<true>)|"
-                   r"sgemm::sgemm_kernel<true, \w+, false>)",
+                   r"sgemm::sgemm_kernel<true, \w+>)",
     "outer_accum:batched": r"rt::(sm90::(batched_kernel<\d+, true|"
                            r"splitk_reduce_batched<true)|"
-                           r"sgemm::sgemm_kernel<true, \w+, true>)",
+                           r"sgemm::sgemm_batched_kernel<true, \w+>)",
     "sr_round": r"rt::sr_round_kernel",
     "fused_attn_unit": r"rt::decode::((norm|gemm)_kernel<0\b|attn_kernel)",
     "fused_ffn": r"rt::decode::(norm|gemm)_kernel<1\b",

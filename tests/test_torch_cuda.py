@@ -1550,11 +1550,12 @@ def test_tied_head_at_granite_vocab_trains_on_the_sm90_path(dev):
 LIVE_COUNTS = (0, 1, 63, 64, 65, 127, 128, 129)
 
 
-def _dispatched(dev, C, widths, seed, counts=LIVE_COUNTS):
+def _dispatched(dev, C, widths, seed, counts=LIVE_COUNTS,
+                dtype=torch.bfloat16):
     """Buffers built by the MoE dispatch (models/moe.py) for experts with
-    `counts` + (C,) routed entries: one (E, C, w) bf16 buffer per width
-    in `widths`, each expert's rows past its count zero, and rows (E,)
-    int32 from _expert_rows."""
+    `counts` + (C,) routed entries: one (E, C, w) buffer of `dtype` per
+    width in `widths`, each expert's rows past its count zero, and rows
+    (E,) int32 from _expert_rows."""
     from repro_torch.models import moe
     counts = (*counts, C)
     E = len(counts)
@@ -1570,7 +1571,7 @@ def _dispatched(dev, C, widths, seed, counts=LIVE_COUNTS):
         src = torch.randn((experts.numel(), w), generator=g, device=dev)
         buf = torch.zeros((E * C + 1, w), device=dev)
         buf.index_copy_(0, slot, src * keep[:, None])
-        bufs.append(buf[:-1].reshape(E, C, w).bfloat16().contiguous())
+        bufs.append(buf[:-1].reshape(E, C, w).to(dtype).contiguous())
     assert rows.tolist() == list(counts)
     return bufs, rows, g
 
@@ -1744,3 +1745,196 @@ def test_pe_batched_matmul_with_live_rows_equals_all_live(dev, transpose_w):
     for got, want in zip(*res):
         assert got.dtype == torch.bfloat16
         assert torch.equal(got, want)
+
+
+# ---------------------------------------------------------------------------
+# The f32 batched forms' live rows (the fp32 preset on a MoE table):
+# sgemm_sm90_batched.cuh computes only the live row tiles of FF and BP
+# and stops the UP's token loop at each expert's count; the results
+# equal the all-live kernel's up to the sign of a zero
+# ---------------------------------------------------------------------------
+
+# an expert's kept entries at every edge of a 16-token block, a 64-row
+# span and a 128-row tile, with an empty expert and a full one (C)
+F32_LIVE_COUNTS = (0, 1, 15, 16, 17, 63, 64, 65, 127, 128, 129)
+
+
+def _f32_role(dev, role, C, k, n, seed, counts=F32_LIVE_COUNTS):
+    """(call(rows), rows, shape) of an f32 batched product on buffers
+    built by the MoE dispatch: FF a (E, C, k) . w (E, k, n), BP a (E, C,
+    n) . w^T, UP x (E, C, k)^T dy (E, C, n) with scale 0.5."""
+    if role == "up":
+        (x, dy), rows, _ = _dispatched(dev, C, [k, n], seed, counts,
+                                       torch.float32)
+        dy = dy * C ** -0.5
+        return (lambda r: koa.outer_accum_batched(x, dy, scale=0.5, rows=r),
+                lambda r: koa.outer_accum_batched_plain(x, dy, scale=0.5,
+                                                        rows=r),
+                rows, (x.shape[0], k, n))
+    trans_b = role == "bp"
+    (a,), rows, g = _dispatched(dev, C, [n if trans_b else k], seed, counts,
+                                torch.float32)
+    w = torch.randn((a.shape[0], k, n), generator=g, device=dev) \
+        * a.shape[2] ** -0.5
+    return (lambda r: kmm.sr_matmul_batched(a, w, trans_b=trans_b, rows=r),
+            lambda r: kmm.sr_matmul_batched_plain(a, w, trans_b=trans_b,
+                                                  rows=r),
+            rows, (a.shape[0], C, k if trans_b else n))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("role", ["ff", "bp", "up"])
+@pytest.mark.parametrize("ckn", [(1024, 1024, 512), (1024, 512, 1024),
+                                 (200, 72, 40), (300, 33, 130)], ids=str)
+def test_f32_batched_live_rows_match_plain_and_all_live(dev, role, ckn):
+    """The f32 batched kernels with each expert's live rows, at counts on
+    every edge of a 16-token block and a 128-row tile, an empty expert
+    and a full one: within the f32 path's tolerance of the plain version,
+    equal to the all-live kernel's on the same buffers, one f32 launch a
+    call; an empty expert's output 0."""
+    C, k, n = ckn
+    call, plain, rows, _ = _f32_role(dev, role, C, k, n, seed=90)
+    mod = koa if role == "up" else kmm
+    before = {name: c.n for name, c in (("batched", mod.BATCHED_COUNTER),
+                                        *mod.PATH_COUNTERS.items())}
+    got = call(rows)
+    moved = {name: c.n - before[name] for name, c in (
+        ("batched", mod.BATCHED_COUNTER), *mod.PATH_COUNTERS.items())}
+    assert moved == {"batched": 1, "f32": 1, "sm90": 0, "generic": 0}
+    torch.testing.assert_close(got, plain(rows), rtol=MM_RTOL, atol=MM_ATOL)
+    assert torch.equal(got, call(None))
+    assert torch.equal(got[0], torch.zeros_like(got[0]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("role", ["ff", "bp", "up"])
+def test_f32_batched_kernels_write_every_element_with_live_rows(dev, role):
+    """The output's block is first filled with NaN (the caching allocator
+    hands the kernel that block again): every element comes back finite,
+    FF / BP's rows past an expert's count exactly 0 (the dead row tiles'
+    zeros and the live tiles' zero rows), the UP's empty expert 0."""
+    C = 200
+    call, _, rows, shape = _f32_role(dev, role, C, 1024, 512, seed=91)
+    poison = torch.full(shape, float("nan"), device=dev)
+    ptr = poison.data_ptr()
+    del poison
+    got = call(rows)
+    torch.cuda.synchronize()
+    assert got.data_ptr() == ptr, "the allocator did not reuse the block"
+    assert torch.isfinite(got).all()
+    if role == "up":
+        assert torch.equal(got[0], torch.zeros_like(got[0]))
+    else:
+        dead = ~kmm.live_rows(rows, C)
+        assert torch.equal(got[dead], torch.zeros_like(got[dead]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [("ff", 32, 8, 512, 1024),
+                                  ("bp", 32, 8, 512, 1024),
+                                  ("ff", 32, 40, 512, 1024),
+                                  ("bp", 32, 40, 512, 1024),
+                                  ("up", 32, 40, 1024, 512),
+                                  ("up", 2, 4096, 64, 64)], ids=str)
+def test_f32_batched_split_plans_with_live_rows_two_calls_bit_equal(dev,
+                                                                    case):
+    """granite's 512-wide products at C = 8, 40 (FF / BP plans split K),
+    its UP at C = 40 and a long UP ((2, 4096, 64, 64): its plan splits
+    the tokens) with live
+    rows below C: two calls give the same bits, equal to the all-live
+    kernel's and within tolerance of the plain version."""
+    role, e, c, n, k = case
+    g = torch.Generator(device=dev).manual_seed(92)
+    rows = torch.randint(0, c + 1, (e,), generator=g, device=dev,
+                         dtype=torch.int32)
+    live = kmm.live_rows(rows, c)[..., None]
+    if role == "up":
+        x = torch.where(live, torch.randn((e, c, n), generator=g,
+                                          device=dev), 0.0)
+        dy = torch.where(live, torch.randn((e, c, k), generator=g,
+                                           device=dev), 0.0)
+        assert (koa.batched_f32_plan(e, c, n, k).splits > 1) == (c == 4096)
+        call = lambda r: koa.outer_accum_batched(x, dy, scale=1 / c, rows=r)
+        want = koa.outer_accum_batched_plain(x, dy, scale=1 / c, rows=rows)
+    else:
+        trans_b = role == "bp"
+        a = torch.where(live, torch.randn((e, c, k), generator=g,
+                                          device=dev), 0.0)
+        w = torch.randn((e, n, k) if trans_b else (e, k, n), generator=g,
+                        device=dev) * k ** -0.5
+        assert kmm.f32_plan(c, n, k, experts=e).splits > 1
+        call = lambda r: kmm.sr_matmul_batched(a, w, trans_b=trans_b,
+                                               rows=r)
+        want = kmm.sr_matmul_batched_plain(a, w, trans_b=trans_b, rows=rows)
+    first = call(rows)
+    assert torch.equal(first.view(torch.int32), call(rows).view(torch.int32))
+    assert torch.equal(first, call(None))
+    torch.testing.assert_close(first, want, rtol=MM_RTOL, atol=MM_ATOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("role", ["ff", "bp", "up"])
+@pytest.mark.parametrize("k", [72, 2000])
+def test_f32_batched_live_rows_read_no_other_expert(dev, role, k):
+    """Expert 1's operands are all inf (its live rows and its dead ones,
+    the contract's zeros broken on purpose): a unit of expert 0 or 2 that
+    read across a boundary, or a split that summed another expert's
+    partial (K = 2000 splits), would turn its outputs inf or NaN."""
+    e, m, n = 3, 40, 72
+    rows = torch.tensor([17, 33, 40], dtype=torch.int32, device=dev)
+    live = kmm.live_rows(rows, m)[..., None]
+    g = torch.Generator(device=dev).manual_seed(93)
+    if role == "up":
+        x = torch.where(live, torch.randn((e, m, n), generator=g,
+                                          device=dev), 0.0)
+        dy = torch.where(live, torch.randn((e, m, k), generator=g,
+                                           device=dev), 0.0) * m ** -0.5
+        x[1], dy[1] = float("inf"), float("inf")
+        got = koa.outer_accum_batched(x, dy, rows=rows)
+        want = koa.outer_accum_batched_plain(x, dy, rows=rows)
+    else:
+        trans_b = role == "bp"
+        a = torch.where(live, torch.randn((e, m, k), generator=g,
+                                          device=dev), 0.0)
+        b = torch.randn((e, n, k) if trans_b else (e, k, n), generator=g,
+                        device=dev) * k ** -0.5
+        a[1], b[1] = float("inf"), float("inf")
+        got = kmm.sr_matmul_batched(a, b, trans_b=trans_b, rows=rows)
+        want = kmm.sr_matmul_batched_plain(a, b, trans_b=trans_b, rows=rows)
+    for i in (0, 2):
+        assert torch.isfinite(got[i]).all()
+        torch.testing.assert_close(got[i], want[i], rtol=MM_RTOL,
+                                   atol=MM_ATOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("transpose_w", [False, True])
+def test_pe_f32_batched_matmul_with_live_rows_equals_all_live(dev,
+                                                             transpose_w):
+    """pe_dot of an f32 expert table under an fp32 word on the cuda
+    backend, with the dispatch's live rows and without: y, dX and dW
+    equal, every launch on the f32 path."""
+    from repro_torch.core.phases import Phase
+    from repro_torch.core.program import PEWord
+    from repro_torch.engine.dispatch import pe_dot
+    d, f = 1024, 512
+    (x, ct), rows, g = _dispatched(dev, 200, [d, f], seed=94,
+                                   dtype=torch.float32)
+    E = x.shape[0]
+    w = torch.randn((E, f, d) if transpose_w else (E, d, f), generator=g,
+                    device=dev) * d ** -0.5
+    word = PEWord(op="moe_experts_in", ff_dtype="float32",
+                  bp_dtype="float32")
+    res = []
+    before = (kmm.PATH_COUNTERS["f32"].n, koa.PATH_COUNTERS["f32"].n)
+    for r in (rows, None):
+        xr, wr = x.clone().requires_grad_(), w.clone().requires_grad_()
+        y = pe_dot(xr, wr, word=word, backend="cuda",
+                   transpose_w=transpose_w, phase=Phase.FF, rows=r)
+        res.append((y, *torch.autograd.grad(y, (xr, wr), grad_outputs=ct)))
+    assert (kmm.PATH_COUNTERS["f32"].n - before[0],
+            koa.PATH_COUNTERS["f32"].n - before[1]) == (4, 2)
+    for got, want in zip(*res):
+        assert got.dtype == torch.float32
+        assert torch.equal(got, want)
+

@@ -7,6 +7,7 @@ Tolerances are those of the JAX package's own kernel tests, each with
 its reason.  The CUDA kernels themselves are held against these plain
 versions on the card by tests/test_torch_cuda.py and chip_smoke.py.
 """
+import itertools
 import math
 import re
 from pathlib import Path
@@ -971,6 +972,92 @@ def test_outer_accum_batched_f32_plain_matches_vmapped_pallas(etdf, scale):
                                atol=OA_ATOL)
 
 
+@given(e=st.integers(1, 40), m=st.integers(1, 700), n=st.integers(1, 600),
+       k=st.integers(1, 3000), a_major=st.sampled_from("km"),
+       live=st.integers(-2, 3002))
+@settings(max_examples=60, deadline=None, derandomize=True)
+def test_f32_batched_plan_and_units_cover_every_tile_and_k_block(
+        e, m, n, k, a_major, live):
+    """The f32 batched plan comes from (M, N, K, E) alone, and its units
+    (one split of one expert's output tile each: the blocks of
+    csrc/sgemm_sm90_batched.cuh's grid) cover every output tile, their
+    splits every k-block of K once with none empty; cut at a live count
+    (the UP's tokens), the splits' k-blocks are exactly the live ones.
+    How the kernel numbers the units and skips the dead ones is held on
+    the card (tests/test_torch_cuda.py)."""
+    p = kmm.f32_plan(m, n, k, experts=e)
+    assert p == kmm.plan(m, n, k, a_major, "n", lda=k + 1, aligned=False,
+                         f32=True, experts=e)
+    gx, gy, splits = p.grid(m, n, k)
+    assert (gx - 1) * p.bn < n <= gx * p.bn and (gy - 1) * p.bm < m <= gy * p.bm
+    assert e * gx * gy * splits < 2 ** 31
+    kb, per = math.ceil(k / p.bk), p.kb_per_split(k)
+    assert (splits - 1) * per < kb <= splits * per
+    ranges = [range(z * per, min(kb, (z + 1) * per)) for z in range(splits)]
+    assert all(ranges) and list(itertools.chain(*ranges)) == list(range(kb))
+    live_kb = math.ceil(min(max(live, 0), k) / p.bk)
+    cut = [range(z * per, z * per + max(0, min(per, live_kb - z * per)))
+           for z in range(splits)]
+    assert list(itertools.chain(*cut)) == list(range(live_kb))
+
+
+def _dispatched_f32(counts, C, widths, seed):
+    """(E, C, w) f32 buffers built by the port's MoE dispatch
+    (models/moe.py) for experts with `counts` routed entries, each
+    expert's rows past its count zero, and rows from _expert_rows."""
+    from repro_torch.models import moe
+    rng = np.random.default_rng(seed)
+    E = len(counts)
+    experts = torch.from_numpy(rng.permutation(np.repeat(np.arange(E),
+                                                          counts)))
+    slot, keep = moe._dispatch_indices(experts, E, C)
+    rows = moe._expert_rows(experts, E, C)
+    assert rows.tolist() == list(counts)
+    bufs = []
+    for w in widths:
+        src = torch.from_numpy(rng.standard_normal((experts.numel(), w),
+                                                   np.float32))
+        buf = torch.zeros((E * C + 1, w))
+        buf.index_copy_(0, slot, src * keep[:, None])
+        bufs.append(buf[:-1].reshape(E, C, w))
+    return bufs, rows
+
+
+@pytest.mark.parametrize("role", ["ff", "bp", "up"])
+def test_f32_batched_plain_with_live_rows_matches_vmapped_pallas(role):
+    """The f32 batched plain versions with each expert's live rows, on
+    buffers built by the port's dispatch (counts 0, 1, 15, 17, 40 of C =
+    40): FF and BP against jax.vmap of the reference's sr_matmul, UP
+    against jax.vmap of its outer_accum (interpret mode, every row: the
+    dead ones are zero), within the f32 path's tolerances."""
+    C, k, n = 40, 72, 48
+    counts = (0, 1, 15, 17, 40)
+    if role == "up":
+        (x, dy), rows = _dispatched_f32(counts, C, [k, n], seed=63)
+        want = jax.vmap(lambda a, b: joa(a, b, scale=0.5, block=(32, 32, 64),
+                                         interpret=True))(
+            jnp.asarray(x.numpy()), jnp.asarray(dy.numpy()))
+        got = koa.outer_accum_batched(x, dy, scale=0.5, rows=rows)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   rtol=OA_RTOL, atol=OA_ATOL)
+        assert torch.equal(got[0], torch.zeros_like(got[0]))
+        return
+    trans_b = role == "bp"
+    (a,), rows = _dispatched_f32(counts, C, [n if trans_b else k], seed=64)
+    b = (np.random.default_rng(65).standard_normal((len(counts), k, n))
+         * a.shape[2] ** -0.5).astype(np.float32)
+    want = jax.vmap(lambda x, y: jmm(x, y, None, block=(64, 64, 64),
+                                     interpret=True, trans_b=trans_b))(
+        jnp.asarray(a.numpy()), jnp.asarray(b))
+    got = kmm.sr_matmul_batched(a, torch.from_numpy(b), trans_b=trans_b,
+                                rows=rows)
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=MM_RTOL,
+                               atol=MM_ATOL)
+    dead = ~kmm.live_rows(rows, C)
+    assert torch.equal(got[dead], torch.zeros_like(got[dead]))
+
+
 def test_f32_batched_wrappers_refuse_non_cpu_tensors_without_a_kernel():
     meta = lambda *s: torch.empty(s, device="meta")
     with pytest.raises(ValueError, match="operands on"):
@@ -1017,3 +1104,15 @@ def test_expert_ablation_edits_find_the_batched_kernel():
         assert (text == src) == (name == "full"), name
     with pytest.raises(RuntimeError, match="occurs 0 times"):
         ablate.variant_source(src, (("no such line\n", ""),))
+
+
+def test_f32_expert_ablation_edits_find_the_batched_kernel():
+    """launch/ablate_experts.py's f32 variants (zero-fill, mainloop, the
+    order of the UP's experts and of FF / BP's tiles) edit copies of
+    csrc/sgemm_sm90_batched.cuh: every edit's anchor is in the header
+    once, and every variant changes it."""
+    from repro_torch.launch import ablate_experts as ablate
+    src = (build.CSRC / ablate.HEADER_F32).read_text()
+    for name, edits in ablate.VARIANTS_F32.items():
+        text = ablate.variant_source(src, edits, ablate.HEADER_F32)
+        assert (text == src) == (name == "full"), name

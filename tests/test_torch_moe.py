@@ -286,6 +286,40 @@ def test_pe_dot_with_live_rows_on_cpu_tensors_equals_all_live(transpose_w):
     assert torch.equal(dx[0], torch.zeros_like(dx[0]))
 
 
+@pytest.mark.parametrize("transpose_w", [False, True])
+def test_pe_dot_fp32_word_with_live_rows_on_cpu_tensors_equals_all_live(
+        transpose_w):
+    """pe_dot of an f32 expert table under an fp32 word on the cuda
+    backend with CPU tensors (the batched plain versions, as the f32
+    kernels' contract): FF, BP and UP give the same bits with the live
+    rows as without, for an empty expert, a full one and a ragged one."""
+    E, C, d, f = 3, 40, 64, 32
+    rows = torch.tensor([0, C, 13], dtype=torch.int32)
+    live = kmm.live_rows(rows, C)[..., None]
+    rng = np.random.default_rng(22)
+    x = torch.where(live, torch.from_numpy(rng.standard_normal(
+        (E, C, d), np.float32)), 0.0)
+    ct = torch.where(live, torch.from_numpy(rng.standard_normal(
+        (E, C, f), np.float32)), 0.0)
+    w = torch.from_numpy((rng.standard_normal(
+        (E, f, d) if transpose_w else (E, d, f)) * d ** -0.5).astype(
+        np.float32))
+    word = PEWord(op="moe_experts_in", ff_dtype="float32",
+                  bp_dtype="float32")
+    res = []
+    for r in (rows, None):
+        xr, wr = x.clone().requires_grad_(), w.clone().requires_grad_()
+        y = pe_dot(xr, wr, word=word, backend="cuda",
+                   transpose_w=transpose_w, phase=Phase.FF, rows=r)
+        res.append((y, *torch.autograd.grad(y, (xr, wr), grad_outputs=ct)))
+    for got, want in zip(*res):
+        assert got.dtype == torch.float32
+        assert torch.equal(got, want)
+    y, dx, _ = res[0]
+    assert torch.equal(y[0], torch.zeros_like(y[0]))
+    assert torch.equal(dx[0], torch.zeros_like(dx[0]))
+
+
 def _kept_tokens(probs: np.ndarray, k: int) -> np.ndarray:
     """Tokens whose k + 1 largest probabilities are all more than TIE_GAP
     apart: their top k (set and order) cannot swap between packages."""
