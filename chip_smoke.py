@@ -56,6 +56,19 @@ port (``src/repro_torch``), never JAX or the JAX package, and:
    chunk on the cuda backend beside the reference backend; then the
    trace through olmo-1b and minitron-4b at full width on the dense
    path, each with its chunk beside the reference backend;
+   speculative serving (k = 4, the default one-layer draft with its own
+   seed) of the same trace through qwen2-0.5b (fused and per-op),
+   rwkv6-1.6b and granite-moe-1b-a400m (fused): verify chunks of k rows
+   and replays of 1 to k rows through sr_matmul, wkv6 and
+   sr_matmul_batched, counted by chunk kind and rows; the verify held to
+   leave the arena bit-identical, every first token equal to the
+   non-speculative run's; a self-draft of qwen2 at full width; the three
+   models at 4 layers on the reference backend, speculative ==
+   non-speculative bit for bit; and a burst of 64 requests on 32 slots
+   with eviction (qwen2 at full width): without speculation at 24 and
+   at 8 layers, with it at 8; sr_matmul at 1 to k rows of every qwen2
+   and rwkv6 PREFILL product and wkv6 at 1 to k tokens of one slot,
+   each against its plain version;
 6. trains: four full-width layers under ``fp32`` for two steps on the
    cuda backend against the reference backend (TF32 off); all 24 layers
    under ``fp32`` (adamw, remat block, B=4, S=256) for 3 steps through
@@ -172,6 +185,9 @@ TRAIN_B, TRAIN_S = 4, 256
 # the served engine's arena: rows (slots) and positions a row; the fused
 # decode phases check fused_attn_unit at these shapes
 SERVE_SLOTS, SERVE_LEN = 32, 528
+# the speculation window: a verify chunk's rows, and the most rows of a
+# replay; sr_matmul and wkv6 are checked at 1..SPEC_K rows / tokens
+SPEC_K = 4
 
 
 class SmokeFailure(RuntimeError):
@@ -352,7 +368,9 @@ def phase_sr_matmul(label: str, arch: str, shapes: list, peaks, *,
     """sr_matmul at every PREFILL shape of a 32-token chunk of `arch`: the
     sm90 path against the plain version, the SR epilogue bit-equal to the
     plain SR cast of the kernel's own product, rows 0..4 of the chunk
-    bit-equal to a 5-row call of the same rows; then the host's share of
+    bit-equal to a 5-row call of the same rows, and calls of 1..SPEC_K
+    rows (the speculative verify and replay chunks) held against the
+    plain version and bit-equal to their rows of the chunk; then the host's share of
     a call (the TMA maps, encoded alone) and, with `ragged`, the generic
     path on operands the TMA cannot describe."""
     import torch
@@ -388,6 +406,23 @@ def phase_sr_matmul(label: str, arch: str, shapes: list, peaks, *,
         check(torch.equal(rows5, got[:5]),
               f"sr_matmul {name}: rows 0..4 of the 32-row call differ from "
               f"a 5-row call of the same rows")
+        # the speculative chunks' rows: a verify of SPEC_K rows and
+        # replays of 1..SPEC_K, each on the sm90 path, against the plain
+        # version and bit-equal to the same rows of the 32-row call
+        for m in range(1, SPEC_K + 1):
+            am = a[:m].clone()
+            pm = kmm.operands_plan(am, w, tb)
+            check(pm.path == "sm90", f"sr_matmul {name} M={m}: "
+                  f"{plan_txt(pm)}, want sm90")
+            got_m = kmm.sr_matmul(am, w, trans_b=tb)
+            want_m = kmm.sr_matmul_plain(am, w, trans_b=tb)
+            check(torch.allclose(got_m, want_m, rtol=MM_RTOL, atol=MM_ATOL),
+                  f"sr_matmul {name} ({m}x{K}x{N}, trans_b={tb}): max abs "
+                  f"err {errs(got_m, want_m)[0]:.3g}")
+            check(torch.equal(got_m, got[:m]),
+                  f"sr_matmul {name}: an {m}-row call differs from rows "
+                  f"0..{m - 1} of the 32-row call")
+            ea = max(ea, errs(got_m, want_m)[0])
         rb = torch.randint(-2**31, 2**31, (M, N), generator=gen,
                            device="cuda", dtype=torch.int64).to(torch.int32)
         got_sr = kmm.sr_matmul(a, w, rb, trans_b=tb)
@@ -413,7 +448,8 @@ def phase_sr_matmul(label: str, arch: str, shapes: list, peaks, *,
               f"{plan_txt(p)}: kernel {ms:.4f}ms plain {plain:.4f}ms "
               f"torch.matmul {lib:.4f}ms bound {b_ms:.4f}ms; in a CUDA "
               f"graph: kernel {dev:.4f}ms torch.matmul {lib_dev:.4f}ms  "
-              f"max_abs_err {ea:.3g}  rows 0..4 = 5-row call")
+              f"max_abs_err {ea:.3g}  rows 0..4 = 5-row call; M=1..{SPEC_K} "
+              f"calls held against the plain version and = their rows")
         tot["ms"] += ms
         tot["plain"] += plain
         tot["lib"] += lib
@@ -1172,7 +1208,9 @@ def phase_wkv6(peaks) -> dict:
     of 32 slots, a ragged 100-token chunk (four token tiles), 257 tokens
     (nine) and near-total decay; each with bf16 r, k, v (the serving
     path's projections, read in place) and with f32 ones.  The bf16
-    chunk and step are the main shapes (timed cold in L2, as served)."""
+    chunk and step are the main shapes (timed cold in L2, as served).
+    Then, untimed, one slot's speculative verify and replay chunks of
+    1..SPEC_K tokens from a nonzero state, against the plain version."""
     import torch
     from repro_torch.kernels import wkv6 as kwkv
     H, hd = 32, 64
@@ -1250,6 +1288,31 @@ def phase_wkv6(peaks) -> dict:
             per_shape["step" if S == 1 else "chunk"] = {
                 "B": B, "S": S, "ms": ms, "warm_graph_ms": g_ms,
                 "graph_ms": g_cold, "bound_ms": b_ms}
+    # the speculative chunks of one slot: a verify of SPEC_K tokens and
+    # replays of 1..SPEC_K, from a nonzero carried state (untimed)
+    for S, rkv in itertools.product(range(1, SPEC_K + 1),
+                                    (torch.bfloat16, torch.float32)):
+        r, k, v = (0.5 * rnd(1, S, H, hd) for _ in range(3))
+        r, k, v = (t.to(rkv) for t in (r, k, v))
+        w = 0.45 + 0.5 * torch.sigmoid(rnd(1, S, H, hd))
+        u = 0.1 * rnd(H, hd)
+        s0 = 0.3 * rnd(1, H, hd, hd)
+        state = s0.clone()
+        y, s = kwkv.wkv6_bshd(r, k, v, w, u, state)
+        yp, sp = kwkv.wkv6_plain(r, k, v, w, u, s0)
+        torch.cuda.synchronize()
+        err = max(float((y - yp).abs().max()), float((s - sp).abs().max()))
+        tag = f"spec S={S} {str(rkv).split('.')[-1]}"
+        check(bool(torch.isfinite(y).all() and torch.isfinite(s).all()),
+              f"wkv6 {tag}: non-finite output")
+        check(torch.allclose(y, yp, atol=WKV_TOL, rtol=WKV_TOL)
+              and torch.allclose(s, sp, atol=WKV_TOL, rtol=WKV_TOL),
+              f"wkv6 {tag} (B=1): max abs err {err:.3g}")
+        worst = max(worst, err)
+        p = kwkv.wkv6_plan(1, H, S, hd)
+        print(f"[wkv6] {tag:<15} B=1 S={S} H={H} hd={hd} from state: "
+              f"max_abs_err {err:.3g}; plan {p.grid} blocks x {p.threads} "
+              f"threads, {p.cols} columns, tile {p.tile} x {p.stages}")
     return {"name": "wkv6", "route": "cuda",
             "source": "src/repro_torch/csrc/wkv6.cu",
             "replaces": "src/repro/kernels/wkv6.py:98",
@@ -1878,14 +1941,22 @@ def launches_per_call(cfg) -> dict:
         S=SERVE_LEN, with_ffn=dense).launches}
 
 
-def phase_serve(cfg, params, label: str) -> dict:
+def serve_trace(cfg) -> list:
+    """The served phases' seeded Poisson trace: 16 requests, prompts of
+    16-512 tokens, 16 new tokens each."""
+    from repro_torch.serving import poisson_trace
+    return poisson_trace(16, vocab_size=cfg.vocab_size, prompt_lens=(16, 512),
+                         gen_tokens=16, mean_interarrival_steps=2.0, seed=0)
+
+
+def phase_serve(cfg, params, label: str, keep: dict = None) -> dict:
     """A main path: the engine serves the seeded trace on the cuda backend,
     fused decode and then per-op decode, counting each kernel's launches
-    in each run.  Returns the fused run's counts."""
+    in each run.  Returns the fused run's counts; `keep` gets each run's
+    tokens by mode ("fused", "per-op")."""
     import torch
-    from repro_torch.serving import build_engine, latency_stats, poisson_trace
-    trace = poisson_trace(16, vocab_size=cfg.vocab_size, prompt_lens=(16, 512),
-                          gen_tokens=16, mean_interarrival_steps=2.0, seed=0)
+    from repro_torch.serving import build_engine, latency_stats
+    trace = serve_trace(cfg)
     counters = serve_counters(cfg)
     runs = {}
     for fused in (True, False):
@@ -1924,12 +1995,348 @@ def phase_serve(cfg, params, label: str) -> dict:
                   f"kernel launches in {counts[word]} calls, {per} a call "
                   f"planned")
         runs[mode] = (res, counts)
+        if keep is not None:
+            keep[mode] = res
         del eng
     a, b = runs["fused"][0], runs["per-op"][0]
     same = sum(x == y for r in a for x, y in zip(a[r], b[r]))
     print(f"[{label}] fused vs per-op decode, free-running: {same}/256 "
           f"generated tokens agree ({same / 256:.3f})")
     return runs["fused"][1]
+
+
+# ---------------------------------------------------------------------------
+# Speculative serving: the DRAFT word and the draft / verify / rollback loop
+# ---------------------------------------------------------------------------
+
+# the verifies whose arena is held bit for bit (a copy of the whole
+# arena before each)
+ARENA_CHECKS = 2
+
+
+def _first(tree, n: int):
+    """The first n layers of a stacked parameter subtree (views)."""
+    if isinstance(tree, dict):
+        return {k: _first(v, n) for k, v in tree.items()}
+    return tree[:n]
+
+
+def _tensors(tree) -> list:
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _tensors(v)]
+    return [tree]
+
+
+def _spec_spy(eng, counters: dict) -> tuple:
+    """Wrap a speculative engine's chunk calls: each counter's launches by
+    (kind, chunk rows) — kind "verify", "replay" or "prefill" — and, for
+    the first ARENA_CHECKS verifies, the whole arena held bit for bit
+    across the call.  Returns (histogram, state)."""
+    import torch
+    hist, state = {}, {"checked": 0}
+    verify, chunk, replay = eng._verify, eng._chunk, eng._replay
+
+    def count(kind, fn, tokens, *a):
+        n0 = {k: c.n for k, c in counters.items()}
+        out = fn(tokens, *a)
+        d = hist.setdefault((kind, len(tokens)),
+                            dict.fromkeys(["calls", *counters], 0))
+        d["calls"] += 1
+        for k, c in counters.items():
+            d[k] += c.n - n0[k]
+        return out
+
+    def spy_verify(tokens, pos0, slot):
+        before = None
+        if state["checked"] < ARENA_CHECKS:
+            before = [t.clone() for t in _tensors(eng.cache)]
+        out = count("verify", verify, tokens, pos0, slot)
+        if before is not None:
+            same = all(torch.equal(a, b)
+                       for a, b in zip(_tensors(eng.cache), before))
+            check(same, f"a verify of {len(tokens)} rows at slot {slot} "
+                  f"changed the arena")
+            state["checked"] += 1
+        return out
+
+    eng._verify = spy_verify
+    eng._chunk = functools.partial(count, "prefill", chunk)
+    eng._replay = functools.partial(count, "replay", replay)
+    return hist, state
+
+
+def _hist_txt(hist: dict, key: str) -> str:
+    """'verify M=4: n (calls c), ...' of one counter, by kind and rows."""
+    parts = [f"{kind} M={m}: {d[key]} ({d['calls']} calls)"
+             for (kind, m), d in sorted(hist.items()) if d[key]]
+    return ", ".join(parts) or "none"
+
+
+def _serve_once(eng, trace) -> tuple:
+    """(tokens by request, wall seconds) of one engine run."""
+    import torch
+    t0 = time.monotonic()
+    with torch.no_grad():
+        res = eng.run(trace)
+    torch.cuda.synchronize()
+    return res, time.monotonic() - t0
+
+
+def _check_served(res, trace, eng, label: str) -> None:
+    """Every request got exactly its budget; no logit was inf / NaN."""
+    got = {r.rid: len(res.get(r.rid, ())) for r in trace}
+    check(all(got[r.rid] == r.max_new_tokens for r in trace),
+          f"{label}: tokens per request {got}, want each its max_new_tokens")
+    check(eng.nonfinite_logits == 0,
+          f"{label}: {eng.nonfinite_logits} non-finite logits")
+
+
+def _agree(res, want) -> tuple:
+    """(tokens equal position for position, first tokens equal, tokens)."""
+    same = sum(x == y for r in want for x, y in zip(res[r], want[r]))
+    first = sum(res[r][0] == want[r][0] for r in want)
+    return same, first, sum(len(v) for v in want.values())
+
+
+def phase_serve_spec(cfg, params, label: str, base: dict,
+                     modes=(True,)) -> dict:
+    """The speculative main path: the seeded trace served on the cuda
+    backend with k = SPEC_K and the default draft (one layer, its own
+    seed), fused decode (and per-op where `modes` asks), counting each
+    kernel's launches in each run and by chunk kind and rows.  `base`:
+    the non-speculative runs' tokens by mode; every first token must
+    equal them (both produce it on the same path), and the number of
+    equal tokens is printed.  The first ARENA_CHECKS verifies must leave
+    the arena bit-identical.  Returns the first run's counts and
+    histogram."""
+    from repro_torch.serving import build_engine, latency_stats
+    trace = serve_trace(cfg)
+    counters = serve_counters(cfg)
+    out = None
+    for fused in modes:
+        mode = "fused" if fused else "per-op"
+        tag = f"{label}:{mode}"
+        t0 = time.monotonic()
+        eng = build_engine(cfg, n_slots=SERVE_SLOTS, max_len=SERVE_LEN,
+                           prefill_chunk=32, kernel_backend="cuda",
+                           fused_decode=fused, device="cuda", params=params,
+                           speculative=SPEC_K)
+        hist, state = _spec_spy(eng, counters)
+        for c in counters.values():
+            c.reset()
+        res, wall = _serve_once(eng, trace)
+        counts = {k: c.n for k, c in counters.items()}
+        st = latency_stats(eng.events)
+        sp = eng.spec_stats
+        same, first, n = _agree(res, base[mode])
+        print(f"[{tag}] k={SPEC_K} steps={eng.step_count} generated="
+              f"{st['tokens']} wall={wall:.3f}s tok/s="
+              f"{st['tokens'] / wall:.2f} p50={st['p50_ms']:.3f}ms "
+              f"p99={st['p99_ms']:.3f}ms verifies={sp['verifies']} "
+              f"accepted={sp['accepted']} "
+              f"({sp['accepted'] / max(1, sp['verifies']):.3f} accepted/"
+              f"verify); against the non-speculative {mode} run: {same}/{n}"
+              f" tokens, first tokens {first}/{len(trace)}; launches="
+              f"{counts} nonfinite_logits={eng.nonfinite_logits}")
+        bat = ["sr_matmul:batched"] if "sr_matmul:batched" in counts else []
+        for key in ["sr_matmul", *bat] + (["wkv6"] if "wkv6" in counts
+                                          else []):
+            print(f"[{tag}] {key} launches by chunk: "
+                  f"{_hist_txt(hist, key)}")
+        _check_served(res, trace, eng, tag)
+        check(sp["verifies"] > 0, f"{tag}: no verify")
+        check(first == len(trace), f"{tag}: {first}/{len(trace)} first "
+              f"tokens equal the non-speculative run's")
+        check(state["checked"] >= 1, f"{tag}: no verify held the arena")
+        for k, c in counts.items():
+            want = (k != "sr_matmul:generic"
+                    and (fused or k.split(":")[0] not in (
+                        "fused_ffn", "fused_attn_unit")))
+            check((c > 0) == want, f"{tag} launched {k} {c} times")
+        for word, per in launches_per_call(cfg).items():
+            check(counts[f"{word}:launches"] == per * counts[word],
+                  f"{tag}: {counts[f'{word}:launches']} {word} kernel "
+                  f"launches in {counts[word]} calls, {per} a call planned")
+        print(f"[{tag}] held: every budget exact, every first token, "
+              f"{state['checked']} verifies left the arena bit-identical; "
+              f"phase {time.monotonic() - t0:.1f}s")
+        if out is None:
+            out = {"counts": counts, "hist": hist, "tok_s": st["tokens"] / wall,
+                   "accepted_per_verify": sp["accepted"] / sp["verifies"]}
+        del eng
+    return out
+
+
+def phase_spec_self_draft(cfg, params, label: str) -> None:
+    """The full-acceptance oracle at full width: the draft is the big
+    model with the same parameters (fused decode for the big model; the
+    DRAFT word is the per-op f32 matvec, the verify the bf16 sr_matmul
+    chunk, so near-ties may rank differently).  4 requests of 16-32
+    prompt tokens (each prompt token is a 24-layer DRAFT step first).
+    Prints accepted per verify beside the teacher-forced argmax agreement
+    of the DRAFT step and the verify chunk on one 40-token stream; only
+    the budgets and finite logits are gated."""
+    import torch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core.program import compile_program
+    from repro_torch.models import transformer as tfm
+    from repro_torch.runtime import train_loop as tl
+    from repro_torch.serving import build_engine, latency_stats, poisson_trace
+    t0 = time.monotonic()
+    trace = poisson_trace(4, vocab_size=cfg.vocab_size, prompt_lens=(16, 32),
+                          gen_tokens=16, mean_interarrival_steps=2.0, seed=0)
+    eng = build_engine(cfg, n_slots=SERVE_SLOTS, max_len=SERVE_LEN,
+                       prefill_chunk=32, kernel_backend="cuda",
+                       fused_decode=True, device="cuda", params=params,
+                       speculative=SPEC_K, draft_cfg=cfg, draft_params=params)
+    res, wall = _serve_once(eng, trace)
+    _check_served(res, trace, eng, label)
+    sp = eng.spec_stats
+    del eng
+    L = 40
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    toks = torch.randint(0, cfg.vocab_size, (1, L), generator=gen,
+                         device="cuda", dtype=torch.int32)
+    prog = compile_program(cfg, ShapeConfig("tf", L, 1, "decode"),
+                           speculative=True)
+    draft = tl.make_draft_step(cfg, prog, kernel_backend="cuda")
+    chunk = tl.make_chunk_step(cfg, prog, kernel_backend="cuda")
+    dc, cc = tfm.init_cache(cfg, 1, L, device="cuda"), \
+        tfm.init_cache(cfg, 1, L, device="cuda")
+    with torch.no_grad():
+        a = torch.cat([draft(params, dc, toks[:, t:t + 1],
+                             torch.tensor([t], dtype=torch.int32,
+                                          device="cuda"))[0][0].argmax(-1)
+                       for t in range(L)])
+        b = torch.cat([chunk(params, cc, toks[:, c:c + SPEC_K],
+                             torch.tensor([c], dtype=torch.int32,
+                                          device="cuda"))[0][0].argmax(-1)
+                       for c in range(0, L, SPEC_K)])
+    agree = int((a == b).sum())
+    print(f"[{label}] self-draft (the big model, same parameters), k="
+          f"{SPEC_K}, 4 requests of 16-32 prompt tokens: verifies="
+          f"{sp['verifies']} accepted={sp['accepted']} "
+          f"({sp['accepted'] / max(1, sp['verifies']):.3f} accepted/verify; "
+          f"all accepted would be {sum(r.max_new_tokens - 1 for r in trace)})"
+          f"; teacher-forced DRAFT step vs verify chunk argmax on one "
+          f"{L}-token stream: {agree}/{L}; serve wall {wall:.3f}s, phase "
+          f"{time.monotonic() - t0:.1f}s (not gated)")
+
+
+SPEC_REF_LAYERS = 4
+
+
+def phase_spec_reference(arch: str, gen, label: str) -> None:
+    """The speculative loop on the port's reference backend on the card
+    (float64 products, no kernel), SPEC_REF_LAYERS layers at full width:
+    the speculative tokens equal the non-speculative ones request for
+    request, with the default draft and with a self-draft, which accepts
+    every proposal."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tfm
+    from repro_torch.runtime import train_loop as tl
+    from repro_torch.serving import build_engine, poisson_trace
+    t0 = time.monotonic()
+    cfg = dataclasses.replace(get_config(arch), n_layers=SPEC_REF_LAYERS)
+    params = tl.cast_params(tfm.init(gen, cfg), torch.bfloat16)
+    trace = poisson_trace(4, vocab_size=cfg.vocab_size, prompt_lens=(16, 48),
+                          gen_tokens=8, mean_interarrival_steps=2.0, seed=0)
+    kw = dict(n_slots=SERVE_SLOTS, max_len=SERVE_LEN, prefill_chunk=32,
+              kernel_backend="reference", device="cuda", params=params)
+    runs = {}
+    for name, spec in (("non-speculative", {}),
+                       ("draft", dict(speculative=SPEC_K)),
+                       ("self-draft", dict(speculative=SPEC_K, draft_cfg=cfg,
+                                           draft_params=params))):
+        eng = build_engine(cfg, **kw, **spec)
+        res, wall = _serve_once(eng, trace)
+        _check_served(res, trace, eng, f"{label}:{name}")
+        runs[name] = (res, dict(eng.spec_stats), wall)
+        del eng
+    want = runs["non-speculative"][0]
+    all_in = sum(r.max_new_tokens - 1 for r in trace)
+    txt = "; ".join(f"{name} {w:.2f}s verifies={s['verifies']} accepted="
+                    f"{s['accepted']}" for name, (_, s, w) in runs.items())
+    print(f"[{label}] {arch}, {SPEC_REF_LAYERS} layers at full width, "
+          f"reference backend, 4 requests: {txt}; phase "
+          f"{time.monotonic() - t0:.1f}s")
+    for name in ("draft", "self-draft"):
+        check(runs[name][0] == want, f"{label}: {arch} {name} tokens differ "
+              f"from the non-speculative run's")
+        check(runs[name][1]["verifies"] > 0, f"{label}: {name}: no verify")
+    check(runs["self-draft"][1]["accepted"] == all_in,
+          f"{label}: {arch} self-draft accepted "
+          f"{runs['self-draft'][1]['accepted']}, want {all_in}")
+    del params
+    torch.cuda.empty_cache()
+
+
+# the bursty overload's depth with speculation: its 64 requests make
+# ~960 speculative rounds, each two chunks through every layer (at full
+# depth 152 s); the run without speculation is served at full depth too
+BURSTY_LAYERS = 8
+
+
+def phase_bursty(cfg, params, label: str) -> None:
+    """Overload: one burst of 2 x SERVE_SLOTS requests (prompts of 16-128
+    tokens, 16 new tokens) on the fused engine with evict_patience 4:
+    without speculation at full depth, then without and with speculation
+    at BURSTY_LAYERS layers (the first layers of `params`).  Every request
+    finishes with its budget and something was evicted in each run; the
+    speculative run's first tokens equal those of the run without it at
+    its depth."""
+    import dataclasses
+    from repro_torch.serving import build_engine, bursty_trace, latency_stats
+    t0 = time.monotonic()
+    cut = dataclasses.replace(cfg, n_layers=BURSTY_LAYERS)
+    cut_params = dict(params, groups={
+        u: {k: _first(v, BURSTY_LAYERS) for k, v in up.items()}
+        for u, up in params["groups"].items()})
+    trace = bursty_trace(2 * SERVE_SLOTS, vocab_size=cfg.vocab_size,
+                         prompt_lens=(16, 128), gen_tokens=16,
+                         burst_size=2 * SERVE_SLOTS, burst_gap_steps=8,
+                         seed=0)
+    counters = serve_counters(cfg)
+    runs = {}
+    for c_cfg, c_params, k in ((cfg, params, 0), (cut, cut_params, 0),
+                               (cut, cut_params, SPEC_K)):
+        tag = (f"{label}:{c_cfg.n_layers}L:"
+               f"{'k=' + str(k) if k else 'non-speculative'}")
+        eng = build_engine(c_cfg, n_slots=SERVE_SLOTS, max_len=SERVE_LEN,
+                           prefill_chunk=32, kernel_backend="cuda",
+                           fused_decode=True, device="cuda", params=c_params,
+                           evict_patience=4, speculative=k)
+        for c in counters.values():
+            c.reset()
+        res, wall = _serve_once(eng, trace)
+        counts = {n: c.n for n, c in counters.items()}
+        st = latency_stats(eng.events)
+        ev = sum(s.evictions for s in eng.sched.finished.values())
+        sp = eng.spec_stats
+        print(f"[{tag}] {len(trace)} requests in one burst, "
+              f"{SERVE_SLOTS} slots, {c_cfg.n_layers} layers, evict_patience "
+              f"4: steps="
+              f"{eng.step_count} generated={st['tokens']} wall={wall:.3f}s "
+              f"tok/s={st['tokens'] / wall:.2f} p50={st['p50_ms']:.3f}ms "
+              f"p99={st['p99_ms']:.3f}ms evictions={ev} verifies="
+              f"{sp['verifies']} accepted={sp['accepted']} launches={counts}")
+        _check_served(res, trace, eng, tag)
+        check(ev > 0, f"{tag}: nothing was evicted")
+        check(counts["sr_matmul:generic"] == 0 and counts["sr_matmul"] > 0,
+              f"{tag}: sr_matmul launches {counts}")
+        if k:
+            check(sp["verifies"] > 0, f"{tag}: no verify")
+        runs[(c_cfg.n_layers, k)] = res
+        del eng
+    same, first, n = _agree(runs[(BURSTY_LAYERS, SPEC_K)],
+                            runs[(BURSTY_LAYERS, 0)])
+    print(f"[{label}] {BURSTY_LAYERS} layers, speculative vs "
+          f"non-speculative: {same}/{n} tokens, first tokens "
+          f"{first}/{len(trace)}; phase {time.monotonic() - t0:.1f}s")
+    check(first == len(trace), f"{label}: {first}/{len(trace)} first tokens "
+          f"equal")
 
 
 def _f32_tree(tree):
@@ -3910,9 +4317,19 @@ def main() -> int:
                                 qwen2_prefill_shapes(params), peaks,
                                 ragged=True),
                 phase_fused(cfg, params, peaks)]
-        serve_counts = {"sr_matmul": phase_serve(cfg, params, "serve")}
+        base = {}
+        serve_counts = {"sr_matmul": phase_serve(cfg, params, "serve", base)}
         serve_counts["fused_attn_unit"] = serve_counts["sr_matmul"]
         tf_qwen2 = phase_fused_vs_perop(cfg, params, "serve")
+        # speculative serving: k = SPEC_K with the default draft, fused and
+        # per-op; the self-draft oracle; the bursty overload
+        t_spec = time.monotonic()
+        spec = phase_serve_spec(cfg, params, f"serve:spec:{cfg.name}", base,
+                                modes=(True, False))
+        spec_counts = {"sr_matmul": spec, "fused_attn_unit": spec}
+        phase_spec_self_draft(cfg, params, "serve:spec:self-draft")
+        phase_bursty(cfg, params, "serve:bursty")
+        spec_wall = time.monotonic() - t_spec
         del params, u
         torch.cuda.empty_cache()
 
@@ -3930,7 +4347,14 @@ def main() -> int:
         rows += [phase_sr_matmul("sr_matmul:rwkv6", rcfg.name,
                                  rwkv6_prefill_shapes(rcfg, rparams), peaks),
                  phase_wkv6(peaks), phase_fused_ffn(rcfg, rparams, peaks)]
-        rwkv_counts = phase_serve(rcfg, rparams, "serve:rwkv6")
+        base = {}
+        rwkv_counts = phase_serve(rcfg, rparams, "serve:rwkv6", base)
+        t_spec = time.monotonic()
+        spec = phase_serve_spec(rcfg, rparams, f"serve:spec:{rcfg.name}",
+                                base)
+        spec_wall += time.monotonic() - t_spec
+        for k in ("sr_matmul:rwkv6", "wkv6", "fused_ffn"):
+            spec_counts[k] = spec
         for k in ("sr_matmul:rwkv6", "wkv6", "fused_ffn"):
             serve_counts[k] = rwkv_counts
         tf_rwkv = phase_fused_vs_perop(rcfg, rparams, "serve:rwkv6")
@@ -3955,15 +4379,27 @@ def main() -> int:
                 rows.append(phase_sr_matmul_experts(scfg, sparams, peaks))
             fused_row[tag] = phase_fused_served(
                 scfg, sparams, peaks, f"fused_attn_unit:{tag}")
-            counts = phase_serve(scfg, sparams, f"serve:{tag}")
+            base = {}
+            counts = phase_serve(scfg, sparams, f"serve:{tag}", base)
             if scfg.moe is not None:
                 serve_counts["sr_matmul:experts"] = counts
+                t_spec = time.monotonic()
+                spec_counts["sr_matmul:experts"] = phase_serve_spec(
+                    scfg, sparams, f"serve:spec:{arch}", base)
+                spec_wall += time.monotonic() - t_spec
             phase_chunk_vs_reference(scfg, sparams, f"serve:{tag}")
             tf_served[arch] = phase_fused_vs_perop(scfg, sparams,
                                                    f"serve:{tag}")
             del sparams
             torch.cuda.empty_cache()
         check_fused_vs_perop(tf_served)
+        # the speculative loop on the reference backend, bit for bit
+        t_spec = time.monotonic()
+        for arch in ("qwen2-0.5b", "rwkv6-1.6b", GRANITE):
+            phase_spec_reference(arch, gen, "serve:spec:reference")
+        spec_wall += time.monotonic() - t_spec
+        print(f"[serve:spec] the speculative and bursty phases in "
+              f"{spec_wall:.1f}s")
 
         rows += [*phase_sr_matmul_train(cfg, peaks),
                  *phase_outer_accum(cfg, peaks),
@@ -4046,6 +4482,15 @@ def main() -> int:
                                   if r["name"].endswith(":f32")
                                   else train["counts"])
         r["launches"] = counts[r.get("counter", kernel)]
+        if r["name"] in spec_counts:
+            # the speculative run of the same trace (k = SPEC_K), and its
+            # launches by chunk kind and rows
+            sc = spec_counts[r["name"]]
+            key = r.get("counter", kernel)
+            r["launches_spec"] = sc["counts"][key]
+            r["launches_spec_by_chunk"] = {
+                f"{kind}:M={m}": d[key] for (kind, m), d in
+                sorted(sc["hist"].items()) if d.get(key)}
         if f"{kernel}:launches" in counts:
             r["kernel_launches"] = counts[f"{kernel}:launches"]
         paths = {p: counts[f"{kernel}:{p}"] for p in ("sm90", "generic",

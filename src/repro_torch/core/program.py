@@ -3,9 +3,10 @@
 :func:`compile_program` extracts the weight-bearing ops from a
 ``ModelConfig``, plans them (core/dataflow.py), attaches the precision
 policy and emits a :class:`Program` whose :meth:`Program.pe_word` is the
-executable word the engine dispatches on.  Single-device subset: the
-autotuner's tilings and the speculative DRAFT column are not ported yet
-(words carry the kernels' default tiles).
+executable word the engine dispatches on.  A serving program compiled
+with ``speculative=True`` carries the DRAFT column too (the speculative
+draft model's width-1 step).  Single-device subset: the autotuner's
+tilings are not ported yet (words carry the kernels' default tiles).
 """
 from __future__ import annotations
 
@@ -177,7 +178,10 @@ class Program:
     policy: PrecisionPolicy
     plan: DataflowPlan
     ops: list
+    # serving modes: fused_decode selects the ``decode_fused`` DECODE word
+    # for the per-layer projections; speculative adds the DRAFT column
     fused_decode: bool = False
+    speculative: bool = False
 
     def op_spec(self, op_name: str) -> Optional[OpSpec]:
         for op in self.ops:
@@ -217,6 +221,8 @@ class Program:
             phases = [Phase.FF, Phase.BP, Phase.UP]
         elif self.shape.kind == "prefill":
             phases = [Phase.PREFILL]
+        elif self.speculative:
+            phases = [Phase.PREFILL, Phase.DECODE, Phase.DRAFT]
         else:
             phases = [Phase.PREFILL, Phase.DECODE]
         out = []
@@ -236,10 +242,15 @@ class Program:
 def compile_program(cfg: ModelConfig, shape: ShapeConfig,
                     mesh_spec: MeshSpec = SINGLE_DEVICE, *,
                     precision: str = "paper_sr_bf16",
-                    fused_decode: bool = False) -> Program:
-    """The 'host' step of Fig 12 on one device: model -> program words."""
+                    fused_decode: bool = False,
+                    speculative: bool = False) -> Program:
+    """The 'host' step of Fig 12 on one device: model -> program words.
+    fused_decode: the per-layer projections' DECODE word is
+    ``decode_fused``; speculative: the iBuffer image carries the DRAFT
+    word column (the draft step stays the per-op matvec)."""
     policy = get_policy(precision)
     ops = extract_ops(cfg)
     plan = plan_model(ops, mesh_spec, kind=shape.kind)
     return Program(cfg=cfg, shape=shape, mesh_spec=mesh_spec, policy=policy,
-                   plan=plan, ops=ops, fused_decode=fused_decode)
+                   plan=plan, ops=ops, fused_decode=fused_decode,
+                   speculative=speculative)

@@ -2,6 +2,8 @@
 
     PYTHONPATH=src python -m repro_torch.launch.profile_serve \
         --arch rwkv6-1.6b --out profile_serve.txt
+    PYTHONPATH=src python -m repro_torch.launch.profile_serve \
+        --speculative 4 --out profile_spec.txt
 
 Serves a seeded Poisson trace through one model at full width
 (qwen2-0.5b by default; rwkv6-1.6b, granite-moe-1b-a400m, olmo-1b or
@@ -10,13 +12,17 @@ profiles a window of engine steps in the middle of the run.  Prints the
 device time by kernel (sum and launch count), the window's wall time,
 the device's busy and idle share of it, each of the port's kernels'
 device time (PORT_KERNELS),
-torch's copy kernels' time and launches (COPY_KERNELS), and the
-host-clock time of the window's PREFILL chunk calls and DECODE
-calls.  Needs a CUDA device.
+torch's copy kernels' time and launches (COPY_KERNELS), and, for each
+kind of engine call in the window — PREFILL chunks, masked DECODE steps
+and, with ``--speculative K``, DRAFT steps, verify chunks and replays —
+its calls, host-clock time (each call synchronised before and after)
+and the device time of the kernels it launched (the kernels that run
+inside the call's ``record_function`` range).  Needs a CUDA device.
 """
 from __future__ import annotations
 
 import argparse
+import bisect
 import re
 import time
 
@@ -52,6 +58,10 @@ SERVED = ("qwen2-0.5b", "rwkv6-1.6b", "granite-moe-1b-a400m", "olmo-1b",
 # torch's copy and dtype-conversion kernel (.to, .contiguous, copy_:
 # direct_copy_kernel_cuda)
 COPY_KERNELS = r"copy_kernel"
+# the engine calls timed on their own, by the method that makes them
+CALLS = (("chunk", "_chunk"), ("decode", "_decode"), ("draft",
+         "_draft_step_one"), ("verify", "_verify"), ("replay", "_replay"))
+RANGE = "serve:"                   # record_function prefix of those calls
 
 
 def _device_us(evt) -> float:
@@ -62,6 +72,28 @@ def _device_us(evt) -> float:
     return 0.0
 
 
+def _device_by_range(events) -> dict:
+    """{call kind: device us} of the profiled window: each kernel's time
+    goes to the ``RANGE`` + kind range that holds its start (the calls
+    synchronise before they end, so their kernels run inside them), the
+    rest to None."""
+    spans = sorted((e.time_range.start, e.time_range.end, e.name[len(RANGE):])
+                   for e in events if e.name.startswith(RANGE)
+                   and not str(e.device_type).endswith("CUDA"))
+    starts = [s for s, _, _ in spans]
+    out: dict = {}
+    for e in events:
+        if not str(e.device_type).endswith("CUDA") \
+                or e.name.startswith(RANGE):
+            continue
+        i = bisect.bisect_right(starts, e.time_range.start) - 1
+        kind = (spans[i][2] if i >= 0 and e.time_range.start < spans[i][1]
+                else None)
+        out[kind] = out.get(kind, 0.0) + (e.time_range.end
+                                          - e.time_range.start)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", default="qwen2-0.5b", choices=SERVED)
@@ -70,12 +102,14 @@ def main(argv=None) -> int:
     ap.add_argument("--steps", type=int, default=10)
     ap.add_argument("--per-op", action="store_true",
                     help="profile the per-op decode words instead of fused")
+    ap.add_argument("--speculative", type=int, default=0, metavar="K",
+                    help="serve speculatively with a K-token window")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default=None, help="also write the report here")
     args = ap.parse_args(argv)
 
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
 
     from repro_torch.configs import get_config
     from repro_torch.serving import build_engine, poisson_trace
@@ -85,20 +119,23 @@ def main(argv=None) -> int:
     cfg = get_config(args.arch)
     eng = build_engine(cfg, n_slots=32, max_len=528, prefill_chunk=32,
                        kernel_backend="cuda", fused_decode=not args.per_op,
-                       seed=args.seed, device="cuda")
+                       seed=args.seed, device="cuda",
+                       speculative=args.speculative)
     trace = poisson_trace(args.requests, vocab_size=cfg.vocab_size,
                           prompt_lens=(16, 512), gen_tokens=16, seed=args.seed)
     for r in trace:
         eng.submit(r)                  # all queued up front: a busy arena
-    host = {"chunk": 0.0, "decode": 0.0}
-    calls = {"chunk": 0, "decode": 0}
+    kinds = [k for k, _ in CALLS]
+    host = dict.fromkeys(kinds, 0.0)
+    calls = dict.fromkeys(kinds, 0)
 
     def timed(kind, fn):
         def wrap(*a):
             torch.cuda.synchronize()
             t0 = time.monotonic()
-            out = fn(*a)
-            torch.cuda.synchronize()
+            with record_function(RANGE + kind):
+                out = fn(*a)
+                torch.cuda.synchronize()
             host[kind] += time.monotonic() - t0
             calls[kind] += 1
             return out
@@ -107,8 +144,8 @@ def main(argv=None) -> int:
     with torch.no_grad():
         for _ in range(args.warmup_steps):
             eng.step()
-        eng._chunk = timed("chunk", eng._chunk)
-        eng._decode = timed("decode", eng._decode)
+        for kind, name in CALLS:
+            setattr(eng, name, timed(kind, getattr(eng, name)))
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -120,23 +157,35 @@ def main(argv=None) -> int:
 
     rows = [(e.key, _device_us(e), e.count) for e in prof.key_averages()
             if _device_us(e) > 0 and e.device_type is not None
-            and str(e.device_type).endswith("CUDA")]
+            and str(e.device_type).endswith("CUDA")
+            and not e.key.startswith(RANGE)]
     busy = sum(us for _, us, _ in rows)
     rows.sort(key=lambda r: -r[1])
     port = {k: (sum(us for key, us, _ in rows if re.search(pat, key)),
                 sum(n for key, _, n in rows if re.search(pat, key)))
             for k, pat in PORT_KERNELS.items()}
     copies = [(us, n) for key, us, n in rows if re.search(COPY_KERNELS, key)]
+    dev = _device_by_range(prof.events())
+    spec = (f", speculative k={args.speculative}: verifies="
+            f"{eng.spec_stats['verifies']} accepted="
+            f"{eng.spec_stats['accepted']} (whole run)"
+            if args.speculative else "")
     lines = [f"device: {torch.cuda.get_device_name(0)}; arch {cfg.name}",
              f"window: {args.steps} engine steps after {args.warmup_steps}, "
-             f"{'per-op' if args.per_op else 'fused'} decode, "
+             f"{'per-op' if args.per_op else 'fused'} decode{spec}, "
              f"wall {wall * 1e3:.3f} ms",
              f"device busy {busy / 1e3:.3f} ms "
              f"({busy / 1e6 / wall:.3f} of wall; idle "
              f"{1 - busy / 1e6 / wall:.3f})",
-             f"host clock: {calls['chunk']} PREFILL chunk calls "
-             f"{host['chunk'] * 1e3:.3f} ms, {calls['decode']} DECODE calls "
-             f"{host['decode'] * 1e3:.3f} ms",
+             "engine calls (calls, host ms, device ms, device share of the "
+             "calls' host time): " + ", ".join(
+                 f"{k} {calls[k]} {host[k] * 1e3:.3f} "
+                 f"{dev.get(k, 0.0) / 1e3:.3f} "
+                 f"{dev.get(k, 0.0) / 1e3 / max(host[k] * 1e3, 1e-9):.3f}"
+                 for k in kinds if calls[k]),
+             f"outside those calls: host "
+             f"{(wall - sum(host.values())) * 1e3:.3f} ms, device "
+             f"{dev.get(None, 0.0) / 1e3:.3f} ms",
              "port kernels, device ms (share of busy, launches): " + ", ".join(
                  f"{k} {us / 1e3:.3f} ({us / busy:.3f}, {n})"
                  for k, (us, n) in port.items()),

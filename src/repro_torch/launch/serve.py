@@ -15,6 +15,12 @@
         --arch granite-moe-1b-a400m --kernel-backend cuda --fused-decode \
         --requests 16 --slots 32
 
+    # speculative decoding: a one-layer draft proposes 3 tokens, the big
+    # model verifies 4 in one PREFILL chunk
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b \
+        --kernel-backend cuda --fused-decode --requests 16 --slots 32 \
+        --speculative 4
+
     # on the CPU at the reduced size (the plain reference backend)
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b \
         --reduced --device cpu --requests 4 --prompt-lens 4,20 --gen 4
@@ -37,7 +43,8 @@ def run_engine(args) -> int:
     engine = build_engine(
         cfg, n_slots=args.slots, max_len=max_len, prefill_chunk=args.chunk,
         kernel_backend=args.kernel_backend, seed=args.seed,
-        fused_decode=args.fused_decode, device=args.device)
+        fused_decode=args.fused_decode, device=args.device,
+        evict_patience=args.evict_patience, speculative=args.speculative)
     trace = poisson_trace(args.requests, vocab_size=cfg.vocab_size,
                           prompt_lens=(lo, hi), gen_tokens=args.gen,
                           mean_interarrival_steps=args.rate, seed=args.seed)
@@ -58,6 +65,12 @@ def run_engine(args) -> int:
           f"{(n_prompt+stats['tokens'])/wall:.1f} tok/s (total); "
           f"per-token latency p50={stats['p50_ms']:.1f}ms "
           f"p99={stats['p99_ms']:.1f}ms")
+    if args.speculative:
+        v = max(1, engine.spec_stats["verifies"])
+        print(f"speculative k={args.speculative}: "
+              f"verifies={engine.spec_stats['verifies']} "
+              f"accepted={engine.spec_stats['accepted']} "
+              f"({engine.spec_stats['accepted']/v:.2f} accepted/verify)")
     first = trace[0].rid
     print(f"sample ({first}):", results[first][:16])
     return 0
@@ -83,6 +96,11 @@ def main(argv=None) -> int:
                     help="mean request inter-arrival in engine steps")
     ap.add_argument("--max-len", type=int, default=0,
                     help="cache length per slot (0 = hi + gen)")
+    ap.add_argument("--evict-patience", type=int, default=None,
+                    help="steps a queued request starves before preemption")
+    ap.add_argument("--speculative", type=int, default=0, metavar="K",
+                    help="speculative decoding: draft K tokens per verify "
+                         "(0 = off)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda, failing without one)")

@@ -192,6 +192,21 @@ def make_decode_step(cfg: ModelConfig, program: Program,
     return decode
 
 
+def make_draft_step(cfg: ModelConfig, program: Program,
+                    kernel_backend: str = "reference"):
+    """The DRAFT word: the speculative draft model's one-token step, the
+    per-op decode flow issued under ``Phase.DRAFT`` (rows outside
+    `active` left untouched, as the DECODE step leaves them)."""
+    sh = PEContext(program, backend=kernel_backend, phase=Phase.DRAFT)
+    dt = program.policy.ff_dtype
+
+    def draft(params, cache, tokens, pos, active=None):
+        return tfm.decode_step(cfg, params, tokens, cache, pos, sh,
+                               compute_dtype=dt, active=active)
+
+    return draft
+
+
 def make_fused_decode_step(cfg: ModelConfig, program: Program,
                            kernel_backend: str = "reference"):
     """One-token serve step with each layer as ONE fused-decode word (an

@@ -218,6 +218,25 @@ class Scheduler:
         chunk completes the sequence)."""
         return self._advance(st, n, last_tok)
 
+    def consume_spec(self, st: RequestState, tokens: Sequence[int]) -> tuple:
+        """Commit a verified speculative run: `tokens` are the big model's
+        argmaxes for the accepted prefix (>= 1 per verify — position 0 is
+        teacher-forced, so its output is always kept).
+
+        Equivalent to len(tokens) sequential ``consume`` calls — each
+        committed token is one consumed fed token plus one appended
+        output, so pos/generated/phase advance exactly as the
+        non-speculative loop would.  Returns (appended, finished);
+        stops early when max_new_tokens is reached.
+        """
+        appended = 0
+        for t in tokens:
+            ok, fin = self._advance(st, 1, int(t))
+            appended += int(ok)
+            if fin:
+                return appended, True
+        return appended, False
+
     @property
     def idle(self) -> bool:
         return not self.queue and not self.active
