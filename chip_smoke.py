@@ -56,13 +56,39 @@ port (``src/repro_torch``), never JAX or the JAX package, and:
    chunk on the cuda backend beside the reference backend; then the
    trace through olmo-1b and minitron-4b at full width on the dense
    path, each with its chunk beside the reference backend;
+   jamba-v0.1-52b at full width and one period of its layer pattern (8
+   of 32 layers: attention with a 4096 window at unit 0, Mamba at 1-7,
+   a MoE FF of 16 experts top-2 on every second unit; all 32 layers do
+   not fit the card; its parameters from a generator of their own):
+   sr_matmul at every 2-D PREFILL shape of a chunk (layer 0's attention
+   and FF, layer 1's Mamba projections with mamba_dt reading rows of 256
+   at a row stride of 288, the head) and the batched form at unit 1's
+   expert tables (C 8 and 32, and a routed chunk), each against the
+   plain version and timed beside its bound;
+   selective_scan (Mamba's recurrence, a kernel that
+   replaces no TPU kernel) against its plain version at di 8192, N 16,
+   bf16 and f32 x, one slot's 1, 7, 32 and 512 tokens and a 32-slot
+   DECODE step, from a nonzero state, timed beside its bound;
+   fused_attn_unit at unit 0 with its dense FF and fused_ffn at unit 2;
+   the trace served fused and per-op with every kernel of the path
+   counted (selective_scan, sr_matmul on the sm90 path and batched,
+   fused_attn_unit, fused_ffn; the generic path's 0) and the peak
+   memory; a chunk and 8 decode steps on the cuda backend against the
+   reference backend with routing held; the served ring (window 64, 4
+   requests of 96-200 prompt tokens) fused, per-op and on the reference
+   backend, and the same comparison over a 150-token prompt; the
+   reduced arctic-480b's chunk (a MoE FF with the dense FF beside it)
+   against the reference backend at four seeds of its own, and a control
+   with the dense FF left out that must read above the gate;
    speculative serving (k = 4, the default one-layer draft with its own
-   seed) of the same trace through qwen2-0.5b (fused and per-op),
-   rwkv6-1.6b and granite-moe-1b-a400m (fused): verify chunks of k rows
+   seed) of the same trace at 8 layers, each beside the same trace
+   without speculation at 8 layers, through qwen2-0.5b (fused and
+   per-op), rwkv6-1.6b and granite-moe-1b-a400m (fused): verify chunks of k rows
    and replays of 1 to k rows through sr_matmul, wkv6 and
    sr_matmul_batched, counted by chunk kind and rows; the verify held to
    leave the arena bit-identical, every first token equal to the
-   non-speculative run's; a self-draft of qwen2 at full width; the three
+   non-speculative run's at the same depth; a self-draft of qwen2 at
+   full width; the three
    models at 4 layers on the reference backend, speculative ==
    non-speculative bit for bit; and a burst of 64 requests on 32 slots
    with eviction (qwen2 at full width): without speculation at 24 and
@@ -277,7 +303,7 @@ def ptxas_report(log: str) -> list:
     by <BN, A_MN, B_MN, OUT> (OUT 0 f32, 1 bf16, 2 SR), sgemm_sm90.cuh's
     and sgemm_sm90_batched.cuh's by <A_MN, B_MN>, wkv6.cu's by <hd,
     columns a block, columns a thread, bf16 r/k/v>, wkv6_bwd.cu's by
-    <hd, bf16 r/k/v>."""
+    <hd, bf16 r/k/v>, selective_scan.cu's by <N, bf16 x>."""
     import re
     rows, cur, spill = [], None, (0, 0)
     for line in log.splitlines():
@@ -303,6 +329,9 @@ def ptxas_report(log: str) -> list:
             g = re.search(r"wkv6_bwd_kernelILi(\d+)ELb(\d)E", cur)
             if g:
                 cur = f"wkv6_bwd_kernel<{','.join(g.groups())}>"
+            g = re.search(r"selective_scan_kernelILi(\d+)ELb(\d)E", cur)
+            if g:
+                cur = f"selective_scan_kernel<{','.join(g.groups())}>"
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       line)
@@ -355,6 +384,25 @@ def rwkv6_prefill_shapes(cfg, params) -> list:
                        ("lm_head", params["lm_head"], False)]
 
 
+def jamba_prefill_shapes(cfg, params) -> list:
+    """jamba-v0.1-52b's PREFILL products: layer 0's attention and dense
+    FF, layer 1's Mamba mixer (mamba_dt reads its A operand as the main
+    path does: the first dt_rank columns of the (dt, B, C) projection, a
+    view of rows of dt_rank at a row stride of dt_rank + 2 d_state) and
+    the untied LM head.  The MoE tables' products are
+    phase_sr_matmul_experts'."""
+    a0 = _layer0(params["groups"]["u0"]["attn"])
+    f0 = _layer0(params["groups"]["u0"]["ffn"])
+    m1 = _layer0(params["groups"]["u1"]["mamba"])
+    proj = m1["xproj"].shape[1]
+    return [("attn_qkv", a0["qkv"], False), ("attn_o", a0["o"], False),
+            ("ffn_in", f0["ffn_in"], False), ("ffn_out", f0["ffn_out"], False),
+            ("mamba_in", m1["in"], False), ("mamba_xproj", m1["xproj"], False),
+            ("mamba_dt", m1["dt"], False, proj),
+            ("mamba_out", m1["out"], False),
+            ("lm_head", params["lm_head"], False)]
+
+
 def plan_txt(p) -> str:
     return f"plan ({p.path}, bm {p.bm}, bn {p.bn}, splits {p.splits})"
 
@@ -364,9 +412,12 @@ def path_counts(counter_map: dict) -> dict:
 
 
 def phase_sr_matmul(label: str, arch: str, shapes: list, peaks, *,
-                    ragged: bool = False) -> dict:
-    """sr_matmul at every PREFILL shape of a 32-token chunk of `arch`: the
-    sm90 path against the plain version, the SR epilogue bit-equal to the
+                    ragged: bool = False,
+                    products: str = "one layer's products") -> dict:
+    """sr_matmul at every PREFILL shape of a 32-token chunk of `arch`
+    ((name, B, trans_b) or (name, B, trans_b, A's row stride): A is then
+    a view of the first K columns of wider rows, as the main path passes
+    it): the sm90 path against the plain version, the SR epilogue bit-equal to the
     plain SR cast of the kernel's own product, rows 0..4 of the chunk
     bit-equal to a 5-row call of the same rows, and calls of 1..SPEC_K
     rows (the speculative verify and replay chunks) held against the
@@ -383,10 +434,14 @@ def phase_sr_matmul(label: str, arch: str, shapes: list, peaks, *,
            "lib_dev": 0.0}
     by_ms = {"bytes": 0.0, "operations": 0.0}
     plans = {}
-    for name, w, tb in shapes:
+    for name, w, tb, *lda in shapes:
         K = w.shape[1] if tb else w.shape[0]
         N = w.shape[0] if tb else w.shape[1]
-        a = torch.randn((M, K), generator=gen, device="cuda").to(torch.bfloat16)
+        rows = torch.randn((M, lda[0] if lda else K), generator=gen,
+                           device="cuda").to(torch.bfloat16)
+        # the first m rows in a buffer of their own, at A's row stride
+        first = lambda m: rows[:m].clone()[:, :K]  # noqa: E731
+        a = rows[:, :K]
         p = kmm.operands_plan(a, w, tb)
         plans[name] = p
         check(p.path == "sm90", f"sr_matmul {name}: {plan_txt(p)}, want sm90")
@@ -402,7 +457,7 @@ def phase_sr_matmul(label: str, arch: str, shapes: list, peaks, *,
         check(torch.allclose(got, want, rtol=MM_RTOL, atol=MM_ATOL),
               f"sr_matmul {name} ({M}x{K}x{N}, trans_b={tb}) f32 path: "
               f"max abs err {ea:.3g}")
-        rows5 = kmm.sr_matmul(a[:5].clone(), w, trans_b=tb)
+        rows5 = kmm.sr_matmul(first(5), w, trans_b=tb)
         check(torch.equal(rows5, got[:5]),
               f"sr_matmul {name}: rows 0..4 of the 32-row call differ from "
               f"a 5-row call of the same rows")
@@ -410,7 +465,7 @@ def phase_sr_matmul(label: str, arch: str, shapes: list, peaks, *,
         # replays of 1..SPEC_K, each on the sm90 path, against the plain
         # version and bit-equal to the same rows of the 32-row call
         for m in range(1, SPEC_K + 1):
-            am = a[:m].clone()
+            am = first(m)
             pm = kmm.operands_plan(am, w, tb)
             check(pm.path == "sm90", f"sr_matmul {name} M={m}: "
                   f"{plan_txt(pm)}, want sm90")
@@ -445,6 +500,7 @@ def phase_sr_matmul(label: str, arch: str, shapes: list, peaks, *,
                          peaks)
         by_ms[by] += b_ms
         print(f"[{label}] {name:<8} M={M} K={K} N={N} trans_b={int(tb)} "
+              f"lda={kmm.row_stride(a)} "
               f"{plan_txt(p)}: kernel {ms:.4f}ms plain {plain:.4f}ms "
               f"torch.matmul {lib:.4f}ms bound {b_ms:.4f}ms; in a CUDA "
               f"graph: kernel {dev:.4f}ms torch.matmul {lib_dev:.4f}ms  "
@@ -460,7 +516,7 @@ def phase_sr_matmul(label: str, arch: str, shapes: list, peaks, *,
     # shape: the cached plan lookup, the stream query, a ctypes call that
     # only encodes the sm90 path's two TMA maps, and the whole call
     from repro_torch.kernels import build
-    name, w, tb = shapes[0]
+    name, w, tb = shapes[0][:3]
     K = w.shape[1] if tb else w.shape[0]
     N = w.shape[0] if tb else w.shape[1]
     a = torch.randn((M, K), generator=gen, device="cuda").to(torch.bfloat16)
@@ -528,8 +584,8 @@ def phase_sr_matmul(label: str, arch: str, shapes: list, peaks, *,
             "host_ms": host,
             "plans": {n: list(p) for n, p in plans.items()},
             "shapes": f"{arch}, one 32-token PREFILL chunk: "
-                      f"{', '.join(n for n, _, _ in shapes)} (one layer's "
-                      f"products + the LM head)"}
+                      f"{', '.join(sh[0] for sh in shapes)} ({products} "
+                      f"+ the LM head)"}
 
 
 # fused_attn_unit_bf16 / fused_ffn_bf16 argument positions of y and the
@@ -1396,7 +1452,8 @@ def phase_fused_ffn(cfg, params, peaks) -> dict:
 EXPERT_CS = (8, 32, 40)
 
 
-def _expert_plan_sweep(name: str, a, w, layers, want) -> dict:
+def _expert_plan_sweep(name: str, a, w, layers, want,
+                       label: str = "sr_matmul:experts") -> dict:
     """The batched product a @ w under 64- and 128-wide column tiles, each
     with and without a split of K: each within MM_RTOL / MM_ATOL of
     `want`, timed in a CUDA graph warm in L2 (w again and again) and cold
@@ -1415,14 +1472,14 @@ def _expert_plan_sweep(name: str, a, w, layers, want) -> dict:
         kmm._batched_call(a, w, out, p, False)
         torch.cuda.synchronize()
         check(torch.allclose(out, want, rtol=MM_RTOL, atol=MM_ATOL),
-              f"sr_matmul:experts {bn}-wide, {splits} splits (K={K}, N={N}): "
+              f"{label} {bn}-wide, {splits} splits (K={K}, N={N}): "
               f"max abs err {errs(out, want)[0]:.3g}")
         warm = time_graph_ms(lambda: kmm._batched_call(a, w, out, p, False))
         cold = time_graph_ms(lambda: [kmm._batched_call(a, wl, out, p, False)
                                       for wl in layers],
                              iters=2) / len(layers)
         res[f"{bn}x{splits}"] = {"warm": warm, "cold": cold}
-    print(f"[sr_matmul:experts] {name:<12} K={K} N={N} plan sweep, graph "
+    print(f"[{label}] {name:<12} K={K} N={N} plan sweep, graph "
           f"ms warm / cold in L2 (planned {chosen.bn}x{chosen.splits}): "
           + ", ".join(
               f"{k} {v['warm']:.4f} / {v['cold']:.4f}"
@@ -1607,33 +1664,37 @@ def _expert_role(tag: str, role: str, tables: list, rows, C: int, peaks,
             "rows": E * C}
 
 
-def phase_sr_matmul_experts(gcfg, gparams, peaks) -> dict:
-    """sr_matmul's batched mode at granite's full-width PREFILL shapes:
-    layer 0's three expert tables (32 experts; in and gate 1024 -> 512,
-    out 512 -> 1024) at C in EXPERT_CS rows an expert, every row random,
-    each call one launch on the sm90 path, within MM_RTOL / MM_ATOL of
-    the plain version and bit-equal over two calls, with the plan sweep
-    at the served C = 32; then the served chunk as the main path runs it
-    (_expert_role: a 32-token chunk routed by layer 0's router, timed in
-    a CUDA graph warm and cold in L2, each call on another layer's
-    table, as a chunk's 24 layers read them: 24 x 33.5 MB a table, the
-    L2 50 MB)."""
+def phase_sr_matmul_experts(gcfg, gparams, peaks, unit: str = "u0",
+                            label: str = "sr_matmul:experts",
+                            cs: tuple = EXPERT_CS) -> dict:
+    """sr_matmul's batched mode at a MoE model's full-width PREFILL
+    shapes (granite: 32 experts, in and gate 1024 -> 512, out 512 ->
+    1024; jamba's unit u1: 16 experts, 4096 -> 14336 and 14336 -> 4096):
+    the first layer of `unit`'s three expert tables at C in `cs` rows an
+    expert, every row random, each call one launch on the sm90 path,
+    within MM_RTOL / MM_ATOL of the plain version and bit-equal over two
+    calls, with the plan sweep at the served C = 32; then the served
+    chunk as the main path runs it (_expert_role: a 32-token chunk routed
+    by that layer's router, timed in a CUDA graph warm and cold in L2,
+    each call on another layer's table of the unit (granite: as a
+    chunk's 24 layers read them, 24 x 33.5 MB a table, the L2 50 MB;
+    jamba: 1.9 GB a table, no layer's table fits the L2))."""
     import torch
     from repro_torch.kernels import sr_matmul as kmm
     gen = torch.Generator(device="cuda").manual_seed(21)
-    moe = gparams["groups"]["u0"]["moe"]
+    moe = gparams["groups"][unit]["moe"]
     tables = [(n, moe[n][0]) for n in ("experts_in", "experts_gate",
                                        "experts_out")]
     E = gcfg.moe.n_experts
     worst_abs = worst_rel = 0.0
     plans, sweep = {}, {}
-    for C in EXPERT_CS:
+    for C in cs:
         for name, w in tables:
             _, K, N = w.shape
             a = torch.randn((E, C, K), generator=gen,
                             device="cuda").to(torch.bfloat16)
             p = kmm.plan(C, N, K, "k", "n", experts=E)
-            check(p.path == "sm90", f"sr_matmul:experts {name} C={C}: "
+            check(p.path == "sm90", f"{label} {name} C={C}: "
                   f"{plan_txt(p)}, want sm90")
             before = {k: c.n for k, c in (("batched", kmm.BATCHED_COUNTER),
                                           ("all", kmm.COUNTER),
@@ -1645,28 +1706,28 @@ def phase_sr_matmul_experts(gcfg, gparams, peaks) -> dict:
             moved = {k: after[k] - before[k] for k in after}
             check(moved == {"batched": 1, "all": 1, "sm90": 1, "generic": 0,
                             "f32": 0},
-                  f"sr_matmul:experts {name} C={C}: counters moved {moved}, "
+                  f"{label} {name} C={C}: counters moved {moved}, "
                   f"want one sm90 launch")
             want = kmm.sr_matmul_batched_plain(a, w)
             again = kmm.sr_matmul_batched(a, w)
             torch.cuda.synchronize()
             ea, er = errs(got, want)
             check(torch.allclose(got, want, rtol=MM_RTOL, atol=MM_ATOL),
-                  f"sr_matmul:experts {name} ({E}x{C}x{K}x{N}): max abs err "
+                  f"{label} {name} ({E}x{C}x{K}x{N}): max abs err "
                   f"{ea:.3g}")
             check(torch.equal(got, again),
-                  f"sr_matmul:experts {name} C={C}: two calls differ")
+                  f"{label} {name} C={C}: two calls differ")
             worst_abs, worst_rel = max(worst_abs, ea), max(worst_rel, er)
-            print(f"[sr_matmul:experts] {name:<12} E={E} C={C} K={K} "
+            print(f"[{label}] {name:<12} E={E} C={C} K={K} "
                   f"N={N} {plan_txt(p)}: max_abs_err {ea:.3g}; 2 calls "
                   f"bit-equal; one launch")
             if C == 32:
                 plans[name] = list(p)
                 sweep[name] = _expert_plan_sweep(
-                    name, a, w, moe[name].unbind(0), want)
-    # the main path's chunk: layer 0's router on a seeded 32-token chunk,
-    # its dispatched buffer and live rows, bf16 out; cold: layers 0-2's
-    # tables in turn
+                    name, a, w, moe[name].unbind(0), want, label)
+    # the main path's chunk: the first layer's router on a seeded
+    # 32-token chunk, its dispatched buffer and live rows, bf16 out;
+    # cold: the unit's first three layers' tables in turn
     from repro_torch.launch import ablate_experts
     variants = ablate_experts.build_variants()
     rows, xb = _routed_rows(gcfg, moe["router"][0], 32, gen)
@@ -1680,9 +1741,9 @@ def phase_sr_matmul_experts(gcfg, gparams, peaks) -> dict:
         layers = moe[name].unbind(0)[:3]
         tabs.append((name, [(a, wl) for wl in layers],
                      [(full, wl) for wl in layers]))
-    r = _expert_role("sr_matmul:experts:routed", "prefill", tabs, rows, 32,
+    r = _expert_role(f"{label}:routed", "prefill", tabs, rows, 32,
                      peaks, variants)
-    return {"name": "sr_matmul:experts", "counter": "sr_matmul:batched",
+    return {"name": label, "counter": "sr_matmul:batched",
             "route": "cuda", "source": "src/repro_torch/csrc/"
                                        "gemm_sm90_batched.cuh",
             "entry": "src/repro_torch/csrc/sr_matmul.cu",
@@ -1705,9 +1766,10 @@ def phase_sr_matmul_experts(gcfg, gparams, peaks) -> dict:
             "parent_equivalent_cold_graph_ms": r["parent_cold"],
             "split_graph_ms": r["split"], "live_rows": r["live_rows"],
             "plans": plans, "plan_sweep": sweep,
-            "shapes": f"granite-moe-1b-a400m layer 0, one 32-token PREFILL "
-                      f"chunk routed by layer 0's router: experts_in, "
-                      f"experts_gate, experts_out, E={E}, C=32, bf16 out"}
+            "shapes": f"{gcfg.name} unit {unit}'s first layer, one "
+                      f"32-token PREFILL chunk routed by its router: "
+                      f"experts_in, experts_gate, experts_out, E={E}, C=32, "
+                      f"bf16 out"}
 
 
 def _layer0(tree):
@@ -1716,21 +1778,23 @@ def _layer0(tree):
             for k, v in tree.items()}
 
 
-def phase_fused_served(cfg, params, peaks, label: str) -> dict:
+def phase_fused_served(cfg, params, peaks, label: str,
+                       unit: str = "u0") -> dict:
     """fused_attn_unit as `cfg`'s served decode calls it, at full width:
-    layer 0's weights, its norm kind (olmo's non-parametric LN is a
-    layernorm with no affine operands) and activation, its FF (none on a
-    MoE unit), B=SERVE_SLOTS rows, S=SERVE_LEN, 3 steps against the plain
-    version; decode_plan's launches a call (7 with the FF, 5 without) as
-    the C entry counts them; its CUDA-graph time beside its bound."""
+    the first layer of pattern unit `unit` (an attention unit), its norm
+    kind (olmo's non-parametric LN is a layernorm with no affine
+    operands) and activation, its FF (none on a MoE unit),
+    B=SERVE_SLOTS rows, S=SERVE_LEN, 3 steps against the plain version;
+    decode_plan's launches a call (7 with the FF, 5 without) as the C
+    entry counts them; its CUDA-graph time beside its bound."""
     import torch
     from repro_torch.kernels import decode_fused as kdf
     from repro_torch.models import transformer as tfm
     a = cfg.attention
     B, S, d = SERVE_SLOTS, SERVE_LEN, cfg.d_model
     H, K, hd = a.n_heads, a.n_kv_heads, a.head_dim
-    u = _layer0(params["groups"]["u0"])
-    dense = cfg.moe is None
+    u = _layer0(params["groups"][unit])
+    dense = tfm.layer_pattern(cfg)[int(unit[1:])].ffn == "dense"
     n1, nk = tfm._fused_norm_args(cfg, u, "norm1")
     n2, _ = tfm._fused_norm_args(cfg, u, "norm2")
     w = dict(qkv_w=u["attn"]["qkv"], qkv_bias=u["attn"].get("qkv_bias"),
@@ -1767,8 +1831,9 @@ def phase_fused_served(cfg, params, peaks, label: str) -> dict:
     b_ms, by = bound(nbytes, 2 * B * (d * qn + H * hd * d + ff)
                      + 4 * H * hd * valid, peaks)
     ffn = (f"d_ff {cfg.d_ff} {cfg.act}" if dense else "without the FF")
-    print(f"[{label}] {cfg.name} layer 0 (d {d}, {H} heads of {hd}, {K} KV "
-          f"heads, {cfg.norm}, {ffn}) B={B} S={S}: max_abs_err {ea:.3g} "
+    print(f"[{label}] {cfg.name} unit {unit} (d {d}, {H} heads of {hd}, {K} "
+          f"KV heads, window {a.window}, {cfg.norm}, {ffn}) B={B} S={S}: "
+          f"max_abs_err {ea:.3g} "
           f"within Y_TOL/CACHE_TOL over 3 steps; {per_call} launches a "
           f"call; in a CUDA graph {dev_ms:.4f}ms bound {b_ms:.4f}ms ({by})")
     del cache, kern
@@ -1853,75 +1918,132 @@ def _flips(record: list) -> str:
             f"{sum(t for _, t in record)}")
 
 
-def phase_chunk_vs_reference(cfg, params, label: str) -> dict:
-    """One 32-token PREFILL chunk of 4 rows through chunk_step on the cuda
-    backend and on the reference backend (float64 products) on the card:
-    both finite, of shape (4, 32, V), max |dlogit| / std within
-    CHUNK_MAX.  On a MoE config the reference runs with the cuda run's
-    routing (experts and combine weights), so that a token whose top-k
-    set flips between bf16 and f64 products does not hide a fault in the
-    batched expert products; the free-routing distance is printed too."""
+def phase_chunk_vs_reference(cfg, params, label: str, key: str = None,
+                             prompt: int = 32, steps: int = 0,
+                             ref_params=None, gate: bool = True) -> dict:
+    """Teacher-forced on the card: 4 rows prefill `prompt` random tokens
+    in 32-token chunks through chunk_step, then take `steps` decode steps
+    per-op and fused, on the cuda backend and on the reference backend
+    (float64 products): all finite, the first chunk's logits of shape
+    (4, min(32, prompt), V).  On a MoE config every run takes the cuda
+    per-op run's routing (experts and combine weights), so that a token
+    whose top-k set flips between bf16 and f64 products does not hide a
+    fault in the batched expert products; the other runs' own flips and
+    the chunks' free-routing distance are printed.  Max |dlogit| / std of
+    the reference's logits over the chunks, gated by CHUNK_MAX[key], and
+    over the decode steps of each cuda run, gated by TF_MAX[key] (key:
+    the config's name by default).  `ref_params`: the reference backend's
+    own parameters (a control: the cuda runs take `params`); gate=False:
+    printed and returned, not gated."""
     import torch
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.core.program import compile_program
     from repro_torch.models import transformer as tfm
     from repro_torch.runtime import train_loop as tl
-    B, C = 4, 32
+    t0 = time.monotonic()
+    key = key or cfg.name
+    B, L = 4, prompt + steps
     gen = torch.Generator(device="cuda").manual_seed(23)
-    toks = torch.randint(0, cfg.vocab_size, (B, C), generator=gen,
+    toks = torch.randint(0, cfg.vocab_size, (B, L), generator=gen,
                          device="cuda", dtype=torch.int32)
-    prog = compile_program(cfg, ShapeConfig("chunk", C, B, "decode"))
-    routes, flips = [], []
-
-    def chunk(backend, record=None, replay=None):
-        cache = tfm.init_cache(cfg, B, C, device="cuda")
-        step = tl.make_chunk_step(cfg, prog, kernel_backend=backend)
-        with torch.no_grad(), _routing(record, replay):
-            lg, _ = step(params, cache, toks,
-                         torch.zeros(B, dtype=torch.int32, device="cuda"))
-        return lg.float()
-
     moe = cfg.moe is not None
-    a = chunk("cuda", record=routes if moe else None)
-    b = chunk("reference", record=flips if moe else None,
-              replay=routes if moe else None)
-    check(tuple(a.shape) == (B, C, cfg.vocab_size)
-          and bool(torch.isfinite(a).all() and torch.isfinite(b).all()),
-          f"{label}: chunk logits {tuple(a.shape)}, finite "
-          f"{bool(torch.isfinite(a).all())}")
-    d, agree = _gap(a, b)
-    held = ""
+
+    def run(backend, fused=False, record=None, replay=None, n=steps):
+        w = params if ref_params is None or backend == "cuda" else ref_params
+        prog = compile_program(cfg, ShapeConfig("tf", L, B, "decode"),
+                               fused_decode=fused)
+        chunk = tl.make_chunk_step(cfg, prog, kernel_backend=backend)
+        step = (tl.make_fused_decode_step if fused else tl.make_decode_step)(
+            cfg, prog, kernel_backend=backend)
+        cache = tfm.init_cache(cfg, B, L, device="cuda")
+        at = lambda t: torch.full((B,), t, dtype=torch.int32,  # noqa: E731
+                                  device="cuda")
+        chunks, dec = [], []
+        with torch.no_grad(), _routing(record if moe else None, replay):
+            for c0 in range(0, prompt, 32):
+                lg, _ = chunk(w, cache, toks[:, c0:min(c0 + 32, prompt)],
+                              at(c0))
+                chunks.append(lg.float())
+            for t in range(prompt, prompt + n):
+                lg, _ = step(w, cache, toks[:, t:t + 1], at(t))
+                dec.append(lg.float())
+        return chunks, dec
+
+    routes, f_fused, f_ref = [], [], []
+    per_op = run("cuda", record=routes)
+    held = routes if moe else None
+    fused = run("cuda", True, f_fused, held) if steps else ([], [])
+    ref = run("reference", record=f_ref, replay=held)
+    check(all(bool(torch.isfinite(x).all()) for r in (per_op, fused, ref)
+              for part in r for x in part), f"{label}: non-finite logits")
+    check(tuple(per_op[0][0].shape) == (B, min(32, prompt), cfg.vocab_size),
+          f"{label}: chunk logits {tuple(per_op[0][0].shape)}")
+    gap = lambda a, b: max(_gap(x, y)[0] for x, y in zip(a, b))  # noqa
+    agree = lambda a, b: sum(_gap(x, y)[1] for x, y in zip(a, b))  # noqa
+    res = {"gap": gap(per_op[0], ref[0]), "agree": agree(per_op[0], ref[0]),
+           "flips": _flips(f_ref) if moe else None}
+    routing = ""
     if moe:
-        free, _ = _gap(a, chunk("reference"))
-        held = (f" with the cuda run's routing (the reference's own top-k "
-                f"set differs on {_flips(flips)} token-layers; free "
-                f"routing: {free:.4f})")
-    print(f"[{label}] one {C}-token chunk of {B} rows, cuda vs reference "
-          f"backend (f64 products){held}: max |dlogit| / std {d:.4f}; "
-          f"argmax agree {agree}/{B * C}")
-    check(d <= CHUNK_MAX[cfg.name], f"{label}: chunk cuda vs reference max "
-          f"|dlogit| {d:.4f} std (gate {CHUNK_MAX[cfg.name]})")
-    return {"gap": d, "agree": agree,
-            "flips": _flips(flips) if moe else None}
+        free = gap(per_op[0], run("reference", n=0)[0])
+        routing = (f" with the cuda per-op run's routing (the reference's own"
+                   f" top-k set differs on {_flips(f_ref)} token-layers"
+                   + (f", the fused run's on {_flips(f_fused)}" if steps
+                      else "") + f"; free routing: chunks {free:.4f})")
+    txt = ""
+    if steps:
+        res.update({"per-op": gap(per_op[1], ref[1]),
+                    "fused": gap(fused[1], ref[1]),
+                    "fused-vs-per-op": gap(fused[1], per_op[1])})
+        txt = (f", then {steps} decode steps: per-op {res['per-op']:.4f} "
+               f"fused {res['fused']:.4f} (argmax agree "
+               f"{agree(per_op[1], ref[1])} / {agree(fused[1], ref[1])} of "
+               f"{B * steps}), fused vs per-op {res['fused-vs-per-op']:.4f}")
+    print(f"[{label}] {cfg.name} {cfg.n_layers} layers, {B} rows: "
+          f"{prompt}-token prompts in {len(ref[0])} chunks{txt}; cuda "
+          f"against the reference backend (f64 products){routing}: max "
+          f"|dlogit| / std chunks {res['gap']:.4f} (argmax agree "
+          f"{res['agree']}/{B * prompt}); phase "
+          f"{time.monotonic() - t0:.1f}s")
+    if not gate:
+        return res
+    check(res["gap"] <= CHUNK_MAX[key], f"{label}: chunks {res['gap']:.4f} "
+          f"std (gate {CHUNK_MAX[key]})")
+    for m in ("per-op", "fused") if steps else ():
+        check(res[m] <= TF_MAX[key], f"{label}: {m} decode {res[m]:.4f} std "
+              f"(gate {TF_MAX[key]})")
+    return res
 
 
 def serve_counters(cfg) -> dict:
-    """The launch counters of the kernels on `cfg`'s serving path."""
+    """The launch counters of the kernels on `cfg`'s serving path, from
+    its layer pattern: sr_matmul (and its batched mode with a MoE unit),
+    wkv6 with an rwkv6 unit, selective_scan with a Mamba unit,
+    fused_attn_unit with an attention unit, fused_ffn with an SSM unit
+    whose FF is dense."""
     from repro_torch.kernels import decode_fused as kdf
+    from repro_torch.kernels import selective_scan as kss
     from repro_torch.kernels import sr_matmul as kmm
     from repro_torch.kernels import wkv6 as kwkv
-    paths = {f"sr_matmul:{p}": kmm.PATH_COUNTERS[p]
-             for p in ("sm90", "generic")}
-    if cfg.attention is None:
-        return {"sr_matmul": kmm.COUNTER, **paths, "wkv6": kwkv.COUNTER,
-                **{f"wkv6:{k}": c for k, c in kwkv.SHAPE_COUNTERS.items()},
-                "fused_ffn": kdf.FFN_COUNTER,
-                "fused_ffn:launches": kdf.FFN_LAUNCHES}
+    from repro_torch.models import transformer as tfm
+    pattern = tfm.layer_pattern(cfg)
+    mixers = {u.mixer for u in pattern}
+    out = {"sr_matmul": kmm.COUNTER,
+           **{f"sr_matmul:{p}": kmm.PATH_COUNTERS[p]
+              for p in ("sm90", "generic")}}
     if cfg.moe is not None:
-        paths["sr_matmul:batched"] = kmm.BATCHED_COUNTER
-    return {"sr_matmul": kmm.COUNTER, **paths,
-            "fused_attn_unit": kdf.COUNTER,
-            "fused_attn_unit:launches": kdf.LAUNCHES}
+        out["sr_matmul:batched"] = kmm.BATCHED_COUNTER
+    if "rwkv6" in mixers:
+        out["wkv6"] = kwkv.COUNTER
+        out.update({f"wkv6:{k}": c for k, c in kwkv.SHAPE_COUNTERS.items()})
+    if "mamba" in mixers:
+        out["selective_scan"] = kss.COUNTER
+    if "attn" in mixers:
+        out["fused_attn_unit"] = kdf.COUNTER
+        out["fused_attn_unit:launches"] = kdf.LAUNCHES
+    if any(u.mixer != "attn" and u.ffn == "dense" for u in pattern):
+        out["fused_ffn"] = kdf.FFN_COUNTER
+        out["fused_ffn:launches"] = kdf.FFN_LAUNCHES
+    return out
 
 
 def launches_per_call(cfg) -> dict:
@@ -1929,16 +2051,23 @@ def launches_per_call(cfg) -> dict:
     (SERVE_SLOTS rows, SERVE_LEN positions), from decode_plan:
     fused_attn_unit 7 (5 without the FF, a MoE unit's), fused_ffn 3."""
     from repro_torch.kernels import decode_fused as kdf
+    from repro_torch.models import transformer as tfm
     gated = cfg.act in ("swiglu", "geglu")
-    if cfg.attention is None:
-        return {"fused_ffn": kdf.decode_plan(
+    pattern = tfm.layer_pattern(cfg)
+    out = {}
+    attn = {u.ffn for u in pattern if u.mixer == "attn"}
+    check(len(attn) <= 1, f"{cfg.name}: attention units with both FF kinds")
+    if attn:
+        a, dense = cfg.attention, attn == {"dense"}
+        out["fused_attn_unit"] = kdf.decode_plan(
+            SERVE_SLOTS, cfg.d_model, f=cfg.d_ff if dense else 0,
+            gated=gated, heads=a.n_heads, kv_heads=a.n_kv_heads,
+            head_dim=a.head_dim, S=SERVE_LEN, with_ffn=dense).launches
+    if any(u.mixer != "attn" and u.ffn == "dense" for u in pattern):
+        out["fused_ffn"] = kdf.decode_plan(
             SERVE_SLOTS, cfg.d_model, f=cfg.d_ff, gated=gated,
-            attention=False).launches}
-    a, dense = cfg.attention, cfg.moe is None
-    return {"fused_attn_unit": kdf.decode_plan(
-        SERVE_SLOTS, cfg.d_model, f=cfg.d_ff if dense else 0, gated=gated,
-        heads=a.n_heads, kv_heads=a.n_kv_heads, head_dim=a.head_dim,
-        S=SERVE_LEN, with_ffn=dense).launches}
+            attention=False).launches
+    return out
 
 
 def serve_trace(cfg) -> list:
@@ -1949,11 +2078,11 @@ def serve_trace(cfg) -> list:
                          gen_tokens=16, mean_interarrival_steps=2.0, seed=0)
 
 
-def phase_serve(cfg, params, label: str, keep: dict = None) -> dict:
+def phase_serve(cfg, params, label: str) -> dict:
     """A main path: the engine serves the seeded trace on the cuda backend,
     fused decode and then per-op decode, counting each kernel's launches
-    in each run.  Returns the fused run's counts; `keep` gets each run's
-    tokens by mode ("fused", "per-op")."""
+    in each run, and the run's peak device memory.  Returns the fused
+    run's counts."""
     import torch
     from repro_torch.serving import build_engine, latency_stats
     trace = serve_trace(cfg)
@@ -1965,18 +2094,23 @@ def phase_serve(cfg, params, label: str, keep: dict = None) -> dict:
                            fused_decode=fused, device="cuda", params=params)
         for c in counters.values():
             c.reset()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.monotonic()
         with torch.no_grad():
             res = eng.run(trace)
         torch.cuda.synchronize()
         wall = time.monotonic() - t0
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
         counts = {k: c.n for k, c in counters.items()}
         st = latency_stats(eng.events)
         mode = "fused" if fused else "per-op"
-        print(f"[{label}:{mode}] steps={eng.step_count} generated="
+        print(f"[{label}:{mode}] {cfg.n_layers} layers: steps="
+              f"{eng.step_count} generated="
               f"{st['tokens']} wall={wall:.3f}s tok/s={st['tokens'] / wall:.2f}"
-              f" p50={st['p50_ms']:.3f}ms p99={st['p99_ms']:.3f}ms "
-              f"launches={counts} nonfinite_logits={eng.nonfinite_logits}")
+              f" p50={st['p50_ms']:.3f}ms p99={st['p99_ms']:.3f}ms peak "
+              f"{peak:.2f} GiB launches={counts} nonfinite_logits="
+              f"{eng.nonfinite_logits}")
         check(eng.nonfinite_logits == 0, f"{label}:{mode}: non-finite logits")
         check(sum(len(v) for v in res.values()) == 16 * 16,
               f"{label}:{mode}: {sum(len(v) for v in res.values())} tokens, "
@@ -1995,8 +2129,6 @@ def phase_serve(cfg, params, label: str, keep: dict = None) -> dict:
                   f"kernel launches in {counts[word]} calls, {per} a call "
                   f"planned")
         runs[mode] = (res, counts)
-        if keep is not None:
-            keep[mode] = res
         del eng
     a, b = runs["fused"][0], runs["per-op"][0]
     same = sum(x == y for r in a for x, y in zip(a[r], b[r]))
@@ -2019,6 +2151,17 @@ def _first(tree, n: int):
     if isinstance(tree, dict):
         return {k: _first(v, n) for k, v in tree.items()}
     return tree[:n]
+
+
+def cut_model(cfg, params, layers: int) -> tuple:
+    """(cfg, params) of the first `layers` layers of a model: the first
+    layers / period scan groups of every stacked leaf (views)."""
+    import dataclasses
+    from repro_torch.models import transformer as tfm
+    ng = layers // len(tfm.layer_pattern(cfg))
+    return dataclasses.replace(cfg, n_layers=layers), dict(params, groups={
+        u: {k: _first(v, ng) for k, v in up.items()}
+        for u, up in params["groups"].items()})
 
 
 def _tensors(tree) -> list:
@@ -2098,18 +2241,19 @@ def _agree(res, want) -> tuple:
     return same, first, sum(len(v) for v in want.values())
 
 
-def phase_serve_spec(cfg, params, label: str, base: dict,
-                     modes=(True,)) -> dict:
-    """The speculative main path: the seeded trace served on the cuda
-    backend with k = SPEC_K and the default draft (one layer, its own
-    seed), fused decode (and per-op where `modes` asks), counting each
-    kernel's launches in each run and by chunk kind and rows.  `base`:
-    the non-speculative runs' tokens by mode; every first token must
-    equal them (both produce it on the same path), and the number of
+def phase_serve_spec(cfg, params, label: str, modes=(True,)) -> dict:
+    """The speculative main path at BURSTY_LAYERS layers (the first of
+    `params`): the seeded trace served on the cuda backend with k =
+    SPEC_K and the default draft (one layer, its own seed), fused decode
+    (and per-op where `modes` asks), counting each kernel's launches in
+    each run and by chunk kind and rows.  Before each, the same trace
+    without speculation at the same depth and mode: every first token
+    must equal its (both produce it on the same path), and the number of
     equal tokens is printed.  The first ARENA_CHECKS verifies must leave
     the arena bit-identical.  Returns the first run's counts and
     histogram."""
     from repro_torch.serving import build_engine, latency_stats
+    cfg, params = cut_model(cfg, params, BURSTY_LAYERS)
     trace = serve_trace(cfg)
     counters = serve_counters(cfg)
     out = None
@@ -2117,6 +2261,17 @@ def phase_serve_spec(cfg, params, label: str, base: dict,
         mode = "fused" if fused else "per-op"
         tag = f"{label}:{mode}"
         t0 = time.monotonic()
+        eng = build_engine(cfg, n_slots=SERVE_SLOTS, max_len=SERVE_LEN,
+                           prefill_chunk=32, kernel_backend="cuda",
+                           fused_decode=fused, device="cuda", params=params)
+        base, base_wall = _serve_once(eng, trace)
+        _check_served(base, trace, eng, f"{tag}:non-speculative")
+        st = latency_stats(eng.events)
+        print(f"[{tag}:non-speculative] {cfg.n_layers} layers: steps="
+              f"{eng.step_count} wall={base_wall:.3f}s tok/s="
+              f"{st['tokens'] / base_wall:.2f} p50={st['p50_ms']:.3f}ms "
+              f"p99={st['p99_ms']:.3f}ms")
+        del eng
         eng = build_engine(cfg, n_slots=SERVE_SLOTS, max_len=SERVE_LEN,
                            prefill_chunk=32, kernel_backend="cuda",
                            fused_decode=fused, device="cuda", params=params,
@@ -2128,8 +2283,9 @@ def phase_serve_spec(cfg, params, label: str, base: dict,
         counts = {k: c.n for k, c in counters.items()}
         st = latency_stats(eng.events)
         sp = eng.spec_stats
-        same, first, n = _agree(res, base[mode])
-        print(f"[{tag}] k={SPEC_K} steps={eng.step_count} generated="
+        same, first, n = _agree(res, base)
+        print(f"[{tag}] {cfg.n_layers} layers, k={SPEC_K} steps="
+              f"{eng.step_count} generated="
               f"{st['tokens']} wall={wall:.3f}s tok/s="
               f"{st['tokens'] / wall:.2f} p50={st['p50_ms']:.3f}ms "
               f"p99={st['p99_ms']:.3f}ms verifies={sp['verifies']} "
@@ -2273,9 +2429,11 @@ def phase_spec_reference(arch: str, gen, label: str) -> None:
     torch.cuda.empty_cache()
 
 
-# the bursty overload's depth with speculation: its 64 requests make
-# ~960 speculative rounds, each two chunks through every layer (at full
-# depth 152 s); the run without speculation is served at full depth too
+# the depth of the speculative runs: the bursty overload's 64 requests
+# make ~960 speculative rounds, each two chunks through every layer (at
+# full depth 152 s), and the four speculative runs of the served trace
+# took 57-105 s each at 24 layers on a slow host; the runs without
+# speculation are served at full depth too
 BURSTY_LAYERS = 8
 
 
@@ -2287,13 +2445,9 @@ def phase_bursty(cfg, params, label: str) -> None:
     finishes with its budget and something was evicted in each run; the
     speculative run's first tokens equal those of the run without it at
     its depth."""
-    import dataclasses
     from repro_torch.serving import build_engine, bursty_trace, latency_stats
     t0 = time.monotonic()
-    cut = dataclasses.replace(cfg, n_layers=BURSTY_LAYERS)
-    cut_params = dict(params, groups={
-        u: {k: _first(v, BURSTY_LAYERS) for k, v in up.items()}
-        for u, up in params["groups"].items()})
+    cut, cut_params = cut_model(cfg, params, BURSTY_LAYERS)
     trace = bursty_trace(2 * SERVE_SLOTS, vocab_size=cfg.vocab_size,
                          prompt_lens=(16, 128), gen_tokens=16,
                          burst_size=2 * SERVE_SLOTS, burst_gap_steps=8,
@@ -2444,14 +2598,20 @@ def phase_fused_vs_perop(cfg, params, label: str, prompt: int = 32) -> dict:
 # kernel and torch call here is deterministic, so a run repeats them.
 ACCURACY_RATIO = 1.1
 FFN_LAYER_RATIO = 1.1
-# (granite's with routing held fixed; the three served configs' limits
-# are the card's gap x 1.1, rounded up to 0.01)
+# (granite's and jamba's with routing held fixed; the served configs'
+# limits are the card's gap x 1.1, rounded up to 0.01; jamba's are its
+# per-op and fused decode steps against the reference backend, ":ring"
+# with the window cut to 64)
 TF_MAX = {"qwen2-0.5b": 0.1, "rwkv6-1.6b": 0.5, "rwkv6-1.6b:512": 0.6,
-          "granite-moe-1b-a400m": 0.06, "olmo-1b": 0.1, "minitron-4b": 0.13}
-# one PREFILL chunk, cuda against reference backend (granite: routing
-# held fixed), the card's gap x 1.1 rounded up to 0.01 (PERF.md)
+          "granite-moe-1b-a400m": 0.06, "olmo-1b": 0.1, "minitron-4b": 0.13,
+          "jamba-v0.1-52b": 0.13, "jamba-v0.1-52b:ring": 0.13}
+# one PREFILL chunk, cuda against reference backend (granite, jamba,
+# arctic: routing held fixed), the card's gap x 1.1 rounded up to 0.01
+# (PERF.md); jamba's ":ring" the largest of a 150-token prompt's chunks;
+# arctic's the largest over ARCTIC_SEEDS
 CHUNK_MAX = {"granite-moe-1b-a400m": 0.09, "olmo-1b": 0.1,
-             "minitron-4b": 0.14}
+             "minitron-4b": 0.14, "jamba-v0.1-52b": 0.12,
+             "jamba-v0.1-52b:ring": 0.13, "arctic-480b": 0.05}
 
 
 def check_fused_vs_perop(tf: dict, worst_layer: float = None) -> None:
@@ -4177,6 +4337,270 @@ def phase_train_granite_fp32_full() -> dict:
          "outer_accum:batched": 3 * GRANITE_LAYERS})
 
 
+# ---------------------------------------------------------------------------
+# jamba-v0.1-52b: the Mamba mixer, the 1:7 attention interleave and a MoE
+# FF every second layer, one period of the pattern at full width; and the
+# reduced arctic-480b (a MoE FF with a dense FF beside it)
+# ---------------------------------------------------------------------------
+
+JAMBA = "jamba-v0.1-52b"
+# one period of jamba's pattern: 8 of 32 layers (1 attention, 7 Mamba, 4
+# MoE and 4 dense FFs; 13.30 B parameters, 24.8 GiB in bf16; all 32 are
+# 96 GiB and do not fit the card)
+JAMBA_LAYERS = 8
+JAMBA_SEED = 7
+# selective_scan against its plain version: expf and an f32 sum over the
+# N state values against the plain version's f64 ones, within 1e-5 of
+# the largest output
+SCAN_REL = 1e-5
+# its cases (B, S) at di 8192, N 16: one slot's decode step and chunks
+# (7 tokens: a ragged tile; 32: a PREFILL chunk; 512: the longest
+# prompt), and a DECODE step of SERVE_SLOTS slots; the bf16 chunk and
+# step are the served shapes, timed and summed in the kernels line
+SCAN_CASES = ((1, 1), (1, 7), (1, 32), (1, 512), (SERVE_SLOTS, 1))
+SCAN_MAIN = ((1, 32), (SERVE_SLOTS, 1))
+# the served ring: jamba's attention window cut to 64, 4 requests whose
+# prompts of 96-200 tokens wrap it inside their PREFILL chunks
+RING_WINDOW = 64
+# the reduced arctic's parameters: a generator of its own at each seed
+ARCTIC_SEEDS = (0, 1, 2, 3)
+
+
+def init_jamba() -> tuple:
+    """(config, bf16 params) of jamba's first period at full width, drawn
+    leaf by leaf as the engine draws them (tfm.init with dtype bf16: the
+    f32 tree, 49.5 GiB, never exists) from a generator of its own (the
+    gated readings do not move with what earlier phases draw), with
+    random norm scales, Mamba dt_bias (N(0, 0.3^2)) and D (0.5-1.5)."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tfm
+    gen = torch.Generator(device="cuda").manual_seed(JAMBA_SEED)
+    cfg = dataclasses.replace(get_config(JAMBA), n_layers=JAMBA_LAYERS)
+    t0 = time.monotonic()
+    torch.cuda.reset_peak_memory_stats()
+    params = tfm.init(gen, cfg, dtype=torch.bfloat16)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    rnd = lambda t, base, std: t.copy_(base + std * torch.randn(  # noqa
+        t.shape, generator=gen, device="cuda"))
+    for up in params["groups"].values():
+        for k in ("norm1", "norm2"):
+            rnd(up[k]["scale"], 1.0, 0.1)
+        if "mamba" in up:
+            rnd(up["mamba"]["dt_bias"], 0.0, 0.3)
+            up["mamba"]["D"].copy_(0.5 + torch.rand(
+                up["mamba"]["D"].shape, generator=gen, device="cuda"))
+    rnd(params["final_norm"]["scale"], 1.0, 0.1)
+    print(f"[init] {JAMBA}, {cfg.n_layers} of 32 layers at full width: "
+          f"{cfg.param_count()} params in {time.monotonic() - t0:.1f}s, "
+          f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB held, init "
+          f"peak {peak:.2f} GiB")
+    return cfg, params
+
+
+def _scan_inputs(gen, B, S, di, N, xdt):
+    import torch
+    rnd = lambda *s: torch.randn(s, generator=gen, device="cuda")  # noqa
+    x = rnd(B, S, di).to(xdt)
+    dt = torch.nn.functional.softplus(rnd(B, S, di) - 1.0)
+    A = -torch.arange(1, N + 1, device="cuda", dtype=torch.float32).repeat(
+        di, 1)
+    Bm, Cm = rnd(B, S, N), rnd(B, S, N)
+    D = 0.5 + torch.rand(di, generator=gen, device="cuda")
+    return x, dt, A, Bm, Cm, D, 0.5 * rnd(B, di, N)
+
+
+def phase_selective_scan(peaks) -> dict:
+    """selective_scan at jamba's shapes (di 8192, N 16) from a nonzero
+    state, x in bf16 (as served) and in f32: against the plain version
+    within SCAN_REL of the largest output and state, two calls bit-equal;
+    times by events and in a CUDA graph beside the plain version's and
+    the bound (bytes: x, dt, B, C, y, A, D and the state read and
+    written, at the card's memory rate)."""
+    import torch
+    from repro_torch.kernels import selective_scan as kss
+    di, N = 8192, 16
+    gen = torch.Generator(device="cuda").manual_seed(41)
+    tot = dict.fromkeys(("ms", "graph", "plain", "bound"), 0.0)
+    worst, by_ms = 0.0, {"bytes": 0.0, "operations": 0.0}
+    for (B, S), xdt in itertools.product(SCAN_CASES, (torch.bfloat16,
+                                                      torch.float32)):
+        x, dt, A, Bm, Cm, D, h0 = _scan_inputs(gen, B, S, di, N, xdt)
+        st = h0.clone()
+        c0 = kss.COUNTER.n
+        y, _ = kss.selective_scan(x, dt, A, Bm, Cm, D, st)
+        check(kss.COUNTER.n == c0 + 1, "selective_scan: not one launch")
+        yp, hp = kss.selective_scan_plain(x, dt, A, Bm, Cm, D, h0)
+        torch.cuda.synchronize()
+        tag = f"B={B} S={S} x {str(xdt).split('.')[-1]}"
+        ey = float((y - yp).abs().max() / yp.abs().max())
+        eh = float((st - hp).abs().max() / hp.abs().max())
+        check(bool(torch.isfinite(y).all() and torch.isfinite(st).all()),
+              f"selective_scan {tag}: non-finite output")
+        check(ey <= SCAN_REL and eh <= SCAN_REL, f"selective_scan {tag}: "
+              f"y {ey:.3g}, state {eh:.3g} of the largest (gate "
+              f"{SCAN_REL})")
+        st2 = h0.clone()
+        y2, _ = kss.selective_scan(x, dt, A, Bm, Cm, D, st2)
+        check(torch.equal(y, y2) and torch.equal(st, st2),
+              f"selective_scan {tag}: two calls differ")
+        worst = max(worst, float((y - yp).abs().max()))
+        call = lambda: kss.selective_scan(x, dt, A, Bm, Cm, D, st)  # noqa
+        ms = time_ms(call)
+        g_ms = time_graph_ms(call)
+        plain = time_ms(lambda: kss.selective_scan_plain(
+            x, dt, A, Bm, Cm, D, h0), iters=2, warmup=1)
+        nbytes = (B * S * di * (x.element_size() + 4 + 4) + 2 * 4 * B * S * N
+                  + 4 * di * (N + 1) + 2 * 4 * B * di * N)
+        b_ms, by = bound(nbytes, 6 * B * S * di * N, peaks, f32=True)
+        print(f"[selective_scan] {tag:<22} di={di} N={N} from state: kernel "
+              f"{ms:.4f}ms (in a CUDA graph {g_ms:.4f}ms) plain {plain:.4f}ms"
+              f" bound {b_ms:.4f}ms ({by}); y {ey:.3g}, state {eh:.3g} of "
+              f"the largest; 2 calls bit-equal; grid "
+              f"({-(-di // 64)}, {B}) x 64 threads")
+        if (B, S) in SCAN_MAIN and xdt == torch.bfloat16:
+            tot["ms"] += ms
+            tot["graph"] += g_ms
+            tot["plain"] += plain
+            tot["bound"] += b_ms
+            by_ms[by] += b_ms
+    return {"name": "selective_scan", "route": "cuda",
+            "source": "src/repro_torch/csrc/selective_scan.cu",
+            "replaces": "src/repro/models/ssm.py:195",
+            "tpu_kernel": None, "max_abs_err": worst, "ms": tot["ms"],
+            "kernel_ms": tot["ms"], "graph_ms": tot["graph"],
+            "plain_ms": tot["plain"], "library_ms": None,
+            "bound_ms": tot["bound"],
+            "bound_by": max(by_ms, key=by_ms.get),
+            "shapes": "jamba-v0.1-52b (di 8192, N 16), bf16 x: a 32-token "
+                      "PREFILL chunk of one slot + a DECODE step of 32 "
+                      "slots, from a carried state"}
+
+
+def phase_fused_ffn_served(cfg, params, peaks, label: str,
+                           unit: str) -> dict:
+    """fused_ffn as `cfg`'s served decode calls it on an SSM unit with a
+    dense FF: the first layer of `unit`, SERVE_SLOTS rows, against the
+    plain version within Y_TOL, its planned launches a call, two calls
+    bit-equal, its CUDA-graph time beside its bound."""
+    import torch
+    from repro_torch.kernels import decode_fused as kdf
+    B, d, f = SERVE_SLOTS, cfg.d_model, cfg.d_ff
+    u = _layer0(params["groups"][unit])
+    n2 = u.get("norm2") or {}
+    w = dict(w_in=u["ffn"]["ffn_in"], w_out=u["ffn"]["ffn_out"],
+             norm2_scale=n2.get("scale"), norm2_bias=n2.get("bias"))
+    kw = dict(norm_kind=cfg.norm, act=cfg.act)
+    gen = torch.Generator(device="cuda").manual_seed(42)
+    x = (4 * torch.randn((B, d), generator=gen, device="cuda")).bfloat16()
+    l0 = kdf.FFN_LAUNCHES.n
+    y = kdf.fused_ffn(x, **w, **kw)
+    per_call = kdf.FFN_LAUNCHES.n - l0
+    planned = launches_per_call(cfg)["fused_ffn"]
+    check(per_call == planned == 3, f"{label}: {per_call} launches in a "
+          f"call, plan {planned}")
+    vec = lambda t, fill: (torch.full((d,), fill, device="cuda")  # noqa
+                           if t is None else t.float())
+    yp = kdf.fused_ffn_plain(x, n2s=vec(w["norm2_scale"], 1.0),
+                             n2b=vec(w["norm2_bias"], 0.0), w_in=w["w_in"],
+                             w_out=w["w_out"], tn=kdf._clip_block_n(256, f),
+                             **kw)
+    torch.cuda.synchronize()
+    ea, _ = errs(y, yp)
+    check(torch.allclose(y.float(), yp.float(), atol=Y_TOL, rtol=Y_TOL),
+          f"{label}: max abs err {ea:.3g}")
+    check(torch.equal(kdf.fused_ffn(x, **w, **kw), y),
+          f"{label}: two calls differ")
+    dev_ms = time_graph_ms(lambda: kdf.fused_ffn(x, **w, **kw))
+    ff = w["w_in"].numel() + w["w_out"].numel()
+    b_ms, by = bound(2 * ff + 2 * 2 * B * d + 4 * 2 * d, 2 * B * ff, peaks)
+    print(f"[{label}] {cfg.name} unit {unit} (d {d}, d_ff {f} {cfg.act}, "
+          f"{cfg.norm}) B={B}: max_abs_err {ea:.3g} within Y_TOL; "
+          f"{per_call} launches a call; 2 calls bit-equal; in a CUDA graph "
+          f"{dev_ms:.4f}ms bound {b_ms:.4f}ms ({by})")
+    return {"max_abs_err": ea, "graph_ms": dev_ms, "bound_ms": b_ms,
+            "bound_by": by, "launches_per_call": per_call}
+
+
+def phase_ring_serve(cfg, params, label: str) -> None:
+    """The served ring: `cfg` with its attention window cut to
+    RING_WINDOW, 4 requests of 96-200 prompt tokens and 8 new tokens on 4
+    slots, through the engine on the cuda backend (fused and per-op) and
+    on the reference backend: every budget exact, no non-finite logit,
+    the KV ring shorter than every prompt; tokens equal to the reference
+    run's printed (random weights: near-tie argmaxes of bf16 and f64
+    products may differ).  Then the teacher-forced comparison over a
+    150-token prompt (phase_chunk_vs_reference, gated)."""
+    import dataclasses
+    from repro_torch.serving import build_engine, latency_stats, poisson_trace
+    t0 = time.monotonic()
+    ring = dataclasses.replace(cfg, attention=dataclasses.replace(
+        cfg.attention, window=RING_WINDOW))
+    trace = poisson_trace(4, vocab_size=cfg.vocab_size, prompt_lens=(96, 200),
+                          gen_tokens=8, mean_interarrival_steps=2.0, seed=1)
+    check(all(len(r.prompt) > RING_WINDOW for r in trace),
+          f"{label}: a prompt within the ring")
+    runs = {}
+    for backend, fused in (("cuda", True), ("cuda", False),
+                           ("reference", False)):
+        tag = f"{label}:{backend}:{'fused' if fused else 'per-op'}"
+        eng = build_engine(ring, n_slots=4, max_len=208, prefill_chunk=32,
+                           kernel_backend=backend, fused_decode=fused,
+                           device="cuda", params=params)
+        check(eng.cache["u0"]["attn"]["k"].shape[2] == RING_WINDOW,
+              f"{tag}: KV ring of {eng.cache['u0']['attn']['k'].shape[2]}")
+        res, wall = _serve_once(eng, trace)
+        _check_served(res, trace, eng, tag)
+        st = latency_stats(eng.events)
+        print(f"[{tag}] {len(trace)} requests, prompts "
+              f"{sorted(len(r.prompt) for r in trace)}, window {RING_WINDOW}:"
+              f" steps={eng.step_count} wall={wall:.3f}s tok/s="
+              f"{st['tokens'] / wall:.2f}")
+        runs[tag] = res
+        del eng
+    want = runs[f"{label}:reference:per-op"]
+    for tag, res in runs.items():
+        same, first, n = _agree(res, want)
+        print(f"[{tag}] against the reference backend: {same}/{n} tokens, "
+              f"first tokens {first}/{len(trace)} (not gated)")
+    phase_chunk_vs_reference(ring, params, label, f"{JAMBA}:ring",
+                             prompt=150, steps=8)
+    print(f"[{label}] phase {time.monotonic() - t0:.1f}s")
+
+
+def phase_arctic_reduced() -> None:
+    """The reduced arctic-480b (2 layers, d 64, 4 experts, top-2, the
+    dense FF beside them) on the card, its parameters drawn from a
+    generator of its own at each of ARCTIC_SEEDS: one 32-token chunk of 4
+    rows on the cuda backend against the reference backend (routing
+    held), gated by CHUNK_MAX; then the control, the last seed's cuda run
+    with every layer's dense FF left out (its out table zero), which must
+    read above the gate.  At full width one f32 expert table is 35.7 GB:
+    arctic does not fit one card."""
+    import torch
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import transformer as tfm
+    acfg = get_reduced("arctic-480b")
+    for seed in ARCTIC_SEEDS:
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        params = tfm.init(gen, acfg, dtype=torch.bfloat16)
+        for up in params["groups"].values():
+            for k in ("norm1", "norm2"):
+                up[k]["scale"].copy_(1 + 0.1 * torch.randn(
+                    up[k]["scale"].shape, generator=gen, device="cuda"))
+        phase_chunk_vs_reference(acfg, params,
+                                 f"chunk:arctic:reduced:seed={seed}")
+    cut = {**params, "groups": {u: {**g, "ffn": {
+        **g["ffn"], "ffn_out": torch.zeros_like(g["ffn"]["ffn_out"])}}
+        for u, g in params["groups"].items()}}
+    d = phase_chunk_vs_reference(acfg, cut, "chunk:arctic:reduced:control",
+                                 ref_params=params, gate=False)["gap"]
+    check(d > CHUNK_MAX[acfg.name], f"chunk:arctic:reduced: the control "
+          f"(dense FF left out) reads {d:.4f}, within the gate "
+          f"{CHUNK_MAX[acfg.name]}")
+
+
 def print_targets(rows: dict) -> None:
     """The redesign's time targets against this run's yardsticks: met or
     missed (a missed target is reported, not failed)."""
@@ -4317,14 +4741,13 @@ def main() -> int:
                                 qwen2_prefill_shapes(params), peaks,
                                 ragged=True),
                 phase_fused(cfg, params, peaks)]
-        base = {}
-        serve_counts = {"sr_matmul": phase_serve(cfg, params, "serve", base)}
+        serve_counts = {"sr_matmul": phase_serve(cfg, params, "serve")}
         serve_counts["fused_attn_unit"] = serve_counts["sr_matmul"]
         tf_qwen2 = phase_fused_vs_perop(cfg, params, "serve")
         # speculative serving: k = SPEC_K with the default draft, fused and
         # per-op; the self-draft oracle; the bursty overload
         t_spec = time.monotonic()
-        spec = phase_serve_spec(cfg, params, f"serve:spec:{cfg.name}", base,
+        spec = phase_serve_spec(cfg, params, f"serve:spec:{cfg.name}",
                                 modes=(True, False))
         spec_counts = {"sr_matmul": spec, "fused_attn_unit": spec}
         phase_spec_self_draft(cfg, params, "serve:spec:self-draft")
@@ -4347,11 +4770,9 @@ def main() -> int:
         rows += [phase_sr_matmul("sr_matmul:rwkv6", rcfg.name,
                                  rwkv6_prefill_shapes(rcfg, rparams), peaks),
                  phase_wkv6(peaks), phase_fused_ffn(rcfg, rparams, peaks)]
-        base = {}
-        rwkv_counts = phase_serve(rcfg, rparams, "serve:rwkv6", base)
+        rwkv_counts = phase_serve(rcfg, rparams, "serve:rwkv6")
         t_spec = time.monotonic()
-        spec = phase_serve_spec(rcfg, rparams, f"serve:spec:{rcfg.name}",
-                                base)
+        spec = phase_serve_spec(rcfg, rparams, f"serve:spec:{rcfg.name}")
         spec_wall += time.monotonic() - t_spec
         for k in ("sr_matmul:rwkv6", "wkv6", "fused_ffn"):
             spec_counts[k] = spec
@@ -4379,13 +4800,12 @@ def main() -> int:
                 rows.append(phase_sr_matmul_experts(scfg, sparams, peaks))
             fused_row[tag] = phase_fused_served(
                 scfg, sparams, peaks, f"fused_attn_unit:{tag}")
-            base = {}
-            counts = phase_serve(scfg, sparams, f"serve:{tag}", base)
+            counts = phase_serve(scfg, sparams, f"serve:{tag}")
             if scfg.moe is not None:
                 serve_counts["sr_matmul:experts"] = counts
                 t_spec = time.monotonic()
                 spec_counts["sr_matmul:experts"] = phase_serve_spec(
-                    scfg, sparams, f"serve:spec:{arch}", base)
+                    scfg, sparams, f"serve:spec:{arch}")
                 spec_wall += time.monotonic() - t_spec
             phase_chunk_vs_reference(scfg, sparams, f"serve:{tag}")
             tf_served[arch] = phase_fused_vs_perop(scfg, sparams,
@@ -4393,6 +4813,41 @@ def main() -> int:
             del sparams
             torch.cuda.empty_cache()
         check_fused_vs_perop(tf_served)
+
+        # jamba-v0.1-52b, one period at full width: the selective_scan
+        # kernel, the fused words at its widths, its serving (the main
+        # path: the scan on selective_scan, every product on sr_matmul's
+        # sm90 path and its batched mode, fused_attn_unit and fused_ffn),
+        # its chunk and decode against the reference backend, the
+        # served ring; then the reduced arctic-480b
+        t_jamba = time.monotonic()
+        jcfg, jparams = init_jamba()
+        rows += [phase_sr_matmul("sr_matmul:jamba", jcfg.name,
+                                 jamba_prefill_shapes(jcfg, jparams), peaks,
+                                 products="layer 0's attention and FF, "
+                                          "layer 1's Mamba mixer"),
+                 phase_sr_matmul_experts(jcfg, jparams, peaks, unit="u1",
+                                         label="sr_matmul:experts:jamba",
+                                         cs=(8, 32)),
+                 phase_selective_scan(peaks)]
+        fused_row["jamba"] = phase_fused_served(
+            jcfg, jparams, peaks, "fused_attn_unit:jamba")
+        next(r for r in rows if r["name"] == "fused_ffn")["jamba"] = \
+            phase_fused_ffn_served(jcfg, jparams, peaks, "fused_ffn:jamba",
+                                   "u2")
+        jamba_counts = phase_serve(jcfg, jparams, "serve:jamba")
+        for k in ("sr_matmul:jamba", "sr_matmul:experts:jamba",
+                  "selective_scan"):
+            serve_counts[k] = jamba_counts
+        phase_chunk_vs_reference(jcfg, jparams, "chunk:jamba", prompt=32,
+                                 steps=8)
+        phase_ring_serve(jcfg, jparams, "serve:jamba:ring")
+        del jparams
+        torch.cuda.empty_cache()
+        phase_arctic_reduced()
+        torch.cuda.empty_cache()
+        print(f"[jamba] the jamba and arctic phases in "
+              f"{time.monotonic() - t_jamba:.1f}s on {smi}")
         # the speculative loop on the reference backend, bit for bit
         t_spec = time.monotonic()
         for arch in ("qwen2-0.5b", "rwkv6-1.6b", GRANITE):
@@ -4472,6 +4927,8 @@ def main() -> int:
     # serve run for the batched expert products (its sr_matmul:batched
     # count; the granite training run's a step ride along as "train"),
     # the granite training run for the batched UP (outer_accum:batched),
+    # the jamba serve run for its sr_matmul, batched expert products and
+    # selective_scan,
     # the rwkv6 training run for wkv6_bwd, granite's fp32 training run
     # for the f32 batched rows, qwen2's fp32 training run for the other
     # f32 rows, the paper_sr_bf16 training run for the rest

@@ -8,9 +8,11 @@ and ``bias``, ``final_norm``, ``lm_head``, and rwkv6's
 ``groups.u0.rwkv.{rkvg, decay, o, w0, u, mix}``, a MoE unit's
 ``groups.u0.moe.{router, experts_in, experts_gate, experts_out}``
 ((n_groups, d, E), (n_groups, E, d, f), (n_groups, E, d, f),
-(n_groups, E, f, d)), and the paper nets'
-``convs`` / ``fcs`` / ``layers`` lists of layer dicts), so conversion is
-a walk over nested dicts and lists.  bf16 arrays
+(n_groups, E, f, d)) with a dense residual's ``ffn`` beside it, a
+multi-unit period's ``groups.u0 .. u{P-1}``, a Mamba unit's
+``mamba.{in, conv, xproj, dt, dt_bias, A_log, D, out}``, and the paper
+nets' ``convs`` / ``fcs`` / ``layers`` lists of layer dicts), so
+conversion is a walk over nested dicts and lists.  bf16 arrays
 (numpy has no bf16; they arrive as ml_dtypes' or as uint16 views) are
 carried by bit pattern.
 """

@@ -2,13 +2,15 @@
 
 The port's own copy of the reference's config types, holding only what
 the port's slices need: dense decoder-only models with GQA attention,
-the attention-free RWKV6 family (``ssm``) and mixture-of-experts models
-(``moe``: GQA attention with a routed expert FF).
+the attention-free RWKV6 family (``ssm``), mixture-of-experts models
+(``moe``: GQA attention with a routed expert FF, and a dense FF beside
+it with ``dense_residual``) and hybrids (``hybrid``: attention every
+``attn_period``-th layer, a Mamba mixer on the others).
 ``get_reduced`` gives the CPU-test variant of the same family (small
-widths, two layers, vocab 256; MoE: 4 experts, top-2, d_expert 32) as
-the reference derives it; rwkv6 registers its own rule (d 128,
-head_dim 32), and a test builds the reference's config from the port's
-fields.
+widths, two layers — two periods of a hybrid's pattern —, vocab 256;
+MoE: 4 experts, top-2, d_expert 32; Mamba: d_state 4, d_conv 2) as the
+reference derives it; rwkv6 registers its own rule (d 128, head_dim
+32), and a test builds the reference's config from the port's fields.
 """
 from __future__ import annotations
 
@@ -40,14 +42,26 @@ class MoEConfig:
 
 @dataclass(frozen=True)
 class SSMConfig:
-    kind: str = "rwkv6"                # the port runs 'rwkv6' only
+    kind: str = "rwkv6"                # 'rwkv6' | 'mamba'
     head_dim: int = 64                 # rwkv6 head size
+    d_state: int = 16                  # mamba SSM state
+    d_conv: int = 4                    # mamba local conv width
+    expand: int = 2                    # mamba inner expansion
+    dt_rank: int = 0                   # 0 -> ceil(d_model / 16)
+
+    def inner(self, d_model: int) -> int:
+        """Mamba's inner width di = expand * d_model."""
+        return self.expand * d_model
+
+    def rank(self, d_model: int) -> int:
+        """Mamba's dt projection rank."""
+        return self.dt_rank or -(-d_model // 16)
 
 
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                        # 'dense' | 'ssm' | 'moe'
+    family: str                        # 'dense' | 'ssm' | 'moe' | 'hybrid'
     n_layers: int
     d_model: int
     d_ff: int
@@ -58,8 +72,19 @@ class ModelConfig:
     norm: str = "rmsnorm"              # rmsnorm|layernorm|nonparametric_ln
     act: str = "swiglu"                # swiglu|gelu|relu_sq|geglu
     tie_embeddings: bool = False
+    # hybrid interleave (jamba): layer i is attention iff
+    # i % attn_period == attn_phase; every other layer takes `ssm`
+    attn_period: int = 1
+    attn_phase: int = 0
     max_seq_len: int = 1 << 20
     notes: str = ""
+
+    def is_attention_layer(self, i: int) -> bool:
+        if self.family == "ssm":
+            return False
+        if self.attn_period <= 1:
+            return True
+        return (i % self.attn_period) == self.attn_phase
 
     def is_moe_layer(self, i: int) -> bool:
         if self.moe is None:
@@ -70,6 +95,22 @@ class ModelConfig:
         return (3 if self.act in ("swiglu", "geglu") else 2) \
             * self.d_model * hidden
 
+    def _attn_params(self) -> int:
+        a, d = self.attention, self.d_model
+        n = (d * a.n_heads * a.head_dim + 2 * d * a.n_kv_heads * a.head_dim
+             + a.n_heads * a.head_dim * d)
+        if a.qkv_bias:
+            n += (a.n_heads + 2 * a.n_kv_heads) * a.head_dim
+        return n
+
+    def _ssm_params(self) -> int:
+        s, d = self.ssm, self.d_model
+        if s.kind == "rwkv6":
+            return 5 * d * d + 2 * d + 6 * d
+        di, r = s.inner(d), s.rank(d)
+        return (d * 2 * di + di * s.d_conv + di * (r + 2 * s.d_state)
+                + r * di + di + di * s.d_state + di + di * d)
+
     def param_count(self) -> int:
         """Analytic parameter count (the reference's count: embeddings and
         layers, final norm not counted; its rwkv6 mixer count is the
@@ -77,17 +118,9 @@ class ModelConfig:
         d, f, v, L = self.d_model, self.d_ff, self.vocab_size, self.n_layers
         n = v * d if self.tie_embeddings else 2 * v * d
         n_norm = d if self.norm != "nonparametric_ln" else 0
-        if self.family == "ssm":
-            mixer = 5 * d * d + 2 * d + 6 * d
-        else:
-            a = self.attention
-            mixer = (d * a.n_heads * a.head_dim
-                     + 2 * d * a.n_kv_heads * a.head_dim
-                     + a.n_heads * a.head_dim * d)
-            if a.qkv_bias:
-                mixer += (a.n_heads + 2 * a.n_kv_heads) * a.head_dim
         for i in range(L):
-            n += mixer + 2 * n_norm
+            n += (self._attn_params() if self.is_attention_layer(i)
+                  else self._ssm_params()) + 2 * n_norm
             if self.is_moe_layer(i):
                 m = self.moe
                 n += m.n_experts * self._ffn_params(m.d_expert) \
@@ -159,8 +192,8 @@ def list_configs() -> list:
 
 def _default_reduced(cfg: ModelConfig) -> ModelConfig:
     """Family-preserving tiny variant for CPU tests (the reference's rule)."""
-    kw: dict = dict(n_layers=min(cfg.n_layers, 2), d_model=64, d_ff=128,
-                    vocab_size=256, max_seq_len=1024)
+    kw: dict = dict(n_layers=min(cfg.n_layers, 2 * max(1, cfg.attn_period)),
+                    d_model=64, d_ff=128, vocab_size=256, max_seq_len=1024)
     if cfg.attention is not None:
         a = cfg.attention
         kw["attention"] = replace(
@@ -170,6 +203,8 @@ def _default_reduced(cfg: ModelConfig) -> ModelConfig:
     if cfg.moe is not None:
         kw["moe"] = replace(cfg.moe, n_experts=4, top_k=min(cfg.moe.top_k, 2),
                             d_expert=32)
+    if cfg.ssm is not None:
+        kw["ssm"] = replace(cfg.ssm, head_dim=16, d_state=4, d_conv=2)
     return replace(cfg, **kw)
 
 

@@ -83,46 +83,71 @@ def _moe_ops(cfg: ModelConfig, n_layers: int) -> list:
 
 
 def _ssm_ops(cfg: ModelConfig, n_layers: int) -> list:
-    """The RWKV6 mixer's words: the fused r, k, v, g projection feeding
-    the WKV6 recurrence, the data-dependent decay and the output."""
-    d = cfg.d_model
+    """An SSM mixer's words.  RWKV6: the fused r, k, v, g projection
+    feeding the WKV6 recurrence, the data-dependent decay and the output.
+    Mamba: the (x, z) input projection, the depthwise conv (a 'state'
+    op: VPU work, never a MAC kernel), the (dt, B, C) projection, dt's
+    rank-r expansion and the output."""
+    s, d = cfg.ssm, cfg.d_model
+    if s.kind == "rwkv6":
+        return [
+            OpSpec("rwkv_rkvg", (d, 4 * d), "proj_in", n_layers=n_layers,
+                   act_in_features=d, act_out_features=4 * d,
+                   flops_per_token=8 * d * d),
+            OpSpec("rwkv_decay", (d, d), "proj_in", n_layers=n_layers,
+                   act_in_features=d, act_out_features=d,
+                   flops_per_token=2 * d * d),
+            OpSpec("rwkv_o", (d, d), "proj_out", n_layers=n_layers,
+                   act_in_features=d, act_out_features=d,
+                   flops_per_token=2 * d * d),
+        ]
+    di, r, N = s.inner(d), s.rank(d), s.d_state
     return [
-        OpSpec("rwkv_rkvg", (d, 4 * d), "proj_in", n_layers=n_layers,
-               act_in_features=d, act_out_features=4 * d,
-               flops_per_token=8 * d * d),
-        OpSpec("rwkv_decay", (d, d), "proj_in", n_layers=n_layers,
-               act_in_features=d, act_out_features=d,
-               flops_per_token=2 * d * d),
-        OpSpec("rwkv_o", (d, d), "proj_out", n_layers=n_layers,
-               act_in_features=d, act_out_features=d,
-               flops_per_token=2 * d * d),
+        OpSpec("mamba_in", (d, 2 * di), "proj_in", n_layers=n_layers,
+               act_in_features=d, act_out_features=2 * di,
+               flops_per_token=4 * d * di),
+        OpSpec("mamba_conv", (di, s.d_conv), "state", n_layers=n_layers),
+        OpSpec("mamba_xproj", (di, r + 2 * N), "proj_in", n_layers=n_layers,
+               act_in_features=di, act_out_features=r + 2 * N,
+               flops_per_token=2 * di * (r + 2 * N)),
+        OpSpec("mamba_dt", (r, di), "proj_in", n_layers=n_layers,
+               act_in_features=r, act_out_features=di,
+               flops_per_token=2 * r * di),
+        OpSpec("mamba_out", (di, d), "proj_out", n_layers=n_layers,
+               act_in_features=di, act_out_features=d,
+               flops_per_token=2 * di * d),
     ]
 
 
 def extract_ops(cfg: ModelConfig) -> list:
-    """Weight-bearing op list of a dense attention, an RWKV6 or a MoE
-    model, in the reference's order: embed / head, mixer, MoE, dense FF."""
-    if cfg.family in ("dense", "moe") and cfg.attention is not None:
-        mixer = _attn_ops(cfg, cfg.n_layers)
-    elif cfg.family == "ssm" and cfg.ssm is not None \
-            and cfg.ssm.kind == "rwkv6":
-        mixer = _ssm_ops(cfg, cfg.n_layers)
-    else:
+    """Weight-bearing op list, one OpSpec per layer class, in the
+    reference's order: embed / head, attention, SSM mixer, MoE, dense FF
+    (counted per layer kind; a dense residual adds the MoE layers to the
+    dense FF's count)."""
+    if cfg.family not in ("dense", "ssm", "moe", "hybrid"):
         raise NotImplementedError(
-            f"{cfg.name}: the port runs dense attention, rwkv6 and MoE "
-            f"models only")
+            f"{cfg.name}: the port runs dense, ssm, moe and hybrid models "
+            f"only")
     d, V = cfg.d_model, cfg.vocab_size
+    L = cfg.n_layers
     ops = [OpSpec("embed", (V, d), "embed", act_in_features=0,
                   act_out_features=d, flops_per_token=0.0)]
     if not cfg.tie_embeddings:
         ops.append(OpSpec("lm_head", (d, V), "lm_head", act_in_features=d,
                           act_out_features=V, flops_per_token=2 * d * V))
-    ops += mixer
-    n_moe = sum(1 for i in range(cfg.n_layers) if cfg.is_moe_layer(i))
+    n_attn = sum(1 for i in range(L) if cfg.is_attention_layer(i))
+    n_moe = sum(1 for i in range(L) if cfg.is_moe_layer(i))
+    n_dense_ffn = L - n_moe
+    if n_attn:
+        ops += _attn_ops(cfg, n_attn)
+    if L > n_attn:
+        ops += _ssm_ops(cfg, L - n_attn)
     if n_moe:
         ops += _moe_ops(cfg, n_moe)
-    if cfg.n_layers > n_moe:
-        ops += _ffn_ops(cfg, cfg.n_layers - n_moe)
+        if cfg.moe.dense_residual:
+            n_dense_ffn += n_moe
+    if n_dense_ffn:
+        ops += _ffn_ops(cfg, n_dense_ffn)
     return ops
 
 

@@ -106,7 +106,9 @@ def _up_rbits(word: PEWord, dyt: torch.Tensor, shape: tuple,
 def _operand(t: torch.Tensor, dt_name: str, batched: bool) -> torch.Tensor:
     """t at the word's dtype `dt_name`, as the kernels take it.  A 2-D
     weight's operands go through ``kmm.operand`` (a column slice, such as
-    rwkv6's rkvg quarters, is read in place, with no contiguous copy); an
+    rwkv6's rkvg quarters or the first 256 of the 288 columns of jamba's
+    ``mamba_xproj`` output that ``mamba_dt`` reads, is read in place,
+    with no contiguous copy); an
     expert table's, bf16 or f32, are contiguous, as the batched kernels
     take them."""
     dt = dtype_from_name(dt_name)

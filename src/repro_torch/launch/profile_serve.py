@@ -4,11 +4,15 @@
         --arch rwkv6-1.6b --out profile_serve.txt
     PYTHONPATH=src python -m repro_torch.launch.profile_serve \
         --speculative 4 --out profile_spec.txt
+    PYTHONPATH=src python -m repro_torch.launch.profile_serve \
+        --arch jamba-v0.1-52b --out profile_jamba.txt
 
 Serves a seeded Poisson trace through one model at full width
-(qwen2-0.5b by default; rwkv6-1.6b, granite-moe-1b-a400m, olmo-1b or
-minitron-4b; random weights) on the cuda backend with fused decode, and
-profiles a window of engine steps in the middle of the run.  Prints the
+(qwen2-0.5b by default; rwkv6-1.6b, granite-moe-1b-a400m, olmo-1b,
+minitron-4b, jamba-v0.1-52b or arctic-480b; random weights) on the cuda
+backend with fused decode, and profiles a window of engine steps in the
+middle of the run.  A model whose full depth does not fit the card runs
+one period of its layer pattern (one_card_depth).  Prints the
 device time by kernel (sum and launch count), the window's wall time,
 the device's busy and idle share of it, each of the port's kernels'
 device time (PORT_KERNELS),
@@ -51,10 +55,11 @@ PORT_KERNELS = {
     "sr_round": r"rt::sr_round_kernel",
     "fused_attn_unit": r"rt::decode::((norm|gemm)_kernel<0\b|attn_kernel)",
     "fused_ffn": r"rt::decode::(norm|gemm)_kernel<1\b",
-    "wkv6": r"\bwkv6_kernel<", "wkv6_bwd": r"\bwkv6_bwd_kernel<"}
+    "wkv6": r"\bwkv6_kernel<", "wkv6_bwd": r"\bwkv6_bwd_kernel<",
+    "selective_scan": r"\bselective_scan_kernel<"}
 # the models the port serves
 SERVED = ("qwen2-0.5b", "rwkv6-1.6b", "granite-moe-1b-a400m", "olmo-1b",
-          "minitron-4b")
+          "minitron-4b", "jamba-v0.1-52b", "arctic-480b")
 # torch's copy and dtype-conversion kernel (.to, .contiguous, copy_:
 # direct_copy_kernel_cuda)
 COPY_KERNELS = r"copy_kernel"
@@ -94,6 +99,20 @@ def _device_by_range(events) -> dict:
     return out
 
 
+def one_card_depth(cfg, card_bytes: int):
+    """`cfg` at full depth where its bf16 weights take at most half the
+    card's memory (the rest holds the slot arena and DECODE's f32 copy of
+    a weight), else cut to one period of its layer pattern, which holds
+    every unit kind: jamba-v0.1-52b 8 of 32 layers (13.30 B parameters,
+    24.8 GiB in bf16, against 96 GiB for all 32), arctic-480b 1 of 35."""
+    import dataclasses
+
+    from repro_torch.models import transformer as tfm
+    if 2 * cfg.param_count() <= card_bytes // 2:
+        return cfg
+    return dataclasses.replace(cfg, n_layers=len(tfm.layer_pattern(cfg)))
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", default="qwen2-0.5b", choices=SERVED)
@@ -116,7 +135,8 @@ def main(argv=None) -> int:
 
     if not torch.cuda.is_available():
         raise SystemExit("profile_serve needs a CUDA device")
-    cfg = get_config(args.arch)
+    cfg = one_card_depth(get_config(args.arch),
+                         torch.cuda.get_device_properties(0).total_memory)
     eng = build_engine(cfg, n_slots=32, max_len=528, prefill_chunk=32,
                        kernel_backend="cuda", fused_decode=not args.per_op,
                        seed=args.seed, device="cuda",
@@ -170,7 +190,8 @@ def main(argv=None) -> int:
             f"{eng.spec_stats['verifies']} accepted="
             f"{eng.spec_stats['accepted']} (whole run)"
             if args.speculative else "")
-    lines = [f"device: {torch.cuda.get_device_name(0)}; arch {cfg.name}",
+    lines = [f"device: {torch.cuda.get_device_name(0)}; arch {cfg.name}, "
+             f"{cfg.n_layers} layers",
              f"window: {args.steps} engine steps after {args.warmup_steps}, "
              f"{'per-op' if args.per_op else 'fused'} decode{spec}, "
              f"wall {wall * 1e3:.3f} ms",

@@ -25,6 +25,14 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b \
         --reduced --device cpu --requests 4 --prompt-lens 4,20 --gen 4
 
+    # jamba-v0.1-52b (attention, Mamba and MoE units; the scan on the
+    # selective_scan kernel) and arctic-480b (MoE with a dense FF beside
+    # it) at the reduced size; at full width neither fits one card at
+    # full depth (chip_smoke.py serves jamba's first 8 layers)
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch jamba-v0.1-52b --reduced --device cpu --requests 4 \
+        --prompt-lens 4,20 --gen 4 --kernel-backend cuda --fused-decode
+
 Without ``--device`` it runs on CUDA and fails when there is none.
 """
 from __future__ import annotations

@@ -23,7 +23,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import AttentionConfig, ModelConfig
 from repro_torch.engine.context import PEContext
-from repro_torch.models.layers import apply_rope
+from repro_torch.models.layers import apply_rope, param_drawer
 
 NEG_INF = -1e30
 _F32, _F64 = torch.float32, torch.float64
@@ -203,24 +203,19 @@ def update_cache_chunk(cache: dict, k: torch.Tensor, v: torch.Tensor,
 
 
 def attn_params(cfg: ModelConfig, generator: Optional[torch.Generator],
-                lead: tuple = ()) -> dict:
-    """Attention weights drawn on the generator's device (f32); without a
-    generator, the same tree on the meta device (shapes only)."""
+                lead: tuple = (), dtype: torch.dtype = _F32) -> dict:
+    """Attention weights drawn on the generator's device in f32, each cast
+    to `dtype` as it is drawn; without a generator, the same tree on the
+    meta device (shapes only)."""
     a = cfg.attention
     d = cfg.d_model
     q_out = a.n_heads * a.head_dim
     kv_out = 2 * a.n_kv_heads * a.head_dim
     dev = generator.device if generator is not None else torch.device("meta")
-
-    def normal(*shape):
-        if generator is None:
-            return torch.empty(lead + shape, dtype=_F32, device=dev)
-        return torch.randn(lead + shape, generator=generator, dtype=_F32,
-                           device=dev)
-
-    p = {"qkv": normal(d, q_out + kv_out) * d ** -0.5,
-         "o": normal(q_out, d) * q_out ** -0.5}
+    normal = param_drawer(generator, lead, dtype)
+    p = {"qkv": normal((d, q_out + kv_out), d ** -0.5),
+         "o": normal((q_out, d), q_out ** -0.5)}
     if a.qkv_bias:
-        p["qkv_bias"] = torch.zeros(lead + (q_out + kv_out,), dtype=_F32,
+        p["qkv_bias"] = torch.zeros(lead + (q_out + kv_out,), dtype=dtype,
                                     device=dev)
     return p

@@ -30,6 +30,22 @@ def param_normal(generator: torch.Generator, shape: tuple,
                        device=generator.device) * std
 
 
+def param_drawer(generator: Optional[torch.Generator], lead: tuple = (),
+                 dtype: torch.dtype = _F32):
+    """normal(shape, std): an f32 N(0, std^2) draw of lead + shape from
+    `generator` on its device, cast to `dtype` as it is drawn (the bits
+    of a later cast of the f32 draw); without a generator, an empty meta
+    tensor of that shape and dtype."""
+    dev = generator.device if generator is not None else torch.device("meta")
+
+    def normal(shape: tuple, std: float) -> torch.Tensor:
+        if generator is None:
+            return torch.empty(lead + shape, dtype=dtype, device=dev)
+        return (torch.randn(lead + shape, generator=generator, dtype=_F32,
+                            device=dev) * std).to(dtype)
+    return normal
+
+
 def _mean_f32(t: torch.Tensor) -> torch.Tensor:
     """Mean over the last axis of an f32 tensor, summed in f64."""
     return t.to(_F64).mean(dim=-1, keepdim=True).to(_F32)
@@ -70,14 +86,14 @@ def apply_norm(cfg: ModelConfig, x: torch.Tensor,
     raise ValueError(f"unknown norm {cfg.norm!r}")
 
 
-def norm_params(cfg: ModelConfig, device=None, lead: tuple = ()
-                ) -> Optional[dict]:
+def norm_params(cfg: ModelConfig, device=None, lead: tuple = (),
+                dtype: torch.dtype = _F32) -> Optional[dict]:
     if cfg.norm == "nonparametric_ln":
         return None
-    p = {"scale": torch.ones(lead + (cfg.d_model,), dtype=_F32,
+    p = {"scale": torch.ones(lead + (cfg.d_model,), dtype=dtype,
                              device=device)}
     if cfg.norm == "layernorm":
-        p["bias"] = torch.zeros(lead + (cfg.d_model,), dtype=_F32,
+        p["bias"] = torch.zeros(lead + (cfg.d_model,), dtype=dtype,
                                 device=device)
     return p
 

@@ -37,7 +37,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.program import PEWord, _VPU_WORD_KERNELS
 from repro_torch.engine.context import PEContext
 from repro_torch.engine.dispatch import pe_dot
-from repro_torch.models.layers import _gelu, _silu, act_fn
+from repro_torch.models.layers import _gelu, _silu, act_fn, param_drawer
 
 CAPACITY_FACTOR = 1.25
 _F32, _F64 = torch.float32, torch.float64
@@ -51,19 +51,14 @@ _ROUTER_WORD = PEWord(op="moe_router", ff_dtype="float32",
 
 
 def moe_params(cfg: ModelConfig, generator: Optional[torch.Generator],
-               lead: tuple = ()) -> dict:
+               lead: tuple = (), dtype: torch.dtype = _F32) -> dict:
     """f32 router and expert tables in the reference's layout and scales
     (normal * fan_in^-0.5), with `lead` dimensions in front (the scan
-    groups); generator=None gives them on the meta device."""
+    groups), each cast to `dtype` as it is drawn; generator=None gives
+    them on the meta device."""
     m = cfg.moe
     d, fe, E = cfg.d_model, m.d_expert, m.n_experts
-
-    def normal(shape, std):
-        if generator is None:
-            return torch.empty(lead + shape, dtype=_F32, device="meta")
-        return torch.randn(lead + shape, generator=generator, dtype=_F32,
-                           device=generator.device) * std
-
+    normal = param_drawer(generator, lead, dtype)
     p = {"router": normal((d, E), d ** -0.5),
          "experts_in": normal((E, d, fe), d ** -0.5),
          "experts_out": normal((E, fe, d), fe ** -0.5)}

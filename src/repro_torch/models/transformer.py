@@ -1,9 +1,14 @@
 """Decoder-only LM: dense attention units, RWKV6 units and attention
-units with a mixture-of-experts FF (MoE models), each trained and served.
+units with a mixture-of-experts FF (MoE models), each trained and served;
+and the reference's general layer pattern — a scan group is one period
+of it (jamba: 8 units, attention at unit 0 and Mamba at 1..7, a MoE FF
+on every second unit; arctic: one attention unit whose MoE FF has a
+dense FF beside it), served (a model with a Mamba unit is not trained
+yet).
 
 Parameters keep the reference's pytree layout: per-unit leaves stacked
 over ``n_groups`` scan groups (``params["groups"]["u0"]["attn"]["qkv"]``
-is (n_groups, d, (H+2K)*hd)).  Where the reference scans the groups with
+is (n_groups, d, (H+2K)*hd); a period of P units has ``u0 .. u{P-1}``).  Where the reference scans the groups with
 ``lax.scan``, the port loops over them in Python.  Serving takes each
 group's slice as a view, so the in-place cache updates land in the
 stacked arena; training takes all of them with one ``torch.unbind`` per
@@ -19,12 +24,13 @@ Entry points:
   chunk_step(...)  — T prompt tokens against the caches (PREFILL word)
   decode_step(...) — one token per arena row (DECODE word), per-op or
                      fused (one ``decode_fused`` word per layer; an rwkv6
-                     unit keeps its mixer per-op and fuses its FF half, a
-                     MoE unit fuses its attention half and routes its FF
-                     per-op)
+                     or Mamba unit keeps its mixer per-op and fuses a
+                     dense FF half, a MoE unit fuses an attention half and
+                     routes its FF per-op)
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import Optional
 
@@ -40,33 +46,41 @@ from repro_torch.models.attention import (attention_block, attn_params,
                                           update_cache, update_cache_chunk)
 from repro_torch.models.layers import (apply_norm, apply_rope, embed,
                                        lm_logits, lm_loss_chunked, mlp,
-                                       norm_params)
+                                       norm_params, param_drawer)
 from repro_torch.models.moe import moe_block, moe_params
-from repro_torch.models.ssm import (rwkv_block, rwkv_init_state,
-                                    rwkv_params)
+from repro_torch.models.ssm import (mamba_block, mamba_init_state,
+                                    mamba_params, rwkv_block,
+                                    rwkv_init_state, rwkv_params)
+
+FAMILIES = ("dense", "ssm", "moe", "hybrid")
 
 
 @dataclass(frozen=True)
 class UnitDesc:
-    mixer: str            # 'attn' | 'rwkv6'
+    mixer: str            # 'attn' | 'rwkv6' | 'mamba'
     ffn: str              # 'dense' | 'moe'
 
 
 def layer_pattern(cfg: ModelConfig) -> list:
-    """One scan group's units: a single layer for every family here.  A
-    MoE model takes a MoE FF on every layer (``moe_period`` 1, as
-    granite's ``is_moe_layer`` picks), with no dense FF beside it."""
-    if cfg.family == "dense" and cfg.attention is not None:
-        return [UnitDesc("attn", "dense")]
-    if cfg.family == "ssm" and cfg.ssm is not None \
-            and cfg.ssm.kind == "rwkv6":
-        return [UnitDesc("rwkv6", "dense")]
-    if cfg.family == "moe" and cfg.attention is not None \
-            and cfg.moe.moe_period == 1 and not cfg.moe.dense_residual:
-        return [UnitDesc("attn", "moe")]
-    raise NotImplementedError(
-        f"{cfg.name}: the port runs dense attention, rwkv6 and MoE models "
-        f"with a MoE FF on every layer and no dense residual only")
+    """One scan group's units, the reference's rule: the period is the
+    lcm of ``attn_period`` and ``moe_period``; unit i is attention where
+    ``is_attention_layer(i)``, else the ``ssm`` mixer, and takes a MoE FF
+    where ``is_moe_layer(i)``, else a dense FF."""
+    if cfg.family not in FAMILIES:
+        raise NotImplementedError(
+            f"{cfg.name}: the port runs the {FAMILIES} families only")
+    m_period = cfg.moe.moe_period if cfg.moe is not None else 1
+    period = math.lcm(cfg.attn_period, m_period)
+    if cfg.n_layers % period:
+        raise ValueError(f"{cfg.name}: n_layers={cfg.n_layers} not "
+                         f"divisible by pattern period {period}")
+    return [UnitDesc("attn" if cfg.is_attention_layer(i) else cfg.ssm.kind,
+                     "moe" if cfg.is_moe_layer(i) else "dense")
+            for i in range(period)]
+
+
+def has_mamba(cfg: ModelConfig) -> bool:
+    return any(u.mixer == "mamba" for u in layer_pattern(cfg))
 
 
 def n_groups(cfg: ModelConfig) -> int:
@@ -93,58 +107,70 @@ def _group_slices(tree, ng: int) -> list:
 # ---------------------------------------------------------------------------
 
 
-def init(generator: Optional[torch.Generator], cfg: ModelConfig) -> dict:
-    """f32 parameters drawn on the generator's device, in the reference's
-    layout and scales (normal * d^-0.5 projections, embed * 0.02, ones /
-    zeros for norm scales and the qkv bias).  generator=None gives the
-    same tree on the meta device: shapes and dtypes, nothing allocated
-    (the reference's ``param_shapes``)."""
+def init(generator: Optional[torch.Generator], cfg: ModelConfig, *,
+         dtype: torch.dtype = torch.float32) -> dict:
+    """Parameters drawn in f32 on the generator's device, in the
+    reference's layout and scales (normal * d^-0.5 projections, embed *
+    0.02, ones / zeros for norm scales and the qkv bias), each leaf cast
+    to `dtype` as it is drawn, so the f32 tree never exists whole (the
+    bits equal a cast of the f32 tree).  The units' leaves are drawn unit
+    by unit in pattern order.  generator=None gives the same tree on the
+    meta device: shapes and dtypes, nothing allocated (the reference's
+    ``param_shapes``)."""
     ng = n_groups(cfg)
     dev = generator.device if generator is not None else torch.device("meta")
     d, f = cfg.d_model, cfg.d_ff
     fin = 2 * f if cfg.act in ("swiglu", "geglu") else f
-
-    def normal(*shape):
-        if generator is None:
-            return torch.empty(shape, dtype=torch.float32, device=dev)
-        return torch.randn(shape, generator=generator, dtype=torch.float32,
-                           device=dev)
-
-    params: dict = {"embed": {"table": normal(cfg.vocab_size, d) * 0.02}}
+    normal = param_drawer(generator, dtype=dtype)
+    params: dict = {"embed": {"table": normal((cfg.vocab_size, d), 0.02)}}
     if not cfg.tie_embeddings:
-        params["lm_head"] = normal(d, cfg.vocab_size) * 0.02
-    fn = norm_params(cfg, device=dev)
+        params["lm_head"] = normal((d, cfg.vocab_size), 0.02)
+    fn = norm_params(cfg, device=dev, dtype=dtype)
     if fn is not None:
         params["final_norm"] = fn
-    unit: dict = {}
-    for key in ("norm1", "norm2"):
-        p = norm_params(cfg, device=dev, lead=(ng,))
-        if p is not None:
-            unit[key] = p
-    desc = layer_pattern(cfg)[0]
-    if desc.mixer == "attn":
-        unit["attn"] = attn_params(cfg, generator, lead=(ng,))
-    else:
-        unit["rwkv"] = rwkv_params(cfg, generator, lead=(ng,))
-    if desc.ffn == "moe":
-        unit["moe"] = moe_params(cfg, generator, lead=(ng,))
-    else:
-        unit["ffn"] = {"ffn_in": normal(ng, d, fin) * d ** -0.5,
-                       "ffn_out": normal(ng, f, d) * f ** -0.5}
-    params["groups"] = {"u0": unit}
+    lead = (ng,)
+    groups: dict = {}
+    for i, desc in enumerate(layer_pattern(cfg)):
+        unit: dict = {}
+        for key in ("norm1", "norm2"):
+            p = norm_params(cfg, device=dev, lead=lead, dtype=dtype)
+            if p is not None:
+                unit[key] = p
+        if desc.mixer == "attn":
+            unit["attn"] = attn_params(cfg, generator, lead, dtype)
+        elif desc.mixer == "rwkv6":
+            unit["rwkv"] = rwkv_params(cfg, generator, lead, dtype)
+        else:
+            unit["mamba"] = mamba_params(cfg, generator, lead, dtype)
+        if desc.ffn == "moe":
+            unit["moe"] = moe_params(cfg, generator, lead, dtype)
+        if desc.ffn == "dense" or cfg.moe.dense_residual:
+            unit["ffn"] = {"ffn_in": normal((ng, d, fin), d ** -0.5),
+                           "ffn_out": normal((ng, f, d), f ** -0.5)}
+        groups[f"u{i}"] = unit
+    params["groups"] = groups
     return params
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                device=None) -> dict:
-    """Per-group stacked caches, leaves shaped (n_groups, batch, ...):
-    {"u0": {"attn": {k, v, pos}}} or {"u0": {"rwkv": {wkv, shift}}}."""
+    """Per-group stacked caches, one per unit, leaves shaped (n_groups,
+    batch, ...): {"u<i>": {"attn": {k, v, pos}}}, {"rwkv": {wkv, shift}}
+    or {"mamba": {conv, ssm}}."""
     lead = (n_groups(cfg),)
-    if layer_pattern(cfg)[0].mixer == "rwkv6":
-        return {"u0": {"rwkv": rwkv_init_state(cfg, batch, device=device,
-                                               lead=lead)}}
-    return {"u0": {"attn": init_kv_cache(cfg.attention, batch, max_len,
-                                         device=device, lead=lead)}}
+    cache = {}
+    for i, u in enumerate(layer_pattern(cfg)):
+        if u.mixer == "attn":
+            c = {"attn": init_kv_cache(cfg.attention, batch, max_len,
+                                       device=device, lead=lead)}
+        elif u.mixer == "rwkv6":
+            c = {"rwkv": rwkv_init_state(cfg, batch, device=device,
+                                         lead=lead)}
+        else:
+            c = {"mamba": mamba_init_state(cfg, batch, device=device,
+                                           lead=lead)}
+        cache[f"u{i}"] = c
+    return cache
 
 
 # ---------------------------------------------------------------------------
@@ -160,14 +186,13 @@ def _unit_forward(cfg: ModelConfig, x, up: dict, unit: UnitDesc,
     h = apply_norm(cfg, x, up.get("norm1"))
     if unit.mixer == "attn":
         x = x + attention_block(cfg, h, up["attn"], sh, positions=positions)
-    else:
+    elif unit.mixer == "rwkv6":
         x = x + rwkv_block(cfg, h, up["rwkv"], sh)
-    h2 = apply_norm(cfg, x, up.get("norm2"))
-    if unit.ffn == "moe":
-        y, aux = moe_block(cfg, h2, up["moe"], sh)
-        return x + y, aux
-    return x + mlp(cfg, h2, up["ffn"]["ffn_in"], up["ffn"]["ffn_out"],
-                   sh), None
+    else:
+        x = x + mamba_block(cfg, h, up["mamba"], sh)
+    y, aux = _ffn_half(cfg, apply_norm(cfg, x, up.get("norm2")), up, unit,
+                       sh)
+    return x + y, aux
 
 
 def prologue(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
@@ -286,13 +311,34 @@ def _attn_decode(cfg: ModelConfig, h, up: dict, sh: PEContext, cache: dict,
     return sh.dot("attn_o", out.reshape(B, 1, -1), up["attn"]["o"])
 
 
+def _ffn_half(cfg: ModelConfig, h2, up: dict, unit: UnitDesc,
+              sh: PEContext):
+    """(FF(h2), aux): a dense FF (aux None), or the MoE block with its
+    load-balancing value, plus the dense FF beside it where the config
+    has a dense residual (arctic: y = moe + mlp)."""
+    if unit.ffn == "dense":
+        return mlp(cfg, h2, up["ffn"]["ffn_in"], up["ffn"]["ffn_out"],
+                   sh), None
+    y, aux = moe_block(cfg, h2, up["moe"], sh)
+    if cfg.moe.dense_residual:
+        y = y + mlp(cfg, h2, up["ffn"]["ffn_in"], up["ffn"]["ffn_out"], sh)
+    return y, aux
+
+
 def _unit_ffn(cfg: ModelConfig, x, up: dict, unit: UnitDesc,
               sh: PEContext):
-    """The unit's FF half: x + FF(norm2(x)), the FF dense or MoE."""
-    h2 = apply_norm(cfg, x, up.get("norm2"))
-    if unit.ffn == "moe":
-        return x + moe_block(cfg, h2, up["moe"], sh)[0]
-    return x + mlp(cfg, h2, up["ffn"]["ffn_in"], up["ffn"]["ffn_out"], sh)
+    """The unit's FF half: x + FF(norm2(x))."""
+    return x + _ffn_half(cfg, apply_norm(cfg, x, up.get("norm2")), up, unit,
+                         sh)[0]
+
+
+def _ssm_mixer(cfg: ModelConfig, h, up: dict, unit: UnitDesc,
+               sh: PEContext, cache: dict,
+               active: Optional[torch.Tensor] = None):
+    """An rwkv6 or Mamba mixer continuing the unit's state (in place)."""
+    if unit.mixer == "rwkv6":
+        return rwkv_block(cfg, h, up["rwkv"], sh, cache["rwkv"], active)
+    return mamba_block(cfg, h, up["mamba"], sh, cache["mamba"], active)
 
 
 def _unit_decode(cfg: ModelConfig, x, up: dict, unit: UnitDesc,
@@ -303,7 +349,7 @@ def _unit_decode(cfg: ModelConfig, x, up: dict, unit: UnitDesc,
     if unit.mixer == "attn":
         x = x + _attn_decode(cfg, h, up, sh, cache, pos, active)
     else:
-        x = x + rwkv_block(cfg, h, up["rwkv"], sh, cache["rwkv"], active)
+        x = x + _ssm_mixer(cfg, h, up, unit, sh, cache, active)
     return _unit_ffn(cfg, x, up, unit, sh)
 
 
@@ -321,21 +367,25 @@ def _unit_decode_fused(cfg: ModelConfig, x, up: dict, unit: UnitDesc,
     """The unit as ONE fused-decode word.
 
     On the cuda backend an attention unit runs as one ``fused_attn_unit``
-    call (kernels/decode_fused.py); an rwkv6 unit keeps its recurrence on
-    its per-op path (a state word, as the reference keeps it) and runs
-    its FF half as one ``fused_ffn`` call; a MoE unit runs its attention
-    half as one ``fused_attn_unit`` call without the FF (five launches)
-    and then norm2 and the MoE block per op.  On the reference backend the
-    fused composition is the per-op primitive sequence itself, so fused
-    decode is bit-identical per request to the per-op loop.
+    call (kernels/decode_fused.py); an rwkv6 or Mamba unit keeps its
+    recurrence on its per-op path (a state word, as the reference keeps
+    it) and runs a dense FF half as one ``fused_ffn`` call; a MoE unit's
+    attention half is one ``fused_attn_unit`` call without the FF (five
+    launches), and its FF half (norm2, the MoE block and a dense
+    residual's FF) runs per op.  On the reference backend the fused
+    composition is the per-op primitive sequence itself, so fused decode
+    is bit-identical per request to the per-op loop.
     """
     if sh.backend == "reference":
         return _unit_decode(cfg, x, up, unit, sh, cache, pos, active)
     n1, nk = _fused_norm_args(cfg, up, "norm1")
     n2, _ = _fused_norm_args(cfg, up, "norm2")
-    if unit.mixer == "rwkv6":
+    dense = unit.ffn == "dense"
+    if unit.mixer != "attn":
         h = apply_norm(cfg, x, up.get("norm1"))
-        x = x + rwkv_block(cfg, h, up["rwkv"], sh, cache["rwkv"], active)
+        x = x + _ssm_mixer(cfg, h, up, unit, sh, cache, active)
+        if not dense:
+            return _unit_ffn(cfg, x, up, unit, sh)
         y = pe_fused_ffn(x[:, 0].contiguous(), norm2=n2,
                          w_in=up["ffn"]["ffn_in"], w_out=up["ffn"]["ffn_out"],
                          norm_kind=nk, act=cfg.act, word=sh.word("ffn_in"))
@@ -359,12 +409,13 @@ def _unit_decode_fused(cfg: ModelConfig, x, up: dict, unit: UnitDesc,
 def _unit_chunk(cfg: ModelConfig, x, up: dict, unit: UnitDesc,
                 sh: PEContext, cache: dict, pos: torch.Tensor):
     """Chunked-prefill unit step.  x: (B, T, d); pos: (B, T).  The rwkv6
-    recurrence consumes the whole chunk from the carried state."""
+    and Mamba recurrences consume the whole chunk from the carried
+    state."""
     h = apply_norm(cfg, x, up.get("norm1"))
     if unit.mixer == "attn":
         x = x + _attn_chunk(cfg, h, up, sh, cache, pos)
     else:
-        x = x + rwkv_block(cfg, h, up["rwkv"], sh, cache["rwkv"])
+        x = x + _ssm_mixer(cfg, h, up, unit, sh, cache)
     return _unit_ffn(cfg, x, up, unit, sh)
 
 

@@ -67,7 +67,15 @@ def make_train_step(cfg: ModelConfig, program: Program,
     tensors {"tokens", "labels"} and the step's integer key, and returns
     (new state, {"loss", "grad_norm"}) — the tensors of the new state are
     new; the old state is not modified, and the step holds nothing of it
-    once it returns (a caller that drops its reference frees it)."""
+    once it returns (a caller that drops its reference frees it).  A
+    model with a Mamba unit raises NotImplementedError: the selective
+    scan's gradient (a hand-written backward kernel, as ``wkv6_bwd`` is
+    rwkv6's) comes with the Mamba training slice."""
+    if tfm.has_mamba(cfg):
+        raise NotImplementedError(
+            f"{cfg.name}: training a model with a Mamba unit needs the "
+            f"selective scan's backward kernel, which comes with the "
+            f"Mamba training slice; the port serves it only")
     policy = program.policy
     backend = train_cfg.kernel_backend
     opt = make_optimizer(train_cfg, policy, backend)
@@ -143,20 +151,35 @@ def state_shapes(cfg: ModelConfig, program: Program,
 
 
 def cache_shapes(cfg: ModelConfig, batch: int, max_len: int) -> dict:
-    """{leaf path: (shape, dtype)} of the decode cache, without
-    allocating it: the KV ring of an attention model, the recurrent state
-    of an rwkv6 model (independent of max_len)."""
+    """{leaf path: (shape, dtype)} of the decode cache, unit by unit,
+    without allocating it: an attention unit's KV ring, an rwkv6 unit's
+    recurrent state, a Mamba unit's conv rows and SSM state (the states
+    independent of max_len)."""
     ng = tfm.n_groups(cfg)
-    if tfm.layer_pattern(cfg)[0].mixer == "rwkv6":
-        hd = cfg.ssm.head_dim
-        return {"u0/rwkv/wkv": ((ng, batch, cfg.d_model // hd, hd, hd),
-                                torch.float32),
-                "u0/rwkv/shift": ((ng, batch, cfg.d_model), torch.bfloat16)}
-    a = cfg.attention
-    size = min(max_len, a.window) if a.window else max_len
-    kv = ((ng, batch, size, a.n_kv_heads, a.head_dim), torch.bfloat16)
-    return {"u0/attn/k": kv, "u0/attn/v": kv,
-            "u0/attn/pos": ((ng, batch, size), torch.int32)}
+    out = {}
+    for i, u in enumerate(tfm.layer_pattern(cfg)):
+        if u.mixer == "rwkv6":
+            hd = cfg.ssm.head_dim
+            out[f"u{i}/rwkv/wkv"] = ((ng, batch, cfg.d_model // hd, hd, hd),
+                                     torch.float32)
+            out[f"u{i}/rwkv/shift"] = ((ng, batch, cfg.d_model),
+                                       torch.bfloat16)
+        elif u.mixer == "mamba":
+            s = cfg.ssm
+            di = s.inner(cfg.d_model)
+            out[f"u{i}/mamba/conv"] = ((ng, batch, s.d_conv - 1, di),
+                                       torch.bfloat16)
+            out[f"u{i}/mamba/ssm"] = ((ng, batch, di, s.d_state),
+                                      torch.float32)
+        else:
+            a = cfg.attention
+            size = min(max_len, a.window) if a.window else max_len
+            kv = ((ng, batch, size, a.n_kv_heads, a.head_dim),
+                  torch.bfloat16)
+            out[f"u{i}/attn/k"] = kv
+            out[f"u{i}/attn/v"] = kv
+            out[f"u{i}/attn/pos"] = ((ng, batch, size), torch.int32)
+    return out
 
 
 def cache_bytes(cfg: ModelConfig, batch: int, max_len: int) -> int:

@@ -12,9 +12,10 @@ Two step functions, both under the serving program words:
   PREFILL word (``sr_matmul`` on the cuda backend), run on views of that
   slot's arena row.
 
-An arena row is a request's KV ring (attention) or its recurrent state
-(rwkv6: the wkv state and the token shift, continued by every chunk and
-decode step and zeroed when the slot is leased again).
+An arena row holds, unit by unit, a request's KV ring (attention) or its
+recurrent state (rwkv6: the wkv state and the token shift; Mamba: the
+conv rows and the SSM state), continued by every chunk and decode step
+and reset when the slot is leased again.
 
 On the reference backend both are bit-identical, per request, to
 token-by-token decode: the engine changes scheduling, never math.
@@ -367,9 +368,12 @@ def draft_config_for(cfg: ModelConfig) -> ModelConfig:
 
 
 def _init_bf16(cfg: ModelConfig, seed: int, dev) -> dict:
+    """bf16 parameters from a generator seeded with `seed`: each leaf
+    drawn in f32 and cast as it is drawn (the bits of a cast of the whole
+    f32 tree, which never exists: jamba's 8 layers are 49.5 GiB in f32)."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
-    return tl.cast_params(tfm.init(gen, cfg), torch.bfloat16)
+    return tfm.init(gen, cfg, dtype=torch.bfloat16)
 
 
 def build_engine(cfg: ModelConfig, *, n_slots: int, max_len: int,
@@ -391,8 +395,16 @@ def build_engine(cfg: ModelConfig, *, n_slots: int, max_len: int,
     `draft_params`.
 
     device=None runs on CUDA and raises when there is none; pass
-    device="cpu" to run on the CPU.
+    device="cpu" to run on the CPU.  A model with a Mamba unit serves
+    without speculation only: its default draft would be a whole period
+    of the pattern (jamba's 8 layers), and the draft / verify loop over a
+    Mamba state waits for the speculative Mamba slice
+    (NotImplementedError).
     """
+    if speculative and tfm.has_mamba(cfg):
+        raise NotImplementedError(
+            f"{cfg.name}: speculative serving of a model with a Mamba unit "
+            f"comes with the speculative Mamba slice")
     dev = tl.resolve_device(device)
     shape = ShapeConfig("serve", seq_len=max_len, global_batch=n_slots,
                         kind="decode")

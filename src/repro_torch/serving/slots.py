@@ -14,8 +14,10 @@ import torch
 
 
 def slot_bytes(cfg, max_len: int) -> int:
-    """Bytes of ONE slot row across every cache leaf: its KV ring, or for
-    rwkv6 its recurrent state (wkv and shift, independent of max_len)."""
+    """Bytes of ONE slot row across every cache leaf of every unit: an
+    attention unit's KV ring, an rwkv6 unit's recurrent state (wkv and
+    shift), a Mamba unit's conv rows and SSM state (the states
+    independent of max_len)."""
     from repro_torch.runtime.train_loop import cache_bytes
     return cache_bytes(cfg, 1, max_len)
 
@@ -69,8 +71,8 @@ class SlotPool:
 def reset_slots(cache, slots) -> object:
     """Re-initialise arena rows `slots` in place: integer leaves (the
     attention ``pos`` maps) to -1, float leaves (KV values, the rwkv6
-    ``wkv`` state and token ``shift``) to 0 — ``init_cache``'s values.
-    Returns the cache."""
+    ``wkv`` state and token ``shift``, the Mamba ``conv`` rows and
+    ``ssm`` state) to 0 — ``init_cache``'s values.  Returns the cache."""
     if isinstance(cache, dict):
         for v in cache.values():
             reset_slots(v, slots)

@@ -13,7 +13,9 @@ rtol 5e-4 / atol 1e-4 (another accumulation order over K or T up to
 fused_ffn y 2e-2 and caches 6e-2 (bf16 results of f32 sums in another
 order); wkv6 y and state 1e-4 (f32 recurrence, fused multiply-adds and
 another summation order, values O(1)); wkv6_bwd's outputs within 1e-4
-of each one's largest (64-term f32 sums against f64); every SR result
+of each one's largest (64-term f32 sums against f64); selective_scan's
+y and state within 1e-5 of each one's largest (expf and an f32 sum over
+the state against the plain version's f64 ones); every SR result
 bit-equal to the plain SR cast of the kernel's own f32 result, and
 sr_round bit-exact.
 """
@@ -24,6 +26,7 @@ torch = pytest.importorskip("torch")
 from repro_torch.core.rounding import sr_cast_bf16  # noqa: E402
 from repro_torch.kernels import decode_fused as kdf  # noqa: E402
 from repro_torch.kernels import outer_accum as koa  # noqa: E402
+from repro_torch.kernels import selective_scan as kss  # noqa: E402
 from repro_torch.kernels import sr_matmul as kmm  # noqa: E402
 from repro_torch.kernels import sr_round as ksr  # noqa: E402
 from repro_torch.kernels import wkv6 as kwkv  # noqa: E402
@@ -694,13 +697,27 @@ SM90_SHAPES = [
     ("qwen2:bp:qkv", 1024, 1152, 896, True, None),
     ("qwen2:bp:o", 1024, 896, 896, True, None),
     ("qwen2:bp:ffn_in", 1024, 9728, 896, True, None),
-    ("qwen2:bp:head", 256, 151936, 896, False, None)]
+    ("qwen2:bp:head", 256, 151936, 896, False, None),
+    ("jamba:prefill:qkv", 32, 4096, 6144, False, None),
+    ("jamba:prefill:o", 32, 4096, 4096, False, None),
+    ("jamba:prefill:ffn_in", 32, 4096, 28672, False, None),
+    ("jamba:prefill:ffn_out", 32, 14336, 4096, False, None),
+    ("jamba:prefill:mamba_in", 32, 4096, 16384, False, None),
+    ("jamba:prefill:mamba_xproj", 32, 8192, 288, False, None),
+    ("jamba:prefill:mamba_dt", 32, 256, 8192, False, None),
+    ("jamba:prefill:mamba_out", 32, 8192, 4096, False, None),
+    ("jamba:prefill:head", 32, 4096, 65536, False, None)]
+# A's row stride where the main path passes A as a view of wider rows:
+# jamba's dt projection reads the first dt_rank (256) columns of the
+# (dt, B, C) projection, rows of 256 + 2 x 16
+A_STRIDE = {"jamba:prefill:mamba_dt": 288}
 
 
-def _operands(g, dev, m, k, n, trans_b, ldb=None):
+def _operands(g, dev, m, k, n, trans_b, ldb=None, lda=None):
     """A (m, k) and B ((n, k) with trans_b, else (k, n)) in bf16, B scaled
-    by k^-0.5; with ldb, B is the first columns of a wider matrix."""
-    a = torch.randn((m, k), generator=g, device=dev).bfloat16()
+    by k^-0.5; with ldb, B is the first columns of a wider matrix, with
+    lda A."""
+    a = torch.randn((m, lda or k), generator=g, device=dev).bfloat16()[:, :k]
     rows, cols = (n, k) if trans_b else (k, n)
     full = (torch.randn((rows, ldb or cols), generator=g, device=dev)
             * k ** -0.5).bfloat16()
@@ -710,9 +727,9 @@ def _operands(g, dev, m, k, n, trans_b, ldb=None):
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", SM90_SHAPES, ids=lambda c: c[0])
 def test_sr_matmul_sm90_main_shapes_match_plain(dev, case):
-    _, m, k, n, tb, ldb = case
+    name, m, k, n, tb, ldb = case
     g = torch.Generator(device=dev).manual_seed(5)
-    a, b = _operands(g, dev, m, k, n, tb, ldb)
+    a, b = _operands(g, dev, m, k, n, tb, ldb, A_STRIDE.get(name))
     assert kmm.operands_plan(a, b, tb).path == "sm90"
     before = {p: c.n for p, c in kmm.PATH_COUNTERS.items()}
     got = kmm.sr_matmul(a, b, trans_b=tb)
@@ -750,9 +767,9 @@ def test_sr_matmul_split_k_is_deterministic_and_sr_exact(dev, case):
 def test_sr_matmul_rows_do_not_depend_on_m(dev, case):
     """Rows 0..4 of a 32-row PREFILL chunk equal a 5-row call of the same
     rows, bit for bit (the plan's splits depend on N, K and layout only)."""
-    _, m, k, n, tb, ldb = case
+    name, m, k, n, tb, ldb = case
     g = torch.Generator(device=dev).manual_seed(7)
-    a, b = _operands(g, dev, m, k, n, tb, ldb)
+    a, b = _operands(g, dev, m, k, n, tb, ldb, A_STRIDE.get(name))
     assert torch.equal(kmm.sr_matmul(a[:5].clone(), b, trans_b=tb),
                        kmm.sr_matmul(a, b, trans_b=tb)[:5])
 
@@ -790,6 +807,62 @@ def test_sr_matmul_reads_rkvg_views_in_place(dev, quarter):
     assert kmm.operands_plan(a, view).path == "sm90"
     assert torch.equal(kmm.sr_matmul(a, view),
                        kmm.sr_matmul(a, view.contiguous()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 5, 32])
+def test_sr_matmul_reads_a_strided_dt_view_in_place(dev, m):
+    """jamba's mamba_dt: A is the first 256 columns of (m, 288) rows (a
+    PREFILL chunk of m tokens), read as it lies on the sm90 path, equal to
+    the plain version and to its contiguous copy's product bit for bit."""
+    g = torch.Generator(device=dev).manual_seed(11)
+    proj = torch.randn((m, 288), generator=g, device=dev).bfloat16()
+    view = proj[:, :256]
+    w = (torch.randn((256, 8192), generator=g, device=dev)
+         * 256 ** -0.5).bfloat16()
+    assert kmm.operand(view) is view
+    assert kmm.operands_plan(view, w).path == "sm90"
+    before = {p: c.n for p, c in kmm.PATH_COUNTERS.items()}
+    got = kmm.sr_matmul(view, w)
+    assert kmm.PATH_COUNTERS["sm90"].n == before["sm90"] + 1
+    assert kmm.PATH_COUNTERS["generic"].n == before["generic"]
+    torch.testing.assert_close(got, kmm.sr_matmul_plain(view, w),
+                               rtol=MM_RTOL, atol=MM_ATOL)
+    assert torch.equal(got, kmm.sr_matmul(view.contiguous(), w))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [8, 32])
+@pytest.mark.parametrize("kn", [(4096, 14336), (14336, 4096)], ids=str)
+def test_sr_matmul_batched_at_jamba_prefill_shapes(dev, kn, c):
+    """jamba's expert tables (16 experts, 4096 -> 14336 -> 4096) in a
+    PREFILL chunk, C = 8 and 32 rows an expert, each expert's live rows
+    from a routing of C tokens' top-2: one launch on the sm90 path; f32
+    out within the f32 path's tolerance of the plain version, bf16 out
+    the f32 out rounded to nearest even, two calls bit-equal."""
+    from repro_torch.models import moe
+    k, n = kn
+    g = torch.Generator(device=dev).manual_seed(57)
+    experts = torch.stack([torch.randperm(16, generator=g, device=dev)[:2]
+                           for _ in range(c)]).reshape(-1)
+    rows = moe._expert_rows(experts.reshape(c, 2), 16, c)
+    live = torch.arange(c, device=dev)[None, :, None] < rows[:, None, None]
+    a = torch.where(live, torch.randn((16, c, k), generator=g, device=dev),
+                    0.0).bfloat16()
+    w = (torch.randn((16, k, n), generator=g, device=dev)
+         * k ** -0.5).bfloat16()
+    before = {p: cnt.n for p, cnt in kmm.PATH_COUNTERS.items()}
+    b0 = kmm.BATCHED_COUNTER.n
+    got = kmm.sr_matmul_batched(a, w, rows=rows)
+    assert kmm.BATCHED_COUNTER.n == b0 + 1
+    assert kmm.PATH_COUNTERS["sm90"].n == before["sm90"] + 1
+    assert kmm.PATH_COUNTERS["generic"].n == before["generic"]
+    torch.testing.assert_close(got, kmm.sr_matmul_batched_plain(
+        a, w, rows=rows), rtol=MM_RTOL, atol=MM_ATOL)
+    got16 = kmm.sr_matmul_batched(a, w, rows=rows, out_dtype=torch.bfloat16)
+    assert torch.equal(got16.view(torch.int16),
+                       got.to(torch.bfloat16).view(torch.int16))
+    assert torch.equal(kmm.sr_matmul_batched(a, w, rows=rows), got)
 
 
 @pytest.mark.cuda
@@ -1938,3 +2011,80 @@ def test_pe_f32_batched_matmul_with_live_rows_equals_all_live(dev,
         assert got.dtype == torch.float32
         assert torch.equal(got, want)
 
+
+
+# ---------------------------------------------------------------------------
+# selective_scan (Mamba's recurrence; no TPU kernel)
+# ---------------------------------------------------------------------------
+
+SCAN_REL = 1e-5
+
+
+def _scan_case(dev, B, S, di, N, xdtype, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((B, S, di), generator=g, device=dev).to(xdtype)
+    dt = torch.nn.functional.softplus(
+        torch.randn((B, S, di), generator=g, device=dev) - 1.0)
+    A = -torch.arange(1, N + 1, device=dev, dtype=torch.float32).repeat(
+        di, 1) * (0.5 + torch.rand((di, N), generator=g, device=dev))
+    Bm = torch.randn((B, S, N), generator=g, device=dev)
+    Cm = torch.randn((B, S, N), generator=g, device=dev)
+    D = 0.5 + torch.rand(di, generator=g, device=dev)
+    h0 = 0.5 * torch.randn((B, di, N), generator=g, device=dev)
+    return x, dt, A, Bm, Cm, D, h0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("xdtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("case", [(1, 1, 8192, 16), (1, 7, 8192, 16),
+                                  (1, 32, 8192, 16), (1, 512, 8192, 16),
+                                  (32, 1, 8192, 16), (3, 45, 100, 4),
+                                  (2, 33, 96, 8)])
+def test_selective_scan_kernel_matches_plain(dev, case, xdtype):
+    """jamba's shapes (di 8192, N 16: a decode step of 32 slots, chunks
+    of one slot) and ragged ones (di not a multiple of the block, N 4
+    and 8), from a nonzero state, bit-equal twice, `active` honoured."""
+    B, S, di, N = case
+    x, dt, A, Bm, Cm, D, h0 = _scan_case(dev, B, S, di, N, xdtype)
+    active = torch.ones(B, dtype=torch.bool, device=dev)
+    active[B // 2] = B == 1
+    kss.COUNTER.reset()
+    st = h0.clone()
+    y, _ = kss.selective_scan(x, dt, A, Bm, Cm, D, st, active=active)
+    assert kss.COUNTER.n == 1
+    yp, hp = kss.selective_scan_plain(x, dt, A, Bm, Cm, D, h0)
+    torch.cuda.synchronize()
+    assert (y - yp).abs().max() <= SCAN_REL * yp.abs().max()
+    want = torch.where(active[:, None, None], hp, h0)
+    assert (st - want).abs().max() <= SCAN_REL * hp.abs().max()
+    st2 = h0.clone()
+    y2, _ = kss.selective_scan(x, dt, A, Bm, Cm, D, st2, active=active)
+    assert torch.equal(y, y2) and torch.equal(st, st2)
+
+
+@pytest.mark.cuda
+def test_selective_scan_kernel_chunk_equals_single_steps(dev):
+    """A 9-token chunk and 9 single-token calls continuing the state give
+    the same bits (every token's arithmetic is the same)."""
+    x, dt, A, Bm, Cm, D, h0 = _scan_case(dev, 2, 9, 300, 16,
+                                         torch.bfloat16, seed=1)
+    st = h0.clone()
+    y, _ = kss.selective_scan(x, dt, A, Bm, Cm, D, st)
+    s1, ys = h0.clone(), []
+    for t in range(9):
+        ys.append(kss.selective_scan(
+            *(a[:, t:t + 1].contiguous() for a in (x, dt)), A,
+            *(a[:, t:t + 1].contiguous() for a in (Bm, Cm)), D, s1)[0])
+    assert torch.equal(torch.cat(ys, dim=1), y) and torch.equal(s1, st)
+
+
+@pytest.mark.cuda
+def test_selective_scan_kernel_from_zeros_and_bad_shapes(dev):
+    x, dt, A, Bm, Cm, D, _ = _scan_case(dev, 2, 5, 64, 16, torch.float32)
+    y, h = kss.selective_scan(x, dt, A, Bm, Cm, D)
+    yp, hp = kss.selective_scan_plain(x, dt, A, Bm, Cm, D)
+    assert (y - yp).abs().max() <= SCAN_REL * yp.abs().max()
+    assert (h - hp).abs().max() <= SCAN_REL * hp.abs().max()
+    x6, dt6, A6, B6, C6, D6, _ = _scan_case(dev, 1, 2, 64, 6, torch.float32)
+    with pytest.raises(ValueError):
+        kss.selective_scan(x6, dt6, A6, B6, C6, D6)
