@@ -67,8 +67,9 @@ port (``src/repro_torch``), never JAX or the JAX package, and:
    plain version and timed beside its bound;
    selective_scan (Mamba's recurrence, a kernel that
    replaces no TPU kernel) against its plain version at di 8192, N 16,
-   bf16 and f32 x, one slot's 1, 7, 32 and 512 tokens and a 32-slot
-   DECODE step, from a nonzero state, timed beside its bound;
+   bf16 and f32 x, one slot's 1, 7, 32 and 512 tokens, a 32-slot
+   DECODE step and jamba training's forward (4 x 256), from a nonzero
+   state, timed beside its bound, with selective_scan_plan's layout;
    fused_attn_unit at unit 0 with its dense FF and fused_ffn at unit 2;
    the trace served fused and per-op with every kernel of the path
    counted (selective_scan, sr_matmul on the sm90 path and batched,
@@ -303,7 +304,8 @@ def ptxas_report(log: str) -> list:
     by <BN, A_MN, B_MN, OUT> (OUT 0 f32, 1 bf16, 2 SR), sgemm_sm90.cuh's
     and sgemm_sm90_batched.cuh's by <A_MN, B_MN>, wkv6.cu's by <hd,
     columns a block, columns a thread, bf16 r/k/v>, wkv6_bwd.cu's by
-    <hd, bf16 r/k/v>, selective_scan.cu's by <N, bf16 x>."""
+    <hd, bf16 r/k/v>, selective_scan.cu's by <N, bf16 x, a thread's
+    share of a tile, several tiles>."""
     import re
     rows, cur, spill = [], None, (0, 0)
     for line in log.splitlines():
@@ -329,7 +331,8 @@ def ptxas_report(log: str) -> list:
             g = re.search(r"wkv6_bwd_kernelILi(\d+)ELb(\d)E", cur)
             if g:
                 cur = f"wkv6_bwd_kernel<{','.join(g.groups())}>"
-            g = re.search(r"selective_scan_kernelILi(\d+)ELb(\d)E", cur)
+            g = re.search(r"selective_scan_kernelILi(\d+)ELb(\d)ELi(\d+)"
+                          r"ELb(\d)E", cur)
             if g:
                 cur = f"selective_scan_kernel<{','.join(g.groups())}>"
             continue
@@ -4355,9 +4358,10 @@ JAMBA_SEED = 7
 SCAN_REL = 1e-5
 # its cases (B, S) at di 8192, N 16: one slot's decode step and chunks
 # (7 tokens: a ragged tile; 32: a PREFILL chunk; 512: the longest
-# prompt), and a DECODE step of SERVE_SLOTS slots; the bf16 chunk and
-# step are the served shapes, timed and summed in the kernels line
-SCAN_CASES = ((1, 1), (1, 7), (1, 32), (1, 512), (SERVE_SLOTS, 1))
+# prompt), a DECODE step of SERVE_SLOTS slots and jamba training's
+# forward (4 x 256); the bf16 chunk and step are the served shapes, timed
+# and summed in the kernels line
+SCAN_CASES = ((1, 1), (1, 7), (1, 32), (1, 512), (SERVE_SLOTS, 1), (4, 256))
 SCAN_MAIN = ((1, 32), (SERVE_SLOTS, 1))
 # the served ring: jamba's attention window cut to 64, 4 requests whose
 # prompts of 96-200 tokens wrap it inside their PREFILL chunks
@@ -4416,8 +4420,11 @@ def phase_selective_scan(peaks) -> dict:
     state, x in bf16 (as served) and in f32: against the plain version
     within SCAN_REL of the largest output and state, two calls bit-equal;
     times by events and in a CUDA graph beside the plain version's and
-    the bound (bytes: x, dt, B, C, y, A, D and the state read and
-    written, at the card's memory rate)."""
+    the bound: the largest of the bytes (x, dt, B, C, y, A, D and the
+    state read and written) at the card's memory rate, the f32
+    operations (six a state value and token) at its f32 peak and the
+    exps (one a state value and token) at the SFU's rate, a sixteenth of
+    the f32 peak (16 a clock per SM against 128 FMAs)."""
     import torch
     from repro_torch.kernels import selective_scan as kss
     di, N = 8192, 16
@@ -4454,11 +4461,16 @@ def phase_selective_scan(peaks) -> dict:
         nbytes = (B * S * di * (x.element_size() + 4 + 4) + 2 * 4 * B * S * N
                   + 4 * di * (N + 1) + 2 * 4 * B * di * N)
         b_ms, by = bound(nbytes, 6 * B * S * di * N, peaks, f32=True)
+        e_ms = B * S * di * N / (peaks[2] / 16) * 1e3
+        if e_ms > b_ms:
+            b_ms, by = e_ms, "operations"
+        p = kss.selective_scan_plan(B, S, di, N)
         print(f"[selective_scan] {tag:<22} di={di} N={N} from state: kernel "
               f"{ms:.4f}ms (in a CUDA graph {g_ms:.4f}ms) plain {plain:.4f}ms"
-              f" bound {b_ms:.4f}ms ({by}); y {ey:.3g}, state {eh:.3g} of "
-              f"the largest; 2 calls bit-equal; grid "
-              f"({-(-di // 64)}, {B}) x 64 threads")
+              f" bound {b_ms:.4f}ms ({'exps' if b_ms == e_ms else by}); y "
+              f"{ey:.3g}, state {eh:.3g} of the largest; 2 calls bit-equal; "
+              f"plan {p.lanes} lanes a channel, {p.channels} channels a "
+              f"block, tile {p.tile}: grid {p.grid} x {p.threads} threads")
         if (B, S) in SCAN_MAIN and xdt == torch.bfloat16:
             tot["ms"] += ms
             tot["graph"] += g_ms

@@ -19,21 +19,70 @@ a DECODE step share one entry.  A given state is updated IN PLACE, on
 the batch rows ``active`` selects (None = every row); without one the
 recurrence starts from zeros.  Every device checks the same operands;
 CPU tensors then take the plain version, CUDA tensors launch the kernel
-or raise.
+as :func:`selective_scan_plan` lays it out, or raise.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+import functools
+from typing import NamedTuple, Optional
 
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.sr_matmul import SMS
 
 COUNTER = build.LaunchCounter("selective_scan")
 D_STATES = (4, 8, 16)             # csrc/selective_scan.cu's instantiations
 X_DTYPES = (torch.float32, torch.bfloat16)
+TILE = 32                         # tokens staged at once, at most
+MAX_THREADS = 256                 # a block's (csrc: MAX_THREADS)
+MAX_SMEM = 48 * 1024              # a block's shared memory (csrc: MAX_SMEM)
+KP = 8                            # a thread's share of a tile (csrc: KP)
 _F32, _F64 = torch.float32, torch.float64
+
+
+class ScanPlan(NamedTuple):
+    lanes: int      # a channel's lanes: N / 4, four states a lane
+    channels: int   # channels a block
+    tile: int       # tokens staged in shared memory at once
+    threads: int    # channels x lanes, whole warps
+    grid: tuple     # (ceil(di / channels), B)
+    smem: int       # bytes of shared memory a block
+
+
+def smem_bytes(N: int, channels: int, tile: int) -> int:
+    """csrc/selective_scan.cu::smem_bytes: a tile's B and C (N floats a
+    token each), x, dt and y (a float a channel and token each)."""
+    return tile * (2 * N + 3 * channels) * 4
+
+
+@functools.lru_cache(maxsize=256)
+def selective_scan_plan(B: int, S: int, di: int, N: int) -> ScanPlan:
+    """The launch of csrc/selective_scan.cu from (B, S, di, N) alone.
+
+    Four states a lane (a float4: N / 4 lanes a channel), so a warp's
+    state and A accesses are 512 contiguous bytes and a token's exps,
+    products and pairwise sum run four to a thread.  Blocks of up to
+    MAX_THREADS threads, halved (down to two warps) while the grid has
+    fewer than two blocks an SM: a one-slot chunk at di 8192 runs 512
+    blocks of 64 threads, a 32-slot step 4096 blocks of 256.  Tiles of
+    up to TILE tokens whose x, dt, B and C are at most KP values a thread,
+    halved until the block's shared memory fits MAX_SMEM."""
+    if N not in D_STATES:
+        raise ValueError(f"selective_scan kernel takes d_state in "
+                         f"{D_STATES}, got {N}")
+    lanes = N // 4
+    channels = MAX_THREADS // lanes
+    while channels * lanes > 64 and B * -(-di // channels) < 2 * SMS:
+        channels //= 2
+    # a tile's x and dt (tile x channels) and its B and C (tile x N) are
+    # at most KP values a thread each
+    tile = min(S, TILE, KP * lanes, KP * channels * lanes // N)
+    while smem_bytes(N, channels, tile) > MAX_SMEM:
+        tile //= 2
+    return ScanPlan(lanes, channels, tile, channels * lanes,
+                    (-(-di // channels), B), smem_bytes(N, channels, tile))
 
 
 def selective_scan_plain(x, dt, A, Bm, Cm, D,
@@ -91,11 +140,14 @@ def _check_operands(x, dt, A, Bm, Cm, D, state, active) -> None:
     if active is not None and (state is None or active.shape != (Bsz,)):
         raise ValueError("selective_scan: `active` (B,) selects rows of a "
                          "given state")
+    if any(t.data_ptr() % 16 for t in (A, state) if t is not None):
+        raise TypeError("selective_scan: A and the state must start on 16 "
+                        "bytes (the kernel reads them as float4s)")
 
 
 def _bind(lib: ctypes.CDLL):
     fn = lib.selective_scan_launch
-    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 \
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 \
         + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -104,9 +156,7 @@ def _bind(lib: ctypes.CDLL):
 def _launch(x, dt, A, Bm, Cm, D, state, active):
     Bsz, S, di = x.shape
     N = A.shape[1]
-    if N not in D_STATES:
-        raise ValueError(f"selective_scan kernel takes d_state in "
-                         f"{D_STATES}, got {N}")
+    plan = selective_scan_plan(Bsz, S, di, N)
     dev = x.device
     y = torch.empty((Bsz, S, di), dtype=_F32, device=dev)
     s_out = state if state is not None else torch.empty(
@@ -119,8 +169,8 @@ def _launch(x, dt, A, Bm, Cm, D, state, active):
         build.ptr(Cm), build.ptr(D),
         build.ptr(state) if state is not None else null, build.ptr(s_out),
         build.ptr(y), build.ptr(act32) if act32 is not None else null,
-        Bsz, S, di, N, int(x.dtype == torch.bfloat16),
-        build.stream_ptr(dev))
+        Bsz, S, di, N, int(x.dtype == torch.bfloat16), plan.lanes,
+        plan.channels, plan.tile, build.stream_ptr(dev))
     if err != 0:
         raise RuntimeError(f"selective_scan kernel launch failed "
                            f"(cudaError {err})")

@@ -2039,11 +2039,12 @@ def _scan_case(dev, B, S, di, N, xdtype, seed=0):
 @pytest.mark.parametrize("case", [(1, 1, 8192, 16), (1, 7, 8192, 16),
                                   (1, 32, 8192, 16), (1, 512, 8192, 16),
                                   (32, 1, 8192, 16), (3, 45, 100, 4),
-                                  (2, 33, 96, 8)])
+                                  (2, 33, 96, 8), (4, 256, 8192, 16)])
 def test_selective_scan_kernel_matches_plain(dev, case, xdtype):
     """jamba's shapes (di 8192, N 16: a decode step of 32 slots, chunks
-    of one slot) and ragged ones (di not a multiple of the block, N 4
-    and 8), from a nonzero state, bit-equal twice, `active` honoured."""
+    of one slot, training's forward of 4 x 256) and ragged ones (di not
+    a multiple of the block, N 4 and 8), from a nonzero state, bit-equal
+    twice, `active` honoured."""
     B, S, di, N = case
     x, dt, A, Bm, Cm, D, h0 = _scan_case(dev, B, S, di, N, xdtype)
     active = torch.ones(B, dtype=torch.bool, device=dev)
@@ -2063,15 +2064,25 @@ def test_selective_scan_kernel_matches_plain(dev, case, xdtype):
 
 
 @pytest.mark.cuda
-def test_selective_scan_kernel_chunk_equals_single_steps(dev):
-    """A 9-token chunk and 9 single-token calls continuing the state give
-    the same bits (every token's arithmetic is the same)."""
-    x, dt, A, Bm, Cm, D, h0 = _scan_case(dev, 2, 9, 300, 16,
+@pytest.mark.parametrize("S", [9, 37])
+@pytest.mark.parametrize("di", [256, 300])
+@pytest.mark.parametrize("N", [4, 8, 16])
+def test_selective_scan_kernel_chunk_equals_single_steps(dev, N, di, S):
+    """A chunk of 9 tokens (2 groups of 4 and one alone) or 37 (over
+    several tiles) and as many single-token calls continuing the state
+    give the same bits: every token's arithmetic is the same, whatever
+    block and tile the plan gives a chunk and a step.  di 300 is not a
+    multiple of any plan's channels a block."""
+    if di == 300:
+        assert all(di % p.channels for p in (
+            kss.selective_scan_plan(2, S, di, N),
+            kss.selective_scan_plan(2, 1, di, N)))
+    x, dt, A, Bm, Cm, D, h0 = _scan_case(dev, 2, S, di, N,
                                          torch.bfloat16, seed=1)
     st = h0.clone()
     y, _ = kss.selective_scan(x, dt, A, Bm, Cm, D, st)
     s1, ys = h0.clone(), []
-    for t in range(9):
+    for t in range(S):
         ys.append(kss.selective_scan(
             *(a[:, t:t + 1].contiguous() for a in (x, dt)), A,
             *(a[:, t:t + 1].contiguous() for a in (Bm, Cm)), D, s1)[0])

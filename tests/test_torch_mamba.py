@@ -46,8 +46,13 @@ import contextlib
 import dataclasses
 import functools
 
+import re
+import types
+from pathlib import Path
+
 import numpy as np
 import pytest
+from hypothesis import given, settings, strategies as st
 
 torch = pytest.importorskip("torch")
 
@@ -424,6 +429,130 @@ def test_selective_scan_wrapper_refuses_what_the_kernel_does_not_take():
     with pytest.raises(ValueError):
         kss.selective_scan(*(t.to("meta") for t in (x, dt, A, Bm, Cm, D,
                                                     h0)))
+
+
+def test_selective_scan_wrapper_refuses_a_state_off_16_bytes():
+    """The kernel reads A and the state as float4s: a contiguous state
+    that starts 4 bytes into its storage is refused on every device."""
+    x, dt, A, Bm, Cm, D, h0 = (torch.from_numpy(a) for a in scan_inputs(
+        np.random.default_rng(6), 2, 3, 16, 4))
+    off = torch.empty(h0.numel() + 1)[1:].view(h0.shape).copy_(h0)
+    with pytest.raises(TypeError):
+        kss.selective_scan(x, dt, A, Bm, Cm, D, off)
+    with pytest.raises(TypeError):
+        kss.selective_scan(x, dt, torch.empty(A.numel() + 1)[1:]
+                           .view(A.shape).copy_(A), Bm, Cm, D, h0)
+
+
+def _scan_owners(plan, di, N):
+    """(d, n, live) of every (block x, thread, state of the thread) as
+    csrc/selective_scan.cu assigns them: a block's channels in order,
+    a channel's lanes in order, N / lanes consecutive states a lane."""
+    P = N // plan.lanes
+    bx = np.arange(plan.grid[0])[:, None, None]
+    tid = np.arange(plan.threads)[None, :, None]
+    d = np.broadcast_to(bx * plan.channels + tid // plan.lanes,
+                        (plan.grid[0], plan.threads, P))
+    n = np.broadcast_to((tid % plan.lanes) * P + np.arange(P),
+                        d.shape)
+    return d, n, d < di
+
+
+@settings(deadline=None, derandomize=True, max_examples=80)
+@given(B=st.integers(1, 40), S=st.integers(1, 600), di=st.integers(1, 900),
+       N=st.sampled_from(kss.D_STATES))
+def test_selective_scan_plan_covers_every_state_once(B, S, di, N):
+    """Every (b, d, n) is one state of one lane of one block; four states
+    a lane, a channel's lanes in one warp; blocks are whole warps of at
+    most MAX_THREADS; the tile's x, dt, B and C are at most KP values a
+    thread, and its shared memory fits."""
+    plan = kss.selective_scan_plan(B, S, di, N)
+    assert plan.lanes * 4 == N and 32 % plan.lanes == 0
+    assert plan.threads == plan.channels * plan.lanes
+    assert plan.threads % 32 == 0 and plan.threads <= kss.MAX_THREADS
+    assert plan.grid == (-(-di // plan.channels), B)
+    assert 1 <= plan.tile <= min(S, kss.TILE)
+    assert plan.tile * max(plan.channels, N) <= kss.KP * plan.threads
+    assert plan.smem == kss.smem_bytes(N, plan.channels, plan.tile)
+    assert plan.smem <= kss.MAX_SMEM
+    d, n, live = _scan_owners(plan, di, N)
+    count = np.zeros((di, N), dtype=np.int64)
+    np.add.at(count, (d[live], n[live]), 1)
+    assert (count == 1).all()
+
+
+@settings(deadline=None, derandomize=True, max_examples=80)
+@given(B=st.integers(1, 65535), S=st.integers(1, 1 << 16),
+       di=st.integers(1, 1 << 20), N=st.sampled_from(kss.D_STATES))
+def test_selective_scan_plan_inside_cuda_limits(B, S, di, N):
+    """Up to 65535 rows (the grid's y limit, which the C entry checks):
+    the grid, the block and its shared memory inside CUDA's limits."""
+    plan = kss.selective_scan_plan(B, S, di, N)
+    assert plan.grid[0] <= 2 ** 31 - 1 and plan.grid[1] <= 65535
+    assert 64 <= plan.threads <= 1024 and plan.smem <= 48 * 1024
+
+
+def test_selective_scan_plan_at_jamba_shapes():
+    """A one-slot chunk runs di x lanes threads in blocks of two warps (at
+    least two blocks an SM); a 32-slot step blocks of 256; a d_state the
+    kernel is not built for is refused."""
+    chunk = kss.selective_scan_plan(1, 32, 8192, 16)
+    assert chunk.grid[0] * chunk.grid[1] >= 2 * kss.SMS
+    assert chunk.threads * chunk.grid[0] == 8192 * chunk.lanes
+    assert chunk.tile == 32
+    step = kss.selective_scan_plan(32, 1, 8192, 16)
+    assert step.threads == kss.MAX_THREADS and step.tile == 1
+    with pytest.raises(ValueError):
+        kss.selective_scan_plan(1, 1, 64, 6)
+
+
+def test_bench_selective_scan_bounds_and_no_card(monkeypatch):
+    """The benchmark's bounds at jamba's shapes (bytes for the step and
+    the chunk, the exps at the SFU rate for long chunks), and it refuses
+    to run without a card."""
+    from repro_torch.launch import bench_selective_scan as bench
+    assert [bench.bound_ms(B, S)[1] for B, S in bench.SHAPES] == [
+        "bytes", "bytes", "exps", "exps"]
+    state, xdty, bc, ad = (2 * 4 * 32 * 8192 * 16, 32 * 8192 * 10,
+                           2 * 4 * 32 * 16, 4 * 8192 * 17)
+    assert bench.bound_ms(32, 1)[0] == pytest.approx(
+        (state + xdty + bc + ad) / 3.35e12 * 1e3)
+    assert bench.bound_ms(1, 512)[0] == pytest.approx(
+        512 * 8192 * 16 / (67e12 / 16) * 1e3)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert bench.main([]) == 1
+
+
+def test_selective_scan_ablation_edits_find_the_kernel():
+    """launch/ablate_selective_scan.py leaves parts of
+    csrc/selective_scan.cu out by editing a copy of its source: every
+    edit's anchor is in the kernel once, and every variant differs from
+    the kernel."""
+    from repro_torch.kernels import build
+    from repro_torch.launch import ablate_selective_scan as ablate
+    src = (build.CSRC / "selective_scan.cu").read_text()
+    for name, edits in ablate.VARIANTS.items():
+        text = ablate.variant_source(src, edits)
+        assert (text == src) == (name == "full"), name
+    with pytest.raises(RuntimeError, match="occurs 0 times"):
+        ablate.variant_source(src, (("no such line\n", ""),))
+
+
+def test_selective_scan_source_agrees_with_the_wrapper():
+    """The constants the plan mirrors, and the C entry's argument count
+    against the ctypes binding."""
+    src = (Path(kss.__file__).resolve().parent.parent / "csrc"
+           / "selective_scan.cu").read_text()
+    consts = dict(re.findall(r"constexpr int (\w+) = ([^;]+);", src))
+    assert int(consts["MAX_THREADS"]) == kss.MAX_THREADS
+    assert int(consts["KP"]) == kss.KP
+    assert eval(consts["MAX_SMEM"]) == kss.MAX_SMEM
+    assert "tile * (2 * N + 3 * ch) * (int)sizeof(float)" in src
+    sig = re.search(r'extern "C" int selective_scan_launch\(([^)]*)\)',
+                    src).group(1)
+    fn = types.SimpleNamespace()
+    kss._bind(types.SimpleNamespace(selective_scan_launch=fn))
+    assert len(fn.argtypes) == sig.count(",") + 1
 
 
 # ---------------------------------------------------------------------------
