@@ -159,7 +159,23 @@ port (``src/repro_torch``), never JAX or the JAX package, and:
    selection held; then all 24 layers for 3 steps through
    ``launch.train`` — every expert table's FF, remat FF and BP one f32
    sr_matmul_batched launch each, its UP one f32 outer_accum_batched
-   launch — holding each step's launches to exact counts.
+   launch — holding each step's launches to exact counts;
+11. trains jamba-v0.1-52b, cut to one card by ``launch.train``'s
+   ``one_card_train_config`` (one period, 8 of 32 layers, at full width
+   with 4 of its 16 experts, top-2: 4.84 B parameters): holds
+   selective_scan_bwd (the scan's gradient, ``csrc/selective_scan_bwd.cu``)
+   against its plain version at jamba training's shape (B=4, S=256, di
+   8192, N 16) in bf16 and f32 x, at the step-0 check's 2 x 64, at S = 1
+   and 5, under decay so strong that exp(dt A) is 0 and at ragged widths
+   with N 4 and 8, two calls bit-equal, and times it; step-0 loss and
+   every gradient leaf of the cut (B=2, S=64, paper_sr_bf16 and fp32,
+   weights from three seeds) on the cuda backend against the reference
+   backend, the expert selection held; 8 steps through ``launch.train`` (adamw, remat block, B=4,
+   S=256, no checkpoint) — FF / BP / UP through sr_matmul, its batched
+   mode and outer_accum, the scan through selective_scan (twice a Mamba
+   layer) and selective_scan_bwd (once), the writeback through sr_round
+   — holding each step's launches to exact counts; then the peak memory
+   of a step's forward and backward apart from its adamw update's.
 
 It prints the time targets of the sm90 redesign, of the fused decode
 words' redesign, of the f32 mainloop's, of wkv6's and of wkv6_bwd's (met
@@ -305,7 +321,8 @@ def ptxas_report(log: str) -> list:
     and sgemm_sm90_batched.cuh's by <A_MN, B_MN>, wkv6.cu's by <hd,
     columns a block, columns a thread, bf16 r/k/v>, wkv6_bwd.cu's by
     <hd, bf16 r/k/v>, selective_scan.cu's by <N, bf16 x, a thread's
-    share of a tile, several tiles>."""
+    share of a tile, several tiles>, selective_scan_bwd.cu's by <N,
+    bf16 x>."""
     import re
     rows, cur, spill = [], None, (0, 0)
     for line in log.splitlines():
@@ -335,6 +352,9 @@ def ptxas_report(log: str) -> list:
                           r"ELb(\d)E", cur)
             if g:
                 cur = f"selective_scan_kernel<{','.join(g.groups())}>"
+            g = re.search(r"selective_scan_bwd_kernelILi(\d+)ELb(\d)E", cur)
+            if g:
+                cur = f"selective_scan_bwd_kernel<{','.join(g.groups())}>"
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       line)
@@ -2704,12 +2724,15 @@ def phase_ffn_bisect(cfg, params) -> float:
 def _counters() -> dict:
     from repro_torch.kernels import decode_fused as kdf
     from repro_torch.kernels import outer_accum as koa
+    from repro_torch.kernels import selective_scan as kss
     from repro_torch.kernels import sr_matmul as kmm
     from repro_torch.kernels import sr_round as ksr
     from repro_torch.kernels import wkv6 as kwkv
     return {"sr_matmul": kmm.COUNTER, "outer_accum": koa.COUNTER,
             "sr_round": ksr.COUNTER, "fused_attn_unit": kdf.COUNTER,
             "wkv6": kwkv.COUNTER, "wkv6_bwd": kwkv.BWD_COUNTER,
+            "selective_scan": kss.COUNTER,
+            "selective_scan_bwd": kss.BWD_COUNTER,
             "sr_matmul:batched": kmm.BATCHED_COUNTER,
             "outer_accum:batched": koa.BATCHED_COUNTER,
             **{f"{mod}:{p}": c.PATH_COUNTERS[p]
@@ -2824,10 +2847,14 @@ def phase_train_fp32(cfg) -> None:
 
 
 def phase_train(arch: str = "qwen2-0.5b", label: str = "train",
-                per_step_exact: dict = None) -> dict:
-    """The training main path: launch.train at full width, paper_sr_bf16,
-    counting each kernel's launches per step; ``per_step_exact`` {kernel:
-    launches} also holds those kernels to exact counts in every step."""
+                per_step_exact: dict = None, ckpt_every: int = 1000,
+                lr: float = None) -> dict:
+    """The training main path: launch.train at full width (cut to fit the
+    card where the model does not), paper_sr_bf16, counting each
+    kernel's launches per step; ``per_step_exact`` {kernel: launches}
+    also holds those kernels to exact counts in every step.
+    ``ckpt_every`` 0 writes no checkpoint, not even the final one;
+    ``lr`` replaces the CLI's default learning rate."""
     import shutil
     import tempfile
     import torch
@@ -2838,8 +2865,8 @@ def phase_train(arch: str = "qwen2-0.5b", label: str = "train",
         "--arch", arch, "--kernel-backend", "cuda", "--device",
         "cuda", "--precision", "paper_sr_bf16", "--optimizer", "adamw",
         "--remat", "block", "--batch", str(TRAIN_B), "--seq", str(TRAIN_S),
-        "--steps", "8", "--log-every", "1", "--ckpt-every", "1000",
-        "--ckpt-dir", ckpt_dir])
+        "--steps", "8", "--log-every", "1", "--ckpt-every", str(ckpt_every),
+        "--ckpt-dir", ckpt_dir] + (["--lr", str(lr)] if lr else []))
     counters = _counters()
     per_step = []
     last = {}
@@ -2866,11 +2893,16 @@ def phase_train(arch: str = "qwen2-0.5b", label: str = "train",
     med = steady[len(steady) // 2]
     tok = TRAIN_B * TRAIN_S
     peak = torch.cuda.max_memory_allocated() / 2**30
-    print(f"[{label}] {arch} 24 layers paper_sr_bf16 adamw remat=block "
+    tcfg = res["cfg"]
+    experts = (f", {tcfg.moe.n_experts} experts top-{tcfg.moe.top_k}"
+               if tcfg.moe is not None else "")
+    print(f"[{label}] {arch} {tcfg.n_layers} layers{experts} "
+          f"({tcfg.param_count()} params) paper_sr_bf16 adamw remat=block "
           f"B={TRAIN_B} S={TRAIN_S}: losses {[round(x, 4) for x in losses]}")
     print(f"[{label}] ms/step {[round(x * 1e3, 1) for x in secs]} median "
           f"(steps 1-7) {med * 1e3:.1f}ms, {tok / med:.1f} tokens/s; "
-          f"wall {wall:.1f}s incl. init and final checkpoint; peak memory "
+          f"wall {wall:.1f}s incl. init"
+          f"{' and final checkpoint' if ckpt_every else ''}; peak memory "
           f"{peak:.2f} GiB, {peak - held0:.2f} above the {held0:.2f} GiB "
           f"that earlier phases still held")
     print(f"[{label}] launches per step {per_step[-1]}; in the run {totals}")
@@ -3897,7 +3929,8 @@ def phase_train_granite_step0(gcfg, n: int = 4, B: int = TRAIN_B,
 def phase_train_memory(arch: str, label: str,
                        update_gate: float = None) -> None:
     """Where `arch`'s training peak memory lies, at the main path's
-    settings (24 layers, paper_sr_bf16, adamw, B=4, S=256): the state as
+    settings (full width, cut to fit the card as launch.train cuts it;
+    paper_sr_bf16, adamw, B=4, S=256): the state as
     init_state makes it; one forward and backward as the training step
     runs them (remat block, the gradients at the params' dtype); then
     adamw's update of every leaf as the step hands it those gradients
@@ -3912,10 +3945,12 @@ def phase_train_memory(arch: str, label: str,
     from repro_torch.core.program import compile_program
     from repro_torch.core.tree import tree_leaves, tree_set
     from repro_torch.data import SyntheticLM
+    from repro_torch.launch.train import one_card_train_config
     from repro_torch.optim import optimizers
     from repro_torch.runtime import train_loop as tl
     gib = lambda b: b / 2**30
-    cfg = get_config(arch)
+    cfg = one_card_train_config(
+        get_config(arch), torch.cuda.get_device_properties(0).total_memory)
     shape = ShapeConfig("smoke", TRAIN_S, TRAIN_B, "train")
     program = compile_program(cfg, shape, precision="paper_sr_bf16")
     train_cfg = TrainConfig(kernel_backend="cuda", remat="block")
@@ -3947,7 +3982,7 @@ def phase_train_memory(arch: str, label: str,
     whole = [(p, t) for p, t in leaves if not optimizers.chunked(t)]
     wpath, wbig = max(whole, key=lambda kv: kv[1].numel())
     n_chunked = len(leaves) - len(whole)
-    print(f"[{label}] 24 layers paper_sr_bf16 adamw "
+    print(f"[{label}] {cfg.n_layers} layers paper_sr_bf16 adamw "
           f"remat=block B={TRAIN_B} S={TRAIN_S}, above the {gib(base):.2f} "
           f"GiB held before: state {gib(resident):.2f} "
           f"GiB (params and both moments); forward + backward peak "
@@ -4370,22 +4405,13 @@ RING_WINDOW = 64
 ARCTIC_SEEDS = (0, 1, 2, 3)
 
 
-def init_jamba() -> tuple:
-    """(config, bf16 params) of jamba's first period at full width, drawn
-    leaf by leaf as the engine draws them (tfm.init with dtype bf16: the
-    f32 tree, 49.5 GiB, never exists) from a generator of its own (the
-    gated readings do not move with what earlier phases draw), with
-    random norm scales, Mamba dt_bias (N(0, 0.3^2)) and D (0.5-1.5)."""
-    import dataclasses
+def jamba_params(cfg, gen) -> dict:
+    """bf16 parameters of a jamba config drawn leaf by leaf from `gen`
+    (tfm.init with dtype bf16: no f32 tree), with random norm scales,
+    Mamba dt_bias (N(0, 0.3^2)) and D (0.5-1.5)."""
     import torch
-    from repro_torch.configs import get_config
     from repro_torch.models import transformer as tfm
-    gen = torch.Generator(device="cuda").manual_seed(JAMBA_SEED)
-    cfg = dataclasses.replace(get_config(JAMBA), n_layers=JAMBA_LAYERS)
-    t0 = time.monotonic()
-    torch.cuda.reset_peak_memory_stats()
     params = tfm.init(gen, cfg, dtype=torch.bfloat16)
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30
     rnd = lambda t, base, std: t.copy_(base + std * torch.randn(  # noqa
         t.shape, generator=gen, device="cuda"))
     for up in params["groups"].values():
@@ -4396,6 +4422,24 @@ def init_jamba() -> tuple:
             up["mamba"]["D"].copy_(0.5 + torch.rand(
                 up["mamba"]["D"].shape, generator=gen, device="cuda"))
     rnd(params["final_norm"]["scale"], 1.0, 0.1)
+    return params
+
+
+def init_jamba() -> tuple:
+    """(config, bf16 params) of jamba's first period at full width, drawn
+    leaf by leaf as the engine draws them (tfm.init with dtype bf16: the
+    f32 tree, 49.5 GiB, never exists) from a generator of its own (the
+    gated readings do not move with what earlier phases draw), with
+    random norm scales, Mamba dt_bias (N(0, 0.3^2)) and D (0.5-1.5)."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    gen = torch.Generator(device="cuda").manual_seed(JAMBA_SEED)
+    cfg = dataclasses.replace(get_config(JAMBA), n_layers=JAMBA_LAYERS)
+    t0 = time.monotonic()
+    torch.cuda.reset_peak_memory_stats()
+    params = jamba_params(cfg, gen)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
     print(f"[init] {JAMBA}, {cfg.n_layers} of 32 layers at full width: "
           f"{cfg.param_count()} params in {time.monotonic() - t0:.1f}s, "
           f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB held, init "
@@ -4611,6 +4655,253 @@ def phase_arctic_reduced() -> None:
     check(d > CHUNK_MAX[acfg.name], f"chunk:arctic:reduced: the control "
           f"(dense FF left out) reads {d:.4f}, within the gate "
           f"{CHUNK_MAX[acfg.name]}")
+
+
+# ---------------------------------------------------------------------------
+# jamba-v0.1-52b training, cut to one card: selective_scan_bwd, step 0
+# against the reference backend, the main path and its memory
+# ---------------------------------------------------------------------------
+
+# selective_scan_bwd against its plain version (f64 sums): f32 sums in
+# another order, each output within this share of its own largest value
+SCAN_BWD_REL = 1e-4
+# (label, B, S, di, N, dt A <= -150, x dtype): jamba training's shape with
+# bf16 x (the main path's; timed) and f32 x, the step-0 check's 2 x 64,
+# one token, one partial tile, decay so strong that exp(dt A) is 0, and
+# ragged widths at N 4 and 8
+SCAN_BWD_CASES = (("train", 4, 256, 8192, 16, False, "bfloat16"),
+                  ("train f32", 4, 256, 8192, 16, False, "float32"),
+                  ("step0", 2, 64, 8192, 16, False, "bfloat16"),
+                  ("S=1", 4, 1, 8192, 16, False, "bfloat16"),
+                  ("S=5", 2, 5, 8192, 16, False, "bfloat16"),
+                  ("strong", 4, 256, 8192, 16, True, "bfloat16"),
+                  ("N=4", 3, 45, 300, 4, False, "float32"),
+                  ("N=8", 2, 37, 200, 8, False, "bfloat16"))
+# f32 operations the gradient needs a state value and token, each product
+# that two terms share counted once: h recomputed (4: dt A, a h, (dt x) B,
+# the add), G's update (3), dx's G B and its sum (2), ddt's G (a h), A
+# times it and the sum (3; its x B term is x times dx's sum over n), dA's
+# dt (G a h) and its sum (2), dB and dC (2 each)
+SCAN_BWD_FLOPS = 18
+# [train:jamba:step0]: the cut at full width, B x S tokens, the weights
+# drawn from each of these seeds
+JAMBA_STEP0_B, JAMBA_STEP0_S = 2, 64
+JAMBA_STEP0_SEEDS = (JAMBA_SEED + 1, JAMBA_SEED + 2, JAMBA_SEED + 3)
+# the jamba training run's learning rate: at the CLI's 3e-4 the loss of
+# the cut rises after step 0 on both backends (11.83 to 28.86 on the
+# cuda backend, 28.63 on the reference backend); at 1e-5 it falls
+JAMBA_LR = 1e-5
+
+
+def phase_selective_scan_bwd(peaks) -> dict:
+    """selective_scan_bwd (csrc/selective_scan_bwd.cu) against
+    selective_scan_bwd_plain on the card at SCAN_BWD_CASES: each of dx,
+    ddt, dA, dB, dC and dD within SCAN_BWD_REL of its largest value,
+    finite, two calls bit-equal.  Jamba training's shape (B 4, S 256, di
+    8192, N 16, bf16 x) is timed in events and in a CUDA graph beside the
+    plain version and its bound: the bytes (x, dt, dy, B, C, A and D
+    read, the six gradients written) at the memory rate, against
+    SCAN_BWD_FLOPS f32 operations a state value and token at the f32
+    peak and one exp a state value and token at the SFU's rate, a
+    sixteenth of it."""
+    import torch
+    from repro_torch.kernels import selective_scan as kss
+    gen = torch.Generator(device="cuda").manual_seed(43)
+    names = ("dx", "ddt", "dA", "dB", "dC", "dD")
+    row, worst_abs, worst_rel = None, 0.0, 0.0
+    for label, B, S, di, N, strong, xdt in SCAN_BWD_CASES:
+        x, dt, A, Bm, Cm, D, _ = _scan_inputs(gen, B, S, di, N,
+                                              getattr(torch, xdt))
+        if strong:
+            dt = dt + 300.0
+            check(not bool(torch.exp(dt[..., None] * A).any()),
+                  f"selective_scan_bwd {label}: exp(dt A) is not 0")
+        dy = torch.randn((B, S, di), generator=gen, device="cuda")
+        args = (x, dt, A, Bm, Cm, D, dy)
+        c0 = kss.BWD_COUNTER.n
+        got = kss.selective_scan_bwd(*args)
+        check(kss.BWD_COUNTER.n == c0 + 1, "selective_scan_bwd: not one "
+              "launch")
+        again = kss.selective_scan_bwd(*args)
+        want = kss.selective_scan_bwd_plain(*args)
+        torch.cuda.synchronize()
+        rels = {}
+        for nm, g, g2, wv in zip(names, got, again, want):
+            check(bool(torch.isfinite(g).all()),
+                  f"selective_scan_bwd {label}: non-finite {nm}")
+            check(torch.equal(g, g2), f"selective_scan_bwd {label}: two "
+                  f"calls differ in {nm}")
+            err = float((g - wv).abs().max())
+            big = float(wv.abs().max())
+            rels[nm] = err / max(big, 1e-30)
+            worst_abs = max(worst_abs, err)
+            check(err <= SCAN_BWD_REL * big,
+                  f"selective_scan_bwd {label} (B={B} S={S} di={di} N={N}):"
+                  f" {nm} max abs err {err:.3g} against its largest "
+                  f"{big:.3g} (share {SCAN_BWD_REL})")
+        worst_rel = max(worst_rel, max(rels.values()))
+        print(f"[selective_scan_bwd] {label:<9} B={B} S={S} di={di} N={N} x "
+              f"{xdt}: max abs err / largest "
+              f"{', '.join(f'{n} {v:.3g}' for n, v in rels.items())}; "
+              f"2 calls bit-equal")
+        del got, again, want
+        if label != "train":
+            continue
+        ms = time_ms(lambda: kss.selective_scan_bwd(*args), iters=10)
+        g_ms = time_graph_ms(lambda: kss.selective_scan_bwd(*args),
+                             iters=10)
+        plain = time_ms(lambda: kss.selective_scan_bwd_plain(*args),
+                        iters=2, warmup=1)
+        n_state = B * S * di * N
+        nbytes = (B * S * di * (x.element_size() + 4 * 4)
+                  + 4 * 4 * B * S * N + 2 * 4 * di * (N + 1))
+        b_ms, by = bound(nbytes, SCAN_BWD_FLOPS * n_state, peaks, f32=True)
+        e_ms = n_state / (peaks[2] / 16) * 1e3
+        if e_ms > b_ms:
+            b_ms, by = e_ms, "operations"
+        p = kss.selective_scan_bwd_plan(B, S, di, N)
+        print(f"[selective_scan_bwd] {label} B={B} S={S} di={di} N={N}: "
+              f"kernel {ms:.4f}ms (in a CUDA graph {g_ms:.4f}ms) plain "
+              f"{plain:.4f}ms bound {b_ms:.4f}ms ({by}: {nbytes / 1e6:.1f} "
+              f"MB, {SCAN_BWD_FLOPS * n_state / 1e9:.2f} GFLOP f32, "
+              f"{n_state / 1e6:.0f} M exps at {e_ms:.4f}ms); graph / bound "
+              f"{g_ms / b_ms:.2f}; selective_scan_bwd_plan: {p.lanes} lanes "
+              f"a channel, {p.channels} channels a block, tile {p.tile}: "
+              f"grid {p.grid} x {p.threads} threads, {p.smem} B shared")
+        row = {"name": "selective_scan_bwd", "route": "cuda",
+               "source": "src/repro_torch/csrc/selective_scan_bwd.cu",
+               "replaces": "src/repro/models/ssm.py:195",
+               "tpu_kernel": None, "ms": ms, "kernel_ms": ms,
+               "graph_ms": g_ms, "plain_ms": plain, "library_ms": None,
+               "bound_ms": b_ms, "bound_by": by,
+               "shapes": "jamba-v0.1-52b training: B=4, S=256, di=8192, "
+                         "N=16, bf16 x, from a zero state; one call a "
+                         "Mamba layer a step"}
+    row["max_abs_err"] = worst_abs
+    row["max_rel_of_largest"] = worst_rel
+    return row
+
+
+def phase_train_jamba_step0(cfg, seed: int) -> None:
+    """`cfg` (jamba cut to one card: one period at full width, 4 experts
+    top-2) at step 0 (remat block, JAMBA_STEP0_B x JAMBA_STEP0_S tokens,
+    random weights, norm scales, dt_bias and D from `seed`), every run
+    held to the expert selection of the first (each call's own
+    probabilities weigh it):
+
+    - paper_sr_bf16, the cuda backend against the reference backend: the
+      loss within GRANITE_LOSS_RTOL, each leaf's L2 distance within
+      GRANITE_GRAD_L2 of its L2 norm, as granite's step 0 is held;
+    - fp32 on the same values in f32, the cuda backend (f32 sr_matmul and
+      its batched form, selective_scan and selective_scan_bwd on f32 x)
+      against the reference backend: the loss within TRAIN_RTOL[0], each
+      leaf within GRAD_REL of its largest value.
+
+    Each cuda step launches each Mamba layer's scan twice (forward, remat
+    recompute) and its backward once, each MoE table's FF, remat FF and
+    BP on sr_matmul_batched and its UP on outer_accum_batched: on the
+    sm90 path under paper_sr_bf16, on the f32 path under fp32, never on
+    :generic."""
+    import torch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core.program import compile_program
+    from repro_torch.core.tree import tree_map
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import transformer as tfm
+    B, S = JAMBA_STEP0_B, JAMBA_STEP0_S
+    tag = f"train:jamba:step0:seed={seed}"
+    shape = ShapeConfig("smoke", S, B, "train")
+    program = compile_program(cfg, shape, precision="paper_sr_bf16")
+    program32 = compile_program(cfg, shape, precision="fp32")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = jamba_params(cfg, gen)
+    batch0 = {k: torch.as_tensor(v, device="cuda")
+              for k, v in SyntheticLM(cfg, shape).batch_at(0).items()}
+    pattern = tfm.layer_pattern(cfg)
+    n_mamba = sum(u.mixer == "mamba" for u in pattern)
+    n_moe = sum(u.ffn == "moe" for u in pattern)
+    counters = _counters()
+    chosen, flips, secs = [], [], {}
+
+    def run(backend, prog, tree, dtype, record=None):
+        for c in counters.values():
+            c.reset()
+        t0 = time.monotonic()
+        held = (_routing(record=chosen) if record is None else
+                _routing(record=record, replay=chosen, own_weights=True))
+        with held:
+            loss, grads = _step0_grads(cfg, prog, backend, tree, batch0,
+                                       dtype, f32=dtype == torch.float32)
+        torch.cuda.synchronize()
+        secs[(backend, dtype)] = time.monotonic() - t0
+        return loss, grads, {k: c.n for k, c in counters.items()}
+
+    lc, gc, cc = run("cuda", program, params, torch.bfloat16)
+    lr, gr, _ = run("reference", program, params, torch.bfloat16, flips)
+    l2 = {k: float((gc[k].float() - gr[k].float()).norm()
+                   / gr[k].float().norm().clamp_min(1e-30)) for k in gr}
+    worst = max(l2, key=l2.get)
+    params32 = tree_map(lambda p: p.float(), params)
+    del params, gc, gr
+    torch.cuda.empty_cache()
+    lt, gt, _ = run("reference", program32, params32, torch.float32, [])
+    lf, gf, cf = run("cuda", program32, params32, torch.float32, [])
+    del params32
+    f32_leaf, f32_rel = _grad_rel(gf, gt)
+    l_rel, lf_rel = abs(lc / lr - 1), abs(lf / lt - 1)
+    print(f"[{tag}] {cfg.n_layers} layers, {cfg.moe.n_experts} experts "
+          f"top-{cfg.moe.top_k} ({cfg.param_count()} params) remat=block "
+          f"B={B} S={S}, the cuda bf16 run's expert selection held (the "
+          f"reference's own top-k set differs on {_flips(flips)} token "
+          f"routings, each layer's forward and remat recompute); seconds "
+          + ", ".join(f"{b} {str(d).split('.')[-1]} {t:.1f}"
+                      for (b, d), t in secs.items()))
+    print(f"[{tag}] paper_sr_bf16: cuda loss {lc!r}, reference {lr!r}, loss "
+          f"rel {l_rel:.3g}; cuda vs reference, worst leaf L2 rel "
+          f"{l2[worst]:.4f} ({worst}); per leaf "
+          + ", ".join(f"{k} {v:.4f}" for k, v in sorted(l2.items())))
+    print(f"[{tag}] fp32: cuda loss {lf!r}, reference {lt!r}, rel "
+          f"{lf_rel:.3g}; worst leaf max abs err / largest {f32_rel:.3g} "
+          f"({f32_leaf}); launches bf16 "
+          f"{ {k: v for k, v in cc.items() if v} }, fp32 "
+          f"{ {k: v for k, v in cf.items() if v} }")
+    check(math.isfinite(lc) and l_rel <= GRANITE_LOSS_RTOL,
+          f"{tag} loss: cuda {lc} vs reference {lr} (rtol "
+          f"{GRANITE_LOSS_RTOL})")
+    check(l2[worst] <= GRANITE_GRAD_L2, f"{tag} gradient of {worst}: L2 "
+          f"rel {l2[worst]:.4f} (gate {GRANITE_GRAD_L2})")
+    check(math.isfinite(lf) and lf_rel <= TRAIN_RTOL[0],
+          f"{tag} fp32 loss: cuda {lf} vs reference {lt} (rtol "
+          f"{TRAIN_RTOL[0]})")
+    check(f32_rel < GRAD_REL, f"{tag} fp32 gradient of {f32_leaf}: rel "
+          f"{f32_rel:.3g} (gate {GRAD_REL})")
+    want = {"selective_scan": 2 * n_mamba, "selective_scan_bwd": n_mamba,
+            "sr_matmul:batched": 3 * 3 * n_moe,
+            "outer_accum:batched": 3 * n_moe, "sr_matmul:generic": 0,
+            "outer_accum:generic": 0}
+    for name, counts, path, off in (("bf16", cc, "sm90", "f32"),
+                                    ("fp32", cf, "f32", "sm90")):
+        need = dict(want, **{f"sr_matmul:{off}": 0, f"outer_accum:{off}": 0})
+        check(all(counts[k] == v for k, v in need.items())
+              and counts[f"sr_matmul:{path}"] == counts["sr_matmul"] > 0
+              and counts[f"outer_accum:{path}"] == counts["outer_accum"] > 0,
+              f"{tag} {name} launched {counts}, want {need} and every "
+              f"product on :{path}")
+
+
+def phase_train_jamba() -> dict:
+    """jamba-v0.1-52b's training main path: launch.train on the card,
+    which cuts it to one period at full width and 4 of its 16 experts
+    (B=4, S=256, paper_sr_bf16, adamw at JAMBA_LR, remat block, no
+    checkpoint: the state is 27 GiB), 8 steps; every step launches each
+    of the 7 Mamba layers' scan twice (forward, remat recompute) and its
+    backward once, and each of the 4 MoE units' three expert tables' FF,
+    remat FF and BP on sr_matmul_batched and their UP on
+    outer_accum_batched."""
+    return phase_train(JAMBA, "train:jamba",
+                       {"selective_scan": 14, "selective_scan_bwd": 7,
+                        "sr_matmul:batched": 36, "outer_accum:batched": 12},
+                       ckpt_every=0, lr=JAMBA_LR)
 
 
 def print_targets(rows: dict) -> None:
@@ -4930,6 +5221,33 @@ def main() -> int:
             serve_counts[r["name"]] = granite_fp32["counts"]
             r["launches_per_step"] = granite_fp32["per_step"][r["counter"]]
         print(f"[train:granite:fp32:full] on {smi}")
+        torch.cuda.empty_cache()
+
+        # jamba-v0.1-52b training, cut to one card (one period at full
+        # width, 4 of its 16 experts): the scan's gradient kernel, step 0
+        # against the reference backend, the main path, its memory
+        from repro_torch.launch.train import one_card_train_config
+        t_jt = time.monotonic()
+        bwd_row = phase_selective_scan_bwd(peaks)
+        rows.append(bwd_row)
+        torch.cuda.empty_cache()
+        jamba_cut = one_card_train_config(
+            get_config(JAMBA),
+            torch.cuda.get_device_properties(0).total_memory)
+        for seed in JAMBA_STEP0_SEEDS:
+            phase_train_jamba_step0(jamba_cut, seed)
+            torch.cuda.empty_cache()
+        jamba_train = phase_train_jamba()
+        serve_counts["selective_scan_bwd"] = jamba_train["counts"]
+        bwd_row["launches_per_step"] = \
+            jamba_train["per_step"]["selective_scan_bwd"]
+        next(r for r in rows if r["name"] == "selective_scan")[
+            "train_launches_per_step"] = \
+            jamba_train["per_step"]["selective_scan"]
+        torch.cuda.empty_cache()
+        phase_train_memory(JAMBA, "train:jamba:memory")
+        print(f"[train:jamba] the jamba training phases in "
+              f"{time.monotonic() - t_jt:.1f}s on {smi}")
     except SmokeFailure as e:
         print(f"[chip_smoke] FAIL: {e}", file=sys.stderr)
         return 1
@@ -4941,8 +5259,9 @@ def main() -> int:
     # the granite training run for the batched UP (outer_accum:batched),
     # the jamba serve run for its sr_matmul, batched expert products and
     # selective_scan,
-    # the rwkv6 training run for wkv6_bwd, granite's fp32 training run
-    # for the f32 batched rows, qwen2's fp32 training run for the other
+    # the rwkv6 training run for wkv6_bwd, the jamba training run for
+    # selective_scan_bwd, granite's fp32 training run for the f32 batched
+    # rows, qwen2's fp32 training run for the other
     # f32 rows, the paper_sr_bf16 training run for the rest
     # (sr_matmul:train is sr_matmul's FF + BP count there)
     for r in rows:

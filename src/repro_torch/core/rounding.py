@@ -56,6 +56,10 @@ def _bits_u32(t: torch.Tensor) -> torch.Tensor:
     return t.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
 
 
+# elements sr_cast_bf16 rounds at a time
+SR_CHUNK = 1 << 24
+
+
 def sr_cast_bf16(x: torch.Tensor, rbits: torch.Tensor) -> torch.Tensor:
     """f32 -> bf16 stochastic rounding given explicit random bits.
 
@@ -66,14 +70,20 @@ def sr_cast_bf16(x: torch.Tensor, rbits: torch.Tensor) -> torch.Tensor:
     because torch's own vectorised cast writes a different NaN).
     """
     xf = x.to(torch.float32).contiguous()
-    u = _bits_u32(xf)
-    rounded = ((u + (_bits_u32(rbits.contiguous()) & _LOW_MASK)) >> 16) \
-        & 0xFFFF
-    plain = torch.where(torch.isnan(xf), ((u >> 16) & 0x8000) | 0x7FC0,
-                        u >> 16)
-    hi = torch.where(torch.isfinite(xf), rounded, plain)
-    hi = torch.where(hi >= 0x8000, hi - 0x10000, hi).to(torch.int16)
-    return hi.view(torch.bfloat16)
+    rb = rbits.contiguous()
+    out = torch.empty(xf.shape, dtype=torch.int16, device=xf.device)
+    # SR_CHUNK elements at a time: the int64 temporaries of a whole leaf
+    # (tens of bytes an element) would not fit beside a large model
+    for xs, rs, o in zip(xf.view(-1).split(SR_CHUNK),
+                          rb.view(-1).split(SR_CHUNK),
+                          out.view(-1).split(SR_CHUNK)):
+        u = _bits_u32(xs)
+        rounded = ((u + (_bits_u32(rs) & _LOW_MASK)) >> 16) & 0xFFFF
+        plain = torch.where(torch.isnan(xs), ((u >> 16) & 0x8000) | 0x7FC0,
+                            u >> 16)
+        hi = torch.where(torch.isfinite(xs), rounded, plain)
+        o.copy_(torch.where(hi >= 0x8000, hi - 0x10000, hi))
+    return out.view(torch.bfloat16)
 
 
 def make_rbits(shape, generator: torch.Generator, *, device="cpu",

@@ -21,7 +21,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "_build"
 SOURCES = ("sr_matmul", "decode_fused", "outer_accum", "sr_round",
-           "wkv6", "wkv6_bwd", "selective_scan")
+           "wkv6", "wkv6_bwd", "selective_scan", "selective_scan_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -56,7 +56,8 @@ PORT_KERNELS = {
     "fused_attn_unit": r"rt::decode::((norm|gemm)_kernel<0\b|attn_kernel)",
     "fused_ffn": r"rt::decode::(norm|gemm)_kernel<1\b",
     "wkv6": r"\bwkv6_kernel<", "wkv6_bwd": r"\bwkv6_bwd_kernel<",
-    "selective_scan": r"\bselective_scan_kernel<"}
+    "selective_scan": r"\bselective_scan_kernel<",
+    "selective_scan_bwd": r"\bselective_scan_bwd_(kernel<|reduce)"}
 # the models the port serves
 SERVED = ("qwen2-0.5b", "rwkv6-1.6b", "granite-moe-1b-a400m", "olmo-1b",
           "minitron-4b", "jamba-v0.1-52b", "arctic-480b")

@@ -4,14 +4,17 @@
         --out profile_train.txt [--precision fp32] [--arch rwkv6-1.6b]
 
 Runs the training CLI's own loop (``launch.train.run``) on qwen2-0.5b (or
-``--arch``: rwkv6-1.6b, granite-moe-1b-a400m) at full width (random weights from a seed) on the cuda
+``--arch``: rwkv6-1.6b, granite-moe-1b-a400m, jamba-v0.1-52b) at full
+width (random weights from a seed; jamba cut to fit the card, as
+``launch.train`` cuts it: one period, 4 of its 16 experts) on the cuda
 backend under paper_sr_bf16 (or ``--precision``; adamw, remat block,
-B=4, S=256), and profiles the steps
-after a warm-up.  Prints the window's wall time per step, the device's
-busy and idle share of it, the device time by kernel (sum and launch
-count), the share of the port's kernels (the batched expert products,
-``sr_matmul:batched`` and ``outer_accum:batched``, apart from the rest),
-and the host operators with the most host time.  Needs a CUDA device.
+B=4, S=256, no checkpoint), and profiles the steps after a warm-up.
+Prints the window's wall time per step, the device's busy and idle
+share of it, the device time by kernel (sum and launch count), the
+share of the port's kernels (the batched expert products,
+``sr_matmul:batched`` and ``outer_accum:batched``, apart from the
+rest), and the host operators with the most host time.  Needs a CUDA
+device.
 """
 from __future__ import annotations
 
@@ -28,7 +31,8 @@ TRAIN_ARGS = ["--kernel-backend", "cuda", "--device", "cuda",
               "--optimizer", "adamw", "--remat", "block", "--batch", "4",
               "--seq", "256", "--steps",
               str(WARMUP_STEPS + WINDOW_STEPS), "--log-every", "1",
-              "--ckpt-every", "1000"]
+              "--ckpt-every", "0"]
+
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -36,8 +40,8 @@ def main(argv=None) -> int:
     ap.add_argument("--precision", default="paper_sr_bf16",
                     help="the training precision preset")
     ap.add_argument("--arch", default="qwen2-0.5b",
-                    help="the model to train (qwen2-0.5b, rwkv6-1.6b or "
-                         "granite-moe-1b-a400m)")
+                    help="the model to train (qwen2-0.5b, rwkv6-1.6b, "
+                         "granite-moe-1b-a400m or jamba-v0.1-52b)")
     args = ap.parse_args(argv)
 
     import torch

@@ -31,8 +31,12 @@ N)), ``y * silu(z)`` and ``mamba_out``, with the reference's casts.  The
 scan runs on the ``selective_scan`` kernel on the cuda backend
 (``kernels/selective_scan.py``; its plain version on CPU tensors) and on
 that plain version on the reference backend; both states are updated in
-place on the rows ``active`` selects.  Its gradient waits for the
-training slice: the port serves Mamba models and does not train them.
+place on the rows ``active`` selects.  A call without a state under
+autograd (training) runs through ``kernels.selective_scan.
+selective_scan_train``, whose backward is the ``selective_scan_bwd``
+kernel on the cuda backend, the plain reverse recurrence on the
+reference backend; the conv, silu, softplus and ``-exp(A_log)`` around
+it are torch ops that autograd differentiates.
 """
 from __future__ import annotations
 
@@ -207,10 +211,16 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor,
 
 def _softplus(x: torch.Tensor) -> torch.Tensor:
     """The reference's softplus, logaddexp(x, 0) = max(x, 0) +
-    log1p(exp(-|x|)), in f64, rounded to x's dtype."""
+    log1p(exp(-|x|)), in f64, rounded to x's dtype.  Its gradient is
+    logaddexp's, sigmoid(x), at x = 0 too: there the subgradients of
+    clamp (1) and abs (0) would sum to 1, not 1/2."""
     x64 = x.to(_F64)
-    return (x64.clamp(min=0) + torch.log1p(torch.exp(-x64.abs()))
-            ).to(x.dtype)
+    y = x64.clamp(min=0) + torch.log1p(torch.exp(-x64.abs()))
+    if y.requires_grad:
+        # the same value (x64 - x64.detach() is 0), differentiated as
+        # sigmoid(x) times x
+        y = y.detach() + torch.sigmoid(x64.detach()) * (x64 - x64.detach())
+    return y.to(x.dtype)
 
 
 def mamba_block(cfg: ModelConfig, x: torch.Tensor, params: dict,
@@ -220,7 +230,8 @@ def mamba_block(cfg: ModelConfig, x: torch.Tensor, params: dict,
     out (B, S, d).  With `state` ({"conv", "ssm"} rows of x's batch) the
     conv and the scan continue it, and both leaves are updated in place
     on the rows `active` (B,) selects (None = every row); without one
-    both start from zeros."""
+    both start from zeros, and under autograd the scan is
+    differentiable."""
     s = cfg.ssm
     di, r, N, K = s.inner(cfg.d_model), s.rank(cfg.d_model), s.d_state, \
         s.d_conv
@@ -240,7 +251,10 @@ def mamba_block(cfg: ModelConfig, x: torch.Tensor, params: dict,
     a_log = params["A_log"]
     A = (-torch.exp(a_log.to(_F64)).to(a_log.dtype)).to(_F32).contiguous()
     D = params["D"].to(_F32).contiguous()
-    if sh.backend == "cuda":
+    if state is None and torch.is_grad_enabled():
+        y = kss.selective_scan_train(xc, dt, A, Bm, Cm, D,
+                                     plain=sh.backend != "cuda")
+    elif sh.backend == "cuda":
         y, _ = kss.selective_scan(
             xc, dt, A, Bm, Cm, D, state["ssm"] if state is not None
             else None, active=active)

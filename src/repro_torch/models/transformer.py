@@ -1,10 +1,9 @@
 """Decoder-only LM: dense attention units, RWKV6 units and attention
-units with a mixture-of-experts FF (MoE models), each trained and served;
-and the reference's general layer pattern — a scan group is one period
-of it (jamba: 8 units, attention at unit 0 and Mamba at 1..7, a MoE FF
-on every second unit; arctic: one attention unit whose MoE FF has a
-dense FF beside it), served (a model with a Mamba unit is not trained
-yet).
+units with a mixture-of-experts FF (MoE models); and the reference's
+general layer pattern — a scan group is one period of it (jamba: 8
+units, attention at unit 0 and Mamba at 1..7, a MoE FF on every second
+unit; arctic: one attention unit whose MoE FF has a dense FF beside
+it); each trained and served.
 
 Parameters keep the reference's pytree layout: per-unit leaves stacked
 over ``n_groups`` scan groups (``params["groups"]["u0"]["attn"]["qkv"]``

@@ -43,7 +43,7 @@ class StepTimer:
 
 
 def run_with_recovery(*, step_fn: Callable, state: Any, batches: Callable,
-                      ckpt: Checkpointer, meta: dict, n_steps: int,
+                      ckpt: Optional[Checkpointer], meta: dict, n_steps: int,
                       checkpoint_every: int = 50, key: int = 0,
                       max_failures: int = 3,
                       on_metrics: Optional[Callable] = None,
@@ -55,7 +55,8 @@ def run_with_recovery(*, step_fn: Callable, state: Any, batches: Callable,
     (state, metrics); reading the metrics waits for the device, so a
     step's time covers its work.  fail_injector: step -> None or raise (test hook).
     On a failure it restores the latest checkpoint onto the state's
-    device and replays from its step.
+    device and replays from its step.  Without a checkpointer (`ckpt`
+    None) nothing is saved and a failed step raises.
     """
     timer = StepTimer()
     failures = 0
@@ -73,15 +74,17 @@ def run_with_recovery(*, step_fn: Callable, state: Any, batches: Callable,
             if on_metrics is not None:
                 on_metrics(step, metrics, dt)
             step += 1
-            if step % checkpoint_every == 0:
+            if ckpt is not None and step % checkpoint_every == 0:
                 ckpt.save(step, state, meta)
         except Exception:
             failures += 1
-            if failures > max_failures or ckpt.latest_step() is None:
+            if failures > max_failures or ckpt is None \
+                    or ckpt.latest_step() is None:
                 raise
             ckpt.wait()
             dev = tree_leaves(state["params"])[0][1].device
             state, step, _ = ckpt.restore(device=dev)
-    ckpt.save(n_steps, state, meta, blocking=True)
+    if ckpt is not None:
+        ckpt.save(n_steps, state, meta, blocking=True)
     return state
 

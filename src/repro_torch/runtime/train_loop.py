@@ -59,23 +59,15 @@ def split_microbatches(batch: dict, nm: int) -> dict:
 
 def make_train_step(cfg: ModelConfig, program: Program,
                     train_cfg: TrainConfig):
-    """(train_step, optimizer) of a dense attention, rwkv6 or MoE model
-    (a MoE table's FF / BP / UP words run batched over its experts; its
-    loss carries the load-balancing term).
+    """(train_step, optimizer) of a dense attention, rwkv6, Mamba or MoE
+    model, or a hybrid of them (a MoE table's FF / BP / UP words run
+    batched over its experts; its loss carries the load-balancing term).
     ``train_step(state, batch, key)`` takes
     the state {"params", "opt", "step"}, a batch of numpy arrays or
     tensors {"tokens", "labels"} and the step's integer key, and returns
     (new state, {"loss", "grad_norm"}) — the tensors of the new state are
     new; the old state is not modified, and the step holds nothing of it
-    once it returns (a caller that drops its reference frees it).  A
-    model with a Mamba unit raises NotImplementedError: the selective
-    scan's gradient (a hand-written backward kernel, as ``wkv6_bwd`` is
-    rwkv6's) comes with the Mamba training slice."""
-    if tfm.has_mamba(cfg):
-        raise NotImplementedError(
-            f"{cfg.name}: training a model with a Mamba unit needs the "
-            f"selective scan's backward kernel, which comes with the "
-            f"Mamba training slice; the port serves it only")
+    once it returns (a caller that drops its reference frees it)."""
     policy = program.policy
     backend = train_cfg.kernel_backend
     opt = make_optimizer(train_cfg, policy, backend)

@@ -2099,3 +2099,133 @@ def test_selective_scan_kernel_from_zeros_and_bad_shapes(dev):
     x6, dt6, A6, B6, C6, D6, _ = _scan_case(dev, 1, 2, 64, 6, torch.float32)
     with pytest.raises(ValueError):
         kss.selective_scan(x6, dt6, A6, B6, C6, D6)
+
+
+# ---------------------------------------------------------------------------
+# selective_scan_bwd (the scan's gradient; no TPU kernel)
+# ---------------------------------------------------------------------------
+
+# (B, S, di, N, strong decay): jamba training's 4 x 256 and chip_smoke's
+# step-0 2 x 64 at di 8192, one token, one partial tile, several tiles
+# with di not a multiple of a block's channels, and dt A <= -150, where
+# exp(dt A) is 0
+SCAN_BWD_CASES = [(4, 256, 8192, 16, False), (2, 64, 8192, 16, False),
+                  (2, 1, 256, 16, False), (3, 5, 96, 8, False),
+                  (3, 45, 100, 8, False), (2, 37, 300, 4, False),
+                  (2, 40, 256, 16, True), (2, 33, 200, 4, True)]
+# f32 sums over n, channels and tokens against the plain version's f64
+# ones: each output within this share of its own largest value
+SCAN_BWD_REL = 1e-4
+
+
+def _scan_bwd_case(dev, B, S, di, N, strong, xdtype, seed=0):
+    x, dt, A, Bm, Cm, D, _ = _scan_case(dev, B, S, di, N, xdtype, seed)
+    if strong:
+        dt = dt + 300.0
+    g = torch.Generator(device=dev).manual_seed(seed + 100)
+    return x, dt, A, Bm, Cm, D, torch.randn((B, S, di), generator=g,
+                                            device=dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("xdtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("case", SCAN_BWD_CASES, ids=str)
+def test_selective_scan_bwd_kernel_matches_plain(dev, case, xdtype):
+    args = _scan_bwd_case(dev, *case, xdtype)
+    if case[-1]:
+        assert not torch.exp(args[1][..., None] * args[2]).any()
+    kss.BWD_COUNTER.reset()
+    got = kss.selective_scan_bwd(*args)
+    torch.cuda.synchronize()
+    assert kss.BWD_COUNTER.n == 1
+    want = kss.selective_scan_bwd_plain(*args)
+    for name, g, w in zip(("dx", "ddt", "dA", "dB", "dC", "dD"), got, want):
+        assert g.dtype == torch.float32 and g.shape == w.shape, name
+        assert torch.isfinite(g).all(), name
+        err = float((g - w).abs().max())
+        assert err <= SCAN_BWD_REL * float(w.abs().max()), (name, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("xdtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("case", SCAN_BWD_CASES[:1] + SCAN_BWD_CASES[-3:],
+                         ids=str)
+def test_selective_scan_bwd_kernel_two_calls_bit_equal(dev, case, xdtype):
+    """No float atomics: the cross-block sums of dB, dC, dA and dD run in
+    a fixed order, so the same inputs give the same bits."""
+    args = _scan_bwd_case(dev, *case, xdtype, seed=3)
+    a, b = kss.selective_scan_bwd(*args), kss.selective_scan_bwd(*args)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.cuda
+def test_selective_scan_train_runs_both_kernels_and_raises_what_it_refuses(
+        dev):
+    x, dt, A, Bm, Cm, D, dy = _scan_bwd_case(dev, 2, 40, 512, 16, False,
+                                             torch.bfloat16, seed=5)
+    leaves = [t.clone().requires_grad_() for t in (x, dt, A, Bm, Cm, D)]
+    kss.COUNTER.reset()
+    kss.BWD_COUNTER.reset()
+    y = kss.selective_scan_train(*leaves)
+    grads = torch.autograd.grad((y * dy).sum(), leaves)
+    assert (kss.COUNTER.n, kss.BWD_COUNTER.n) == (1, 1)
+    assert [g.dtype for g in grads] == [torch.bfloat16] + [torch.float32] * 5
+    # the forward's and the backward's kernels, their results as they are
+    # (dx rounded to x's dtype)
+    assert torch.equal(y, kss.selective_scan(x, dt, A, Bm, Cm, D)[0])
+    for g, want in zip(grads, kss.selective_scan_bwd(x, dt, A, Bm, Cm, D,
+                                                     dy)):
+        assert torch.equal(g, want.to(g.dtype))
+    # d_state 6: no instantiation
+    bad = _scan_bwd_case(dev, 1, 4, 64, 6, False, torch.float32)
+    with pytest.raises(ValueError, match="d_state"):
+        kss.selective_scan_bwd(*bad)
+    # a carried state: training runs from zeros and has no gradient for it
+    state = torch.zeros((2, 512, 16), device=dev, requires_grad=True)
+    with pytest.raises(ValueError, match="carried state"):
+        kss.selective_scan_train(*leaves, state)
+
+
+@pytest.mark.cuda
+def test_mamba_block_backward_on_the_card_matches_the_reference_backend(dev):
+    """One Mamba mixer (the reduced jamba's widths with jamba's d_state 16
+    and d_conv 4) under the fp32 program, from no state: the gradients of
+    sum(out * c) for x and every leaf on the cuda backend (f32
+    sr_matmul / outer_accum, selective_scan and selective_scan_bwd)
+    against the reference backend (f64 products, the plain scan and its
+    plain reverse), each within 1e-4 of its largest value."""
+    import dataclasses
+
+    from repro_torch.configs import get_reduced
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core.phases import Phase
+    from repro_torch.core.program import compile_program
+    from repro_torch.engine import PEContext
+    from repro_torch.models import ssm
+    base = get_reduced("jamba-v0.1-52b")
+    cfg = dataclasses.replace(base, ssm=dataclasses.replace(
+        base.ssm, d_state=16, d_conv=4))
+    B, S = 2, 100
+    prog = compile_program(cfg, ShapeConfig("t", S, B, "train"),
+                           precision="fp32")
+    g = torch.Generator(device=dev).manual_seed(6)
+    params = ssm.mamba_params(cfg, g)
+    params["dt_bias"].copy_(0.3 * torch.randn(params["dt_bias"].shape,
+                                              generator=g, device=dev))
+    x = torch.randn((B, S, cfg.d_model), generator=g, device=dev)
+    c = torch.randn((B, S, cfg.d_model), generator=g, device=dev)
+    out = {}
+    for backend in ("reference", "cuda"):
+        kss.BWD_COUNTER.reset()
+        leaves = [x.clone().requires_grad_()] + [
+            p.clone().requires_grad_() for p in params.values()]
+        tp = dict(zip(params, leaves[1:]))
+        y = ssm.mamba_block(cfg, leaves[0], tp,
+                            PEContext(prog, backend=backend, phase=Phase.FF))
+        out[backend] = torch.autograd.grad((y * c).sum(), leaves)
+        assert kss.BWD_COUNTER.n == (backend == "cuda")
+    for name, a, b in zip(["x", *params], out["cuda"], out["reference"]):
+        assert torch.isfinite(a).all(), name
+        err = float((a - b).abs().max())
+        assert err <= 1e-4 * float(b.abs().max()), (name, err)

@@ -154,6 +154,26 @@ def test_sr_epilogue_bit_exact_on_random_bit_patterns(seed):
     np.testing.assert_array_equal(bits16(got), bits16(want))
 
 
+@pytest.mark.parametrize("chunk", [1, 7, 64])
+def test_sr_epilogue_in_chunks_bit_exact(chunk, monkeypatch):
+    """The plain SR cast rounds SR_CHUNK elements at a time: a (9, 17)
+    tensor of random bit patterns and the edge values, in chunks that
+    split its rows, equals the reference bit for bit."""
+    from repro_torch.core import rounding
+    monkeypatch.setattr(rounding, "SR_CHUNK", chunk)
+    rng = np.random.default_rng(chunk)
+    xb = rng.integers(0, 2**32, size=(9, 17), dtype=np.uint64)
+    x = xb.astype(np.uint32).view(np.float32)
+    x.reshape(-1)[:EDGE.size] = EDGE
+    rb = rng.integers(0, 2**32, size=(9, 17), dtype=np.uint64) \
+        .astype(np.uint32)
+    want = jref.sr_cast_bf16(jnp.asarray(x), jnp.asarray(rb))
+    got = sr_cast_bf16(torch.from_numpy(x.copy()),
+                       torch.from_numpy(rb.view(np.int32)))
+    assert got.shape == (9, 17) and got.dtype == torch.bfloat16
+    np.testing.assert_array_equal(bits16(got), bits16(want))
+
+
 def test_ops_sr_matmul_draws_rbits_from_the_generator():
     """sr=True without rbits draws them from the torch.Generator: the
     same as passing make_rbits of an identically seeded generator."""

@@ -38,9 +38,9 @@ numpy seed; the reference's parameters are carried across with
   a near-tie in the port's own logits, and, with the JAX engine's tokens
   fed back, the port's own argmax equal on TOKEN_AGREEMENT of them;
 - the reduced arctic's chunk and decode against the reference;
-- ``_init_bf16`` equal to a cast of the whole f32 tree, and the two
-  paths that wait for later slices (training a Mamba model, speculative
-  serving of one) refusing.
+- ``_init_bf16`` equal to a cast of the whole f32 tree, and the path
+  that waits for a later slice (speculative serving of a Mamba model)
+  refusing.  Training is tests/test_torch_mamba_train.py's.
 """
 import contextlib
 import dataclasses
@@ -73,8 +73,7 @@ from repro.runtime import train_loop as jtl  # noqa: E402
 from repro.serving import ServingEngine as JServingEngine  # noqa: E402
 from repro.serving.slots import slot_bytes as jslot_bytes  # noqa: E402
 from repro_torch.checkpoint.convert import params_from_numpy  # noqa: E402
-from repro_torch.configs import (TrainConfig, get_config,  # noqa: E402
-                                 get_reduced)
+from repro_torch.configs import get_config, get_reduced  # noqa: E402
 from repro_torch.configs.base import ShapeConfig  # noqa: E402
 from repro_torch.core.phases import Phase  # noqa: E402
 from repro_torch.core.program import compile_program  # noqa: E402
@@ -1215,13 +1214,6 @@ def test_init_bf16_equals_a_cast_of_the_f32_tree(arch):
     assert list(got) == list(want)
     for k, v in want.items():
         assert got[k].dtype == v.dtype and torch.equal(got[k], v), k
-
-
-def test_training_a_mamba_model_raises():
-    cfg = get_reduced(JAMBA)
-    prog = compile_program(cfg, ShapeConfig("train", 16, 2, "train"))
-    with pytest.raises(NotImplementedError, match="Mamba"):
-        tl.make_train_step(cfg, prog, TrainConfig())
 
 
 def test_speculative_serving_of_a_mamba_model_raises():
