@@ -166,8 +166,10 @@ port (``src/repro_torch``), never JAX or the JAX package, and:
    selective_scan_bwd (the scan's gradient, ``csrc/selective_scan_bwd.cu``)
    against its plain version at jamba training's shape (B=4, S=256, di
    8192, N 16) in bf16 and f32 x, at the step-0 check's 2 x 64, at S = 1
-   and 5, under decay so strong that exp(dt A) is 0 and at ragged widths
-   with N 4 and 8, two calls bit-equal, and times it; step-0 loss and
+   and 5, at the start-state pass's chunk boundaries (S = 31, 32, 33 and
+   65), under decay so strong that exp(dt A) is 0 (over a chunk boundary
+   too) and at ragged widths with N 4 and 8, two calls bit-equal, and
+   times it beside its plan (chunks, grids, blocks an SM); step-0 loss and
    every gradient leaf of the cut (B=2, S=64, paper_sr_bf16 and fp32,
    weights from three seeds) on the cuda backend against the reference
    backend, the expert selection held; 8 steps through ``launch.train`` (adamw, remat block, B=4,
@@ -321,8 +323,8 @@ def ptxas_report(log: str) -> list:
     and sgemm_sm90_batched.cuh's by <A_MN, B_MN>, wkv6.cu's by <hd,
     columns a block, columns a thread, bf16 r/k/v>, wkv6_bwd.cu's by
     <hd, bf16 r/k/v>, selective_scan.cu's by <N, bf16 x, a thread's
-    share of a tile, several tiles>, selective_scan_bwd.cu's by <N,
-    bf16 x>."""
+    share of a tile, several tiles>, selective_scan_bwd.cu's main kernel
+    and start-state pass by <N, bf16 x>."""
     import re
     rows, cur, spill = [], None, (0, 0)
     for line in log.splitlines():
@@ -352,9 +354,11 @@ def ptxas_report(log: str) -> list:
                           r"ELb(\d)E", cur)
             if g:
                 cur = f"selective_scan_kernel<{','.join(g.groups())}>"
-            g = re.search(r"selective_scan_bwd_kernelILi(\d+)ELb(\d)E", cur)
+            g = re.search(r"selective_scan_bwd_(kernel|ends)ILi(\d+)ELb(\d)E",
+                          cur)
             if g:
-                cur = f"selective_scan_bwd_kernel<{','.join(g.groups())}>"
+                cur = (f"selective_scan_bwd_{g.group(1)}<"
+                       f"{','.join(g.groups()[1:])}>")
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       line)
@@ -4668,7 +4672,9 @@ SCAN_BWD_REL = 1e-4
 # (label, B, S, di, N, dt A <= -150, x dtype): jamba training's shape with
 # bf16 x (the main path's; timed) and f32 x, the step-0 check's 2 x 64,
 # one token, one partial tile, decay so strong that exp(dt A) is 0, and
-# ragged widths at N 4 and 8
+# ragged widths at N 4 and 8; S at the start-state pass's chunk
+# boundaries (BWD_CHUNK 32 tokens: one chunk less a token, one chunk, one
+# chunk and a token, two chunks and a token), strong decay over one
 SCAN_BWD_CASES = (("train", 4, 256, 8192, 16, False, "bfloat16"),
                   ("train f32", 4, 256, 8192, 16, False, "float32"),
                   ("step0", 2, 64, 8192, 16, False, "bfloat16"),
@@ -4676,7 +4682,12 @@ SCAN_BWD_CASES = (("train", 4, 256, 8192, 16, False, "bfloat16"),
                   ("S=5", 2, 5, 8192, 16, False, "bfloat16"),
                   ("strong", 4, 256, 8192, 16, True, "bfloat16"),
                   ("N=4", 3, 45, 300, 4, False, "float32"),
-                  ("N=8", 2, 37, 200, 8, False, "bfloat16"))
+                  ("N=8", 2, 37, 200, 8, False, "bfloat16"),
+                  ("S=31", 2, 31, 8192, 16, False, "bfloat16"),
+                  ("S=32", 2, 32, 8192, 16, False, "float32"),
+                  ("S=33", 2, 33, 8192, 16, False, "bfloat16"),
+                  ("S=65", 2, 65, 300, 16, False, "bfloat16"),
+                  ("strong 65", 3, 65, 200, 8, True, "float32"))
 # f32 operations the gradient needs a state value and token, each product
 # that two terms share counted once: h recomputed (4: dt A, a h, (dt x) B,
 # the add), G's update (3), dx's G B and its sum (2), ddt's G (a h), A
@@ -4766,8 +4777,10 @@ def phase_selective_scan_bwd(peaks) -> dict:
               f"MB, {SCAN_BWD_FLOPS * n_state / 1e9:.2f} GFLOP f32, "
               f"{n_state / 1e6:.0f} M exps at {e_ms:.4f}ms); graph / bound "
               f"{g_ms / b_ms:.2f}; selective_scan_bwd_plan: {p.lanes} lanes "
-              f"a channel, {p.channels} channels a block, tile {p.tile}: "
-              f"grid {p.grid} x {p.threads} threads, {p.smem} B shared")
+              f"a channel, {p.channels} channels a block, tile {p.tile}, "
+              f"chunk {p.chunk} ({p.chunks} chunks): start-state pass grid "
+              f"{p.ends_grid}, main grid {p.grid} x {p.threads} threads, "
+              f"{p.smem} B shared, {p.blocks_per_sm} blocks an SM")
         row = {"name": "selective_scan_bwd", "route": "cuda",
                "source": "src/repro_torch/csrc/selective_scan_bwd.cu",
                "replaces": "src/repro/models/ssm.py:195",

@@ -47,7 +47,16 @@ TILE = 32                         # tokens staged at once, at most
 MAX_THREADS = 256                 # a block's (csrc: MAX_THREADS)
 MAX_SMEM = 48 * 1024              # a block's shared memory (csrc: MAX_SMEM)
 KP = 8                            # a thread's share of a tile (csrc: KP)
-BWD_TILE = 8                      # csrc/selective_scan_bwd.cu's tokens a tile
+BWD_TILE = 4                      # csrc/selective_scan_bwd.cu's T: a tile's
+                                  # tokens, held in registers
+BWD_CHUNK = 32                    # tokens a chunk of its start states
+BWD_CHANNELS = 64                 # its CH: channels a block
+BWD_MAX_SMEM = 56 * 1024          # its MAX_SMEM
+BWD_SLOTS = 4                     # its SLOTS: staged tiles in flight
+BWD_MIN_BLOCKS = 4                # its MIN_BLOCKS: 64 registers a thread
+SM_SMEM = 228 * 1024              # an SM's shared memory (1 KB of it a block's)
+SM_THREADS = 2048                 # an SM's threads
+SM_REGISTERS = 65536              # an SM's registers
 PLAIN_BWD_TILE = 32               # selective_scan_bwd_plain's tokens a tile
 _F32, _F64 = torch.float32, torch.float64
 
@@ -226,43 +235,62 @@ def selective_scan(x, dt, A, Bm, Cm, D,
 
 
 class ScanBwdPlan(NamedTuple):
-    lanes: int      # a channel's lanes: N / 4, four states a lane
-    channels: int   # channels a block
-    tile: int       # tokens a tile: recomputed, then walked back
-    threads: int    # channels x lanes, whole warps
-    grid: tuple     # (ceil(di / channels), B)
-    smem: int       # bytes of dynamic shared memory a block
+    lanes: int          # a channel's lanes: N / 4, four states a lane
+    channels: int       # channels a block
+    tile: int           # tokens a tile: recomputed into registers, walked back
+    chunk: int          # tokens a chunk of the start-state pass (tiles whole)
+    chunks: int         # ceil(S / chunk)
+    threads: int        # channels x lanes, whole warps
+    grid: tuple         # the main kernel's: (ceil(di / channels), B)
+    ends_grid: tuple    # the start-state pass's: (grid[0], chunks - 1, B)
+    blocks_per_sm: int  # resident blocks of the main kernel an SM
+    smem: int           # bytes of dynamic shared memory a block
 
 
-def bwd_smem_bytes(N: int, channels: int, tile: int) -> int:
-    """csrc/selective_scan_bwd.cu::smem_bytes: a tile's x, dt and dy (a
-    float a channel and token each), its B and C (N floats a token each),
-    each thread's h_{t-1} (four floats a thread and token: N a channel)
-    and each channel's terms of dB and dC (2N floats a channel and
-    token)."""
-    return tile * (3 * channels + 2 * N + 3 * N * channels) * 4
+def bwd_smem_bytes(N: int, channels: int, chunk: int) -> int:
+    """csrc/selective_scan_bwd.cu::smem_bytes: each thread's state at the
+    start of each tile of a chunk (a float4 a thread and tile), two
+    buffers of the warps' dB / dC sums (a float a thread and token of a
+    tile each), and BWD_SLOTS staged tiles (dt, dy and x a channel and
+    token, B and C N floats a token each)."""
+    threads = channels * (N // 4)
+    return (threads * (16 * (chunk // BWD_TILE) + 8 * BWD_TILE)
+            + BWD_SLOTS * BWD_TILE * (3 * channels + 2 * N) * 4)
+
+
+def bwd_blocks_per_sm(threads: int, smem: int) -> int:
+    """Blocks of the main kernel an SM holds: by its threads, by the 64
+    registers a thread that its launch bounds cap it at, and by its shared
+    memory (each block's and 1 KB reserved a block)."""
+    return min(SM_THREADS // threads, SM_REGISTERS // (64 * threads),
+               SM_SMEM // (smem + 1024), 32)
 
 
 @functools.lru_cache(maxsize=256)
 def selective_scan_bwd_plan(B: int, S: int, di: int, N: int) -> ScanBwdPlan:
-    """The launch of csrc/selective_scan_bwd.cu from (B, S, di, N) alone:
-    the forward's lanes (a float4 of a channel's states a lane) and
-    blocks of up to MAX_THREADS threads, halved (down to two warps)
-    while the grid has fewer than two blocks an SM; tiles of BWD_TILE
-    tokens (S, where that is fewer).  Jamba's training shape (B 4, di
-    8192, N 16) runs 128 x 4 blocks of 256 threads, 105472 B of shared
-    memory each: two blocks an SM."""
+    """The launches of csrc/selective_scan_bwd.cu from (B, S, di, N)
+    alone: the forward's lanes (a float4 of a channel's states a lane),
+    BWD_CHANNELS channels a block (a constant of the kernel, so its
+    shared-memory offsets are too), tiles of BWD_TILE tokens, chunks of
+    BWD_CHUNK tokens (fewer, in whole tiles, where S is shorter).  The
+    start-state pass takes every chunk but the last, a block each; the
+    main kernel a row's blocks of channels over every chunk.  Jamba's
+    training shape (B 4, S 256, di 8192, N 16) runs 8 chunks, the pass 128
+    x 7 x 4 blocks and the main kernel 128 x 4 blocks of 256 threads,
+    55296 B of shared memory each: four blocks (32 warps) an SM."""
     if N not in D_STATES:
         raise ValueError(f"selective_scan_bwd kernel takes d_state in "
                          f"{D_STATES}, got {N}")
     lanes = N // 4
-    channels = MAX_THREADS // lanes
-    while channels * lanes > 64 and B * -(-di // channels) < 2 * SMS:
-        channels //= 2
-    tile = min(S, BWD_TILE)
-    return ScanBwdPlan(lanes, channels, tile, channels * lanes,
-                       (-(-di // channels), B),
-                       bwd_smem_bytes(N, channels, tile))
+    channels = BWD_CHANNELS
+    chunk = min(BWD_CHUNK, -(-S // BWD_TILE) * BWD_TILE)
+    chunks = -(-S // chunk)
+    blocks = -(-di // channels)
+    threads = channels * lanes
+    smem = bwd_smem_bytes(N, channels, chunk)
+    return ScanBwdPlan(lanes, channels, BWD_TILE, chunk, chunks, threads,
+                       (blocks, B), (blocks, chunks - 1, B),
+                       bwd_blocks_per_sm(threads, smem), smem)
 
 
 def selective_scan_bwd_plain(x, dt, A, Bm, Cm, D, dy):
@@ -361,9 +389,10 @@ def selective_scan_bwd(x, dt, A, Bm, Cm, D, dy):
     Returns (dx, ddt, dA, dB, dC, dD), all f32, in the shapes of x, dt,
     A, B, C and D.  CPU tensors take :func:`selective_scan_bwd_plain`;
     CUDA tensors launch ``csrc/selective_scan_bwd.cu`` (laid out by
-    :func:`selective_scan_bwd_plan`: its per-block partial sums of dB and
-    dC and per-row ones of dA and dD are summed in a fixed order by a
-    second kernel of the same entry) or raise."""
+    :func:`selective_scan_bwd_plan`: a pass over the chunks in parallel
+    for their start states, the main kernel, then a kernel that sums its
+    per-block partial sums of dB and dC and per-row ones of dA and dD in
+    a fixed order; one entry) or raise."""
     _check_bwd_operands(x, dt, A, Bm, Cm, D, dy)
     if x.device.type == "cpu":
         return selective_scan_bwd_plain(x, dt, A, Bm, Cm, D, dy)
@@ -375,18 +404,17 @@ def selective_scan_bwd(x, dt, A, Bm, Cm, D, dy):
     dev = x.device
     empty = lambda *s: torch.empty(s, dtype=_F32, device=dev)  # noqa: E731
     dx, ddt = empty(Bsz, S, di), empty(Bsz, S, di)
-    # the state at every tile's start after the first
-    ntiles = -(-S // p.tile)
-    starts = empty(Bsz, max(ntiles - 1, 1), di, N)
-    # per-block terms of dB then dC, per-row ones of dA then dD
+    # each chunk's local end state and decay product but the last's
+    ends = empty(2, Bsz, max(p.chunks - 1, 1), di, N)
+    # per-block sums of dB then dC, per-row ones of dA then dD
     part_bc = empty(2, Bsz, S, p.grid[0], N)
     part_ad = empty(Bsz, di * (N + 1))
     bc, ad = empty(2, Bsz, S, N), empty(di * (N + 1))
     err = _bind_bwd(build.load("selective_scan_bwd"))(
-        *(build.ptr(t) for t in (x, dt, A, Bm, Cm, D, dy, dx, ddt, starts,
+        *(build.ptr(t) for t in (x, dt, A, Bm, Cm, D, dy, dx, ddt, ends,
                                  part_bc, part_ad, bc, ad)),
         Bsz, S, di, N, int(x.dtype == torch.bfloat16), p.lanes, p.channels,
-        p.tile, build.stream_ptr(dev))
+        p.chunk, build.stream_ptr(dev))
     if err != 0:
         raise RuntimeError(f"selective_scan_bwd kernel launch failed "
                            f"(cudaError {err})")

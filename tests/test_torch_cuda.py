@@ -2107,11 +2107,19 @@ def test_selective_scan_kernel_from_zeros_and_bad_shapes(dev):
 
 # (B, S, di, N, strong decay): jamba training's 4 x 256 and chip_smoke's
 # step-0 2 x 64 at di 8192, one token, one partial tile, several tiles
-# with di not a multiple of a block's channels, and dt A <= -150, where
-# exp(dt A) is 0
+# with di not a multiple of a block's channels, S at the start-state
+# pass's chunk boundaries (one chunk less a token, one chunk, one chunk
+# and a token, two chunks and a token), and dt A <= -150, where exp(dt A)
+# is 0, over a chunk boundary too
+_CHUNK = kss.BWD_CHUNK
 SCAN_BWD_CASES = [(4, 256, 8192, 16, False), (2, 64, 8192, 16, False),
                   (2, 1, 256, 16, False), (3, 5, 96, 8, False),
-                  (3, 45, 100, 8, False), (2, 37, 300, 4, False),
+                  (3, 45, 100, 8, False),
+                  (2, _CHUNK - 1, 300, 16, False), (2, _CHUNK, 300, 16, False),
+                  (2, _CHUNK + 1, 300, 16, False),
+                  (2, 2 * _CHUNK + 1, 300, 16, False),
+                  (3, 2 * _CHUNK + 1, 200, 8, True),
+                  (2, 37, 300, 4, False),
                   (2, 40, 256, 16, True), (2, 33, 200, 4, True)]
 # f32 sums over n, channels and tokens against the plain version's f64
 # ones: each output within this share of its own largest value
@@ -2157,6 +2165,29 @@ def test_selective_scan_bwd_kernel_two_calls_bit_equal(dev, case, xdtype):
     a, b = kss.selective_scan_bwd(*args), kss.selective_scan_bwd(*args)
     torch.cuda.synchronize()
     assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["B", "C"])
+def test_selective_scan_bwd_kernel_takes_b_and_c_off_16_bytes(dev, which):
+    """di a multiple of 8 with B or C 4 bytes past 16: the kernel stages
+    the tile a value a copy, and agrees with the plain version."""
+    args = list(_scan_bwd_case(dev, 2, 2 * _CHUNK + 3, 256, 16, False,
+                               torch.bfloat16, seed=7))
+    i = 3 if which == "B" else 4
+    buf = torch.empty(args[i].numel() + 1, device=dev)
+    moved = buf[1:].view(args[i].shape)
+    moved.copy_(args[i])
+    assert moved.is_contiguous() and moved.data_ptr() % 16 == 4
+    args[i] = moved
+    kss.BWD_COUNTER.reset()
+    got = kss.selective_scan_bwd(*args)
+    torch.cuda.synchronize()
+    assert kss.BWD_COUNTER.n == 1
+    want = kss.selective_scan_bwd_plain(*args)
+    for name, g, w in zip(("dx", "ddt", "dA", "dB", "dC", "dD"), got, want):
+        err = float((g - w).abs().max())
+        assert err <= SCAN_BWD_REL * float(w.abs().max()), (name, err)
 
 
 @pytest.mark.cuda

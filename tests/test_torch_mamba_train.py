@@ -221,6 +221,31 @@ def test_selective_scan_bwd_plain_matches_torch_autograd(case):
 # ---------------------------------------------------------------------------
 
 
+def _off_16_bytes(t):
+    """A contiguous copy of `t` whose data starts 4 bytes past 16."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype)
+    moved = buf[1:].view(t.shape)
+    moved.copy_(t)
+    assert moved.is_contiguous() and moved.data_ptr() % 16 == 4
+    return moved
+
+
+@pytest.mark.parametrize("which", ["B", "C"])
+def test_selective_scan_bwd_takes_b_and_c_off_16_bytes_on_the_cpu(which):
+    """Only the kernel's 16-byte staging needs B and C on 16 bytes, and it
+    checks that itself: the wrapper takes them anywhere, and a CPU tensor
+    gets the plain version's gradients."""
+    _, args = scan_case(9, 8, "float32", seed=4)
+    i = 3 if which == "B" else 4
+    moved = list(args)
+    moved[i] = _off_16_bytes(args[i])
+    kss.BWD_COUNTER.reset()
+    got = kss.selective_scan_bwd(*moved)
+    assert kss.BWD_COUNTER.n == 0
+    for g, w in zip(got, kss.selective_scan_bwd_plain(*args)):
+        assert torch.equal(g, w)
+
+
 @pytest.mark.parametrize("plain", [False, True])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_selective_scan_train_returns_the_plain_gradients_in_the_inputs_dtypes(
@@ -280,40 +305,73 @@ def _owners(plan, di, N):
     return d, n, d < di
 
 
+def _token_owners(plan, S):
+    """How many (chunk, tile, token of the tile) of the plan's launches
+    own each token 0 .. S - 1: the chunks in order, a chunk's tiles in
+    order, the tokens past S of the last tile dead."""
+    count = np.zeros(S, dtype=np.int64)
+    for k in range(plan.chunks):
+        c0 = k * plan.chunk
+        tiles = -(-min(plan.chunk, S - c0) // plan.tile)
+        for j in range(tiles):
+            t = c0 + j * plan.tile + np.arange(plan.tile)
+            np.add.at(count, t[t < S], 1)
+    return count
+
+
 @settings(deadline=None, derandomize=True, max_examples=80)
 @given(B=st.integers(1, 40), S=st.integers(1, 600), di=st.integers(1, 900),
        N=st.sampled_from(kss.D_STATES))
 def test_selective_scan_bwd_plan_covers_every_channel_and_token(B, S, di, N):
-    """Every (b, d, n) is one state of one lane of one block; every token
-    in one tile of at most BWD_TILE; blocks whole warps of at most
-    MAX_THREADS; the shared memory the kernel lays out, within a block's
-    227 KB, and two blocks an SM."""
+    """Every (b, d, n) is one state of one lane of one block of
+    BWD_CHANNELS channels; every token in one tile of one chunk, the
+    chunks whole tiles of BWD_TILE and at most BWD_CHUNK tokens, the
+    start-state pass one block a chunk but the last; blocks whole warps of
+    at most MAX_THREADS; the shared memory the kernel lays out within its
+    MAX_SMEM, and the blocks an SM the plan states within an SM's 228 KB,
+    2048 threads and 64 registers a thread."""
     p = kss.selective_scan_bwd_plan(B, S, di, N)
     assert p.lanes * 4 == N and 32 % p.lanes == 0
+    assert p.channels == kss.BWD_CHANNELS
     assert p.threads == p.channels * p.lanes
     assert p.threads % 32 == 0 and 64 <= p.threads <= kss.MAX_THREADS
-    assert p.channels % 4 == 0
     assert p.grid == (-(-di // p.channels), B)
-    assert 1 <= p.tile <= min(S, kss.BWD_TILE)
-    tiles = -(-S // p.tile)
-    assert (tiles - 1) * p.tile < S <= tiles * p.tile
-    assert p.smem == kss.bwd_smem_bytes(N, p.channels, p.tile)
-    assert 2 * (p.smem + 1024) <= 228 * 1024
+    assert p.tile == kss.BWD_TILE
+    assert p.chunk % p.tile == 0 and p.tile <= p.chunk <= kss.BWD_CHUNK
+    assert p.chunks == -(-S // p.chunk)
+    assert (p.chunks - 1) * p.chunk < S <= p.chunks * p.chunk
+    assert p.ends_grid == (p.grid[0], p.chunks - 1, B)
+    assert (_token_owners(p, S) == 1).all()
+    assert p.smem == kss.bwd_smem_bytes(N, p.channels, p.chunk)
+    assert 0 < p.smem <= kss.BWD_MAX_SMEM
+    assert p.blocks_per_sm >= 1
+    assert p.blocks_per_sm * (p.smem + 1024) <= 228 * 1024
+    assert p.blocks_per_sm * p.threads <= 2048
+    assert p.blocks_per_sm * p.threads * 64 <= 65536
     d, n, live = _owners(p, di, N)
     count = np.zeros((di, N), dtype=np.int64)
     np.add.at(count, (d[live], n[live]), 1)
     assert (count == 1).all()
 
 
-def test_selective_scan_bwd_plan_at_jamba_training_shapes():
-    """B 4 x S 256 (the training step): 128 x 4 blocks of 256 threads,
-    two blocks an SM; B 2 x S 64 (chip_smoke.py's step-0 check): blocks
-    halved to two per SM's worth of the grid; a d_state the kernel is
-    not built for is refused."""
+@pytest.mark.parametrize("S", [1, 5, 37, 64, 256])
+def test_selective_scan_bwd_plan_at_jamba_training_shapes(S):
+    """B 4 x S 256 (the training step): 8 chunks of 32 tokens, the
+    start-state pass 128 x 7 x 4 blocks, the main kernel 128 x 4 blocks
+    of 256 threads with 55296 B of shared memory, four an SM (32 warps);
+    B 2 x S 64 (chip_smoke.py's step-0 check): 128 x 2 blocks, 2 chunks;
+    at S 1, 5, 37, 64 and 256 the chunks and tiles own every token once;
+    a d_state the kernel is not built for is refused."""
     p = kss.selective_scan_bwd_plan(4, 256, 8192, 16)
-    assert (p.grid, p.threads, p.tile, p.smem) == ((128, 4), 256, 8, 105472)
+    assert (p.grid, p.ends_grid, p.threads, p.tile, p.chunk, p.chunks,
+            p.smem, p.blocks_per_sm) == ((128, 4), (128, 7, 4), 256, 4, 32,
+                                         8, 55296, 4)
     q = kss.selective_scan_bwd_plan(2, 64, 8192, 16)
-    assert q.grid == (256, 2) and q.threads == 128
+    assert (q.grid, q.threads, q.chunks, q.blocks_per_sm) == ((128, 2), 256,
+                                                               2, 4)
+    r = kss.selective_scan_bwd_plan(4, S, 8192, 16)
+    assert (_token_owners(r, S) == 1).all()
+    assert r.chunk == min(32, -(-S // 4) * 4)
     with pytest.raises(ValueError):
         kss.selective_scan_bwd_plan(1, 1, 64, 6)
 
@@ -325,12 +383,105 @@ def test_selective_scan_bwd_source_agrees_with_the_wrapper():
            / "selective_scan_bwd.cu").read_text()
     consts = dict(re.findall(r"constexpr int (\w+) = ([^;]+);", src))
     assert int(consts["MAX_THREADS"]) == kss.MAX_THREADS
-    assert "tile * (3 * ch + 2 * N + 3 * N * ch) * (int)sizeof(float)" in src
+    assert int(consts["T"]) == kss.BWD_TILE
+    assert int(consts["CH"]) == kss.BWD_CHANNELS
+    assert int(consts["MIN_BLOCKS"]) == kss.BWD_MIN_BLOCKS
+    assert consts["MAX_SMEM"] == "56 * 1024" and kss.BWD_MAX_SMEM == 56 * 1024
+    assert int(consts["SLOTS"]) == kss.BWD_SLOTS
+    assert kss.SM_REGISTERS // (kss.MAX_THREADS * kss.BWD_MIN_BLOCKS) == 64
+    assert ("  const int threads = CH * (N / P);\n"
+            "  return threads * (16 * (chunk / T) + 8 * T)\n"
+            "         + SLOTS * T * (3 * CH + 2 * N) * (int)sizeof(float);"
+            ) in src
     sig = re.search(r'extern "C" int selective_scan_bwd_launch\(([^)]*)\)',
                     src).group(1)
     fn = types.SimpleNamespace()
     kss._bind_bwd(types.SimpleNamespace(selective_scan_bwd_launch=fn))
     assert len(fn.argtypes) == sig.count(",") + 1
+
+
+def test_selective_scan_bwd_ablation_edits_find_the_kernel():
+    """launch/ablate_selective_scan_bwd.py leaves parts of
+    csrc/selective_scan_bwd.cu out by editing a copy of its source:
+    every edit's anchor is in the kernel once, and every variant differs
+    from the kernel."""
+    from repro_torch.launch import ablate_selective_scan_bwd as ablate
+    src = (Path(kss.__file__).resolve().parent.parent / "csrc"
+           / "selective_scan_bwd.cu").read_text()
+    for name, edits in ablate.VARIANTS.items():
+        text = ablate.variant_source(src, edits)
+        assert (text == src) == (name == "full"), name
+    with pytest.raises(RuntimeError, match="occurs 0 times"):
+        ablate.variant_source(src, (("no such line\n", ""),))
+
+
+def test_selective_scan_bwd_bench_bound_at_jamba_training_shape():
+    """launch/bench_selective_scan_bwd.py's bound at B 4 x S 256 (di
+    8192, N 16, bf16 x): 152.4 MB at 3.35 TB/s, 0.0455 ms, above the 18
+    f32 operations (0.0361) and the exp (0.0321) a state value and
+    token; the step-0 shape 2 x 64 an eighth of the tokens' bytes and
+    all of A's and D's."""
+    from repro_torch.launch import bench_selective_scan_bwd as bench
+    ms, by, parts = bench.bound_ms(4, 256)
+    assert by == "bytes" and ms == parts["bytes"]
+    assert parts["bytes"] == pytest.approx(152.4e6 / 3.35e12 * 1e3, rel=1e-3)
+    assert parts["operations"] == pytest.approx(0.0361, rel=1e-2)
+    assert parts["exps"] == pytest.approx(0.0321, rel=1e-2)
+    a_d_ms = 2 * 4 * 8192 * 17 / 3.35e12 * 1e3
+    assert bench.bound_ms(2, 64)[0] == pytest.approx(
+        (ms - a_d_ms) / 8 + a_d_ms, rel=1e-9)
+
+
+@pytest.mark.parametrize("strong", [False, True], ids=["decay", "strong"])
+@pytest.mark.parametrize("S", [1, 5, 37, 256])
+@pytest.mark.parametrize("N", [4, 16])
+def test_selective_scan_bwd_chunked_starts_match_the_plain_walk(N, S, strong):
+    """The kernel's start states, as its design computes them in f32:
+    each chunk of the plan's but the last walked from zeros with its
+    decay product, combined in chunk order (h_start(k + 1) = P_k
+    h_start(k) + h_loc(k)), then each tile's start walked from its
+    chunk's; against the state at each tile's start of
+    selective_scan_plain's walk, within 1e-6 of the largest.  Under
+    strong decay (dt + 300) every a_t and product is 0."""
+    B, di = 2, 24
+    _, (x, dt, A, Bm, _, _, _) = scan_case(S, N, "float32", strong, B=B,
+                                           di=di)
+    p = kss.selective_scan_bwd_plan(B, S, di, N)
+    a = torch.exp(dt.double()[..., None] * A.double()).float()
+    u = (dt * x)[..., None] * Bm[:, :, None, :]
+    if strong:
+        assert not a.any()
+
+    def walk(h, t0, t1):
+        for t in range(t0, t1):
+            h = a[:, t] * h + u[:, t]
+        return h
+
+    zero = torch.zeros((B, di, N))
+    starts = [zero]
+    for k in range(p.chunks - 1):
+        c0 = k * p.chunk
+        h_loc = walk(zero, c0, c0 + p.chunk)
+        prod = torch.ones_like(zero)
+        for t in range(c0, c0 + p.chunk):
+            prod = prod * a[:, t]
+        starts.append(prod * starts[-1] + h_loc)
+    got, want = [], []
+    h_plain = zero
+    for k in range(p.chunks):
+        c0 = k * p.chunk
+        h = starts[k]
+        for t0 in range(c0, min(c0 + p.chunk, S), p.tile):
+            got.append(h)
+            want.append(h_plain)
+            t1 = min(t0 + p.tile, S)
+            h = walk(h, t0, t1)
+            _, h_plain = kss.selective_scan_plain(
+                x[:, t0:t1], dt[:, t0:t1], A, Bm[:, t0:t1], Bm[:, t0:t1],
+                torch.zeros(di), h_plain)
+    got, want = torch.stack(got), torch.stack(want)
+    big = float(want.abs().max())
+    assert float((got - want).abs().max()) <= 1e-6 * max(big, 1e-30)
 
 
 # ---------------------------------------------------------------------------
